@@ -1,0 +1,13 @@
+from .convert import load_jax_params, load_linears, load_spacenet
+from .layered import (EditState, LayeredModel, LayeredSpec, LayerOutputs,
+                      RayInputs, RenderOutputs, SceneBoxes,
+                      compute_scale_pivot, render_rays)
+from .motionnet import MotionNet, MotionNetSpec
+from .spacenet import SpaceNet, SpaceNetSpec
+
+__all__ = [
+    "load_jax_params", "load_linears", "load_spacenet",
+    "EditState", "LayeredModel", "LayeredSpec", "LayerOutputs", "RayInputs",
+    "RenderOutputs", "SceneBoxes", "compute_scale_pivot", "render_rays",
+    "MotionNet", "MotionNetSpec", "SpaceNet", "SpaceNetSpec",
+]

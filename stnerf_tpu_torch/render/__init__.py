@@ -1,0 +1,5 @@
+from .pose_device import (QuantizedFrame, render_pose_host,
+                          render_pose_on_device, tile_grid, tile_pixel_coords)
+
+__all__ = ["QuantizedFrame", "render_pose_host", "render_pose_on_device",
+           "tile_grid", "tile_pixel_coords"]
