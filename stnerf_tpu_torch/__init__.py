@@ -2,17 +2,20 @@
 
 The JAX package beside it is the reference: every module here has a
 counterpart of the same name there, and the tests hold each against it.
-This package imports ``torch`` and never ``jax``; the one import from the
-JAX package is its framework-free config tree (``stnerf_tpu.config``).
+This package imports ``torch`` and never ``jax``, and nothing of the JAX
+package: where it needs a module of that package's that does not import
+jax (the config tree), it keeps its own copy. Its entry points run on the
+CUDA card unless the caller names another device (``device="cpu"``).
 
 Layout (mirrors ``stnerf_tpu``):
-  config.py  ``get_cfg`` re-exported from the shared config tree
-  ops/       encoding, ray sampling, compositing (plain PyTorch)
+  config/    the config tree: keys, defaults, YAML merging
+  ops/       encoding, ray sampling, compositing, metrics (plain PyTorch)
   models/    SpaceNet, MotionNet, the layered field and its render core
   kernels/   hand-written Hopper kernels, each beside its plain version
+  engine/    losses, optimizer, checkpoints, the training step and loop
   render/    whole-pose rendering in screen-tile order
 
-This slice carries the exact layered render path (inference). Training,
+This carries the exact layered render path and training. The data path,
 the renderer front end and the inference approximations are not ported yet
 (ROADMAP.md, Queue 1).
 """

@@ -38,22 +38,14 @@
 // encodings use IEEE sinf/cosf and explicitly rounded products (no FMA
 // contraction), matching the plain PyTorch version's elementwise ops.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "field_common.cuh"
 
 namespace {
 
 constexpr int BM = 64;        // samples per block: the tile of the skip flags
 constexpr int THREADS = 256;  // 4 * BM: one thread per (channel, sample) when
                               // encoding (xyz, id)
-constexpr int N_W = 21;       // weight slots, fused_field.py W_SLOTS
-constexpr int N_B = 18;       // bias slots, fused_field.py B_SLOTS
 static_assert(THREADS == 4 * BM, "encoding assigns one thread per (channel, sample)");
-
-enum WSlot { W_M0 = 0, W_1 = 6, W_S2A = 10, W_S2B, W_S2W2, W_S2W3, W_DW,
-             W_R1A, W_R1B, W_R1C, W_RGB1, W_RGB2, W_RGB3 };
-enum BSlot { B_M0 = 0, B_1 = 6, B_SB1 = 10, B_SB2, B_SB3, B_DB, B_RB1,
-             B_RGB1, B_RGB2, B_RGB3 };
 
 struct Params {
   int w_off[N_W];
@@ -62,35 +54,6 @@ struct Params {
       motion_mode;
   int rows_a, pos_rows, time_rows, menc_rows;
 };
-
-// weights are stored as float (f32 mode) or as the 16 bits of a bf16
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(unsigned short v) {
-  return __uint_as_float(static_cast<unsigned>(v) << 16);
-}
-
-template <bool RND>
-__device__ __forceinline__ float rnd(float v) {
-  if constexpr (RND) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-  } else {
-    return v;
-  }
-}
-
-template <typename WS, int N>
-struct alignas(sizeof(WS) * N) WVec {
-  WS v[N];
-};
-
-// TO consecutive weights of one row, as one vector load: pack_field aligns
-// every operand to 16 elements and every width is a multiple of 32.
-template <typename WS, int TO>
-__device__ __forceinline__ void load_w(const WS* __restrict__ p, float (&w)[TO]) {
-  const WVec<WS, TO> v = *reinterpret_cast<const WVec<WS, TO>*>(p);
-#pragma unroll
-  for (int i = 0; i < TO; ++i) w[i] = to_f(v.v[i]);
-}
 
 // acc[i][j] += sum_k W[k, to*TO + i] * in[k, col(j)], W (K, O) row-major in
 // global memory, in (K, BM) in shared memory. A thread's 8 columns are
@@ -180,39 +143,6 @@ __device__ void dense_small(const WS* __restrict__ w, const float* in, int K,
   }
 }
 
-// One channel (of C) of the TPU kernel's _encode, as the blend
-// (1 - wt) * enc(v_lo) + wt * enc(v_hi) (wt = 0 and v_hi = v_lo give
-// enc(v_lo) exactly). Rows: [v (C) | sin, cos (C each) per octave], with
-// sin/cos(2^k v) by double-angle recursion; every value rounded to the
-// compute dtype, and clipped at 0 when `relu`.
-template <bool RND>
-__device__ void encode(float v_lo, float v_hi, float wt, int ch, int C,
-                       int freqs, int inc, bool relu, float* dst, int m) {
-  const float omw = __fsub_rn(1.f, wt);
-  auto put = [&](int row, float lo, float hi) {
-    float v = rnd<RND>(__fadd_rn(__fmul_rn(omw, lo), __fmul_rn(wt, hi)));
-    dst[row * BM + m] = relu ? fmaxf(v, 0.f) : v;
-  };
-  int base = 0;
-  if (inc) {
-    put(ch, v_lo, v_hi);
-    base = C;
-  }
-  float s0 = sinf(v_lo), c0 = cosf(v_lo), s1 = sinf(v_hi), c1 = cosf(v_hi);
-  for (int k = 0; k < freqs; ++k) {
-    if (k) {
-      const float ts0 = __fmul_rn(2.f, s0), ts1 = __fmul_rn(2.f, s1);
-      const float ns0 = __fmul_rn(ts0, c0), ns1 = __fmul_rn(ts1, c1);
-      c0 = __fsub_rn(1.f, __fmul_rn(ts0, s0));
-      c1 = __fsub_rn(1.f, __fmul_rn(ts1, s1));
-      s0 = ns0;
-      s1 = ns1;
-    }
-    put(base + 2 * C * k + ch, s0, s1);
-    put(base + 2 * C * k + C + ch, c0, c1);
-  }
-}
-
 template <typename WS, bool RND>
 __global__ void __launch_bounds__(THREADS, 1)
 fused_field_kernel(const float* __restrict__ xyz, const float* __restrict__ ids,
@@ -256,9 +186,9 @@ fused_field_kernel(const float* __restrict__ xyz, const float* __restrict__ ids,
       const float lo = floorf(id);
       const float wt = __fsub_rn(id, lo);
       encode<RND>(ch == 3 ? lo : v, ch == 3 ? __fadd_rn(lo, 1.f) : v, wt, ch, 4,
-                  p.freqs, p.inc, false, A, m);
+                  p.freqs, p.inc, false, A, BM, m);
     } else {
-      encode<RND>(v, v, 0.f, ch, 4, p.freqs, p.inc, false, A, m);
+      encode<RND>(v, v, 0.f, ch, 4, p.freqs, p.inc, false, A, BM, m);
     }
     __syncthreads();
     const int mw = p.motion_width;
@@ -281,10 +211,10 @@ fused_field_kernel(const float* __restrict__ xyz, const float* __restrict__ ids,
   // encodings: threads of channels 0-2 encode xyz, those of channel 3 the time
   if (ch < 3) {
     const float v = X[ch * BM + m];
-    encode<RND>(v, v, 0.f, ch, 3, p.freqs, p.inc, false, P, m);
+    encode<RND>(v, v, 0.f, ch, 3, p.freqs, p.inc, false, P, BM, m);
   } else if (p.use_time) {
     const float v = X[3 * BM + m];
-    encode<RND>(v, v, 0.f, 0, 1, p.freqs, p.inc, true, T, m);
+    encode<RND>(v, v, 0.f, 0, 1, p.freqs, p.inc, true, T, BM, m);
   }
   for (int i = t; i < p.dir_rows * BM; i += THREADS) {
     const int gm = m0 + i % BM;
@@ -343,8 +273,6 @@ cudaError_t launch(const Params& p, const float* xyz, const float* ids,
                                         static_cast<const WS*>(weights), biases, out, p);
   return cudaGetLastError();
 }
-
-bool kernel_width(int w) { return w == 32 || w == 64 || w == 128 || w == 256; }
 
 }  // namespace
 

@@ -120,15 +120,19 @@ class PackedField:
     def n_rgb(self) -> int:
         return 4 if self.spec.deep_rgb else 2
 
-    def w(self, slot: str) -> torch.Tensor:
+    def w(self, slot: str, buf: torch.Tensor | None = None) -> torch.Tensor:
+        """Weight ``slot`` (in, out), viewed in the packed weights or in a
+        buffer of the same layout (the backward's weight gradients)."""
         k_in, k_out = self.shapes[slot]
         off = int(self.offsets[W_SLOTS.index(slot)])
-        return self.weights[off:off + k_in * k_out].view(k_in, k_out)
+        buf = self.weights if buf is None else buf
+        return buf[off:off + k_in * k_out].view(k_in, k_out)
 
-    def b(self, slot: str) -> torch.Tensor:
+    def b(self, slot: str, buf: torch.Tensor | None = None) -> torch.Tensor:
         (n,) = self.shapes[slot]
         off = int(self.offsets[len(W_SLOTS) + B_SLOTS.index(slot)])
-        return self.biases[off:off + n]
+        buf = self.biases if buf is None else buf
+        return buf[off:off + n]
 
 
 def pack_field(space_ops: tuple, motion_ops: tuple, spec: SpaceNetSpec,

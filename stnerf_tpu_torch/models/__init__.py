@@ -1,4 +1,5 @@
-from .convert import load_jax_params, load_linears, load_spacenet
+from .convert import (export_jax_params, export_linears, export_spacenet,
+                      load_jax_params, load_linears, load_spacenet)
 from .layered import (EditState, LayeredModel, LayeredSpec, LayerOutputs,
                       RayInputs, RenderOutputs, SceneBoxes,
                       compute_scale_pivot, render_rays)
@@ -6,7 +7,7 @@ from .motionnet import MotionNet, MotionNetSpec
 from .spacenet import SpaceNet, SpaceNetSpec
 
 __all__ = [
-    "load_jax_params", "load_linears", "load_spacenet",
+    "export_jax_params", "export_linears", "export_spacenet", "load_jax_params", "load_linears", "load_spacenet",
     "EditState", "LayeredModel", "LayeredSpec", "LayerOutputs", "RayInputs",
     "RenderOutputs", "SceneBoxes", "compute_scale_pivot", "render_rays",
     "MotionNet", "MotionNetSpec", "SpaceNet", "SpaceNetSpec",

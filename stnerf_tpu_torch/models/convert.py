@@ -1,10 +1,13 @@
-"""Load the JAX package's parameter pytree into a :class:`LayeredModel`.
+"""Move parameters between a :class:`LayeredModel` and the JAX package's
+parameter pytree.
 
 The pytree (``stnerf_tpu.models.init_layered_params`` or a checkpoint's
 params, with numpy leaves) stores linears as ``{"w": (in, out), "b":
 (out,)}``; performer nets (``layers_coarse``, ``layers_fine``, ``motion``)
-carry a leading L axis on every leaf. Both packages then compute the same
-field from the same numbers.
+carry a leading L axis on every leaf. :func:`load_jax_params` copies such a
+pytree into a model, and :func:`export_jax_params` writes a model's
+parameters (or their gradients) out as one, so both packages compute — and
+differentiate — the same field from the same numbers.
 """
 
 from __future__ import annotations
@@ -72,3 +75,44 @@ def load_jax_params(model: LayeredModel, tree: dict) -> LayeredModel:
         load_linears(model.bkgd_motion.net, tree["bkgd_motion"]["net"], None,
                     "bkgd_motion")
     return model
+
+
+def export_linears(layers: nn.ModuleList, grad: bool = False) -> list:
+    """``layers`` (or their gradients) as JAX linears ``[{"w", "b"}]``."""
+    def value(p):  # a parameter no loss reached has a zero gradient, as in JAX
+        t = (p.grad if p.grad is not None else torch.zeros_like(p)) if grad else p
+        return t.detach().cpu().numpy()
+
+    return [{"w": value(layer.weight).T.copy(), "b": value(layer.bias)} for layer in layers]
+
+
+def export_spacenet(net, grad: bool = False) -> dict:
+    """One SpaceNet (or its gradients) as a JAX SpaceNet pytree."""
+    return {key: export_linears(getattr(net, key), grad) for key in _SPACENET_KEYS}
+
+
+def _stack(trees: list):
+    if not trees:  # no performers: the JAX package's empty group
+        return {}
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    if isinstance(trees[0], list):
+        return [_stack(list(items)) for items in zip(*trees)]
+    return np.stack(trees)
+
+
+def export_jax_params(model: LayeredModel, grad: bool = False) -> dict:
+    """The inverse of :func:`load_jax_params`: the model's parameters — or,
+    with ``grad``, their ``.grad`` — as a JAX parameter pytree of numpy
+    arrays (performer groups stacked on a leading L axis)."""
+    tree = {"bkgd_coarse": export_spacenet(model.bkgd_coarse, grad),
+            "bkgd_fine": export_spacenet(model.bkgd_fine, grad),
+            "layers_coarse": _stack([export_spacenet(n, grad)
+                                     for n in model.layers_coarse])}
+    if model.layers_fine is not None:
+        tree["layers_fine"] = _stack([export_spacenet(n, grad) for n in model.layers_fine])
+    if model.motion is not None:
+        tree["motion"] = {"net": _stack([export_linears(m.net, grad) for m in model.motion])}
+    if model.bkgd_motion is not None:
+        tree["bkgd_motion"] = {"net": export_linears(model.bkgd_motion.net, grad)}
+    return tree

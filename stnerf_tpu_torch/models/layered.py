@@ -13,7 +13,10 @@ written CUDA kernel on the card, its plain PyTorch version on the CPU (or
 anywhere with ``plain=True``). Per-ray bbox hits become the kernel's
 per-tile skip flags; a performer that is hidden, or that no ray of the
 batch hits, gets all-zero flags, so every block of its launch exits at
-once without a host round trip.
+once without a host round trip. For training (``render_rays(...,
+trainable=True)``) each field goes through
+``kernels.field_vjp.field_planar_trainable`` instead: the same forward
+kernel, and the backward kernel ``field_bwd``.
 
 Not ported yet (``LayeredSpec`` refuses them): the fast fine stage, the
 early-exit coarse march, the sort-free compositor, view deformation, pose
@@ -29,6 +32,8 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
+from ..device import resolve_device
+from ..kernels.field_vjp import field_planar_trainable
 from ..kernels.fused_field import (TILE, PackedField, fused_field,
                                    fused_field_reference, pack_field,
                                    prepare_kernel_params_planar,
@@ -208,13 +213,16 @@ class LayeredModel(nn.Module):
     Init mirrors ``init_layered_params`` (ref:
     modeling/layered_rfrender.py:59-93): every performer starts as a copy
     of performer 0's net, and the fine nets as copies of the coarse ones
-    (shared when SAME_SPACENET). Draws come from ``generator`` in the order
-    background, performer 0, motion net, background motion net.
+    (shared when SAME_SPACENET). Draws come from ``generator`` (a CPU
+    generator) in the order background, performer 0, motion net, background
+    motion net. The model lands on ``device``: the CUDA card unless the
+    caller names another (``device="cpu"``).
     """
 
     def __init__(self, spec: LayeredSpec,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, device=None):
         super().__init__()
+        device = resolve_device(device)
         self.spec = spec
         L = spec.layer_num
         bkgd = SpaceNet(spec.spacenet_spec(bkgd=True), generator)
@@ -231,31 +239,36 @@ class LayeredModel(nn.Module):
         self.bkgd_motion = (MotionNet(spec.motion_spec(input_time=False), generator)
                             if spec.bkgd_use_deform_time else None)
         self._packed = {}
+        self.to(device)
+
+    def stage_fields(self, fine: bool) -> list:
+        """(SpaceNet, MotionNet or None, motion mode) per field at one
+        stage: the background deforms with "direct" motion
+        (BKGD_USE_DEFORM_TIME), performers with "lerp"."""
+        layers = (self.layers_fine if fine and self.layers_fine is not None
+                  else self.layers_coarse)
+        fields = [(self.bkgd_fine if fine else self.bkgd_coarse, self.bkgd_motion,
+                   None if self.bkgd_motion is None else "direct")]
+        return fields + [(net, None if self.motion is None else self.motion[i],
+                          None if self.motion is None else "lerp")
+                         for i, net in enumerate(layers)]
 
     @torch.no_grad()
     def kernel_fields(self, fine: bool) -> list[PackedField]:
-        """The packed kernel operands of the background and each performer
-        at one stage, packed once and reused until a parameter changes (in
-        place or by a move to another device). The background deforms with
-        "direct" motion (BKGD_USE_DEFORM_TIME), performers with "lerp"."""
+        """The packed kernel operands of :meth:`stage_fields`, packed once
+        and reused until a parameter changes (in place or by a move to
+        another device)."""
         dt = self.spec.dtype
         version = tuple((p.data_ptr(), p._version) for p in self.parameters())
         key = (fine, version)
         if key not in self._packed:
-            layers = (self.layers_fine if fine and self.layers_fine is not None
-                      else self.layers_coarse)
-            fields = [(self.bkgd_fine if fine else self.bkgd_coarse,
-                       self.bkgd_motion, "direct")]
-            fields += [(net, None if self.motion is None else self.motion[i], "lerp")
-                       for i, net in enumerate(layers)]
             self._packed = {k: v for k, v in self._packed.items()
                             if k[1] == version}
             self._packed[key] = [
                 pack_field(prepare_kernel_params_planar(net, dt),
-                           () if motion is None else prepare_motion_params_planar(motion, dt),
-                           net.spec, None if motion is None else mode,
-                           self.spec.compute_dtype)
-                for net, motion, mode in fields]
+                           () if mode is None else prepare_motion_params_planar(motion, dt),
+                           net.spec, mode, self.spec.compute_dtype)
+                for net, motion, mode in self.stage_fields(fine)]
         return self._packed[key]
 
 
@@ -359,6 +372,36 @@ def _eval_fields_fused(model: LayeredModel, xyz: torch.Tensor,
     return torch.stack(rgbs), torch.stack(sigs)
 
 
+def _eval_fields_trainable(model: LayeredModel, xyz: torch.Tensor,
+                           dirs_p: torch.Tensor, frame_ids: torch.Tensor,
+                           fine: bool, ray_hit: torch.Tensor, plain: bool = False):
+    """One differentiable field call per field (``layered.py:490-576``):
+    the forward kernel, and the backward kernel when autograd runs back.
+    Performers take per-tile skip flags from their bbox hits, the
+    background none. Same shapes as :func:`_eval_fields_fused`."""
+    spec = model.spec
+    lp1, _, N, S = xyz.shape
+    M = N * S
+    if spec.use_dir:
+        dir_enc = positional_encoding_planar(
+            dirs_p, spec.spacenet_spec(bkgd=True).dir_freqs, spec.include_input,
+            recursive=True)
+        dir_b = dir_enc[:, :, None].expand(-1, N, S).reshape(-1, M).contiguous()
+    else:
+        dir_b = torch.zeros((1, M), dtype=torch.float32, device=xyz.device)
+    rgbs, sigs = [], []
+    for i, ((net, motion, mode), x, ids) in enumerate(zip(
+            model.stage_fields(fine), xyz, frame_ids.T)):
+        flags = None if i == 0 else _tile_flags(ray_hit[i], S)
+        rgb, sig = field_planar_trainable(
+            net, motion, x.reshape(3, M),
+            ids[:, None].expand(N, S).reshape(1, M).contiguous(), dir_b, flags,
+            mode, spec.compute_dtype, plain)
+        rgbs.append(rgb.reshape(3, N, S))
+        sigs.append(sig.reshape(N, S))
+    return torch.stack(rgbs), torch.stack(sigs)
+
+
 def _mask_sigma_coarse(sigma, t, hit, edits: EditState):
     """Coarse-stage zeroing (ref: layered_rfrender.py:397-418): misses and
     hidden layers, performer samples behind the origin, background samples
@@ -391,15 +434,20 @@ def _select_layers(layer_outputs, lp1: int):
 
 def render_rays(model: LayeredModel, scene: SceneBoxes, inputs: RayInputs,
                 edits: EditState, generator: torch.Generator | None = None,
-                layer_outputs=None, plain: bool = False) -> RenderOutputs:
+                layer_outputs=None, plain: bool = False,
+                only_coarse: bool = False, trainable: bool = False) -> RenderOutputs:
     """Render a batch of rays through all layers, exact reference
     semantics (``layered.py:884-1087``, the exact fine branch).
 
     ``generator`` None samples deterministically (bin centres, det
     ``sample_pdf``). ``layer_outputs`` (iterable of layer ids) limits which
     layers' per-layer fine composites are computed; the rest are zeros.
-    ``plain`` evaluates the fields with the kernel's plain PyTorch version
-    whatever the device.
+    ``plain`` evaluates the fields with the kernels' plain PyTorch versions
+    whatever the device. ``only_coarse`` stops after the coarse stage and
+    returns its composites in the fine slots too (the coarse training
+    stage). ``trainable`` makes the fields differentiable wrt the model's
+    parameters (:func:`_eval_fields_trainable`); the sample depths never
+    are (stop-gradient, as the JAX package).
     """
     spec = model.spec
     N = inputs.rays_o.shape[0]
@@ -419,46 +467,58 @@ def render_rays(model: LayeredModel, scene: SceneBoxes, inputs: RayInputs,
 
     o_p, d_p = inputs.rays_o.T, inputs.rays_d.T.contiguous()
 
+    def eval_fields(xyz_, fine):
+        if trainable:
+            return _eval_fields_trainable(model, xyz_, d_p, inputs.frame_ids,
+                                          fine, hit, plain)
+        return _eval_fields_fused(model, xyz_, d_p, inputs.frame_ids, fine,
+                                  ray_hit, plain)
+
     # --- coarse stage ---
     t_c, hit = _coarse_sample(spec, scene, inputs, boxes_all, generator)
+    t_c = t_c.detach()
     # kernel skip flags: a hidden performer costs nothing (the background
     # keeps its bbox flags, as the JAX path does)
     shown = edits.visible > 0
     ray_hit = torch.cat([hit[:1], hit[1:] & shown[1:, None]], 0)
     xyz = o_p[None, :, :, None] + t_c[:, None] * d_p[None, :, :, None]
     xyz = _inverse_edit_points(xyz, edits)                   # (L+1, 3, N, S1)
-    rgb_c, sig_c = _eval_fields_fused(model, xyz, d_p, inputs.frame_ids,
-                                      False, ray_hit, plain)
+    rgb_c, sig_c = eval_fields(xyz, False)
     sig_c = _mask_sigma_coarse(sig_c, t_c, hit, edits)
     per_layer_c = volume_render_planar(t_c, rgb_c, sig_c, bw)
     coarse_layers = LayerOutputs(per_layer_c.color, per_layer_c.depth,
                                  per_layer_c.acc)
     mixed_c = volume_render_planar(*merge_layers_planar(t_c, rgb_c, sig_c), bw)
     coarse = LayerOutputs(mixed_c.color, mixed_c.depth, mixed_c.acc)
+    if only_coarse:
+        return RenderOutputs(coarse, coarse, coarse_layers, coarse_layers, hit)
 
     # --- fine stage: importance samples folded into the coarse set, every
     # union position re-evaluated through the fine nets ---
     w_c = per_layer_c.weights[..., 0]                            # (L+1, N, S1)
     t_flat = t_c.reshape(lp1 * N, S1)
     z_new = sample_pdf(t_flat, w_c[:, :, 1:-1].reshape(lp1 * N, S1 - 2), S2,
-                       generator)
+                       generator).detach()
     t_f = sort_merge_t(t_flat, z_new).reshape(lp1, N, S1 + S2)
     xyz_f = o_p[None, :, :, None] + t_f[:, None] * d_p[None, :, :, None]
     xyz_f = _inverse_edit_points(xyz_f, edits)
-    rgb_f, sig_f = _eval_fields_fused(model, xyz_f, d_p, inputs.frame_ids,
-                                      True, ray_hit, plain)
+    rgb_f, sig_f = eval_fields(xyz_f, True)
     sig_f = _mask_sigma_fine(sig_f, hit, edits)
 
     sel = _select_layers(layer_outputs, lp1)
-    idx = list(range(lp1)) if sel is None else list(sel)
-    zc = t_f.new_zeros((lp1, N, 3))
-    z1 = t_f.new_zeros((lp1, N, 1))
-    fine_layers = LayerOutputs(zc, z1, z1.clone())
-    if idx:
-        p = volume_render_planar(t_f[idx], rgb_f[idx], sig_f[idx], bw)
-        fine_layers.color[idx] = p.color
-        fine_layers.depth[idx] = p.depth
-        fine_layers.acc[idx] = p.acc
+    if sel is None:
+        p = volume_render_planar(t_f, rgb_f, sig_f, bw)
+        fine_layers = LayerOutputs(p.color, p.depth, p.acc)
+    else:
+        idx = list(sel)
+        zc = t_f.new_zeros((lp1, N, 3))
+        z1 = t_f.new_zeros((lp1, N, 1))
+        fine_layers = LayerOutputs(zc, z1, z1.clone())
+        if idx:
+            p = volume_render_planar(t_f[idx], rgb_f[idx], sig_f[idx], bw)
+            fine_layers.color[idx] = p.color
+            fine_layers.depth[idx] = p.depth
+            fine_layers.acc[idx] = p.acc
 
     t_mf, rgb_mf, sig_mf = merge_layers_planar(t_f, rgb_f, sig_f)
     sig_mf = torch.where(t_mf >= edits.near, sig_mf, 0.0)     # ref: :605

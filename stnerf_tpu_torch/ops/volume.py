@@ -1,9 +1,11 @@
-"""Volume rendering and the cross-layer depth merge (forward only).
+"""Volume rendering and the cross-layer depth merge.
 
 Counterpart of ``stnerf_tpu/ops/volume.py``, with the reference's numerics
 (ref: layers/render_layer.py:8-47): ``alpha = 1 - exp(-relu(sigma) * delta)``,
 exclusive transmittance over ``1 - alpha + 1e-10``, the last delta padded
-with ``boarder_weight``, and the sigmoid on raw rgb applied here.
+with ``boarder_weight``, and the sigmoid on raw rgb applied here. Training
+differentiates through all of it; the transmittance's cumulative product
+has the JAX package's closed-form backward.
 
 Color, depth and acc are elementwise products summed over samples, never a
 matrix product, so a float32 result does not depend on the TF32 switches.
@@ -23,10 +25,30 @@ class RenderedRays(NamedTuple):
     weights: torch.Tensor  # (N, S, 1)
 
 
+class _CumprodBounded(torch.autograd.Function):
+    """``torch.cumprod(f, -1)`` for transmittance factors ``1 - alpha +
+    1e-10``, with the JAX package's backward (``_cumprod_bounded``): with
+    P = cumprod(f), df_i = (sum_{m >= i} dP_m P_m) / max(f_i, 1e-10) — one
+    reversed cumulative sum and a divide, defined at saturated samples
+    (alpha = 1, e.g. at the 1e10 border delta)."""
+
+    @staticmethod
+    def forward(ctx, f):
+        p = torch.cumprod(f, -1)
+        ctx.save_for_backward(f, p)
+        return p
+
+    @staticmethod
+    def backward(ctx, dp):
+        f, p = ctx.saved_tensors
+        s = torch.flip(torch.cumsum(torch.flip(dp * p, (-1,)), -1), (-1,))
+        return s / torch.clamp(f, min=1e-10)
+
+
 def render_weights(sigma: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
     """(..., S) raw density and segment lengths -> (..., S) weights."""
     alpha = 1.0 - torch.exp(-torch.relu(sigma) * delta)
-    trans = torch.cumprod(1.0 - alpha + 1e-10, -1)
+    trans = _CumprodBounded.apply(1.0 - alpha + 1e-10)
     trans = torch.cat([torch.ones_like(trans[..., :1]), trans[..., :-1]], -1)
     return alpha * trans
 

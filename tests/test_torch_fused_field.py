@@ -36,7 +36,7 @@ def _pair(motion_mode, deep_rgb=False, compute_dtype="float32"):
               backbone_dim=32, head_dim=16, motion_dim=32)
     jspec = JSpec(compute_dtype="float32", **kw)
     params = jax.device_get(init_layered_params(jax.random.PRNGKey(3), jspec))
-    model = load_jax_params(LayeredModel(LayeredSpec(compute_dtype=compute_dtype, **kw)),
+    model = load_jax_params(LayeredModel(LayeredSpec(compute_dtype=compute_dtype, **kw), device="cpu"),
                             params)
     field = model.kernel_fields(fine=False)[1 if motion_mode == "lerp" else 0]
     if motion_mode == "lerp":

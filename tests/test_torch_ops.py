@@ -249,6 +249,45 @@ def test_motionnet_matches_jax(rng, input_time):
     np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-6)
 
 
+def test_metrics_match_jax(rng):
+    from stnerf_tpu.ops import metrics as J
+    from stnerf_tpu_torch.ops import metrics as T
+
+    a, b = (rng.uniform(size=(16, 12, 3)).astype(np.float32) for _ in range(2))
+    np.testing.assert_allclose(float(T.mse(_t(a), _t(b))), float(J.mse(_j(a), _j(b))),
+                               rtol=1e-6)
+    np.testing.assert_allclose(float(T.psnr(_t(a), _t(b))), float(J.psnr(_j(a), _j(b))),
+                               rtol=1e-6)
+
+
+@pytest.mark.parametrize("retiming", [False, True])
+def test_unpack_rays_and_pool_match_jax(rng, retiming):
+    """Packed ray arrays (one frame-id column, or L+1 per-layer ids) ->
+    RayInputs, and the decoded training pool, as the JAX package's."""
+    import jax
+
+    from stnerf_tpu.engine.trainer import make_pool as jmake_pool
+    from stnerf_tpu.models import LayeredSpec as JSpec
+    from stnerf_tpu_torch.engine.trainer import make_pool
+    from stnerf_tpu_torch.models import LayeredSpec
+    from stnerf_tpu_torch.models.rays import unpack_rays
+
+    kw = dict(layer_num=2, use_space_time=True, use_deform_time=True)
+    n = 20
+    ids = rng.integers(1, 4, (n, 3 if retiming else 1)).astype(np.float32)
+    rays = np.concatenate([rng.normal(size=(n, 6)).astype(np.float32), ids], 1)
+    pool = {"rays": rays, "rgbs": rng.uniform(size=(n, 3)).astype(np.float32),
+            "labels": rng.integers(0, 3, (n, 1)),
+            "near_fars": rng.uniform(0.5, 12.0, (n, 2)).astype(np.float32)}
+    ref = jax.device_get(jmake_pool(pool, JSpec(**kw)))
+    got = make_pool(pool, LayeredSpec(**kw), "cpu")
+    for a, b in zip(tuple(got.inputs) + (got.rgb, got.labels),
+                    tuple(ref.inputs) + (ref.rgb, ref.labels)):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    with pytest.raises(ValueError):
+        unpack_rays(rays[:, :5], LayeredSpec(**kw))
+
+
 def test_layered_model_init():
     """Init sharing of init_layered_params: performers start as copies of
     performer 0, fine nets as copies of the coarse ones; weights and biases
@@ -259,8 +298,8 @@ def test_layered_model_init():
 
     spec = LayeredSpec(layer_num=2, use_space_time=True, use_deform_time=True,
                        backbone_dim=32, head_dim=16, motion_dim=32)
-    m1 = LayeredModel(spec, torch.Generator().manual_seed(0))
-    m2 = LayeredModel(spec, torch.Generator().manual_seed(0))
+    m1 = LayeredModel(spec, torch.Generator().manual_seed(0), device="cpu")
+    m2 = LayeredModel(spec, torch.Generator().manual_seed(0), device="cpu")
     for a, b in zip(m1.parameters(), m2.parameters()):
         assert torch.equal(a, b)
     sd = m1.state_dict()
@@ -278,5 +317,5 @@ def test_layered_model_init():
             bound = 1.0 / mod.in_features ** 0.5
             assert mod.weight.abs().max() <= bound and mod.bias.abs().max() <= bound
     shared = LayeredModel(LayeredSpec(layer_num=2, same_spacenet=True,
-                                      backbone_dim=32, head_dim=16))
+                                      backbone_dim=32, head_dim=16), device="cpu")
     assert shared.layers_fine is None and shared.motion is None

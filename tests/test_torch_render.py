@@ -61,7 +61,7 @@ def _models(cfg):
     for group, delta in (("bkgd_coarse", 0.3), ("bkgd_fine", 0.3),
                          ("layers_coarse", 2.0), ("layers_fine", 2.0)):
         params[group]["density"][0]["b"] = params[group]["density"][0]["b"] + delta
-    model = load_jax_params(LayeredModel(LayeredSpec.from_cfg(cfg)), params)
+    model = load_jax_params(LayeredModel(LayeredSpec.from_cfg(cfg), device="cpu"), params)
     return jspec, params, model
 
 
