@@ -42,7 +42,33 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    versions from the same weights and batch, gradients compared per leaf
    (bf16: relative L2 <= 1e-2; float32 as phase 4). Prints seconds per
    step and rays/s for both paths.
-6. The ``{"kernels": [...]}`` line (launches on the main paths, errors, times
+6. SpaceNet kernels vs plain: ``spacenet_fwd`` and ``spacenet_bwd`` (K3)
+   against their plain versions at the taekwondo widths on M = 2000 x 120
+   seeded encodings (every sample), for a performer with time, the
+   background, a 4-layer rgb head and a field without directions: forward
+   float32 at rtol 2e-3, atol 2e-4 and bf16 vs float32 >= 40 dB; backward
+   float32 at phase 4's bar and bf16 relative L2 <= 1e-2 per leaf; for the
+   performer, the device-side ``active`` flag: 1 leaves the forward and
+   d_pos / d_dir bitwise unchanged, 0 gives zeros everywhere. Then the
+   three K6 entry points (``fused_spacenet*``, on K3's forward kernel)
+   against their plain versions at one shape. Prints both times of each.
+7. The view-deform + pose-refinement model (phase 3's model with
+   USE_DEFORM_VIEW and POSE_REFINEMENT on, 8 cameras, camera 0's correction
+   off the identity): three of phase 3's requests at 480x270 through
+   ``render_pose_host``, every field through K3's forward (a performer that
+   a chunk misses, or that is hidden, skipped by its flag on the device:
+   the kernel still launches and its blocks exit). Checks finite
+   images, exact zero acc for a hidden layer, >= 40 dB between the kernel
+   and plain paths, and K3's forward launches against what the renders
+   imply. Prints seconds per pose.
+8. Training that model on phase 5's pool as phase 5 does: finite losses, a
+   falling loss over the full epoch, K3's forward and backward each once
+   per field and stage of every step, non-zero ``cam_pose`` and
+   ``view_deform`` gradients; then one step through the kernels and one
+   through the plain versions in float32 and in bf16 (every leaf at
+   relative L2 <= 1e-2 but the two ``cam_pose`` leaves, held to a tenth of
+   their own bf16 rounding error). Prints seconds per step and rays/s.
+9. The ``{"kernels": [...]}`` line (launches on the main paths, errors, times
    and bounds), the card line again, and the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -54,6 +80,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -122,6 +149,25 @@ def bound_ms(flops: float, nbytes: float, dtype: str) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def k6_entries() -> list:
+    """K6's three wrappers: no path of the package calls them, so each main
+    path's run zeroes and reads their counts too."""
+    from stnerf_tpu_torch.kernels.fused_spacenet import (fused_spacenet,
+                                                         fused_spacenet_planar,
+                                                         fused_spacenet_stacked)
+
+    return [fused_spacenet, fused_spacenet_planar, fused_spacenet_stacked]
+
+
+def zero_k6():
+    for f in k6_entries():
+        f.launches = 0
+
+
+def read_k6() -> dict:
+    return {f.__name__: f.launches for f in k6_entries()}
+
+
 def taekwondo_cfg():
     """configs/config_taekwondo.yml with the exact reference semantics set
     explicitly (no fast fine stage, no early exit, no occupancy)."""
@@ -136,6 +182,14 @@ def taekwondo_cfg():
     cfg.TPU.OCC_GAP_SKIP = False
     cfg.TPU.RENDER_CHUNK = 4096
     cfg.TPU.TILE_COLS = 64
+    return cfg
+
+
+def view_pose_cfg():
+    """taekwondo_cfg with view deformation and pose refinement on: the
+    model of the staged path (K3)."""
+    cfg = taekwondo_cfg()
+    cfg.merge_from_list(["MODEL.USE_DEFORM_VIEW", True, "MODEL.POSE_REFINEMENT", True])
     return cfg
 
 
@@ -289,6 +343,7 @@ def phase_slice(device, h: int, w: int, chunk: int, tile_cols: int):
                      h, w, chunk=chunk, tile_cols=tile_cols)
     sync(device)
     fused_field.launches = 0
+    zero_k6()
     renders, seconds, images = 0, {}, {}
     for name, fids, edits in requests:
         t0 = time.perf_counter()
@@ -320,7 +375,7 @@ def phase_slice(device, h: int, w: int, chunk: int, tile_cols: int):
     for name in images:
         check(name == "plain" or not np.array_equal(images[name], images["plain"]),
               f"{name}: the edit left the image unchanged")
-    launches = fused_field.launches
+    launches, k6 = fused_field.launches, read_k6()
     _, _, _, _, n_pad = tile_grid(h, w, chunk, tile_cols)
     expected = renders * (n_pad // chunk) * 2 * lp1
     check(launches == expected,
@@ -335,7 +390,7 @@ def phase_slice(device, h: int, w: int, chunk: int, tile_cols: int):
     check(db >= 40.0, f"kernel pose vs plain pose {db:.1f} dB < 40")
     summary = {"h": h, "w": w, "chunk": chunk, "kernel_s_per_pose": seconds,
                "plain_s_per_pose": plain_s, "kernel_vs_plain_db": db,
-               "launches": launches}
+               "launches": launches, "launches_k6": k6}
     print("slice", json.dumps(summary), flush=True)
     return summary
 
@@ -362,12 +417,13 @@ def f32_close(stat: dict) -> bool:
     return stat["outside"] <= max(1, stat["size"] // 1000)
 
 
-def _leaf_stats(field, got, ref) -> dict:
-    """compare_leaf for every weight and bias slot, d_xyz and d_dir."""
+def _leaf_stats(field, got, ref, x_name: str = "d_xyz") -> dict:
+    """compare_leaf for every weight and bias slot, the input gradient
+    (``x_name``: d_xyz or d_pos) and d_dir."""
     (gw, gb, gx, gd), (rw, rb, rx, rd) = got, ref
     pairs = {s: (field.w(s, gw), field.w(s, rw)) if len(shape) == 2 else
              (field.b(s, gb), field.b(s, rb)) for s, shape in field.shapes.items()}
-    pairs.update(d_xyz=(gx, rx), d_dir=(gd, rd))
+    pairs.update({x_name: (gx, rx), "d_dir": (gd, rd)})
     return {name: compare_leaf(a, b) for name, (a, b) in pairs.items()}
 
 
@@ -453,6 +509,191 @@ def phase_field_bwd_vs_plain(device, m: int, reps: int):
     return results
 
 
+def _encoded_inputs(device, m: int, seed: int):
+    """Seeded encodings as the staged path makes them (double-angle
+    recursion): positions in [-3, 3]^3 (63 rows), unit directions (27),
+    frame ids 1-100 (21), and seeded cotangents."""
+    import torch
+
+    from stnerf_tpu_torch.ops.encoding import positional_encoding_planar as pe
+
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.tensor(a, dtype=torch.float32, device=device).contiguous()
+
+    d = rng.normal(size=(3, m))
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    return {"pos": pe(t(rng.uniform(-3.0, 3.0, (3, m))), 10, True, recursive=True).contiguous(),
+            "dir": pe(t(d), 4, True, recursive=True).contiguous(),
+            "time": pe(t(rng.integers(1, 101, (1, m))), 10, True, recursive=True).contiguous(),
+            "d_rgb": t(rng.normal(size=(3, m))), "d_sigma": t(rng.normal(size=m))}
+
+
+def phase_spacenet_vs_plain(device, m: int, reps: int):
+    """spacenet_fwd / spacenet_bwd (K3) against their plain versions on
+    seeded encodings at the taekwondo widths -> per-case results."""
+    import torch
+
+    from stnerf_tpu_torch.kernels.fused_field import pack_field, prepare_kernel_params_planar
+    from stnerf_tpu_torch.kernels.spacenet_vjp import (spacenet_bwd, spacenet_bwd_reference,
+                                                       spacenet_fwd, spacenet_fwd_reference)
+    from stnerf_tpu_torch.models import LayeredSpec, SpaceNet
+
+    spec = LayeredSpec.from_cfg(view_pose_cfg(), camera_num=8)
+    model = make_model(spec, device)
+    gen = torch.Generator().manual_seed(SEED + 4)
+    sspec = spec.spacenet_spec(bkgd=False)
+    deep_net = SpaceNet(dataclasses.replace(sspec, deep_rgb=True), gen).to(device)
+    no_dir_net = SpaceNet(dataclasses.replace(sspec, use_dir=False), gen).to(device)
+    cases = [("performer_time", model.layers_fine[0]), ("background", model.bkgd_fine),
+             ("performer_deep_rgb", deep_net), ("performer_no_dir", no_dir_net)]
+    x = _encoded_inputs(device, m, SEED + 5)
+
+    results = []
+    for name, net in cases:
+        row = {"case": name, "m": m}
+        dir_enc = x["dir"] if net.spec.use_dir else torch.zeros((1, m), device=device)
+        time_enc = x["time"] if net.spec.use_time else None
+        for dt in ("float32", "bfloat16"):
+            tdt = torch.bfloat16 if dt == "bfloat16" else torch.float32
+            f = pack_field(prepare_kernel_params_planar(net, tdt), (), net.spec, None, dt)
+            fwd_args = (f, x["pos"], dir_enc, time_enc)
+            bwd_args = fwd_args + (x["d_rgb"], x["d_sigma"])
+            rgb_k, sig_k = spacenet_fwd(*fwd_args)
+            got = spacenet_bwd(*bwd_args)
+            sync(device)
+            check(bool(torch.isfinite(rgb_k).all() and torch.isfinite(sig_k).all()),
+                  f"{name} {dt}: non-finite forward")
+            for g in got:
+                check(bool(torch.isfinite(g).all()), f"{name} {dt}: non-finite gradient")
+            if name == "performer_time":  # the device-side skip flag
+                on, off = (torch.full((1,), v, dtype=torch.int32, device=device)
+                           for v in (1, 0))
+                fwd_on, got_on = spacenet_fwd(*fwd_args, on), spacenet_bwd(*bwd_args, on)
+                fwd_off, got_off = spacenet_fwd(*fwd_args, off), spacenet_bwd(*bwd_args, off)
+                check(all(torch.equal(a, b) for a, b in zip(fwd_on, (rgb_k, sig_k)))
+                      and all(torch.equal(a, b) for a, b in zip(got_on[2:], got[2:])),
+                      f"{dt}: active 1 changed the forward or d_pos / d_dir")
+                check(not any(bool(a.any()) for a in (*fwd_off, *got_off)),
+                      f"{dt}: active 0 left a nonzero output or gradient")
+                row[f"{dt}_skipped_fwd_ms"] = cuda_ms(lambda: spacenet_fwd(*fwd_args, off),
+                                                      reps)
+                row[f"{dt}_skipped_bwd_ms"] = cuda_ms(lambda: spacenet_bwd(*bwd_args, off),
+                                                      reps)
+            ref = spacenet_bwd_reference(*bwd_args)
+            stats = _leaf_stats(f, got, ref, "d_pos")
+            if dt == "float32":
+                rgb_p, sig_p = spacenet_fwd_reference(*fwd_args)
+                err = max(float((rgb_k - rgb_p).abs().max()), float((sig_k - sig_p).abs().max()))
+                close = (torch.allclose(rgb_k, rgb_p, rtol=2e-3, atol=2e-4)
+                         and torch.allclose(sig_k, sig_p, rtol=2e-3, atol=2e-4))
+                check(close, f"{name}: f32 forward kernel vs plain max |err| {err:.3g} "
+                             "outside rtol 2e-3, atol 2e-4")
+                row["f32_fwd_max_abs_err"] = err
+                row["f32_bwd_max_abs_err"] = max(v["err"] for v in stats.values())
+                row["f32_bwd_max_rel_l2"] = max(v["rel"] for v in stats.values())
+                row["f32_entries_outside"] = {k: v["outside"] for k, v in stats.items()
+                                              if v["outside"]}
+                bad = {k: v for k, v in stats.items() if not f32_close(v)}
+                check(not bad, f"{name}: f32 backward kernel vs plain beyond the float32 "
+                               f"bar: {bad}")
+                plain_rgb = rgb_p
+            else:
+                db = psnr(torch.sigmoid(rgb_k).cpu(), torch.sigmoid(plain_rgb).cpu())
+                check(db >= 40.0, f"{name}: bf16 forward kernel vs f32 plain {db:.1f} dB < 40")
+                row["bf16_vs_f32_db"] = db
+                worst = max(stats, key=lambda k: stats[k]["rel"])
+                row["bf16_bwd_worst_rel_l2"] = [worst, stats[worst]["rel"]]
+                check(stats[worst]["rel"] <= 1e-2,
+                      f"{name}: bf16 backward kernel vs plain relative L2 "
+                      f"{stats[worst]['rel']:.3g} on {worst} > 1e-2")
+                rows = x["pos"].shape[0] + dir_enc.shape[0] + (
+                    0 if time_enc is None else time_enc.shape[0])
+                w_bytes = 2 * f.weights.numel()
+                g_bytes = 4 * (f.weights.numel() + f.biases.numel())
+                macs = field_macs(f)
+                # forward: the encodings in, rgb and sigma out, the weights once;
+                # backward: the encodings and cotangents in, d_pos and d_dir and
+                # the float32 weight gradients out
+                row["fwd_bound_ms"], row["fwd_bound_by"] = bound_ms(
+                    2 * macs["fwd"] * m, 4 * m * (rows + 4) + w_bytes, "bfloat16")
+                row["bwd_bound_ms"], row["bwd_bound_by"] = bound_ms(
+                    2 * macs["bwd"] * m,
+                    4 * m * (rows + 4 + x["pos"].shape[0] + dir_enc.shape[0]) + w_bytes
+                    + g_bytes, "bfloat16")
+            row[f"{dt}_fwd_ms"] = cuda_ms(lambda: spacenet_fwd(*fwd_args), reps)
+            row[f"{dt}_fwd_plain_ms"] = cuda_ms(lambda: spacenet_fwd_reference(*fwd_args), reps)
+            row[f"{dt}_bwd_ms"] = cuda_ms(lambda: spacenet_bwd(*bwd_args), reps)
+            row[f"{dt}_bwd_plain_ms"] = cuda_ms(lambda: spacenet_bwd_reference(*bwd_args),
+                                                reps)
+        print("spacenet_vs_plain", json.dumps(row), flush=True)
+        results.append(row)
+    return results
+
+
+def phase_fused_spacenet_vs_plain(device, m: int, reps: int):
+    """The three K6 entry points against their plain versions at one shape
+    (L = 2 weight sets for the stacked one), float32 at K1's bar, and their
+    bf16 times -> {entry: result}."""
+    import torch
+
+    from stnerf_tpu_torch.kernels.fused_field import pack_field, prepare_kernel_params_planar
+    from stnerf_tpu_torch.kernels.fused_spacenet import (
+        fused_spacenet, fused_spacenet_planar, fused_spacenet_planar_reference,
+        fused_spacenet_reference, fused_spacenet_stacked, fused_spacenet_stacked_reference)
+    from stnerf_tpu_torch.models import LayeredSpec
+
+    spec = LayeredSpec.from_cfg(view_pose_cfg(), camera_num=8)
+    model = make_model(spec, device)
+    nets = [model.layers_coarse[0], model.layers_fine[1]]
+    x = _encoded_inputs(device, 2 * m, SEED + 6)
+    planar = (x["pos"][:, :m].contiguous(), x["dir"][:, :m].contiguous(),
+              x["time"][:, :m].contiguous())
+    rows = tuple(a.t().contiguous() for a in planar)
+    stacked = tuple(torch.stack([a[:, :m].t(), a[:, m:].t()]).contiguous()
+                    for a in (x["pos"], x["dir"], x["time"]))
+    results = {}
+    for dt in ("float32", "bfloat16"):
+        tdt = torch.bfloat16 if dt == "bfloat16" else torch.float32
+        fields = [pack_field(prepare_kernel_params_planar(n, tdt), (), n.spec, None, dt)
+                  for n in nets]
+        calls = {"fused_spacenet_planar": (fused_spacenet_planar,
+                                           fused_spacenet_planar_reference,
+                                           (fields[0], *planar), 1),
+                 "fused_spacenet": (fused_spacenet, fused_spacenet_reference,
+                                    (fields[0], *rows), 1),
+                 "fused_spacenet_stacked": (fused_spacenet_stacked,
+                                            fused_spacenet_stacked_reference,
+                                            (fields, *stacked), 2)}
+        for name, (kernel, plain, args, n_sets) in calls.items():
+            samples = n_sets * m
+            row = results.setdefault(name, {"entry": name, "samples": samples})
+            if dt == "float32":
+                (rgb_k, sig_k), (rgb_p, sig_p) = kernel(*args), plain(*args)
+                sync(device)
+                check(rgb_k.shape == rgb_p.shape and sig_k.shape == sig_p.shape,
+                      f"{name}: shapes {tuple(rgb_k.shape)} vs {tuple(rgb_p.shape)}")
+                err = max(float((rgb_k - rgb_p).abs().max()), float((sig_k - sig_p).abs().max()))
+                check(torch.allclose(rgb_k, rgb_p, rtol=2e-3, atol=2e-4)
+                      and torch.allclose(sig_k, sig_p, rtol=2e-3, atol=2e-4),
+                      f"{name}: f32 kernel vs plain max |err| {err:.3g} outside rtol 2e-3, "
+                      "atol 2e-4")
+                row["f32_max_abs_err"] = err
+            else:
+                # the encodings in, rgb and sigma out, each weight set once
+                n_rows = sum(a.shape[0] for a in planar)
+                row["bf16_bound_ms"], row["bound_by"] = bound_ms(
+                    2 * field_macs(fields[0])["fwd"] * samples,
+                    4 * samples * (n_rows + 4) + 2 * fields[0].weights.numel() * n_sets,
+                    "bfloat16")
+            row[f"{dt}_ms"] = cuda_ms(lambda: kernel(*args), reps)
+            row[f"{dt}_plain_ms"] = cuda_ms(lambda: plain(*args), reps)
+    for row in results.values():
+        print("fused_spacenet_vs_plain", json.dumps(row), flush=True)
+    return results
+
+
 def ring_bundle(scene, n_rays: int = 40_000, n_cams: int = 8, frames: int = 3):
     """A compact training pool (the layout of the JAX package's
     data/raygen.build_ray_pool): ``n_rays`` pixels of ``n_cams`` cameras on
@@ -512,25 +753,43 @@ def _flat_leaves(tree, prefix=""):
         yield prefix, np.asarray(tree, np.float64)
 
 
-def compare_train_step(device, bundle, scene, dtype: str) -> dict:
+def compare_train_step(device, bundle, scene, dtype: str, cfg_fn=None,
+                       f32_plain: dict | None = None) -> tuple:
     """One training step through the kernels and one through their plain
     versions, from the same weights, batch and sampling noise: gradients
-    per leaf, and the seconds of a second step of each path."""
+    per leaf, and the seconds of a second step of each path. ``cfg_fn``
+    (default taekwondo_cfg) gives the model's config. -> (row, the plain
+    step's gradients by leaf).
+
+    The bars: float32 as phase 4 (``f32_close``); bf16 relative L2 <= 1e-2
+    per leaf, but for the pose refinement's two leaves when the float32
+    plain step's gradients ``f32_plain`` are given: those are held to
+    max(1e-2, a tenth of their own bf16 rounding error, bf16 plain vs
+    float32 plain), a bar measured in the same run and printed beside the
+    reading (``pose_bars``). Each sums every ray of its camera, terms that
+    the encoding's top octave scales by 2^9 and that cancel, so a change of
+    summation order moves it far more than the leaves it sums (even in
+    float32: PERF.md, PR 3). The float32 step is therefore the fault check
+    for ``cam_pose``: it holds both leaves to the fixed elementwise bar, as
+    every other leaf, and the bf16 bar only bounds the rounding on top."""
     import torch
 
     from stnerf_tpu_torch.engine import (make_decode, make_optimizer, make_train_step,
-                                         sort_batch_by_hit, split_compact_bundle)
+                                         pool_camera_num, sort_batch_by_hit,
+                                         split_compact_bundle)
     from stnerf_tpu_torch.models import LayeredSpec, export_jax_params
 
-    cfg = taekwondo_cfg()
+    cfg = (cfg_fn or taekwondo_cfg)()
     cfg.TPU.COMPUTE_DTYPE = dtype
     cfg.SOLVER.WARMUP_ITERS = 1
     spec = LayeredSpec.from_cfg(cfg)
+    spec = dataclasses.replace(spec, camera_num=pool_camera_num(bundle, spec))
     pool, tables, width = split_compact_bundle(bundle, device)
     n = cfg.SOLVER.IMS_PER_BATCH
     idx = torch.arange(n, device=device) * (pool.rgb.shape[0] // n)
     batch = make_decode(tables, spec, width)(type(pool)(*(x[idx] for x in pool)))
-    batch = sort_batch_by_hit(spec, scene, batch)
+    if not spec.use_deform_view:  # as the trainer: only the fused path sorts
+        batch = sort_batch_by_hit(spec, scene, batch)
     grads, seconds = {}, {}
     for plain in (False, True):
         model = make_model(spec, device)
@@ -547,25 +806,33 @@ def compare_train_step(device, bundle, scene, dtype: str) -> dict:
         seconds[plain] = time.perf_counter() - t0
     stats = {k: compare_leaf(grads[False][k], b) for k, b in grads[True].items()}
     worst = max(stats, key=lambda k: stats[k]["rel"])
+    bars = {}
     if dtype == "bfloat16":
-        check(stats[worst]["rel"] <= 1e-2, f"bf16 step: kernel vs plain gradient relative "
-                                           f"L2 {stats[worst]['rel']:.3g} on {worst} > 1e-2")
+        bars = {k: 1e-2 if f32_plain is None or not k.startswith("/cam_pose/") else
+                max(1e-2, 0.1 * compare_leaf(grads[True][k], f32_plain[k])["rel"])
+                for k in stats}
+        bad = {k: [v["rel"], bars[k]] for k, v in stats.items() if v["rel"] > bars[k]}
+        check(not bad, f"bf16 step: kernel vs plain gradient relative L2 above its bar "
+                       f"[rel, bar]: {bad}")
     else:
         bad = {k: v for k, v in stats.items() if not f32_close(v)}
         check(not bad, f"f32 step: kernel vs plain gradients beyond the float32 bar: {bad}")
-    row = {"dtype": dtype, "worst_rel_l2": [worst, stats[worst]["rel"]],
+    row = {"model": "view_pose" if spec.use_deform_view else "taekwondo", "dtype": dtype,
+           "worst_rel_l2": [worst, stats[worst]["rel"]],
            "entries_outside": {k: v["outside"] for k, v in stats.items() if v["outside"]},
            "kernel_s_per_step": seconds[False], "plain_s_per_step": seconds[True],
            "kernel_rays_per_s": n / seconds[False], "plain_rays_per_s": n / seconds[True]}
+    if f32_plain is not None:
+        row["pose_bars"] = {k: [stats[k]["rel"], b] for k, b in bars.items()
+                            if k.startswith("/cam_pose/")}
     print("train_step_kernel_vs_plain", json.dumps(row), flush=True)
-    return row
+    return row, grads[True]
 
 
-def phase_train(device) -> dict:
-    """do_train at the taekwondo width and batch through the kernels, its
-    checks, then the step comparison in both dtypes -> summary dict."""
-    import logging
-
+def phase_train(device, bundle, scene) -> dict:
+    """do_train at the taekwondo width and batch through the kernels on the
+    ring pool ``bundle``, its checks, then the step comparison in both
+    dtypes -> summary dict."""
     import torch
 
     from stnerf_tpu_torch.engine import do_train, load_checkpoint, make_optimizer
@@ -578,11 +845,6 @@ def phase_train(device) -> dict:
     s.COARSE_STAGE, s.MAX_EPOCHS, s.WARMUP_ITERS, s.LOG_PERIOD = 2, 3, 1, 5
     cfg.OUTPUT_DIR = os.path.join(REPO, "build", "chip_smoke_train")
     spec = LayeredSpec.from_cfg(cfg)
-    scene, _ = scene_and_requests(device)
-    bundle = ring_bundle(scene)
-    shares = np.bincount(bundle["labels"], minlength=3) / len(bundle["labels"])
-    print("pool", json.dumps({"rays": len(bundle["labels"]), "label_shares": shares.tolist()}),
-          flush=True)
     model = make_model(spec, device)
     opt, sched = make_optimizer(cfg, model)
     records = []
@@ -593,9 +855,10 @@ def phase_train(device) -> dict:
     logger.addHandler(handler)
 
     fused_field.launches = field_bwd.launches = 0
+    zero_k6()
     history = do_train(cfg, model, scene, bundle, opt, sched, logger=logger, seed=SEED,
                        device=device)
-    launches, fwd_launches = field_bwd.launches, fused_field.launches
+    launches, fwd_launches, k6 = field_bwd.launches, fused_field.launches, read_k6()
     steps = len(bundle["labels"]) // s.IMS_PER_BATCH
     lp1 = spec.layer_num + 1
     expected = sum(steps * (1 if epoch < s.COARSE_STAGE else 2) * lp1 for epoch, _ in history)
@@ -620,10 +883,152 @@ def phase_train(device) -> dict:
                "loss_epoch2_first_last": [float(full[0]), float(full[-1])],
                "s_per_step": {e: t / steps for e, t in epoch_s.items()},
                "rays_per_s": {e: steps * s.IMS_PER_BATCH / t for e, t in epoch_s.items()},
-               "launches_fused_field": fwd_launches}
+               "launches_fused_field": fwd_launches, "launches_k6": k6}
     print("train", json.dumps(summary), flush=True)
-    summary["steps"] = [compare_train_step(device, bundle, scene, dt)
+    summary["steps"] = [compare_train_step(device, bundle, scene, dt)[0]
                         for dt in ("bfloat16", "float32")]
+    return summary
+
+
+def phase_view_pose_render(device, h: int, w: int, chunk: int, tile_cols: int):
+    """Three of phase 3's requests rendered with the view-deform +
+    pose-refinement model through render_pose_host: every field of both
+    stages through K3's forward, camera 0's pose correction not the
+    identity. -> summary dict."""
+    import torch
+
+    from stnerf_tpu_torch.kernels.fused_field import fused_field
+    from stnerf_tpu_torch.kernels.spacenet_vjp import spacenet_fwd
+    from stnerf_tpu_torch.models import LayeredSpec
+    from stnerf_tpu_torch.render.pose_device import render_pose_on_device, tile_grid
+    from stnerf_tpu_torch.render.pose_device import render_pose_host
+
+    spec = LayeredSpec.from_cfg(view_pose_cfg(), camera_num=8)
+    model = make_model(spec, device)
+    with torch.no_grad():  # novel views take camera 0's correction
+        model.cam_pose.rvec[0] = torch.tensor([0.01, -0.02, 0.015, 1.0])
+        model.cam_pose.tvec[0] = torch.tensor([0.02, -0.01, 0.03])
+    scene, requests = scene_and_requests(device)
+    requests = requests[:3]
+    K = np.array([[w, 0, w / 2], [0, h, h / 2], [0, 0, 1]], np.float32)
+    c2w = np.eye(4, dtype=np.float32)
+    c2w[:3, 3] = [0.0, 0.0, -5.0]
+    near_far = np.array([0.5, 12.0], np.float32)
+    lp1 = spec.layer_num + 1
+
+    render_pose_host(model, scene, K, c2w, [1.0, 1.0, 1.0], near_far, requests[0][2],
+                     h, w, chunk=chunk, tile_cols=tile_cols)  # untimed: first use
+    sync(device)
+    spacenet_fwd.launches = fused_field.launches = 0
+    zero_k6()
+    renders, seconds, images = 0, {}, {}
+    for name, fids, edits in requests:
+        t0 = time.perf_counter()
+        color, depth, c_layers, _ = render_pose_host(model, scene, K, c2w, fids, near_far,
+                                                     edits, h, w, chunk=chunk,
+                                                     tile_cols=tile_cols)
+        seconds[name] = time.perf_counter() - t0
+        renders += 1
+        check(color.shape == (h, w, 3) and depth.shape == (h, w, 1), f"{name}: shape")
+        check(np.isfinite(color).all() and np.isfinite(depth).all(), f"{name}: non-finite")
+        images[name] = color
+        if name == "hide_layer1":
+            frame = render_pose_on_device(
+                model, scene, K, torch.as_tensor(c2w, device=device),
+                torch.as_tensor(fids, dtype=torch.float32, device=device),
+                torch.as_tensor(near_far, device=device), edits, h=h, w=w, chunk=chunk,
+                tile_cols=tile_cols)
+            renders += 1
+            check(bool((frame.layer_acc[1] == 0).all()), "hidden layer 1 has nonzero acc")
+            check(not c_layers[1].any(), "hidden layer 1 has a nonzero image")
+        print("view_pose_pose", name, f"{seconds[name]:.3f} s",
+              f"mean color {float(color.mean()):.4f}", flush=True)
+    launches, k6 = spacenet_fwd.launches, read_k6()
+    check(fused_field.launches == 0, "the staged path launched the fused field kernel")
+    _, _, _, _, n_pad = tile_grid(h, w, chunk, tile_cols)
+    expected = renders * (n_pad // chunk) * 2 * lp1
+    check(launches == expected,
+          f"spacenet_fwd launched {launches} times, the renders imply {expected}")
+    check(not np.array_equal(images["shift_scale_layer2"], images["plain"]),
+          "the shift/scale edit left the image unchanged")
+
+    t0 = time.perf_counter()
+    plain_color, *_ = render_pose_host(model, scene, K, c2w, [1.0, 1.0, 1.0], near_far,
+                                       requests[0][2], h, w, chunk=chunk,
+                                       tile_cols=tile_cols, plain=True)
+    plain_s = time.perf_counter() - t0
+    db = psnr(images["plain"], plain_color)
+    check(db >= 40.0, f"view-pose kernel pose vs plain pose {db:.1f} dB < 40")
+    summary = {"h": h, "w": w, "chunk": chunk, "kernel_s_per_pose": seconds,
+               "plain_s_per_pose": plain_s, "kernel_vs_plain_db": db, "launches": launches,
+               "launches_k6": k6}
+    print("view_pose_render", json.dumps(summary), flush=True)
+    return summary
+
+
+def phase_view_pose_train(device, bundle, scene) -> dict:
+    """do_train of the view-deform + pose-refinement model on phase 5's
+    pool (one coarse-only epoch, one full epoch), its checks, then the
+    kernel vs plain step comparison in float32 and bf16 -> summary dict."""
+    import torch
+
+    from stnerf_tpu_torch.engine import do_train, make_optimizer, pool_camera_num
+    from stnerf_tpu_torch.kernels.field_vjp import field_bwd
+    from stnerf_tpu_torch.kernels.fused_field import fused_field
+    from stnerf_tpu_torch.kernels.spacenet_vjp import spacenet_bwd, spacenet_fwd
+    from stnerf_tpu_torch.models import LayeredSpec
+
+    cfg = view_pose_cfg()
+    s = cfg.SOLVER
+    s.COARSE_STAGE, s.MAX_EPOCHS, s.WARMUP_ITERS, s.LOG_PERIOD = 2, 3, 1, 5
+    cfg.OUTPUT_DIR = os.path.join(REPO, "build", "chip_smoke_view_pose")
+    spec = LayeredSpec.from_cfg(cfg)
+    spec = dataclasses.replace(spec, camera_num=pool_camera_num(bundle, spec))
+    model = make_model(spec, device)
+    opt, sched = make_optimizer(cfg, model)
+    records = []
+    logger = logging.getLogger("chip_smoke.view_pose_train")
+    logger.setLevel(logging.INFO)
+    handler = logging.StreamHandler(sys.stdout)
+    handler.emit = lambda r: (records.append(r),
+                              print("view_pose_train", r.getMessage(), flush=True))
+    logger.addHandler(handler)
+
+    spacenet_fwd.launches = spacenet_bwd.launches = 0
+    fused_field.launches = field_bwd.launches = 0
+    zero_k6()
+    history = do_train(cfg, model, scene, bundle, opt, sched, logger=logger, seed=SEED,
+                       device=device)
+    fwd, bwd, k6 = spacenet_fwd.launches, spacenet_bwd.launches, read_k6()
+    check(fused_field.launches == 0 and field_bwd.launches == 0,
+          "the staged path launched the fused field kernels")
+    steps = len(bundle["labels"]) // s.IMS_PER_BATCH
+    lp1 = spec.layer_num + 1
+    expected = sum(steps * (1 if epoch < s.COARSE_STAGE else 2) * lp1 for epoch, _ in history)
+    check([e for e, _ in history] == [1, 2], f"epochs run: {[e for e, _ in history]}")
+    check(fwd == expected and bwd == expected,
+          f"spacenet_fwd / spacenet_bwd launched {fwd} / {bwd} times in training, the "
+          f"steps imply {expected}")
+    for epoch, m in history:
+        check(bool(np.isfinite(m.loss).all()), f"epoch {epoch}: non-finite loss")
+    full = history[-1][1].loss
+    check(full[-1] < full[0], f"epoch 2 loss did not fall: {full[0]:.4g} -> {full[-1]:.4g}")
+    # the last step's gradients stay in .grad
+    grad_max = {name: max(float(p.grad.abs().max()) for p in getattr(model, name).parameters())
+                for name in ("cam_pose", "view_deform")}
+    for name, g in grad_max.items():
+        check(g > 0 and np.isfinite(g), f"{name}: gradient max |g| = {g}")
+    epoch_s = {r.args[0]: r.args[1] for r in records if r.msg.startswith("Epoch %d done")}
+    summary = {"steps_per_epoch": steps, "launches_fwd": fwd, "launches_bwd": bwd,
+               "launches_k6": k6, "camera_num": spec.camera_num,
+               "loss_epoch2_first_last": [float(full[0]), float(full[-1])],
+               "grad_max": grad_max,
+               "s_per_step": {e: t / steps for e, t in epoch_s.items()},
+               "rays_per_s": {e: steps * s.IMS_PER_BATCH / t for e, t in epoch_s.items()}}
+    print("view_pose_train", json.dumps(summary), flush=True)
+    row32, plain32 = compare_train_step(device, bundle, scene, "float32", view_pose_cfg)
+    row16, _ = compare_train_step(device, bundle, scene, "bfloat16", view_pose_cfg, plain32)
+    summary["steps"] = [row16, row32]
     return summary
 
 
@@ -665,11 +1070,28 @@ def main():
     bwd_cases = phase_field_bwd_vs_plain(device, m=cfg.SOLVER.IMS_PER_BATCH * 120, reps=3)
     print(f"phase field_bwd_vs_plain: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    train = phase_train(device)
+    scene, _ = scene_and_requests(device)
+    bundle = ring_bundle(scene)
+    shares = np.bincount(bundle["labels"], minlength=3) / len(bundle["labels"])
+    print("pool", json.dumps({"rays": len(bundle["labels"]), "label_shares": shares.tolist()}),
+          flush=True)
+    train = phase_train(device, bundle, scene)
     print(f"phase train: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    k3_cases = phase_spacenet_vs_plain(device, m=cfg.SOLVER.IMS_PER_BATCH * 120, reps=3)
+    k6 = phase_fused_spacenet_vs_plain(device, m=65536, reps=3)
+    print(f"phase spacenet_vs_plain: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    vp_render = phase_view_pose_render(device, h=270, w=480, chunk=cfg.TPU.RENDER_CHUNK,
+                                       tile_cols=cfg.TPU.TILE_COLS)
+    print(f"phase view_pose_render: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    vp_train = phase_view_pose_train(device, bundle, scene)
+    print(f"phase view_pose_train: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    perf, bwd = cases[0], bwd_cases[0]  # the performer field, bf16: the main paths' case
-    print(json.dumps({"kernels": [
+    # the performer field in bf16: the main paths' case
+    perf, bwd, k3 = cases[0], bwd_cases[0], k3_cases[0]
+    kernels = [
         {"name": "fused_field", "route": "cuda",
          "source": "stnerf_tpu_torch/kernels/csrc/fused_field.cu",
          "replaces": "stnerf_tpu/kernels/fused_field.py:144",
@@ -687,7 +1109,41 @@ def main():
          "max_abs_err": max(c["f32_max_abs_err"] for c in bwd_cases),
          "ms": bwd["bfloat16_ms"], "plain_ms": bwd["bfloat16_plain_ms"],
          "bound_ms": bwd["bf16_bound_ms"], "bound_by": bwd["bound_by"],
-         "library_ms": None}]}))
+         "library_ms": None},
+        {"name": "spacenet_fwd", "route": "cuda",
+         "source": "stnerf_tpu_torch/kernels/csrc/spacenet.cu",
+         "replaces": "stnerf_tpu/kernels/spacenet_vjp.py:210",
+         "launches": vp_render["launches"] + vp_train["launches_fwd"],
+         "launches_by_path": {"render": vp_render["launches"],
+                              "train": vp_train["launches_fwd"]},
+         "max_abs_err": max(c["f32_fwd_max_abs_err"] for c in k3_cases),
+         "ms": k3["bfloat16_fwd_ms"], "plain_ms": k3["bfloat16_fwd_plain_ms"],
+         "bound_ms": k3["fwd_bound_ms"], "bound_by": k3["fwd_bound_by"],
+         "library_ms": None},
+        {"name": "spacenet_bwd", "route": "cuda",
+         "source": "stnerf_tpu_torch/kernels/csrc/spacenet.cu",
+         "replaces": "stnerf_tpu/kernels/spacenet_vjp.py:238",
+         "launches": vp_train["launches_bwd"],
+         "max_abs_err": max(c["f32_bwd_max_abs_err"] for c in k3_cases),
+         "ms": k3["bfloat16_bwd_ms"], "plain_ms": k3["bfloat16_bwd_plain_ms"],
+         "bound_ms": k3["bwd_bound_ms"], "bound_by": k3["bwd_bound_by"],
+         "library_ms": None}]
+    # K6's launches as counted in the four main paths' runs (no path calls it)
+    main_paths = {"render": summary, "train": train, "view_pose_render": vp_render,
+                  "view_pose_train": vp_train}
+    for name, line in (("fused_spacenet", 139), ("fused_spacenet_planar", 245),
+                       ("fused_spacenet_stacked", 292)):
+        row = k6[name]
+        by_path = {p: r["launches_k6"][name] for p, r in main_paths.items()}
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "stnerf_tpu_torch/kernels/csrc/spacenet.cu",
+                        "replaces": f"stnerf_tpu/kernels/fused_spacenet.py:{line}",
+                        "launches": sum(by_path.values()), "launches_by_path": by_path,
+                        "max_abs_err": row["f32_max_abs_err"],
+                        "ms": row["bfloat16_ms"], "plain_ms": row["bfloat16_plain_ms"],
+                        "bound_ms": row["bf16_bound_ms"], "bound_by": row["bound_by"],
+                        "library_ms": None})
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -171,9 +171,12 @@ _C.TPU.MESH_DATA = -1   # -1: all devices on the "data" axis
 _C.TPU.MESH_MODEL = 1   # optional layer-parallel axis size
 # Use the fused Pallas SpaceNet kernel for inference when available.
 _C.TPU.USE_PALLAS = True
-# Use the hand-differentiated fused SpaceNet kernel (forward + backward
-# Pallas passes, kernels/spacenet_vjp.py) in training. Ignored when
-# POSE_REFINEMENT is on (that path needs direction-encoding gradients).
+# Use the hand-differentiated field kernels (forward + backward) in
+# training: the fully fused field (kernels/field_vjp.py), or with
+# USE_DEFORM_VIEW the staged SpaceNet kernel on encoded inputs
+# (kernels/spacenet_vjp.py). Both return the direction-encoding gradient, so
+# POSE_REFINEMENT trains through either. The PyTorch port always trains
+# through its kernels on the card and does not read this key.
 _C.TPU.TRAINABLE_KERNEL = True
 # Opacity-driven fast fine stage for RENDERING (inference-only approximation;
 # the trainer always forces the exact path). The fine networks are evaluated

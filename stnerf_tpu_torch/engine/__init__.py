@@ -4,12 +4,12 @@ from .solver import (make_frozen_mask, make_lr_schedule, make_optimizer,
                      make_warmup_multistep)
 from .trainer import (CamTables, CompactPool, StepMetrics, TrainBatch, do_train,
                       make_decode, make_pool, make_train_epoch, make_train_step,
-                      sort_batch_by_hit, split_compact_bundle)
+                      pool_camera_num, sort_batch_by_hit, split_compact_bundle)
 
 __all__ = [
     "load_checkpoint", "save_checkpoint", "mask_alpha_loss", "rgb_loss",
     "make_frozen_mask", "make_lr_schedule", "make_optimizer", "make_warmup_multistep",
     "CamTables", "CompactPool", "StepMetrics", "TrainBatch", "do_train", "make_decode",
-    "make_pool", "make_train_epoch", "make_train_step", "sort_batch_by_hit",
-    "split_compact_bundle",
+    "make_pool", "make_train_epoch", "make_train_step", "pool_camera_num",
+    "sort_batch_by_hit", "split_compact_bundle",
 ]

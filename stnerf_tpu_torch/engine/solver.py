@@ -66,7 +66,9 @@ def make_warmup_multistep(base_lr: float, milestones, gamma: float = 0.1,
 
 def make_frozen_mask(model, frozen_groups) -> dict | None:
     """{group: frozen} over the model's parameter groups ("bkgd_coarse",
-    "layers_fine", "motion", ...), or None when nothing is frozen. Unknown
+    "layers_fine", "motion", "view_deform", "cam_pose", ...: the model's
+    children that hold parameters, the JAX pytree's top-level keys), or
+    None when nothing is frozen. Unknown
     names raise: a typo that silently trained a "frozen" net would be worse
     than a crash (ref: solver/build.py:20-22)."""
     groups = list(frozen_groups or [])

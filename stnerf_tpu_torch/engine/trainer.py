@@ -12,7 +12,8 @@ optional validation callback.
 
 Training keeps the exact semantics, as the JAX trainer forces them: no
 fast fine stage, no early exit (``LayeredSpec`` refuses both), and the
-sorted merge of every layer's samples under autograd. Randomness comes from
+sorted merge of every layer's samples under autograd. The decoded camera
+ids drive the pose refinement and the view-deform net. Randomness comes from
 a ``torch.Generator`` on the device. Multi-GPU training is not ported yet.
 """
 
@@ -210,7 +211,10 @@ def make_train_epoch(model: LayeredModel, optimizer, scheduler=None,
     step = make_train_step(model, optimizer, scheduler, remove_outliers, device=device)
     spec = model.spec
     block = max(int(block), 1)
-    sort_hits = spec.layer_num > 0 and block == 1
+    # only the fused path's skip flags profit from hit-sorted batches; the
+    # staged path of a view-deforming model runs every sample (JAX gates the
+    # sort the same way)
+    sort_hits = spec.layer_num > 0 and block == 1 and not spec.use_deform_view
 
     def epoch(scene: SceneBoxes, pool, generator, mask_on: float, batch_size: int,
               steps: int, only_coarse: bool = False) -> StepMetrics:
@@ -267,6 +271,16 @@ def split_compact_bundle(bundle: dict, device=None) -> tuple[CompactPool, CamTab
     return pool, tables, int(bundle["width"])
 
 
+def pool_camera_num(train_pool: dict, spec: LayeredSpec) -> int:
+    """The cameras a training pool draws from — the ``camera_num`` of its
+    model: a compact bundle's camera tables, else one more than the largest
+    camera id in its rays."""
+    if "pix" in train_pool:
+        return int(np.asarray(train_pool["table_rot"]).shape[0])
+    cam_ids = unpack_rays(train_pool["rays"], spec).cam_ids
+    return int(cam_ids.max()) + 1 if cam_ids.numel() else 0
+
+
 def _epoch_seed(seed: int, epoch: int) -> int:
     """Position-keyed: an epoch draws the same batches whatever ran before."""
     return int(np.random.SeedSequence([seed, epoch]).generate_state(1)[0])
@@ -285,7 +299,10 @@ def do_train(cfg, model: LayeredModel, scene: SceneBoxes, train_pool: dict,
     mask loss on before epoch 3. Each epoch logs the reference's line every
     LOG_PERIOD steps, saves a checkpoint when ``OUTPUT_DIR`` is set, and
     calls ``val_fn(model, epoch)`` if given. Without an optimizer,
-    ``make_optimizer`` builds one. -> [(epoch, StepMetrics of numpy
+    ``make_optimizer`` builds one. With pose refinement the model must
+    hold a correction for every camera of the pool: build it with
+    ``LayeredSpec.from_cfg(cfg, camera_num=pool_camera_num(train_pool,
+    spec))``; a model with fewer raises. -> [(epoch, StepMetrics of numpy
     arrays)].
     """
     logger = logger or logging.getLogger("stnerf_tpu_torch.train")
@@ -306,6 +323,11 @@ def do_train(cfg, model: LayeredModel, scene: SceneBoxes, train_pool: dict,
         decode = make_decode(tables, spec, width)
     else:
         pool = make_pool(train_pool, spec, device)
+    n_cams = pool_camera_num(train_pool, spec)
+    if model.cam_pose is not None and model.cam_pose.rvec.shape[0] < n_cams:
+        raise ValueError(f"the pool draws from {n_cams} cameras, the pose refinement "
+                         f"holds {model.cam_pose.rvec.shape[0]}: build the model from "
+                         f"LayeredSpec.from_cfg(cfg, camera_num={n_cams})")
     n_pool = pool.rgb.shape[0]
     block = int(getattr(cfg.TPU, "POOL_BLOCK_DRAW", 0) or 0)
     if block > 1 and not (compact and bool(np.asarray(train_pool.get("hit_ordered", 0)))):

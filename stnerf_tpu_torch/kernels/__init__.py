@@ -10,8 +10,19 @@ from .fused_field import (TILE, PackedField, fused_field,
                           fused_field_reference, pack_field,
                           prepare_kernel_params_planar,
                           prepare_motion_params_planar)
+from .fused_spacenet import (fused_spacenet, fused_spacenet_planar,
+                             fused_spacenet_planar_reference,
+                             fused_spacenet_reference, fused_spacenet_stacked,
+                             fused_spacenet_stacked_reference)
+from .spacenet_vjp import (spacenet_bwd, spacenet_bwd_reference, spacenet_fwd,
+                           spacenet_fwd_reference, spacenet_planar_trainable)
 
 __all__ = ["field_bwd", "field_bwd_reference", "field_planar_trainable",
            "TILE", "PackedField", "fused_field", "fused_field_reference",
            "pack_field", "prepare_kernel_params_planar",
-           "prepare_motion_params_planar"]
+           "prepare_motion_params_planar",
+           "fused_spacenet", "fused_spacenet_planar", "fused_spacenet_planar_reference",
+           "fused_spacenet_reference", "fused_spacenet_stacked",
+           "fused_spacenet_stacked_reference",
+           "spacenet_bwd", "spacenet_bwd_reference", "spacenet_fwd",
+           "spacenet_fwd_reference", "spacenet_planar_trainable"]

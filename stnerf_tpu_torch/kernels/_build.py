@@ -20,8 +20,8 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "fused_field.cu", CSRC / "field_bwd.cu")
-HEADERS = (CSRC / "field_common.cuh",)
+SOURCES = (CSRC / "fused_field.cu", CSRC / "field_bwd.cu", CSRC / "spacenet.cu")
+HEADERS = (CSRC / "field_common.cuh", CSRC / "mlp_blocks.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -35,6 +35,12 @@ SIGNATURES = {
     # xyz, ids, dir, d_rgb, d_sigma, flags, weights, biases, offsets (host),
     # gw, gb, d_xyz, d_dir, then the same 11 ints, and the stream
     "stnerf_field_bwd": [_P] * 13 + [_I] * 11 + [_P],
+    # pos, dir, time, weights, biases, offsets (host), active, out, then M,
+    # pos_rows, dir_rows, time_rows, width, head, n_rgb, bf16, and the stream
+    "stnerf_spacenet_fwd": [_P] * 8 + [_I] * 8 + [_P],
+    # pos, dir, time, d_rgb, d_sigma, weights, biases, offsets (host),
+    # active, gw, gb, d_pos, d_dir, then the same 8 ints, and the stream
+    "stnerf_spacenet_bwd": [_P] * 13 + [_I] * 8 + [_P],
 }
 
 

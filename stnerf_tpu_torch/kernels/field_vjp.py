@@ -8,10 +8,10 @@ Three pieces beside the forward kernel's:
   launches ``csrc/field_bwd.cu`` (built at first use by ``_build.py``) or
   raises; on a CPU tensor it runs the plain version.
 * :func:`field_bwd_reference` — the plain PyTorch backward: the TPU kernel's
-  ``_field_bwd_body`` written out (``spacenet_vjp._bwd_math``,
-  ``_motion_bwd``, ``_encode_vjp``), with every cotangent rounded to the
-  compute dtype where the TPU kernel casts it. It is not autograd of the
-  forward; a test holds the two equal in float32.
+  ``_field_bwd_body`` written out (``_bwd_math``, shared with
+  ``spacenet_vjp.py``; ``_motion_bwd``; ``_encode_vjp``), with every
+  cotangent rounded to the compute dtype where the TPU kernel casts it. It
+  is not autograd of the forward; a test holds the two equal in float32.
 * ``field_bwd.launches`` — how many times the wrapper launched the kernel.
 
 Both return the gradients in the packed layout of :class:`PackedField`
@@ -31,10 +31,11 @@ import torch
 
 from ..ops.rounding import round_to
 from .fused_field import (MOTION_MODES, TILE, PackedField, _check_inputs,
-                          _check_kernel_support, _encode, fused_field,
-                          fused_field_reference, pack_field,
-                          prepare_kernel_params_planar,
+                          _check_kernel_support, _encode, _field_linears,
+                          _linear_grads, fused_field, fused_field_reference,
+                          pack_field, prepare_kernel_params_planar,
                           prepare_motion_params_planar)
+from .spacenet_vjp import pack_grads, spacenet_bwd_math
 
 if TYPE_CHECKING:  # models imports this module
     from ..models.motionnet import MotionNet
@@ -90,8 +91,6 @@ def field_bwd_reference(field: PackedField, xyz: torch.Tensor, ids: torch.Tensor
     def pos(x, dy):         # dy where the activation x is positive
         return torch.where(x > 0, dy, 0.0)
 
-    gws, gbs = {}, {}
-
     def grad(wslot, bslot, x, dy):
         gws[wslot] = x @ dy.t()
         gbs[bslot] = dy.sum(1)
@@ -124,55 +123,11 @@ def field_bwd_reference(field: PackedField, xyz: torch.Tensor, ids: torch.Tensor
     else:
         x_d = xyz
 
-    # ---- SpaceNet forward, keeping every activation (_fwd_chain) ----
+    # ---- the SpaceNet backward on the encodings (_bwd_math) ----
     p32 = _encode(x_d, spec)
-    p = r(p32)
-    d_in = r(dir_enc)
     t_enc = r(_encode(ids, spec)) if spec.use_time else None
-    a = [r(relu(mm("w1", p) + b("b1")))]
-    for k in (2, 3, 4):
-        a.append(r(relu(mm(f"w{k}", a[-1]) + b(f"b{k}"))))
-    a.append(r(relu(mm("s2a", a[3]) + mm("s2b", p) + b("sb1"))))
-    a.append(r(relu(mm("s2w2", a[4]) + b("sb2"))))
-    a.append(r(relu(mm("s2w3", a[5]) + b("sb3"))))
-    h0 = mm("r1a", relu(a[6])) + mm("r1b", relu(d_in))
-    if spec.use_time:
-        h0 = h0 + mm("r1c", relu(t_enc))
-    hs = [r(relu(h0 + b("rb1")))]
-    for i in range(field.n_rgb - 2):
-        hs.append(r(relu(mm(f"rgb{i + 1}", hs[-1]) + b(f"rgbb{i + 1}"))))
-
-    # ---- rgb head ----
-    dy = r(d_rgb)
-    for i in reversed(range(field.n_rgb - 1)):
-        grad(f"rgb{i + 1}", f"rgbb{i + 1}", hs[i], dy)
-        dy = pos(hs[i], r(dx(f"rgb{i + 1}", dy)))
-    gbs["rb1"] = dy.sum(1)
-    gws["r1a"] = relu(a[6]) @ dy.t()
-    gws["r1b"] = relu(d_in) @ dy.t()
-    d_dir = pos(d_in, dx("r1b", dy))
-    if spec.use_time:
-        gws["r1c"] = relu(t_enc) @ dy.t()
-    d_a6 = pos(a[6], r(dx("r1a", dy)))
-    # ---- density head ----
-    ds = r(d_sigma[None])
-    grad("dw", "db", a[6], ds)
-    dy = pos(a[6], r(d_a6 + dx("dw", ds)))
-    # ---- trunk ----
-    grad("s2w3", "sb3", a[5], dy)
-    dy = pos(a[5], r(dx("s2w3", dy)))
-    grad("s2w2", "sb2", a[4], dy)
-    dy = pos(a[4], r(dx("s2w2", dy)))
-    gws["s2a"] = a[3] @ dy.t()
-    gws["s2b"] = p @ dy.t()
-    gbs["sb1"] = dy.sum(1)
-    d_p = dx("s2b", dy)                      # the skip path into the encoding
-    dy = pos(a[3], r(dx("s2a", dy)))
-    for k in (4, 3, 2):
-        grad(f"w{k}", f"b{k}", a[k - 2], dy)
-        dy = pos(a[k - 2], r(dx(f"w{k}", dy)))
-    grad("w1", "b1", p, dy)
-    d_p = dx("w1", dy) + d_p
+    gws, gbs, d_p, d_dir = spacenet_bwd_math(field, r(p32), r(dir_enc), t_enc,
+                                             d_rgb, d_sigma)
     d_xyz = _encode_vjp(p32, d_p, 3, freqs, inc)
 
     # ---- motion net ----
@@ -193,13 +148,7 @@ def field_bwd_reference(field: PackedField, xyz: torch.Tensor, ids: torch.Tensor
     if keep is not None:
         d_xyz = torch.where(keep, d_xyz, 0.0)
         d_dir = torch.where(keep, d_dir, 0.0)
-    gw = torch.zeros(field.weights.shape, dtype=torch.float32, device=xyz.device)
-    gb = torch.zeros(field.biases.shape, dtype=torch.float32, device=xyz.device)
-    for slot, g in gws.items():
-        field.w(slot, gw).copy_(g)
-    for slot, g in gbs.items():
-        field.b(slot, gb).copy_(g)
-    return gw, gb, d_xyz, d_dir
+    return (*pack_grads(field, gws, gbs), d_xyz, d_dir)
 
 
 def field_bwd(field: PackedField, xyz: torch.Tensor, ids: torch.Tensor,
@@ -260,42 +209,6 @@ field_bwd.launches = 0
 # ---------------------------------------------------------------------------
 # autograd over the nn.Linear parameters
 # ---------------------------------------------------------------------------
-
-def _field_linears(net: SpaceNet, motion: MotionNet | None) -> list:
-    """The field's linears in a fixed order: trunk, stage 2, density, rgb,
-    then the motion net's."""
-    layers = [*net.stage1, *net.stage2, *net.density, *net.rgb]
-    return layers + (list(motion.net) if motion is not None else [])
-
-
-def _linear_grads(field: PackedField, gw: torch.Tensor, gb: torch.Tensor) -> list:
-    """Packed gradients -> [(d weight (out, in), d bias)] per linear of
-    :func:`_field_linears`. The split first layers of stage 2 and of the rgb
-    head are joined again; gradients of the (1, head) zero dummies that
-    stand in for a missing direction or time input are dropped."""
-    spec = field.spec
-
-    def w(*parts):
-        return torch.cat([field.w(s, gw) if isinstance(s, str) else s for s in parts],
-                         0).t().contiguous()
-
-    def b(slot):
-        return field.b(slot, gb).clone()
-
-    out = [(w(f"w{k}"), b(f"b{k}")) for k in (1, 2, 3, 4)]
-    out += [(w("s2a", "s2b"), b("sb1")), (w("s2w2"), b("sb2")),
-            (w("s2w3"), b("sb3")), (w("dw"), b("db"))]
-    r1 = ["r1a"]
-    if spec.dir_dim:
-        r1.append(field.w("r1b", gw)[:spec.dir_dim])
-    if spec.time_dim:
-        r1.append(field.w("r1c", gw)[:spec.time_dim])
-    out.append((w(*r1), b("rb1")))
-    out += [(w(f"rgb{i}"), b(f"rgbb{i}")) for i in range(1, field.n_rgb)]
-    if field.motion_mode:
-        out += [(w(f"m{k}"), b(f"mb{k}")) for k in range(6)]
-    return out
-
 
 class _TrainableField(torch.autograd.Function):
     @staticmethod

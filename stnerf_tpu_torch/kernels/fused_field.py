@@ -189,6 +189,42 @@ def _encode(v: torch.Tensor, spec: SpaceNetSpec) -> torch.Tensor:
                                       recursive=True)
 
 
+def spacenet_chain(field: PackedField, p: torch.Tensor, d_in: torch.Tensor,
+                   t_enc: torch.Tensor | None):
+    """The SpaceNet part of the kernels on encodings already rounded to the
+    compute dtype (``spacenet_vjp._fwd_chain``): p (pos_dim, M), d_in
+    (dir_rows, M), t_enc (time_dim, M) or None. -> (a, sigma (1, M), hs):
+    the seven trunk activations, and the rgb head's activations with the
+    raw rgb (3, M) last."""
+    dt = field.dtype
+
+    def r(x):
+        return round_to(x, dt)
+
+    def mm(slot, x):
+        return field.w(slot).float().t() @ x
+
+    def b(slot):
+        return field.b(slot)[:, None]
+
+    relu = torch.relu
+    a = [r(relu(mm("w1", p) + b("b1")))]
+    for k in (2, 3, 4):
+        a.append(r(relu(mm(f"w{k}", a[-1]) + b(f"b{k}"))))
+    a.append(r(relu(mm("s2a", a[3]) + mm("s2b", p) + b("sb1"))))
+    a.append(r(relu(mm("s2w2", a[4]) + b("sb2"))))
+    a.append(r(relu(mm("s2w3", a[5]) + b("sb3"))))
+    sigma = mm("dw", a[6]) + b("db")
+    h = mm("r1a", relu(a[6])) + mm("r1b", relu(d_in))
+    if t_enc is not None:
+        h = h + mm("r1c", relu(t_enc))
+    hs = [r(relu(h + b("rb1")))]
+    for i in range(field.n_rgb - 1):
+        y = mm(f"rgb{i + 1}", hs[-1]) + b(f"rgbb{i + 1}")
+        hs.append(r(relu(y)) if i < field.n_rgb - 2 else y)
+    return a, sigma, hs
+
+
 def fused_field_reference(field: PackedField, xyz: torch.Tensor,
                           ids: torch.Tensor, dir_enc: torch.Tensor,
                           tile_flags: torch.Tensor | None = None):
@@ -206,7 +242,6 @@ def fused_field_reference(field: PackedField, xyz: torch.Tensor,
     def b(slot):
         return field.b(slot)[:, None]
 
-    relu = torch.relu
     if field.motion_mode:
         if field.motion_mode == "lerp":
             lo = torch.floor(ids)
@@ -219,28 +254,12 @@ def fused_field_reference(field: PackedField, xyz: torch.Tensor,
         for k in range(6):
             h = mm(f"m{k}", h) + b(f"mb{k}")
             if k < 5:
-                h = r(relu(h))
+                h = r(torch.relu(h))
         xyz = xyz + h
 
-    p = r(_encode(xyz, spec))
-    x = r(relu(mm("w1", p) + b("b1")))
-    x = r(relu(mm("w2", x) + b("b2")))
-    x = r(relu(mm("w3", x) + b("b3")))
-    x = r(relu(mm("w4", x) + b("b4")))
-    x = r(relu(mm("s2a", x) + mm("s2b", p) + b("sb1")))
-    x = r(relu(mm("s2w2", x) + b("sb2")))
-    x = r(relu(mm("s2w3", x) + b("sb3")))
-    sigma = mm("dw", x) + b("db")
-
-    h = mm("r1a", relu(x)) + mm("r1b", relu(r(dir_enc)))
-    if spec.use_time:
-        h = h + mm("r1c", relu(r(_encode(ids, spec))))
-    h = r(relu(h + b("rb1")))
-    for i in range(field.n_rgb - 1):
-        h = mm(f"rgb{i + 1}", h) + b(f"rgbb{i + 1}")
-        if i < field.n_rgb - 2:
-            h = r(relu(h))
-    rgb, sigma = h, sigma[0]
+    t_enc = r(_encode(ids, spec)) if spec.use_time else None
+    _, sigma, hs = spacenet_chain(field, r(_encode(xyz, spec)), r(dir_enc), t_enc)
+    rgb, sigma = hs[-1], sigma[0]
     if tile_flags is not None:
         keep = (tile_flags != 0).repeat_interleave(TILE)[:xyz.shape[1]]
         rgb = torch.where(keep, rgb, 0.0)
@@ -327,3 +346,43 @@ def fused_field(field: PackedField, xyz: torch.Tensor, ids: torch.Tensor,
 
 
 fused_field.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# packed gradients <-> the nn.Linear parameters
+# ---------------------------------------------------------------------------
+
+def _field_linears(net: SpaceNet, motion: MotionNet | None) -> list:
+    """The field's linears in a fixed order: trunk, stage 2, density, rgb,
+    then the motion net's."""
+    layers = [*net.stage1, *net.stage2, *net.density, *net.rgb]
+    return layers + (list(motion.net) if motion is not None else [])
+
+
+def _linear_grads(field: PackedField, gw: torch.Tensor, gb: torch.Tensor) -> list:
+    """Packed gradients -> [(d weight (out, in), d bias)] per linear of
+    :func:`_field_linears`. The split first layers of stage 2 and of the rgb
+    head are joined again; gradients of the (1, head) zero dummies that
+    stand in for a missing direction or time input are dropped."""
+    spec = field.spec
+
+    def w(*parts):
+        return torch.cat([field.w(s, gw) if isinstance(s, str) else s for s in parts],
+                         0).t().contiguous()
+
+    def b(slot):
+        return field.b(slot, gb).clone()
+
+    out = [(w(f"w{k}"), b(f"b{k}")) for k in (1, 2, 3, 4)]
+    out += [(w("s2a", "s2b"), b("sb1")), (w("s2w2"), b("sb2")),
+            (w("s2w3"), b("sb3")), (w("dw"), b("db"))]
+    r1 = ["r1a"]
+    if spec.dir_dim:
+        r1.append(field.w("r1b", gw)[:spec.dir_dim])
+    if spec.time_dim:
+        r1.append(field.w("r1c", gw)[:spec.time_dim])
+    out.append((w(*r1), b("rb1")))
+    out += [(w(f"rgb{i}"), b(f"rgbb{i}")) for i in range(1, field.n_rgb)]
+    if field.motion_mode:
+        out += [(w(f"m{k}"), b(f"mb{k}")) for k in range(6)]
+    return out

@@ -1,3 +1,4 @@
+from .camera import CameraTransform, apply_camera_transform
 from .convert import (export_jax_params, export_linears, export_spacenet,
                       load_jax_params, load_linears, load_spacenet)
 from .layered import (EditState, LayeredModel, LayeredSpec, LayerOutputs,
@@ -7,6 +8,7 @@ from .motionnet import MotionNet, MotionNetSpec
 from .spacenet import SpaceNet, SpaceNetSpec
 
 __all__ = [
+    "CameraTransform", "apply_camera_transform",
     "export_jax_params", "export_linears", "export_spacenet", "load_jax_params", "load_linears", "load_spacenet",
     "EditState", "LayeredModel", "LayeredSpec", "LayerOutputs", "RayInputs",
     "RenderOutputs", "SceneBoxes", "compute_scale_pivot", "render_rays",

@@ -7,7 +7,9 @@ params, with numpy leaves) stores linears as ``{"w": (in, out), "b":
 carry a leading L axis on every leaf. :func:`load_jax_params` copies such a
 pytree into a model, and :func:`export_jax_params` writes a model's
 parameters (or their gradients) out as one, so both packages compute — and
-differentiate — the same field from the same numbers.
+differentiate — the same field from the same numbers. The view-deform net
+(``view_deform``, a MotionNet pytree) and the pose refinement
+(``cam_pose``: ``rvec`` (C, 4), ``tvec`` (C, 3)) travel too.
 """
 
 from __future__ import annotations
@@ -60,6 +62,10 @@ def load_jax_params(model: LayeredModel, tree: dict) -> LayeredModel:
         expected.add("motion")
     if model.bkgd_motion is not None:
         expected.add("bkgd_motion")
+    if model.view_deform is not None:
+        expected.add("view_deform")
+    if model.cam_pose is not None:
+        expected.add("cam_pose")
     if set(tree) != expected:
         raise ValueError(f"pytree groups {sorted(tree)} do not match the "
                          f"model's {sorted(expected)}")
@@ -74,16 +80,30 @@ def load_jax_params(model: LayeredModel, tree: dict) -> LayeredModel:
     if model.bkgd_motion is not None:
         load_linears(model.bkgd_motion.net, tree["bkgd_motion"]["net"], None,
                     "bkgd_motion")
+    if model.view_deform is not None:
+        load_linears(model.view_deform.net, tree["view_deform"]["net"], None,
+                     "view_deform")
+    if model.cam_pose is not None:
+        for name in ("rvec", "tvec"):
+            p, v = getattr(model.cam_pose, name), np.asarray(tree["cam_pose"][name])
+            if v.shape != tuple(p.shape):
+                raise ValueError(f"cam_pose.{name}: pytree {v.shape} does not fit "
+                                 f"{tuple(p.shape)}")
+            p.copy_(torch.tensor(v, dtype=torch.float32))
     return model
+
+
+def _value(p: nn.Parameter, grad: bool) -> np.ndarray:
+    """A parameter, or its gradient (zero where no loss reached it, as in
+    JAX), as a numpy array."""
+    t = (p.grad if p.grad is not None else torch.zeros_like(p)) if grad else p
+    return t.detach().cpu().numpy()
 
 
 def export_linears(layers: nn.ModuleList, grad: bool = False) -> list:
     """``layers`` (or their gradients) as JAX linears ``[{"w", "b"}]``."""
-    def value(p):  # a parameter no loss reached has a zero gradient, as in JAX
-        t = (p.grad if p.grad is not None else torch.zeros_like(p)) if grad else p
-        return t.detach().cpu().numpy()
-
-    return [{"w": value(layer.weight).T.copy(), "b": value(layer.bias)} for layer in layers]
+    return [{"w": _value(layer.weight, grad).T.copy(), "b": _value(layer.bias, grad)}
+            for layer in layers]
 
 
 def export_spacenet(net, grad: bool = False) -> dict:
@@ -115,4 +135,9 @@ def export_jax_params(model: LayeredModel, grad: bool = False) -> dict:
         tree["motion"] = {"net": _stack([export_linears(m.net, grad) for m in model.motion])}
     if model.bkgd_motion is not None:
         tree["bkgd_motion"] = {"net": export_linears(model.bkgd_motion.net, grad)}
+    if model.view_deform is not None:
+        tree["view_deform"] = {"net": export_linears(model.view_deform.net, grad)}
+    if model.cam_pose is not None:
+        tree["cam_pose"] = {name: _value(getattr(model.cam_pose, name), grad)
+                            for name in ("rvec", "tvec")}
     return tree

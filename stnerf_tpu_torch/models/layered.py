@@ -8,19 +8,31 @@ resampling over the union of coarse and new samples, and the depth-sorted
 merge of every layer's samples. Edits (hide/show, shift, scale, alpha,
 near clip, density thresholds) are data in :class:`EditState`.
 
-Every field evaluation goes through ``kernels.fused_field``: the hand-
-written CUDA kernel on the card, its plain PyTorch version on the CPU (or
-anywhere with ``plain=True``). Per-ray bbox hits become the kernel's
-per-tile skip flags; a performer that is hidden, or that no ray of the
-batch hits, gets all-zero flags, so every block of its launch exits at
-once without a host round trip. For training (``render_rays(...,
-trainable=True)``) each field goes through
+Without view deformation every field evaluation goes through
+``kernels.fused_field``: the hand-written CUDA kernel on the card, its
+plain PyTorch version on the CPU (or anywhere with ``plain=True``). Per-ray
+bbox hits become the kernel's per-tile skip flags; a performer that is
+hidden, or that no ray of the batch hits, gets all-zero flags, so every
+block of its launch exits at once without a host round trip. For training
+(``render_rays(..., trainable=True)``) each field goes through
 ``kernels.field_vjp.field_planar_trainable`` instead: the same forward
 kernel, and the backward kernel ``field_bwd``.
 
-Not ported yet (``LayeredSpec`` refuses them): the fast fine stage, the
-early-exit coarse march, the sort-free compositor, view deformation, pose
-refinement and occupancy sub-box slices.
+With view deformation (USE_DEFORM_VIEW) both stages take the staged path,
+as the JAX package's trainable-kernel path does: the view, time and
+background flows move the samples under autograd (:func:`_deform`), the
+encodings are computed outside the kernel, and the SpaceNet MLP runs
+through ``kernels.spacenet_vjp.spacenet_planar_trainable`` (forward kernel,
+and the backward kernel in training). That kernel has no per-tile skip
+flags; a performer that is hidden, or that no ray of the batch hits, is
+skipped whole by one device-side flag (JAX's chunk-level ``lax.cond``), and
+otherwise runs every sample. Pose refinement (POSE_REFINEMENT) moves the rays
+by a learned per-camera rotation and translation (``models/camera.py``)
+before sampling the fields, on either path.
+
+Not ported yet (``LayeredSpec`` refuses them): the fast fine stage, in
+rendering and in training (FAST_FINE, FAST_FINE_TRAIN), the early-exit
+coarse march, the sort-free compositor and occupancy sub-box slices.
 """
 
 from __future__ import annotations
@@ -38,12 +50,14 @@ from ..kernels.fused_field import (TILE, PackedField, fused_field,
                                    fused_field_reference, pack_field,
                                    prepare_kernel_params_planar,
                                    prepare_motion_params_planar)
+from ..kernels.spacenet_vjp import spacenet_planar_trainable
 from ..ops.encoding import positional_encoding_planar
 from ..ops.rounding import round_to
 from ..ops.sampling import (ray_aabb_intersect, sample_pdf,
                             stratified_between, stratified_near_far)
 from ..ops.volume import (merge_layers_planar, sort_merge_t,
                           volume_render_planar)
+from .camera import CameraTransform, apply_camera_transform
 from .motionnet import MotionNet, MotionNetSpec
 from .spacenet import SpaceNet, SpaceNetSpec
 
@@ -64,25 +78,26 @@ class LayeredSpec:
     bkgd_use_space_time: bool = False
     use_deform_time: bool = False
     bkgd_use_deform_time: bool = False
+    use_deform_view: bool = False      # view-deform net over every layer
+    pose_refinement: bool = False      # learned per-camera pose correction
     deep_rgb: bool = False
     backbone_dim: int = 256
     head_dim: int = 128
     motion_dim: int = 128
+    camera_num: int = 0                # cameras of the pose refinement
     compute_dtype: str = "float32"     # "bfloat16" | "float32"
     # paths of the JAX package this port does not have yet; any of them on
-    # is refused rather than silently rendered another way
-    use_deform_view: bool = False
-    pose_refinement: bool = False
+    # is refused rather than silently rendered or trained another way
     nosort_composite: bool = False
     fast_fine: bool = False
+    fast_fine_train: bool = False
     coarse_exit_segments: int = 0
     occ_gap_skip: bool = False
 
     def __post_init__(self):
-        unported = {"USE_DEFORM_VIEW": self.use_deform_view,
-                    "POSE_REFINEMENT": self.pose_refinement,
-                    "nosort_composite": self.nosort_composite,
+        unported = {"nosort_composite": self.nosort_composite,
                     "FAST_FINE": self.fast_fine,
+                    "FAST_FINE_TRAIN": self.fast_fine_train,
                     "EARLY_EXIT_SEGMENTS > 1": self.coarse_exit_segments > 1,
                     "OCC_GAP_SKIP": self.occ_gap_skip}
         on = [k for k, v in unported.items() if v]
@@ -95,7 +110,9 @@ class LayeredSpec:
             raise ValueError(f"unknown COMPUTE_DTYPE {self.compute_dtype!r}")
 
     @classmethod
-    def from_cfg(cls, cfg) -> "LayeredSpec":
+    def from_cfg(cls, cfg, camera_num: int = 0) -> "LayeredSpec":
+        """``camera_num``: the training cameras the pose refinement learns a
+        correction for (the dataset's camera count)."""
         m = cfg.MODEL
         return cls(
             layer_num=cfg.DATASETS.LAYER_NUM,
@@ -110,15 +127,17 @@ class LayeredSpec:
             bkgd_use_space_time=m.BKGD_USE_SPACE_TIME,
             use_deform_time=m.USE_DEFORM_TIME,
             bkgd_use_deform_time=m.BKGD_USE_DEFORM_TIME,
+            use_deform_view=m.USE_DEFORM_VIEW,
+            pose_refinement=m.POSE_REFINEMENT,
             # matches ref: modeling/layered_rfrender.py:35
             deep_rgb=(m.DEEP_RGB and m.USE_SPACE_TIME),
             backbone_dim=m.BACKBONE_DIM,
             head_dim=m.HEAD_DIM,
             motion_dim=m.MOTION_DIM,
+            camera_num=camera_num,
             compute_dtype=cfg.TPU.COMPUTE_DTYPE,
-            use_deform_view=m.USE_DEFORM_VIEW,
-            pose_refinement=m.POSE_REFINEMENT,
             fast_fine=cfg.TPU.FAST_FINE,
+            fast_fine_train=cfg.TPU.FAST_FINE_TRAIN,
             coarse_exit_segments=int(cfg.TPU.EARLY_EXIT_SEGMENTS),
             occ_gap_skip=cfg.TPU.OCC_GAP_SKIP,
         )
@@ -215,8 +234,9 @@ class LayeredModel(nn.Module):
     of performer 0's net, and the fine nets as copies of the coarse ones
     (shared when SAME_SPACENET). Draws come from ``generator`` (a CPU
     generator) in the order background, performer 0, motion net, background
-    motion net. The model lands on ``device``: the CUDA card unless the
-    caller names another (``device="cpu"``).
+    motion net, view-deform net. The pose refinement starts at the identity
+    for ``max(camera_num, 1)`` cameras. The model lands on ``device``: the
+    CUDA card unless the caller names another (``device="cpu"``).
     """
 
     def __init__(self, spec: LayeredSpec,
@@ -238,6 +258,10 @@ class LayeredModel(nn.Module):
             self.motion = nn.ModuleList(copy.deepcopy(m0) for _ in range(L))
         self.bkgd_motion = (MotionNet(spec.motion_spec(input_time=False), generator)
                             if spec.bkgd_use_deform_time else None)
+        self.view_deform = (MotionNet(spec.motion_spec(input_time=False), generator)
+                            if spec.use_deform_view else None)
+        self.cam_pose = (CameraTransform(max(spec.camera_num, 1))
+                         if spec.pose_refinement else None)
         self._packed = {}
         self.to(device)
 
@@ -402,6 +426,76 @@ def _eval_fields_trainable(model: LayeredModel, xyz: torch.Tensor,
     return torch.stack(rgbs), torch.stack(sigs)
 
 
+def _deform(model: LayeredModel, xyz: torch.Tensor, frame_ids: torch.Tensor,
+            cam_ids: torch.Tensor) -> torch.Tensor:
+    """The staged path's flows under autograd (``layered.py:696-730``), in
+    the JAX package's order: the view flow on every layer with the camera
+    id, then each performer's time flow with its frame id, then the
+    background's. Encodings by double-angle recursion, as JAX does whenever
+    the trainable kernel is on. xyz (L+1, 3, N, S) -> the same, deformed."""
+    spec = model.spec
+    lp1, _, N, S = xyz.shape
+    dt = spec.dtype
+    if model.view_deform is not None:
+        ids = cam_ids[None, :, None].expand(lp1, N, S)
+        flow = model.view_deform(xyz.transpose(0, 1), ids, dt, recursive=True)
+        xyz = xyz + flow.transpose(0, 1)
+    layers = [xyz[0]]
+    for i in range(spec.layer_num):
+        x = xyz[i + 1]
+        if model.motion is not None:
+            x = x + model.motion[i](x, frame_ids[:, i + 1, None].expand(N, S), dt,
+                                    recursive=True)
+        layers.append(x)
+    if model.bkgd_motion is not None:
+        layers[0] = layers[0] + model.bkgd_motion(
+            layers[0], frame_ids[:, 0, None].expand(N, S), dt, recursive=True)
+    return torch.stack(layers)
+
+
+def _eval_fields_staged(model: LayeredModel, xyz: torch.Tensor,
+                        dirs_p: torch.Tensor, frame_ids: torch.Tensor,
+                        fine: bool, active: torch.Tensor, plain: bool = False):
+    """The staged field path (JAX ``_eval_fields_trainable``,
+    ``layered.py:579-642``) on deformed positions xyz (L+1, 3, N, S):
+    positions and frame ids encoded here by double-angle recursion (times
+    directly, not the motion net's lerp blend), directions once per ray,
+    then one differentiable SpaceNet call per field
+    (``spacenet_planar_trainable``), in inference as in training. No per-tile
+    skip flags: a performer runs every sample unless ``active`` ((L+1,)
+    bool: any ray hits it and it is shown) is False, and then the kernels
+    skip it on the device and it yields zeros, as JAX's ``lax.cond``. The
+    background always runs. Same outputs as :func:`_eval_fields_fused`."""
+    spec = model.spec
+    _, _, N, S = xyz.shape
+    M = N * S
+    inc = spec.include_input
+    if spec.use_dir:
+        dir_enc = positional_encoding_planar(
+            dirs_p, spec.spacenet_spec(bkgd=True).dir_freqs, inc, recursive=True)
+        dir_b = dir_enc[:, :, None].expand(-1, N, S).reshape(-1, M).contiguous()
+    else:  # the packing's (1, head) zero dummy takes a zero row
+        dir_b = torch.zeros((1, M), dtype=torch.float32, device=xyz.device)
+    flags = active.to(torch.int32)
+    rgbs, sigs = [], []
+    for i, ((net, _, _), x, ids) in enumerate(zip(model.stage_fields(fine), xyz,
+                                                  frame_ids.T)):
+        sspec = net.spec
+        pos = positional_encoding_planar(x.reshape(3, M), sspec.pos_freqs, inc,
+                                         recursive=True)
+        t_enc = None
+        if sspec.use_time:
+            t1 = positional_encoding_planar(ids[None], sspec.time_freqs, inc,
+                                            recursive=True)          # (time_dim, N)
+            t_enc = t1[:, :, None].expand(-1, N, S).reshape(-1, M).contiguous()
+        rgb, sig = spacenet_planar_trainable(net, pos.contiguous(), dir_b, t_enc,
+                                             spec.compute_dtype, plain,
+                                             flags[i:i + 1] if i else None)
+        rgbs.append(rgb.reshape(3, N, S))
+        sigs.append(sig.reshape(N, S))
+    return torch.stack(rgbs), torch.stack(sigs)
+
+
 def _mask_sigma_coarse(sigma, t, hit, edits: EditState):
     """Coarse-stage zeroing (ref: layered_rfrender.py:397-418): misses and
     hidden layers, performer samples behind the origin, background samples
@@ -447,8 +541,18 @@ def render_rays(model: LayeredModel, scene: SceneBoxes, inputs: RayInputs,
     returns its composites in the fine slots too (the coarse training
     stage). ``trainable`` makes the fields differentiable wrt the model's
     parameters (:func:`_eval_fields_trainable`); the sample depths never
-    are (stop-gradient, as the JAX package).
+    are (stop-gradient, as the JAX package). With pose refinement the rays
+    are moved by their camera's correction first; the bbox sampling still
+    reads the unrefined rays, as the JAX package's does. With view
+    deformation both stages deform the samples and take the staged path
+    (:func:`_deform`, :func:`_eval_fields_staged`), trainable or not.
     """
+    if not trainable and torch.is_grad_enabled():
+        # nothing to differentiate: the pose refinement and the staged path
+        # would otherwise record a graph
+        with torch.no_grad():
+            return render_rays(model, scene, inputs, edits, generator, layer_outputs,
+                               plain, only_coarse)
     spec = model.spec
     N = inputs.rays_o.shape[0]
     L, lp1 = spec.layer_num, spec.layer_num + 1
@@ -465,9 +569,17 @@ def render_rays(model: LayeredModel, scene: SceneBoxes, inputs: RayInputs,
                                _gather_boxes(scene, inputs.frame_ids[:, 1:])], 1)
     boxes_all = _edit_boxes(boxes_all, edits)
 
-    o_p, d_p = inputs.rays_o.T, inputs.rays_d.T.contiguous()
+    rays_o, rays_d = inputs.rays_o, inputs.rays_d
+    if model.cam_pose is not None:
+        rays_o, rays_d = apply_camera_transform(model.cam_pose, rays_o, rays_d,
+                                                inputs.cam_ids)
+    o_p, d_p = rays_o.T, rays_d.T.contiguous()
 
     def eval_fields(xyz_, fine):
+        if spec.use_deform_view:
+            xyz_ = _deform(model, xyz_, inputs.frame_ids, inputs.cam_ids)
+            return _eval_fields_staged(model, xyz_, d_p, inputs.frame_ids, fine, active,
+                                       plain)
         if trainable:
             return _eval_fields_trainable(model, xyz_, d_p, inputs.frame_ids,
                                           fine, hit, plain)
@@ -481,6 +593,7 @@ def render_rays(model: LayeredModel, scene: SceneBoxes, inputs: RayInputs,
     # keeps its bbox flags, as the JAX path does)
     shown = edits.visible > 0
     ray_hit = torch.cat([hit[:1], hit[1:] & shown[1:, None]], 0)
+    active = hit.any(1) & shown      # the staged path's chunk-level skip
     xyz = o_p[None, :, :, None] + t_c[:, None] * d_p[None, :, :, None]
     xyz = _inverse_edit_points(xyz, edits)                   # (L+1, 3, N, S1)
     rgb_c, sig_c = eval_fields(xyz, False)

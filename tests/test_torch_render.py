@@ -235,9 +235,8 @@ def test_render_pose_host_matches_jax(download_layers):
     assert color.std() > 0.01  # a picture, not a constant
 
 
-@pytest.mark.parametrize("flag", ["FAST_FINE", "EARLY_EXIT_SEGMENTS", "OCC_GAP_SKIP",
-                                  "USE_DEFORM_VIEW", "POSE_REFINEMENT",
-                                  "nosort_composite", "sliced_boxes"])
+@pytest.mark.parametrize("flag", ["FAST_FINE", "FAST_FINE_TRAIN", "EARLY_EXIT_SEGMENTS",
+                                  "OCC_GAP_SKIP", "nosort_composite", "sliced_boxes"])
 def test_unported_paths_refused(flag):
     """Anything the slice does not port raises instead of rendering another
     way."""
@@ -259,10 +258,7 @@ def test_unported_paths_refused(flag):
         with pytest.raises(NotImplementedError):
             T.LayeredSpec(nosort_composite=True)
         return
-    if flag in ("USE_DEFORM_VIEW", "POSE_REFINEMENT"):
-        cfg.MODEL[flag] = True
-    else:
-        cfg.TPU[flag] = 3 if flag == "EARLY_EXIT_SEGMENTS" else True
+    cfg.TPU[flag] = 3 if flag == "EARLY_EXIT_SEGMENTS" else True
     with pytest.raises(NotImplementedError):
         T.LayeredSpec.from_cfg(cfg)
 
