@@ -68,7 +68,30 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    through the plain versions in float32 and in bf16 (every leaf at
    relative L2 <= 1e-2 but the two ``cam_pose`` leaves, held to a tenth of
    their own bf16 rounding error). Prints seconds per step and rays/s.
-9. The ``{"kernels": [...]}`` line (launches on the main paths, errors, times
+9. Cross-stream kernels vs plain: ``cross_successor`` (K4) and
+   ``cross_log_transmittance_fwd`` / ``_bwd`` (K5) against their plain cube
+   forms at (3, 2000, 120), (3, 2000, 90) and a ragged (3, 37, 24) with
+   exact cross-layer ties, saturated factors and parked depths: K4 bitwise
+   equal, K5 within rtol 1e-5, atol 1e-6 max|plain|. Prints both times and
+   the bound per case.
+10. The sort-free compositor at (3, 2000, 120) in float32:
+   ``composite_merged_nosort(kernel=True)`` against ``kernel=False`` at the
+   JAX package's bars, and against the sorted merge at phase 4's float32
+   bar; forward + backward ms of the three forms.
+11. The training entry point: a synthetic scene written by the port
+   (12 cameras x 5 frames x 2+1 layers at 200x150), then
+   ``stnerf_tpu_torch.tools.train.main`` in-process on
+   configs/config_synthetic.yml with 90+30 samples, TPU.COMPOSITOR_KERNEL
+   on, a 40,000-ray pool and one coarse-only and two full epochs of 20
+   steps at batch 2000 (widths 256/128/128, bf16). Checks finite losses, a
+   falling loss over the last epoch, a finite validation PSNR each epoch,
+   K1, K2, K4 and K5 launched exactly as the steps and validation renders
+   imply, no sorted merge in training and no plain compositor at all, the
+   per-epoch checkpoints; then ``--resume`` for one more epoch, whose first
+   loss must equal that of ``do_train`` from checkpoint 3's parameters;
+   then one float32 step with the flag on and one with it off from the same
+   weights and batch, every gradient leaf at phase 4's bar.
+12. The ``{"kernels": [...]}`` line (launches on the main paths, errors, times
    and bounds), the card line again, and the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -1032,6 +1055,371 @@ def phase_view_pose_train(device, bundle, scene) -> dict:
     return summary
 
 
+def cross_inputs(device, L: int, N: int, S: int, seed: int, hard: bool = False) -> dict:
+    """Seeded (L, N, S) inputs of K4/K5: ascending depths per stream, log
+    factors as a compositor makes them (log of 1 - alpha + 1e-10, floored at
+    1e-10) and cotangents. ``hard`` adds exact cross-layer ties (copied
+    depths, as tests/test_ops.py:503-505), saturated factors (log 1e-10) and
+    one ray whose streams all park at one depth."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    t = np.sort(rng.uniform(0.5, 16.0, (L, N, S)), -1).astype(np.float32)
+    alpha = rng.uniform(0.0, 1.0, (L, N, S)) ** 4
+    logf = np.log(np.maximum(1.0 - alpha + 1e-10, 1e-10)).astype(np.float32)
+    if hard:
+        t[1, :5, 3:7] = t[0, :5, 3:7]
+        t[2, :5, 10] = t[0, :5, 10]
+        t[:, 7] = 4.0
+        logf[0, :3, 4] = np.log(np.float32(1e-10))
+    g = rng.normal(size=(L, N, S)).astype(np.float32)
+    return {k: torch.tensor(v, device=device) for k, v in
+            (("t", t), ("logf", logf), ("g", g))}
+
+
+def phase_cross_vs_plain(device, reps: int) -> list:
+    """K4 and K5 (forward and backward) against their plain versions at the
+    training shapes (3, 2000, 120) and (3, 2000, 90) and a ragged (3, 37, 24)
+    with ties, saturated factors and parked depths: K4 bitwise equal; K5
+    float32 within rtol 1e-5, atol 1e-6 max|plain| (sums of 10^2-10^3
+    same-signed terms in another order). -> per-case rows with kernel and
+    plain ms and the bounds (2 operations, a compare and a min or an add,
+    per pair of samples of different streams; each operand read once and
+    the output written once)."""
+    import torch
+
+    from stnerf_tpu_torch.kernels import cross_trans as ct
+
+    rows = []
+    for L, N, S, hard in ((3, 2000, 120, False), (3, 2000, 90, False), (3, 37, 24, True)):
+        x = cross_inputs(device, L, N, S, SEED + 7 + S, hard)
+        t, logf, g = x["t"], x["logf"], x["g"]
+        succ, succ_p = ct.cross_successor(t), ct.cross_successor_reference(t)
+        fwd, fwd_p = ct.cross_log_transmittance_fwd(t, logf), \
+            ct.cross_log_transmittance_reference(t, logf)
+        bwd, bwd_p = ct.cross_log_transmittance_bwd(t, g), \
+            ct.cross_log_transmittance_bwd_reference(t, g)
+        sync(device)
+        name = f"{L}x{N}x{S}" + ("_ties_saturated_parked" if hard else "")
+        check(torch.equal(succ, succ_p), f"K4 {name}: not bitwise equal to plain")
+        row = {"case": name, "succ_max_abs_err": float((succ - succ_p).abs().max())}
+        for key, got, ref in (("fwd", fwd, fwd_p), ("bwd", bwd, bwd_p)):
+            check(bool(torch.isfinite(got).all()), f"K5 {key} {name}: non-finite")
+            err = float((got - ref).abs().max())
+            scale = float(ref.abs().max())
+            check(torch.allclose(got, ref, rtol=1e-5, atol=1e-6 * scale),
+                  f"K5 {key} {name}: max |err| {err:.3g} outside rtol 1e-5, atol "
+                  f"1e-6 x {scale:.3g}")
+            row[f"{key}_max_abs_err"], row[f"{key}_max_abs_plain"] = err, scale
+        ops = 2.0 * L * (L - 1) * N * S * S
+        elems = L * N * S
+        for key, fn, plain, n_io in (
+                ("succ", lambda: ct.cross_successor(t),
+                 lambda: ct.cross_successor_reference(t), 2),
+                ("fwd", lambda: ct.cross_log_transmittance_fwd(t, logf),
+                 lambda: ct.cross_log_transmittance_reference(t, logf), 3),
+                ("bwd", lambda: ct.cross_log_transmittance_bwd(t, g),
+                 lambda: ct.cross_log_transmittance_bwd_reference(t, g), 3)):
+            row[f"{key}_ms"] = cuda_ms(fn, reps)
+            row[f"{key}_plain_ms"] = cuda_ms(plain, reps)
+            row[f"{key}_bound_ms"], row[f"{key}_bound_by"] = bound_ms(
+                ops, 4.0 * n_io * elems, "float32")
+        print("cross_vs_plain", json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
+def composite_inputs(device, L: int, N: int, S: int, seed: int) -> dict:
+    """Seeded compositor inputs at a training shape: interleaved ascending
+    depths per layer (layer l's s-th sample in its own part of the s-th of S
+    bins over [0.5, 16], so no two layers tie and the sorted merge's order
+    is unique), raw rgb and raw sigma (a third of it negative, i.e.
+    empty)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    u = rng.uniform(0.05, 0.95, (L, N, S))
+    t = 0.5 + 15.5 * (np.arange(S) + (np.arange(L)[:, None, None] + u) / L) / S
+    t = t.astype(np.float32)
+    return {"t": torch.tensor(t, device=device),
+            "rgb": torch.tensor(rng.normal(size=(L, 3, N, S)).astype(np.float32),
+                                device=device),
+            "sigma": torch.tensor(rng.normal(0.3, 1.0, (L, N, S)).astype(np.float32),
+                                  device=device)}
+
+
+def phase_compositor(device, reps: int) -> dict:
+    """The sort-free compositor on the card at (3, 2000, 120), float32:
+    ``composite_merged_nosort(kernel=True)`` against ``kernel=False`` at the
+    JAX package's bars (tests/test_ops.py:526-535: values rtol 1e-5, atol
+    1e-6; rgb gradients rtol 1e-4, atol 1e-6; sigma gradients rtol 1e-4,
+    atol 1e-5), and against the sorted merge (``merge_layers_planar`` +
+    ``volume_render_planar``) at phase 4's float32 bar; forward + backward
+    ms of the three forms."""
+    import torch
+
+    from stnerf_tpu_torch.ops.volume import (composite_merged_nosort, merge_layers_planar,
+                                             volume_render_planar)
+
+    x = composite_inputs(device, 3, 2000, 120, SEED + 8)
+    forms = {"nosort_kernel": lambda r, s: composite_merged_nosort(x["t"], r, s, kernel=True),
+             "nosort_cube": lambda r, s: composite_merged_nosort(x["t"], r, s, kernel=False),
+             "sorted_merge": lambda r, s: volume_render_planar(
+                 *merge_layers_planar(x["t"], r, s))}
+
+    def run(form, with_weights=True):
+        rgb = x["rgb"].clone().requires_grad_(True)
+        sigma = x["sigma"].clone().requires_grad_(True)
+        out = forms[form](rgb, sigma)
+        # tests/test_ops.py's scalar; the sorted merge's weights come in
+        # sorted order, so against it they stay out
+        loss = (out.color ** 2).sum() + out.acc.sum() + out.depth.sum()
+        if with_weights:
+            loss = loss + (out.weights ** 2).sum()
+        return out, torch.autograd.grad(loss, (rgb, sigma))
+
+    res = {form: run(form, form != "sorted_merge") for form in forms}
+    sync(device)
+    (ker, (gr_k, gs_k)), (cube, (gr_c, gs_c)) = res["nosort_kernel"], res["nosort_cube"]
+    row = {"shape": [3, 2000, 120]}
+    for name in ("color", "depth", "acc", "weights"):
+        a, b = getattr(ker, name).detach(), getattr(cube, name).detach()
+        check(torch.allclose(a, b, rtol=1e-5, atol=1e-6),
+              f"nosort kernel vs cube {name}: max |err| {float((a - b).abs().max()):.3g}")
+    check(bool(torch.isfinite(gs_k).all()), "nosort kernel: non-finite sigma gradient")
+    check(torch.allclose(gr_k, gr_c, rtol=1e-4, atol=1e-6)
+          and torch.allclose(gs_k, gs_c, rtol=1e-4, atol=1e-5),
+          "nosort kernel vs cube gradients outside rtol 1e-4, atol 1e-6 / 1e-5")
+    row["kernel_vs_cube_max_abs_err"] = max(
+        float((getattr(ker, n) - getattr(cube, n)).detach().abs().max())
+        for n in ("color", "depth", "acc", "weights"))
+    row["kernel_vs_cube_grad_max_abs_err"] = max(float((gr_k - gr_c).abs().max()),
+                                                 float((gs_k - gs_c).abs().max()))
+    srt, (gr_s, gs_s) = res["sorted_merge"]
+    _, (gr_k, gs_k) = run("nosort_kernel", with_weights=False)
+    stats = {n: compare_leaf(getattr(ker, n), getattr(srt, n))
+             for n in ("color", "depth", "acc")}
+    stats.update({"d_rgb": compare_leaf(gr_k, gr_s), "d_sigma": compare_leaf(gs_k, gs_s)})
+    bad = {k: v for k, v in stats.items() if not f32_close(v)}
+    check(not bad, f"nosort kernel vs sorted merge beyond the float32 bar: {bad}")
+    row["nosort_vs_sorted_max_rel_l2"] = max(v["rel"] for v in stats.values())
+    for form in forms:
+        row[f"{form}_fwd_bwd_ms"] = cuda_ms(lambda: run(form), reps)
+    print("compositor", json.dumps(row), flush=True)
+    return row
+
+
+def count_calls(module, names: list) -> dict:
+    """Replace module.<name> by a wrapper that counts its calls -> the
+    counts, by name (the callers look the functions up at call time)."""
+    counts = dict.fromkeys(names, 0)
+    for name in names:
+        fn = getattr(module, name)
+
+        def counted(*args, _fn=fn, _name=name, **kwargs):
+            counts[_name] += 1
+            return _fn(*args, **kwargs)
+
+        setattr(module, name, counted)
+    return counts
+
+
+def entry_point_cfg_file(scene_root: str, output_dir: str) -> str:
+    """configs/config_synthetic.yml's keys with the entry-point phase's
+    overrides, written to build/ -> its path."""
+    import yaml
+
+    with open(os.path.join(REPO, "configs", "config_synthetic.yml")) as f:
+        raw = yaml.safe_load(f)
+    raw["DATASETS"].update(TRAIN=scene_root, MAX_POOL_RAYS=40_000)
+    raw["MODEL"].update(COARSE_RAY_SAMPLING=90, FINE_RAY_SAMPLING=30)
+    raw["SOLVER"].update(COARSE_STAGE=2, MAX_EPOCHS=4)
+    raw.setdefault("TPU", {})["COMPOSITOR_KERNEL"] = True
+    raw["OUTPUT_DIR"] = output_dir
+    path = os.path.join(REPO, "build", "chip_smoke_train.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(raw, f)
+    return path
+
+
+def compare_compositor_step(device, cfg_file: str, bundle, scene) -> dict:
+    """One float32 training step with TPU.COMPOSITOR_KERNEL on (the
+    sort-free compositor through K4/K5) and one with it off (the sorted
+    merge), from the same weights, batch and sampling noise: every gradient
+    leaf at phase 4's float32 bar; seconds per step of a second step of
+    each."""
+    import torch
+
+    from stnerf_tpu_torch.config import get_cfg
+    from stnerf_tpu_torch.engine import (make_decode, make_optimizer, make_train_step,
+                                         sort_batch_by_hit, split_compact_bundle)
+    from stnerf_tpu_torch.models import LayeredSpec, export_jax_params
+
+    cfg = get_cfg()
+    cfg.merge_from_file(cfg_file)
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    cfg.SOLVER.WARMUP_ITERS = 1
+    base = LayeredSpec.from_cfg(cfg)
+    pool, tables, width = split_compact_bundle(bundle, device)
+    n = cfg.SOLVER.IMS_PER_BATCH
+    idx = torch.arange(n, device=device) * (pool.rgb.shape[0] // n)
+    batch = make_decode(tables, base, width)(type(pool)(*(x[idx] for x in pool)))
+    batch = sort_batch_by_hit(base, scene, batch)
+    grads, seconds = {}, {}
+    for flag in (True, False):
+        model = make_model(dataclasses.replace(base, compositor_kernel=flag), device)
+        opt, sched = make_optimizer(cfg, model)
+        step = make_train_step(model, opt, sched, remove_outliers=True, device=device)
+        m = step(scene, batch, torch.Generator(device=device).manual_seed(SEED), 1.0)
+        check(bool(torch.isfinite(m.loss)), f"compositor kernel {flag}: loss not finite")
+        grads[flag] = dict(_flat_leaves(export_jax_params(model, grad=True)))
+        sync(device)
+        t0 = time.perf_counter()
+        step(scene, batch, torch.Generator(device=device).manual_seed(SEED + 1), 1.0)
+        sync(device)
+        seconds[flag] = time.perf_counter() - t0
+    stats = {k: compare_leaf(grads[True][k], b) for k, b in grads[False].items()}
+    bad = {k: v for k, v in stats.items() if not f32_close(v)}
+    check(not bad, f"f32 step: compositor kernels vs sorted merge gradients beyond the "
+                   f"float32 bar: {bad}")
+    worst = max(stats, key=lambda k: stats[k]["rel"])
+    row = {"dtype": "float32", "worst_rel_l2": [worst, stats[worst]["rel"]],
+           "entries_outside": {k: v["outside"] for k, v in stats.items() if v["outside"]},
+           "nosort_kernel_s_per_step": seconds[True], "sorted_s_per_step": seconds[False],
+           "nosort_kernel_rays_per_s": n / seconds[True],
+           "sorted_rays_per_s": n / seconds[False]}
+    print("train_step_compositor_on_vs_off", json.dumps(row), flush=True)
+    return row
+
+
+def phase_entry_point(device, workers: int = 2) -> dict:
+    """The training entry point from a scene on disk with the compositor
+    kernels on: a synthetic scene written by the port, then
+    ``stnerf_tpu_torch.tools.train.main`` in-process (one coarse-only epoch
+    and two full epochs of 20 steps at batch 2000, validation each epoch),
+    its checks, a ``--resume`` run of one more epoch, and the compositor
+    on/off step comparison -> summary dict."""
+    import shutil
+
+    import torch
+
+    from stnerf_tpu_torch.config import get_cfg
+    from stnerf_tpu_torch.data import make_synthetic_scene, make_train_data
+    from stnerf_tpu_torch.engine import do_train, load_checkpoint, make_optimizer
+    from stnerf_tpu_torch.kernels import cross_trans
+    from stnerf_tpu_torch.kernels.field_vjp import field_bwd
+    from stnerf_tpu_torch.kernels.fused_field import fused_field
+    from stnerf_tpu_torch.kernels.spacenet_vjp import spacenet_bwd, spacenet_fwd
+    from stnerf_tpu_torch.models import LayeredModel, LayeredSpec, layered
+    from stnerf_tpu_torch.tools import train
+
+    root = os.path.join(REPO, "build", "chip_smoke_synthetic")
+    out_dir = os.path.join(REPO, "build", "chip_smoke_entry")
+    for d in (root, out_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    make_synthetic_scene(root, width=200, height=150, num_cams=12, num_frames=5,
+                         layer_num=2, seed=SEED)
+    scene_s = time.perf_counter() - t0
+    cfg_file = entry_point_cfg_file(root, out_dir)
+
+    records = []
+    logger = logging.getLogger("stnerf_tpu_torch.train")
+    logger.setLevel(logging.INFO)
+    handler = logging.StreamHandler(sys.stdout)
+    handler.emit = lambda r: (records.append(r), print("entry", r.getMessage(), flush=True))
+    logger.addHandler(handler)   # before main(): its own stdout and file handlers stay off
+
+    # the sorted merge and the compositor's plain versions, counted
+    merges = count_calls(layered, ["merge_layers_planar"])
+    plain = count_calls(cross_trans, ["cross_successor_reference",
+                                      "cross_log_transmittance_reference",
+                                      "cross_log_transmittance_bwd_reference"])
+    kernels = [fused_field, field_bwd, cross_trans.cross_successor,
+               cross_trans.cross_log_transmittance_fwd, cross_trans.cross_log_transmittance_bwd,
+               spacenet_fwd, spacenet_bwd, *k6_entries()]
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    args = ["-c", cfg_file, "--seed", str(SEED), "--workers", str(workers),
+            "--device", str(device)]
+    history = train.main(args)
+    train_s = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    calls = {**merges, **plain}
+
+    cfg = get_cfg()
+    cfg.merge_from_file(cfg_file)
+    s = cfg.SOLVER
+    n_rays = [r.args[0] for r in records if r.msg.startswith("ray pool: %d rays")][0]
+    steps = n_rays // s.IMS_PER_BATCH
+    check(n_rays == 40_000 and steps == 20, f"pool of {n_rays} rays, {steps} steps an epoch")
+    epochs = [e for e, _ in history]
+    check(epochs == [1, 2, 3], f"epochs run: {epochs}")
+    for epoch, m in history:
+        check(bool(np.isfinite(m.loss).all()), f"epoch {epoch}: non-finite loss")
+    last = history[-1][1].loss
+    check(last[-5:].mean() < last[:5].mean(),
+          f"epoch 3 loss did not fall: first five {last[:5].mean():.4g}, last five "
+          f"{last[-5:].mean():.4g}")
+    val = {r.args[0]: r.args[3] for r in records if r.msg.startswith("Validation - Epoch")}
+    check(sorted(val) == epochs and all(np.isfinite(v) for v in val.values()),
+          f"validation PSNR by epoch: {val}")
+    stage_steps = sum(steps * (1 if e < s.COARSE_STAGE else 2) for e in epochs)
+    lp1 = cfg.DATASETS.LAYER_NUM + 1
+    # validation renders one 200x150 view per epoch through the inference
+    # path: both stages' fields through K1 and both merges sorted, as JAX's
+    val_chunks = len(epochs) * -(-200 * 150 // cfg.TPU.RENDER_CHUNK)
+    expect = {"fused_field": (stage_steps + 2 * val_chunks) * lp1,
+              "field_bwd": stage_steps * lp1,
+              "cross_successor": stage_steps, "cross_log_transmittance_fwd": stage_steps,
+              "cross_log_transmittance_bwd": stage_steps}
+    wrong = {k: [launches[k], v] for k, v in expect.items() if launches[k] != v}
+    check(not wrong, f"launches [counted, implied by the steps and renders]: {wrong}")
+    check(calls["merge_layers_planar"] == 2 * val_chunks and not any(plain.values()),
+          f"training called the sorted merge or a plain compositor: {calls} (validation "
+          f"implies {2 * val_chunks} sorted merges)")
+    ckpts = [os.path.join(out_dir, f"stnerf_torch_checkpoint_{e}.pt") for e in epochs]
+    check(all(os.path.exists(p) for p in ckpts), "a per-epoch checkpoint is missing")
+
+    epoch_s = {r.args[0]: r.args[1] for r in records if r.msg.startswith("Epoch %d done")}
+
+    # --resume: one more epoch from checkpoint 3, and its first step's loss
+    # against a run of do_train from that checkpoint's parameters
+    records.clear()
+    resumed = train.main(args + ["--resume", "--epochs", "5"])
+    check([e for e, _ in resumed] == [4], f"resumed epochs: {[e for e, _ in resumed]}")
+    check(any(r.msg.startswith("resumed %s") and r.args[1] == 3 for r in records),
+          "the resumed run did not start from checkpoint 3")
+    pool, scene = make_train_data(cfg, LayeredSpec.from_cfg(cfg), np.random.default_rng(SEED),
+                                  workers=1, device=device)
+    spec = LayeredSpec.from_cfg(cfg)
+    model = LayeredModel(spec, torch.Generator().manual_seed(SEED + 9), device=device)
+    opt, sched = make_optimizer(cfg, model)
+    load_checkpoint(ckpts[-1], model, opt, sched)
+    replay_cfg = cfg.clone()
+    replay_cfg.SOLVER.MAX_EPOCHS, replay_cfg.OUTPUT_DIR = 5, ""
+    replay = do_train(replay_cfg, model, scene, pool, opt, sched, resume_epoch=3, seed=SEED,
+                      logger=logging.getLogger("chip_smoke.replay"), device=device)
+    first, ref = float(resumed[0][1].loss[0]), float(replay[0][1].loss[0])
+    check(abs(first - ref) <= 1e-6 * abs(ref),
+          f"resumed epoch 4 first loss {first} vs {ref} from checkpoint 3's parameters")
+    logger.removeHandler(handler)
+
+    epoch_s.update({r.args[0]: r.args[1] for r in records
+                    if r.msg.startswith("Epoch %d done")})
+    summary = {"scene_s": scene_s, "train_main_s": train_s, "steps_per_epoch": steps,
+               "launches": launches, "calls": calls, "val_psnr": val,
+               "loss_epoch3_first_last": [float(last[0]), float(last[-1])],
+               "resumed_first_loss": [first, ref],
+               "launches_k6": {k.__name__: launches[k.__name__] for k in k6_entries()},
+               "s_per_step": {e: t / steps for e, t in epoch_s.items()},
+               "rays_per_s": {e: steps * s.IMS_PER_BATCH / t for e, t in epoch_s.items()}}
+    print("entry_point", json.dumps(summary), flush=True)
+    summary["step"] = compare_compositor_step(device, cfg_file, pool, scene)
+    return summary
+
+
 def main():
     import torch
 
@@ -1088,6 +1476,13 @@ def main():
     t0 = time.perf_counter()
     vp_train = phase_view_pose_train(device, bundle, scene)
     print(f"phase view_pose_train: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    cross = phase_cross_vs_plain(device, reps=5)
+    compositor = phase_compositor(device, reps=3)
+    print(f"phase cross_vs_plain + compositor: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    entry = phase_entry_point(device)
+    print(f"phase entry_point: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # the performer field in bf16: the main paths' case
     perf, bwd, k3 = cases[0], bwd_cases[0], k3_cases[0]
@@ -1106,6 +1501,7 @@ def main():
          "source": "stnerf_tpu_torch/kernels/csrc/field_bwd.cu",
          "replaces": "stnerf_tpu/kernels/field_vjp.py:192",
          "launches": train["launches"],
+         "launches_by_path": {"train": train["launches"]},
          "max_abs_err": max(c["f32_max_abs_err"] for c in bwd_cases),
          "ms": bwd["bfloat16_ms"], "plain_ms": bwd["bfloat16_plain_ms"],
          "bound_ms": bwd["bf16_bound_ms"], "bound_by": bwd["bound_by"],
@@ -1124,13 +1520,16 @@ def main():
          "source": "stnerf_tpu_torch/kernels/csrc/spacenet.cu",
          "replaces": "stnerf_tpu/kernels/spacenet_vjp.py:238",
          "launches": vp_train["launches_bwd"],
+         "launches_by_path": {"train": vp_train["launches_bwd"]},
          "max_abs_err": max(c["f32_bwd_max_abs_err"] for c in k3_cases),
          "ms": k3["bfloat16_bwd_ms"], "plain_ms": k3["bfloat16_bwd_plain_ms"],
          "bound_ms": k3["bwd_bound_ms"], "bound_by": k3["bwd_bound_by"],
          "library_ms": None}]
-    # K6's launches as counted in the four main paths' runs (no path calls it)
+    for row in kernels:  # what each launched in the entry point's run too
+        row["launches_by_path"]["entry_point"] = entry["launches"][row["name"]]
+    # K6's launches as counted in the five main paths' runs (no path calls it)
     main_paths = {"render": summary, "train": train, "view_pose_render": vp_render,
-                  "view_pose_train": vp_train}
+                  "view_pose_train": vp_train, "entry_point": entry}
     for name, line in (("fused_spacenet", 139), ("fused_spacenet_planar", 245),
                        ("fused_spacenet_stacked", 292)):
         row = k6[name]
@@ -1143,6 +1542,22 @@ def main():
                         "ms": row["bfloat16_ms"], "plain_ms": row["bfloat16_plain_ms"],
                         "bound_ms": row["bf16_bound_ms"], "bound_by": row["bound_by"],
                         "library_ms": None})
+    # K4 and K5 at the training shape (3, 2000, 120), float32; launches in
+    # the entry point's run (the paths above composite with the sorted merge)
+    for name, key, replaces in (
+            ("cross_successor", "succ", "stnerf_tpu/kernels/cross_trans.py:109"),
+            ("cross_log_transmittance_fwd", "fwd", "stnerf_tpu/kernels/cross_trans.py:126"),
+            ("cross_log_transmittance_bwd", "bwd", "stnerf_tpu/kernels/cross_trans.py:157")):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "stnerf_tpu_torch/kernels/csrc/cross_trans.cu",
+                        "replaces": replaces, "launches": entry["launches"][name],
+                        "launches_by_path": {"entry_point": entry["launches"][name]},
+                        "max_abs_err": max(c[f"{key}_max_abs_err"] for c in cross),
+                        "ms": cross[0][f"{key}_ms"], "plain_ms": cross[0][f"{key}_plain_ms"],
+                        "bound_ms": cross[0][f"{key}_bound_ms"],
+                        "bound_by": cross[0][f"{key}_bound_by"], "library_ms": None})
+    print("compositor_fwd_bwd_ms", json.dumps({k: v for k, v in compositor.items()
+                                                if k.endswith("_ms")}), flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

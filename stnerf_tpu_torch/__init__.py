@@ -9,15 +9,19 @@ CUDA card unless the caller names another device (``device="cpu"``).
 
 Layout (mirrors ``stnerf_tpu``):
   config/    the config tree: keys, defaults, YAML merging
+  data/      scenes on disk, training ray pools, validation views (NumPy,
+             with its own PNG codec)
   ops/       encoding, ray sampling, compositing, metrics (plain PyTorch)
   models/    SpaceNet, MotionNet, the layered field and its render core
   kernels/   hand-written Hopper kernels, each beside its plain version
-  engine/    losses, optimizer, checkpoints, the training step and loop
-  render/    whole-pose rendering in screen-tile order
+  engine/    losses, optimizer, checkpoints, the training step and loop,
+             validation
+  render/    whole-pose rendering in screen-tile order, chunked rendering
+  tools/     entry points (``python -m stnerf_tpu_torch.tools.train``)
 
-This carries the exact layered render path and training. The data path,
-the renderer front end and the inference approximations are not ported yet
-(ROADMAP.md, Queue 1).
+This carries the exact layered render path and training from a scene on
+disk. The renderer front end and the inference approximations are not
+ported yet (ROADMAP.md, Queue 1).
 """
 
 __version__ = "0.1.0"

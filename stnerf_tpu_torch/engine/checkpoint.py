@@ -1,12 +1,15 @@
 """Checkpoints in the port's own format: one ``torch.save`` of the model's,
 optimizer's and scheduler's state dicts with the epoch and step
 (``stnerf_torch_checkpoint_{epoch}[_{step}].pt``). Reading the JAX
-package's ``.ckpt`` pickles is not ported yet.
+package's ``.ckpt`` pickles and the reference's ``.pt`` state dicts is not
+ported yet.
 """
 
 from __future__ import annotations
 
+import glob
 import os
+import re
 
 import torch
 
@@ -42,3 +45,22 @@ def load_checkpoint(path: str, model, optimizer=None, scheduler=None) -> dict:
     if scheduler is not None and blob["scheduler"] is not None:
         scheduler.load_state_dict(blob["scheduler"])
     return {"epoch": blob["epoch"], "step": blob["step"]}
+
+
+def latest_checkpoint(output_dir: str):
+    """Newest checkpoint in ``output_dir`` by (epoch, step), or None: the
+    port's own files, and the JAX package's ``.ckpt`` and the reference's
+    ``.pt`` files by the JAX package's naming (``layered_rfnr_checkpoint_*``),
+    which :func:`load_checkpoint` refuses."""
+    if not os.path.isdir(output_dir):
+        return None
+    best, best_key = None, (-1, -1)
+    for path in glob.glob(os.path.join(output_dir, "*_checkpoint_*")):
+        m = re.match(rf"(?:{_STEM}|layered_rfnr_checkpoint)_(\d+)(?:_(\d+))?\.(ckpt|pt)$",
+                     os.path.basename(path))
+        if not m:
+            continue
+        key = (int(m.group(1)), int(m.group(2) or 0))
+        if key > best_key:
+            best, best_key = path, key
+    return best

@@ -10,15 +10,24 @@ reference trainer's observability: the per-LOG_PERIOD "rays/s" log line
 (ref: :191-194), the mask-loss epochs, a checkpoint per epoch and an
 optional validation callback.
 
-Training keeps the exact semantics, as the JAX trainer forces them: no
-fast fine stage, no early exit (``LayeredSpec`` refuses both), and the
-sorted merge of every layer's samples under autograd. The decoded camera
-ids drive the pose refinement and the view-deform net. Randomness comes from
-a ``torch.Generator`` on the device. Multi-GPU training is not ported yet.
+Training keeps the exact semantics, as the JAX trainer forces them: the
+step renders with its own spec (:func:`training_spec`, JAX's
+``trainer.py:210-213``), the model's with the inference approximations
+stripped (no fast fine stage, no early exit). The merge of every layer's
+samples follows ``TPU.COMPOSITOR_KERNEL``: on, the step composites through
+the JAX trainer's sort-free compositor (``composite_merged_nosort``), whose
+cross-stream terms the kernels K4 and K5 compute on the card; off, through
+the sorted merge under autograd, the GPU-native form chosen for the JAX
+trainer's default cube compositor (the two are gradient-equal, PARITY.md).
+The decoded camera ids drive the pose refinement and the view-deform net.
+Randomness comes from a ``torch.Generator`` on the device. Multi-GPU
+training is not ported yet; nor is JAX's mid-epoch ``resume_step``, a
+workaround for TPU workers dying mid-epoch (resumption is per epoch).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import time
 from typing import NamedTuple
@@ -117,14 +126,24 @@ def make_decode(tables: CamTables, spec: LayeredSpec, width: int):
     return decode
 
 
+def training_spec(spec: LayeredSpec) -> LayeredSpec:
+    """The spec a training step renders with (JAX ``trainer.py:210-213``):
+    the inference approximations stripped (the early exit always, the fast
+    fine stage unless FAST_FINE_TRAIN, which ``LayeredSpec`` refuses), and
+    the sort-free compositor exactly when its kernels are on."""
+    return dataclasses.replace(spec, nosort_composite=spec.compositor_kernel,
+                               coarse_exit_segments=0,
+                               fast_fine=bool(spec.fast_fine_train))
+
+
 def _losses(model: LayeredModel, edits: EditState, remove_outliers: bool,
             scene: SceneBoxes, batch: TrainBatch, generator, mask_on: float,
-            only_coarse: bool, plain: bool = False):
+            only_coarse: bool, plain: bool = False, spec: LayeredSpec | None = None):
     """Forward and loss: MSE on the coarse (and fine) mixed composites plus
-    the gated mask-alpha loss (ref: engine/layered_trainer.py:216-281).
-    -> (loss, _RawMetrics)."""
+    the gated mask-alpha loss (ref: engine/layered_trainer.py:216-281);
+    ``spec`` as ``render_rays`` takes it. -> (loss, _RawMetrics)."""
     out = render_rays(model, scene, batch.inputs, edits, generator, plain=plain,
-                      only_coarse=only_coarse, trainable=True)
+                      only_coarse=only_coarse, trainable=True, spec=spec)
     zero = out.coarse.color.new_zeros(())
     mse_c = rgb_loss(out.coarse.color, batch.rgb)
     m = (mask_alpha_loss(out.coarse_layers.acc, batch.labels) * mask_on
@@ -170,20 +189,21 @@ def make_train_step(model: LayeredModel, optimizer, scheduler=None,
                     remove_outliers: bool = False, plain: bool = False,
                     device=None):
     """-> step(scene, batch, generator, mask_on, only_coarse=False) ->
-    StepMetrics (0-d tensors on the device). The step leaves the gradients
-    it applied in the parameters' ``.grad``. ``plain`` runs the fields'
-    plain forward and backward instead of the kernels. The model must
-    already be on ``device`` (the CUDA card unless another is named)."""
+    StepMetrics (0-d tensors on the device). The step renders with
+    :func:`training_spec` of the model's spec and leaves the gradients it
+    applied in the parameters' ``.grad``. ``plain`` runs the plain forward
+    and backward of every kernel instead. The model must already be on
+    ``device`` (the CUDA card unless another is named)."""
     device = resolve_device(device)
     _check_device(model, device)
-    spec = model.spec
+    spec = training_spec(model.spec)
     edits = EditState.identity(spec.layer_num, device=device)
 
     def step(scene: SceneBoxes, batch: TrainBatch, generator, mask_on: float,
              only_coarse: bool = False) -> StepMetrics:
         optimizer.zero_grad(set_to_none=True)
         loss, raw = _losses(model, edits, remove_outliers, scene, batch, generator,
-                            mask_on, only_coarse, plain=plain)
+                            mask_on, only_coarse, plain=plain, spec=spec)
         loss.backward()
         optimizer.step()
         if scheduler is not None:
@@ -288,17 +308,21 @@ def _epoch_seed(seed: int, epoch: int) -> int:
 
 def do_train(cfg, model: LayeredModel, scene: SceneBoxes, train_pool: dict,
              optimizer=None, scheduler=None, *, mesh=None, val_fn=None,
+             resume_epoch: int = 0, psnr_thres: float = 100.0,
              seed: int = 0, logger: logging.Logger | None = None,
              device=None) -> list:
     """Training host loop (ref: engine/layered_trainer.py:133-331).
 
     ``train_pool`` is a compact bundle (``"pix"`` in it) or the
     pregenerated {rays, rgbs, labels, near_fars} arrays; it is uploaded to
-    the device once. Epochs run from 1 to ``SOLVER.MAX_EPOCHS - 1``: coarse
-    only before ``COARSE_STAGE``, the
-    mask loss on before epoch 3. Each epoch logs the reference's line every
+    the device once. Epochs run from ``resume_epoch + 1`` to
+    ``SOLVER.MAX_EPOCHS - 1``: coarse only before ``COARSE_STAGE``, the
+    mask loss on before epoch 3; an epoch's batches depend on ``seed`` and
+    its number alone, so a resumed run draws what the uninterrupted one
+    would have. Each epoch logs the reference's line every
     LOG_PERIOD steps, saves a checkpoint when ``OUTPUT_DIR`` is set, and
-    calls ``val_fn(model, epoch)`` if given. Without an optimizer,
+    calls ``val_fn(model, epoch)`` if given; training stops after an epoch
+    whose mean fine PSNR exceeds ``psnr_thres``. Without an optimizer,
     ``make_optimizer`` builds one. With pose refinement the model must
     hold a correction for every camera of the pool: build it with
     ``LayeredSpec.from_cfg(cfg, camera_num=pool_camera_num(train_pool,
@@ -345,7 +369,7 @@ def do_train(cfg, model: LayeredModel, scene: SceneBoxes, train_pool: dict,
                 " (compact pixel format)" if compact else "")
 
     history = []
-    for epoch in range(1, s.MAX_EPOCHS):
+    for epoch in range(1 + resume_epoch, s.MAX_EPOCHS):
         start = time.time()
         only_coarse = epoch < s.COARSE_STAGE
         mask_on = 1.0 if epoch < 3 else 0.0
@@ -367,4 +391,9 @@ def do_train(cfg, model: LayeredModel, scene: SceneBoxes, train_pool: dict,
         logger.info("Epoch %d done. Time: %.3f[s] Speed: %.1f[rays/s]", epoch, elapsed,
                     rays_per_s)
         history.append((epoch, metrics))
+        mean_psnr = float(np.mean(metrics.psnr_fine))
+        if mean_psnr > psnr_thres:
+            logger.info("Mean epoch PSNR %.3f > threshold %.3f, stopping", mean_psnr,
+                        psnr_thres)
+            break
     return history

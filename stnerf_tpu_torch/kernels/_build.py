@@ -20,7 +20,8 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "fused_field.cu", CSRC / "field_bwd.cu", CSRC / "spacenet.cu")
+SOURCES = (CSRC / "fused_field.cu", CSRC / "field_bwd.cu", CSRC / "spacenet.cu",
+           CSRC / "cross_trans.cu")
 HEADERS = (CSRC / "field_common.cuh", CSRC / "mlp_blocks.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -41,6 +42,12 @@ SIGNATURES = {
     # pos, dir, time, d_rgb, d_sigma, weights, biases, offsets (host),
     # active, gw, gb, d_pos, d_dir, then the same 8 ints, and the stream
     "stnerf_spacenet_bwd": [_P] * 13 + [_I] * 8 + [_P],
+    # t, out, then L, N, S, and the stream
+    "stnerf_cross_successor": [_P] * 2 + [_I] * 3 + [_P],
+    # t, logf (forward) or the cotangent (backward), out, then L, N, S, and
+    # the stream
+    "stnerf_cross_logt_fwd": [_P] * 3 + [_I] * 3 + [_P],
+    "stnerf_cross_logt_bwd": [_P] * 3 + [_I] * 3 + [_P],
 }
 
 

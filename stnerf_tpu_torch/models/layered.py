@@ -30,9 +30,19 @@ otherwise runs every sample. Pose refinement (POSE_REFINEMENT) moves the rays
 by a learned per-camera rotation and translation (``models/camera.py``)
 before sampling the fields, on either path.
 
-Not ported yet (``LayeredSpec`` refuses them): the fast fine stage, in
-rendering and in training (FAST_FINE, FAST_FINE_TRAIN), the early-exit
-coarse march, the sort-free compositor and occupancy sub-box slices.
+With ``nosort_composite`` both merges composite through
+``ops.volume.composite_merged_nosort`` (the JAX package's sort-free
+training compositor) instead of the sorted merge; with
+``compositor_kernel`` too its cross-stream terms come from the kernels K4
+and K5 (``kernels.cross_trans``) on the card.
+
+Not ported yet: the fast fine stage and the early-exit coarse march
+(FAST_FINE, EARLY_EXIT_SEGMENTS > 1: a spec holds them, as the JAX
+package's does, and ``render_rays`` refuses to run them; the trainer and
+validation strip them, as JAX's do), the fast fine stage in training
+(FAST_FINE_TRAIN) and occupancy gap skipping (OCC_GAP_SKIP), which
+``LayeredSpec`` refuses, and occupancy sub-box slices, which
+``render_rays`` refuses.
 """
 
 from __future__ import annotations
@@ -55,8 +65,8 @@ from ..ops.encoding import positional_encoding_planar
 from ..ops.rounding import round_to
 from ..ops.sampling import (ray_aabb_intersect, sample_pdf,
                             stratified_between, stratified_near_far)
-from ..ops.volume import (merge_layers_planar, sort_merge_t,
-                          volume_render_planar)
+from ..ops.volume import (composite_merged_nosort, merge_layers_planar,
+                          sort_merge_t, volume_render_planar)
 from .camera import CameraTransform, apply_camera_transform
 from .motionnet import MotionNet, MotionNetSpec
 from .spacenet import SpaceNet, SpaceNetSpec
@@ -86,19 +96,19 @@ class LayeredSpec:
     motion_dim: int = 128
     camera_num: int = 0                # cameras of the pose refinement
     compute_dtype: str = "float32"     # "bfloat16" | "float32"
-    # paths of the JAX package this port does not have yet; any of them on
-    # is refused rather than silently rendered or trained another way
-    nosort_composite: bool = False
+    nosort_composite: bool = False     # sort-free merged compositor
+    compositor_kernel: bool = False    # its cross-stream terms by K4/K5
+    # inference approximations of the JAX package: held, but render_rays
+    # refuses to run them (the trainer and validation strip them)
     fast_fine: bool = False
-    fast_fine_train: bool = False
     coarse_exit_segments: int = 0
+    # paths of the JAX package this port does not have yet; either on is
+    # refused rather than silently rendered or trained another way
+    fast_fine_train: bool = False
     occ_gap_skip: bool = False
 
     def __post_init__(self):
-        unported = {"nosort_composite": self.nosort_composite,
-                    "FAST_FINE": self.fast_fine,
-                    "FAST_FINE_TRAIN": self.fast_fine_train,
-                    "EARLY_EXIT_SEGMENTS > 1": self.coarse_exit_segments > 1,
+        unported = {"FAST_FINE_TRAIN": self.fast_fine_train,
                     "OCC_GAP_SKIP": self.occ_gap_skip}
         on = [k for k, v in unported.items() if v]
         if on:
@@ -136,6 +146,7 @@ class LayeredSpec:
             motion_dim=m.MOTION_DIM,
             camera_num=camera_num,
             compute_dtype=cfg.TPU.COMPUTE_DTYPE,
+            compositor_kernel=cfg.TPU.COMPOSITOR_KERNEL,
             fast_fine=cfg.TPU.FAST_FINE,
             fast_fine_train=cfg.TPU.FAST_FINE_TRAIN,
             coarse_exit_segments=int(cfg.TPU.EARLY_EXIT_SEGMENTS),
@@ -526,10 +537,37 @@ def _select_layers(layer_outputs, lp1: int):
     return None if len(sel) == lp1 else sel
 
 
+# the static switches a render may set apart from the model's own spec
+_RENDER_SWITCHES = ("nosort_composite", "compositor_kernel", "fast_fine",
+                    "coarse_exit_segments")
+
+
+def _render_spec(model: LayeredModel, spec: LayeredSpec | None) -> LayeredSpec:
+    """``spec`` (default: the model's) after checking that it differs from
+    the model's only in :data:`_RENDER_SWITCHES`, and that it asks for no
+    approximation this port does not have."""
+    if spec is None:
+        spec = model.spec
+    elif dataclasses.replace(spec, **{k: getattr(model.spec, k)
+                                      for k in _RENDER_SWITCHES}) != model.spec:
+        raise ValueError("a render spec may differ from the model's only in "
+                         f"{', '.join(_RENDER_SWITCHES)}")
+    on = [name for name, v in (("FAST_FINE", spec.fast_fine),
+                               ("EARLY_EXIT_SEGMENTS > 1", spec.coarse_exit_segments > 1))
+          if v]
+    if on:
+        raise NotImplementedError(
+            f"not ported to stnerf_tpu_torch yet: {', '.join(on)} (render with "
+            "dataclasses.replace(spec, fast_fine=False, coarse_exit_segments=0), "
+            "as the trainer and validation do)")
+    return spec
+
+
 def render_rays(model: LayeredModel, scene: SceneBoxes, inputs: RayInputs,
                 edits: EditState, generator: torch.Generator | None = None,
                 layer_outputs=None, plain: bool = False,
-                only_coarse: bool = False, trainable: bool = False) -> RenderOutputs:
+                only_coarse: bool = False, trainable: bool = False,
+                spec: LayeredSpec | None = None) -> RenderOutputs:
     """Render a batch of rays through all layers, exact reference
     semantics (``layered.py:884-1087``, the exact fine branch).
 
@@ -546,14 +584,22 @@ def render_rays(model: LayeredModel, scene: SceneBoxes, inputs: RayInputs,
     reads the unrefined rays, as the JAX package's does. With view
     deformation both stages deform the samples and take the staged path
     (:func:`_deform`, :func:`_eval_fields_staged`), trainable or not.
+
+    ``spec`` (default ``model.spec``) may set the static switches of
+    :data:`_RENDER_SWITCHES` apart from the model's, as the JAX package's
+    trainer and validation render with a spec of their own. With
+    ``nosort_composite`` both merges go through
+    ``composite_merged_nosort``, whose cross-stream terms come from K4 and
+    K5 when ``compositor_kernel`` is on (on CUDA tensors, unless ``plain``).
+    A spec with FAST_FINE or EARLY_EXIT_SEGMENTS > 1 raises.
     """
+    spec = _render_spec(model, spec)
     if not trainable and torch.is_grad_enabled():
         # nothing to differentiate: the pose refinement and the staged path
         # would otherwise record a graph
         with torch.no_grad():
             return render_rays(model, scene, inputs, edits, generator, layer_outputs,
-                               plain, only_coarse)
-    spec = model.spec
+                               plain, only_coarse, spec=spec)
     N = inputs.rays_o.shape[0]
     L, lp1 = spec.layer_num, spec.layer_num + 1
     S1, S2 = spec.coarse_samples, spec.fine_samples
@@ -601,7 +647,11 @@ def render_rays(model: LayeredModel, scene: SceneBoxes, inputs: RayInputs,
     per_layer_c = volume_render_planar(t_c, rgb_c, sig_c, bw)
     coarse_layers = LayerOutputs(per_layer_c.color, per_layer_c.depth,
                                  per_layer_c.acc)
-    mixed_c = volume_render_planar(*merge_layers_planar(t_c, rgb_c, sig_c), bw)
+    kernel = spec.compositor_kernel and not plain
+    if spec.nosort_composite:
+        mixed_c = composite_merged_nosort(t_c, rgb_c, sig_c, bw, kernel=kernel)
+    else:
+        mixed_c = volume_render_planar(*merge_layers_planar(t_c, rgb_c, sig_c), bw)
     coarse = LayerOutputs(mixed_c.color, mixed_c.depth, mixed_c.acc)
     if only_coarse:
         return RenderOutputs(coarse, coarse, coarse_layers, coarse_layers, hit)
@@ -633,8 +683,12 @@ def render_rays(model: LayeredModel, scene: SceneBoxes, inputs: RayInputs,
             fine_layers.depth[idx] = p.depth
             fine_layers.acc[idx] = p.acc
 
-    t_mf, rgb_mf, sig_mf = merge_layers_planar(t_f, rgb_f, sig_f)
-    sig_mf = torch.where(t_mf >= edits.near, sig_mf, 0.0)     # ref: :605
-    mixed_f = volume_render_planar(t_mf, rgb_mf, sig_mf, bw)
+    if spec.nosort_composite:
+        sig_fc = torch.where(t_f >= edits.near, sig_f, 0.0)   # ref: :605
+        mixed_f = composite_merged_nosort(t_f, rgb_f, sig_fc, bw, kernel=kernel)
+    else:
+        t_mf, rgb_mf, sig_mf = merge_layers_planar(t_f, rgb_f, sig_f)
+        sig_mf = torch.where(t_mf >= edits.near, sig_mf, 0.0)  # ref: :605
+        mixed_f = volume_render_planar(t_mf, rgb_mf, sig_mf, bw)
     fine = LayerOutputs(mixed_f.color, mixed_f.depth, mixed_f.acc)
     return RenderOutputs(fine, coarse, fine_layers, coarse_layers, hit)

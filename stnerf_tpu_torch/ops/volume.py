@@ -85,6 +85,55 @@ def merge_layers_planar(t: torch.Tensor, rgb: torch.Tensor,
             sig_cat.gather(-1, order))
 
 
+def composite_merged_nosort(t: torch.Tensor, rgb: torch.Tensor, sigma: torch.Tensor,
+                            boarder_weight: float = 1e10,
+                            kernel: bool = False) -> RenderedRays:
+    """Merged-layer compositing without the cross-layer sort — the JAX
+    package's training compositor (``ops/volume.py:263-353``), equal up to
+    float reassociation to ``volume_render_planar(*merge_layers_planar(t,
+    rgb, sigma))``.
+
+    The union's exclusive transmittance at a sample factorizes into each
+    stream's own product over the samples that precede it, so it is the exp
+    of the stream's own exclusive log-factor cumsum plus a masked sum of
+    the other streams' log factors; the union segment length runs to the
+    nearest next sample in any stream. Depths are constants (stop-gradient).
+
+    As the JAX package, the "no successor" sentinel is the finite 3.4e38:
+    its ``isfinite`` test never picks ``boarder_weight``, and the last
+    union sample gets delta ~ 3.4e38 - t. Factors are floored at 1e-10
+    before the log.
+
+    t (L, N, S) per-layer ascending depths, rgb (L, 3, N, S) raw, sigma
+    (L, N, S) raw; ``weights`` is layer-major (N, L*S, 1). ``kernel`` takes
+    the cross-stream terms from K4 and K5 (``kernels/cross_trans.py``: the
+    kernels on CUDA tensors, their plain versions on CPU ones); otherwise
+    from the plain cube forms, the JAX package's golden path.
+    """
+    from ..kernels import cross_trans
+
+    L, N, S = t.shape
+    t = t.detach()
+    t_next_own = torch.cat([t[..., 1:], torch.full_like(t[..., :1], cross_trans.NO_SUCCESSOR)],
+                           -1)
+    succ = (cross_trans.cross_successor(t) if kernel
+            else cross_trans.cross_successor_reference(t))
+    nxt = torch.minimum(t_next_own, succ)
+    delta = torch.where(torch.isfinite(nxt), nxt - t, boarder_weight).detach()
+    alpha = 1.0 - torch.exp(-torch.relu(sigma) * delta)
+    f = 1.0 - alpha + 1e-10
+    logf = torch.log(torch.clamp(f, min=1e-10))
+    excl = torch.cat([torch.zeros_like(logf[..., :1]), torch.cumsum(logf, -1)[..., :-1]], -1)
+    cross = (cross_trans.cross_log_transmittance(t, logf) if kernel
+             else cross_trans.cross_log_transmittance_reference(t, logf))
+    w = alpha * torch.exp(excl + cross)                          # (L, N, S)
+    color = (w[:, None] * torch.sigmoid(rgb)).sum((0, 3)).t()
+    depth = (w * t).sum((0, 2))[:, None]
+    acc = w.sum((0, 2))[:, None]
+    weights = w.permute(1, 0, 2).reshape(N, L * S)[..., None]
+    return RenderedRays(color, depth, acc, weights)
+
+
 def sort_merge_t(t_a: torch.Tensor, t_b: torch.Tensor) -> torch.Tensor:
     """Sorted union of two per-ray depth sets, (N,S1),(N,S2) -> (N,S1+S2)
     (ref: modeling/layered_rfrender.py:462)."""

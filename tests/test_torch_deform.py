@@ -389,10 +389,11 @@ def test_convert_round_trip_and_frozen_groups():
 
 def test_default_config_and_camera_count(rng):
     """The port's default config builds a pose-refining model with one
-    correction per camera once its two inference approximations (fast
-    fine, early exit; still refused) are off; do_train trains the view-pose
-    model on the CPU, refuses a model with fewer pose corrections than the
-    pool has cameras, and launches no kernel there."""
+    correction per camera (its two inference approximations, fast fine and
+    early exit, held by the spec as the JAX package's holds them; the
+    trainer strips them); do_train trains the view-pose model on the CPU,
+    refuses a model with fewer pose corrections than the pool has cameras,
+    and launches no kernel there."""
     import torch
 
     from stnerf_tpu_torch.config import get_cfg
@@ -402,11 +403,8 @@ def test_default_config_and_camera_count(rng):
 
     cfg = get_cfg()
     assert cfg.MODEL.POSE_REFINEMENT
-    with pytest.raises(NotImplementedError) as refused:
-        LayeredSpec.from_cfg(cfg, camera_num=8)
-    assert "POSE_REFINEMENT" not in str(refused.value)
-    cfg.TPU.FAST_FINE, cfg.TPU.EARLY_EXIT_SEGMENTS = False, 0
     spec = LayeredSpec.from_cfg(cfg, camera_num=8)
+    assert spec.fast_fine and spec.coarse_exit_segments == 3
     assert spec.pose_refinement and spec.camera_num == 8
     assert LayeredModel(spec, device="cpu").cam_pose.rvec.shape == (8, 4)
 
