@@ -13,9 +13,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    taekwondo widths (W=256, head 128, motion 128) on M = 4096 x 120 seeded
    samples, for a performer ("lerp" motion, time input), the background (no
    motion, no time), "direct" motion and a 4-layer rgb head, with skip
-   flags that zero some tiles: float32 kernel vs float32 plain (TF32 off) within rtol 2e-3,
-   atol 2e-4; bf16 kernel vs float32 plain >= 40 dB on sigmoid(rgb).
-   Prints both times per case.
+   flags that zero some tiles: float32 kernel (CUDA cores) vs float32 plain
+   (TF32 off) within rtol 2e-3, atol 2e-4; bf16 kernel (tensor cores) vs
+   bf16 plain within relative L2 1e-2 on rgb and on sigma, and vs float32
+   plain >= 40 dB on sigmoid(rgb). Then the edges: a narrow model (trunk
+   64, head 32, motion 32) and a ragged M with all tiles on, all off and no
+   flags. Prints both routes' times and bounds per case.
 3. The slice: five edit requests of the taekwondo model (L=2, 90+30
    samples, space-time and deform-time on, bf16, exact settings) rendered at
    480x270 through ``render_pose_host``, chunk 4096, 64-pixel tiles. Checks
@@ -30,8 +33,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    float32 (TF32 off) per gradient leaf within rtol 2e-3, atol 2e-3 max|g|
    but for at most one entry or 0.1% of the leaf (a ReLU input within
    round-off of 0 masks differently under the two summation orders;
-   ``f32_close``); bf16 vs bf16 relative L2 <= 1e-2 per leaf. Prints both
-   times per case.
+   ``f32_close``); bf16 (tensor cores, two passes) vs bf16 relative L2 <=
+   1e-2 per leaf on the inputs of a real training step's backward (phase
+   5's model, pool and batch; ``real_bwd_inputs``), and bitwise the same
+   gradients when run twice (``check_field_bwd``). The same edges as phase
+   2 (bf16 on the real background inputs cut to the ragged M). Prints both
+   routes' times and bounds per case at the seeded shape.
 5. Training: ``do_train`` on the taekwondo model at batch 2000 (one
    coarse-only epoch, then one full epoch, 20 steps each) from a compact
    pool of 40,000 rays of 8 ring cameras at 1920x1080 around the scene of
@@ -40,8 +47,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    once per field and stage of every step, and a checkpoint round trip;
    then one training step through the kernels and one through the plain
    versions from the same weights and batch, gradients compared per leaf
-   (bf16: relative L2 <= 1e-2; float32 as phase 4). Prints seconds per
-   step and rays/s for both paths.
+   (bf16: relative L2 <= 1e-2; float32 as phase 4), each kernel step's
+   launches by route. Prints seconds per step and rays/s for both paths.
 6. SpaceNet kernels vs plain: ``spacenet_fwd`` and ``spacenet_bwd`` (K3)
    against their plain versions at the taekwondo widths on M = 2000 x 120
    seeded encodings (every sample), for a performer with time, the
@@ -238,9 +245,7 @@ def phase_kernel_vs_plain(device, m: int, reps: int):
     results (the plain version is the oracle)."""
     import torch
 
-    from stnerf_tpu_torch.kernels.fused_field import (
-        TILE, fused_field, fused_field_reference, pack_field,
-        prepare_kernel_params_planar, prepare_motion_params_planar)
+    from stnerf_tpu_torch.kernels.fused_field import TILE, fused_field, fused_field_reference
     from stnerf_tpu_torch.models import LayeredSpec, MotionNet, SpaceNet
     from stnerf_tpu_torch.ops.encoding import positional_encoding_planar
 
@@ -274,40 +279,119 @@ def phase_kernel_vs_plain(device, m: int, reps: int):
 
     results = []
     for name, net, mnet, mode in cases:
-        fields = {}
-        for dt in ("float32", "bfloat16"):
-            tdt = torch.bfloat16 if dt == "bfloat16" else torch.float32
-            fields[dt] = pack_field(prepare_kernel_params_planar(net, tdt),
-                                    prepare_motion_params_planar(mnet, tdt) if mode else (),
-                                    net.spec, mode, dt)
-        rgb_k, sig_k = fused_field(fields["float32"], xyz, ids, dir_enc, flags)
-        rgb_p, sig_p = fused_field_reference(fields["float32"], xyz, ids, dir_enc, flags)
-        sync(device)
-        check(torch.isfinite(rgb_k).all() and torch.isfinite(sig_k).all(), f"{name}: non-finite")
-        check(bool((rgb_k[:, skipped] == 0).all() and (sig_k[skipped] == 0).all()),
-              f"{name}: skipped tiles are not exactly 0")
-        err = max(float((rgb_k - rgb_p).abs().max()), float((sig_k - sig_p).abs().max()))
-        close = (torch.allclose(rgb_k, rgb_p, rtol=2e-3, atol=2e-4)
-                 and torch.allclose(sig_k, sig_p, rtol=2e-3, atol=2e-4))
-        check(close, f"{name}: f32 kernel vs plain max |err| {err:.3g} "
-                     "outside rtol 2e-3, atol 2e-4")
-        rgb_b, sig_b = fused_field(fields["bfloat16"], xyz, ids, dir_enc, flags)
-        db = psnr(torch.sigmoid(rgb_b).cpu(), torch.sigmoid(rgb_p).cpu())
-        check(db >= 40.0, f"{name}: bf16 kernel vs f32 plain {db:.1f} dB < 40")
-        f = fields["bfloat16"]
-        # bytes: xyz, ids, dir_enc in, rgb and sigma out, and the weights once
-        nbytes = 4 * m * (4 + dir_enc.shape[0] + 4) + 2 * f.weights.numel()
-        t, by = bound_ms(2 * field_macs(f)["fwd"] * samples_run, nbytes, "bfloat16")
-        row = {"case": name, "f32_max_abs_err": err, "bf16_vs_f32_db": db,
-               "samples_run": samples_run, "bf16_bound_ms": t, "bound_by": by}
+        fields = {dt: pack_dtype(net, mnet, mode, dt) for dt in ("float32", "bfloat16")}
+        row = check_fused_field(name, fields, xyz, ids, dir_enc, flags, skipped)
+        row["samples_run"] = samples_run
         for dt in ("float32", "bfloat16"):
             f = fields[dt]
+            # bytes: xyz, ids, dir_enc in, rgb and sigma out, and the weights once
+            nbytes = 4 * m * (4 + dir_enc.shape[0] + 4) + f.weights.element_size() * f.weights.numel()
+            row[f"{dt}_bound_ms"], row[f"{dt}_bound_by"] = bound_ms(
+                2 * field_macs(f)["fwd"] * samples_run, nbytes, dt)
             row[f"{dt}_ms"] = cuda_ms(lambda: fused_field(f, xyz, ids, dir_enc, flags), reps)
             row[f"{dt}_plain_ms"] = cuda_ms(
                 lambda: fused_field_reference(f, xyz, ids, dir_enc, flags), reps)
         print("kernel_vs_plain", json.dumps(row), flush=True)
         results.append(row)
+    results += edge_cases(device, check_fused_field, "kernel_vs_plain_edge", seed=SEED + 5)
     return results
+
+
+def pack_dtype(net, mnet, mode, dt: str):
+    """One field's packed operands in compute dtype ``dt``."""
+    import torch
+
+    from stnerf_tpu_torch.kernels.fused_field import (pack_field, prepare_kernel_params_planar,
+                                                      prepare_motion_params_planar)
+
+    tdt = torch.bfloat16 if dt == "bfloat16" else torch.float32
+    return pack_field(prepare_kernel_params_planar(net, tdt),
+                      prepare_motion_params_planar(mnet, tdt) if mode else (), net.spec, mode, dt)
+
+
+def check_fused_field(name, fields, xyz, ids, dir_enc, flags, skipped) -> dict:
+    """fused_field against fused_field_reference for one field in both
+    dtypes: finite outputs, exact zeros in skipped tiles, float32 within
+    rtol 2e-3, atol 2e-4 (CUDA-core route), bf16 (tensor-core route) within
+    relative L2 1e-2 of the bf16 plain version on rgb and on sigma, and bf16
+    >= 40 dB from the float32 plain version on sigmoid(rgb). -> the errors."""
+    import torch
+
+    from stnerf_tpu_torch.kernels.fused_field import fused_field, fused_field_reference
+
+    out = {}
+    for dt, f in fields.items():
+        got = fused_field(f, xyz, ids, dir_enc, flags)
+        sync(xyz.device)
+        ref = fused_field_reference(f, xyz, ids, dir_enc, flags)
+        check(all(bool(torch.isfinite(g).all()) for g in got), f"{name} {dt}: non-finite")
+        check(bool((got[0][:, skipped] == 0).all() and (got[1][skipped] == 0).all()),
+              f"{name} {dt}: skipped tiles are not exactly 0")
+        out[dt] = got, ref
+    (rgb_k, sig_k), (rgb_p, sig_p) = out["float32"]
+    err = max(float((rgb_k - rgb_p).abs().max()), float((sig_k - sig_p).abs().max()))
+    close = (torch.allclose(rgb_k, rgb_p, rtol=2e-3, atol=2e-4)
+             and torch.allclose(sig_k, sig_p, rtol=2e-3, atol=2e-4))
+    check(close, f"{name}: f32 kernel vs plain max |err| {err:.3g} outside rtol 2e-3, atol 2e-4")
+    (rgb_b, sig_b), (rgb_bp, sig_bp) = out["bfloat16"]
+    rel = [compare_leaf(rgb_b, rgb_bp)["rel"], compare_leaf(sig_b, sig_bp)["rel"]]
+    check(max(rel) <= 1e-2, f"{name}: bf16 kernel vs bf16 plain relative L2 (rgb, sigma) {rel} "
+                            "> 1e-2")
+    db = psnr(torch.sigmoid(rgb_b).cpu(), torch.sigmoid(rgb_p).cpu())
+    check(db >= 40.0, f"{name}: bf16 kernel vs f32 plain {db:.1f} dB < 40")
+    bf_err = max(float((rgb_b - rgb_bp).abs().max()), float((sig_b - sig_bp).abs().max()))
+    return {"case": name, "m": int(xyz.shape[1]), "f32_max_abs_err": err,
+            "bf16_vs_bf16_rel_l2": rel, "bf16_vs_bf16_max_abs_err": bf_err,
+            "bf16_vs_f32_db": db}
+
+
+def edge_cases(device, check_fn, label: str, seed: int) -> list:
+    """The kernels' edges, both dtypes: a narrow model (trunk 64, head 32,
+    motion 32: every width the tiling pads) with seeded skip flags, and the
+    taekwondo performer at a ragged M (not a multiple of 64 or 128) with all
+    tiles flagged on, all flagged off and no flags. ``check_fn(name,
+    fields, xyz, ids, dir_enc, flags, skipped)`` is phase 2's or phase 4's
+    check. -> its rows."""
+    import torch
+
+    from stnerf_tpu_torch.kernels.fused_field import TILE
+    from stnerf_tpu_torch.models import LayeredSpec
+    from stnerf_tpu_torch.ops.encoding import positional_encoding_planar
+
+    m = 2000 * 61 + 45
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.tensor(a, dtype=torch.float32, device=device).contiguous()
+
+    xyz = t(rng.uniform(-3.0, 3.0, (3, m)))
+    ids = t(rng.integers(1, 101, (1, m)) + rng.choice([0.0, 0.25, 0.5], (1, m)))
+    d = rng.normal(size=(3, m))
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    dir_enc = positional_encoding_planar(t(d), 4, True, recursive=True).contiguous()
+    n_tiles = -(-m // TILE)
+    narrow_cfg = taekwondo_cfg()
+    narrow_cfg.merge_from_list(["MODEL.BACKBONE_DIM", 64, "MODEL.HEAD_DIM", 32,
+                                "MODEL.MOTION_DIM", 32])
+    narrow = make_model(LayeredSpec.from_cfg(narrow_cfg), device)
+    wide = make_model(LayeredSpec.from_cfg(taekwondo_cfg()), device)
+    seeded = (rng.random(n_tiles) > 0.25).astype(np.int32)
+    cases = [("narrow_performer", narrow.layers_fine[0], narrow.motion[0], "lerp", seeded),
+             ("narrow_background", narrow.bkgd_fine, None, None, seeded),
+             ("ragged_all_on", wide.layers_fine[0], wide.motion[0], "lerp",
+              np.ones(n_tiles, np.int32)),
+             ("ragged_all_off", wide.layers_fine[0], wide.motion[0], "lerp",
+              np.zeros(n_tiles, np.int32)),
+             ("ragged_no_flags", wide.layers_fine[0], wide.motion[0], "lerp", None)]
+    rows = []
+    for name, net, mnet, mode, flags_np in cases:
+        fields = {dt: pack_dtype(net, mnet, mode, dt) for dt in ("float32", "bfloat16")}
+        flags = None if flags_np is None else torch.tensor(flags_np, device=device)
+        off = np.zeros(m, bool) if flags_np is None else np.repeat(flags_np == 0, TILE)[:m]
+        row = check_fn(name, fields, xyz, ids, dir_enc, flags, torch.tensor(off, device=device))
+        print(label, json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
 
 
 def scene_and_requests(device, frames: int = 3):
@@ -365,7 +449,7 @@ def phase_slice(device, h: int, w: int, chunk: int, tile_cols: int):
     render_pose_host(model, scene, K, c2w, [1.0, 1.0, 1.0], near_far, requests[0][2],
                      h, w, chunk=chunk, tile_cols=tile_cols)
     sync(device)
-    fused_field.launches = 0
+    fused_field.launches = fused_field.launches_tc = 0
     zero_k6()
     renders, seconds, images = 0, {}, {}
     for name, fids, edits in requests:
@@ -398,11 +482,12 @@ def phase_slice(device, h: int, w: int, chunk: int, tile_cols: int):
     for name in images:
         check(name == "plain" or not np.array_equal(images[name], images["plain"]),
               f"{name}: the edit left the image unchanged")
-    launches, k6 = fused_field.launches, read_k6()
+    launches, launches_tc, k6 = fused_field.launches, fused_field.launches_tc, read_k6()
     _, _, _, _, n_pad = tile_grid(h, w, chunk, tile_cols)
     expected = renders * (n_pad // chunk) * 2 * lp1
-    check(launches == expected,
-          f"fused_field launched {launches} times, the renders imply {expected}")
+    check(launches == expected and launches_tc == expected,
+          f"fused_field launched {launches} times ({launches_tc} on tensor cores), the bf16 "
+          f"renders imply {expected}")
 
     t0 = time.perf_counter()
     plain_color, *_ = render_pose_host(model, scene, K, c2w, [1.0, 1.0, 1.0], near_far,
@@ -413,7 +498,7 @@ def phase_slice(device, h: int, w: int, chunk: int, tile_cols: int):
     check(db >= 40.0, f"kernel pose vs plain pose {db:.1f} dB < 40")
     summary = {"h": h, "w": w, "chunk": chunk, "kernel_s_per_pose": seconds,
                "plain_s_per_pose": plain_s, "kernel_vs_plain_db": db,
-               "launches": launches, "launches_k6": k6}
+               "launches": launches, "launches_tc": launches_tc, "launches_k6": k6}
     print("slice", json.dumps(summary), flush=True)
     return summary
 
@@ -450,14 +535,91 @@ def _leaf_stats(field, got, ref, x_name: str = "d_xyz") -> dict:
     return {name: compare_leaf(a, b) for name, (a, b) in pairs.items()}
 
 
+def train_batch(device, bundle, scene, cfg):
+    """The trainer's first batch of the ring pool ``bundle`` for the model
+    of ``cfg``: decoded, and sorted by hit on the fused path, as
+    make_train_epoch makes it. -> (spec, batch)."""
+    import torch
+
+    from stnerf_tpu_torch.engine import (make_decode, pool_camera_num, sort_batch_by_hit,
+                                         split_compact_bundle)
+    from stnerf_tpu_torch.models import LayeredSpec
+
+    spec = LayeredSpec.from_cfg(cfg)
+    spec = dataclasses.replace(spec, camera_num=pool_camera_num(bundle, spec))
+    pool, tables, width = split_compact_bundle(bundle, device)
+    n = cfg.SOLVER.IMS_PER_BATCH
+    idx = torch.arange(n, device=device) * (pool.rgb.shape[0] // n)
+    batch = make_decode(tables, spec, width)(type(pool)(*(x[idx] for x in pool)))
+    if not spec.use_deform_view:  # as the trainer: only the fused path sorts
+        batch = sort_batch_by_hit(spec, scene, batch)
+    return spec, batch
+
+
+def real_bwd_inputs(device) -> dict:
+    """K2's inputs in a real training step: one plain bf16 step of the
+    taekwondo model on the ring pool's first batch (phase 5's), and the
+    arguments of its full stage's backward calls (M = batch x 120 samples):
+    the main path's sample positions, frame ids, skip flags and the
+    rendering loss's cotangents. -> {"performer": (xyz, ids, dir_enc,
+    d_rgb, d_sigma, tile_flags), "background": (...)}."""
+    import torch
+
+    from stnerf_tpu_torch.engine import make_optimizer, make_train_step
+    from stnerf_tpu_torch.kernels import field_vjp
+
+    scene, _ = scene_and_requests(device)
+    cfg = taekwondo_cfg()
+    cfg.SOLVER.WARMUP_ITERS = 1
+    spec, batch = train_batch(device, ring_bundle(scene), scene, cfg)
+    calls, plain = [], field_vjp.field_bwd_reference
+
+    def record(field, *args):
+        calls.append((bool(field.motion_mode),
+                      tuple(None if a is None else a.clone() for a in args)))
+        return plain(field, *args)
+
+    field_vjp.field_bwd_reference = record  # the plain step's backward looks it up there
+    try:
+        model = make_model(spec, device)
+        opt, sched = make_optimizer(cfg, model)
+        step = make_train_step(model, opt, sched, remove_outliers=True, plain=True,
+                               device=device)
+        step(scene, batch, torch.Generator(device=device).manual_seed(SEED), 1.0)
+    finally:
+        field_vjp.field_bwd_reference = plain
+    m = max(args[0].shape[1] for _, args in calls)
+    return {name: next(args for motion, args in calls if motion == want and args[0].shape[1] == m)
+            for name, want in (("performer", True), ("background", False))}
+
+
+def _skipped(flags, m: int):
+    """The samples of the tiles whose skip flag is 0 (none without flags)."""
+    import torch
+
+    from stnerf_tpu_torch.kernels.fused_field import TILE
+
+    if flags is None:
+        return torch.zeros(m, dtype=torch.bool, device="cpu")
+    return (flags == 0).repeat_interleave(TILE)[:m]
+
+
 def phase_field_bwd_vs_plain(device, m: int, reps: int):
-    """field_bwd vs field_bwd_reference on seeded inputs and cotangents ->
-    per-case results (the plain version is the oracle)."""
+    """field_bwd vs field_bwd_reference (the oracle) -> per-case results.
+    float32 on seeded inputs and cotangents at M = m with 25% of the tiles
+    off, the timed shape; bf16 on a real training step's inputs
+    (``real_bwd_inputs``: the performer field's for the performer cases, the
+    background's for the others). Seeded inputs are ill-conditioned for
+    bf16: at random frame ids 1-100 and positions in [-3, 3]^3 the motion
+    net's output, fed through the encoding's top octave (x 2^9), turns a
+    bf16 rounding that a change of summation order flips into a different
+    input of the trunk, and the leaves move by a few percent between any
+    two orders (PERF.md, PR 5); their reading is printed, unbarred. The bf16
+    route run twice gives the same gradients bit for bit (no atomics)."""
     import torch
 
     from stnerf_tpu_torch.kernels.field_vjp import field_bwd, field_bwd_reference
-    from stnerf_tpu_torch.kernels.fused_field import (
-        TILE, pack_field, prepare_kernel_params_planar, prepare_motion_params_planar)
+    from stnerf_tpu_torch.kernels.fused_field import TILE
     from stnerf_tpu_torch.models import LayeredSpec, MotionNet, SpaceNet
     from stnerf_tpu_torch.ops.encoding import positional_encoding_planar
 
@@ -482,54 +644,99 @@ def phase_field_bwd_vs_plain(device, m: int, reps: int):
     d = rng.normal(size=(3, m))
     d /= np.linalg.norm(d, axis=0, keepdims=True)
     dir_enc = positional_encoding_planar(t(d), 4, True, recursive=True).contiguous()
-    d_rgb, d_sigma = t(rng.normal(size=(3, m))), t(rng.normal(size=m))
+    cot = (t(rng.normal(size=(3, m))), t(rng.normal(size=m)))
     flags_np = (rng.random(-(-m // TILE)) > 0.25).astype(np.int32)
     flags = torch.tensor(flags_np, device=device)
     skipped = torch.tensor(np.repeat(flags_np == 0, TILE)[:m], device=device)
     samples_run = int((~skipped).sum())
+    real = real_bwd_inputs(device)
 
     results = []
     for name, net, mnet, mode in cases:
-        row = {"case": name, "m": m, "samples_run": samples_run}
-        for dt in ("float32", "bfloat16"):
-            tdt = torch.bfloat16 if dt == "bfloat16" else torch.float32
-            f = pack_field(prepare_kernel_params_planar(net, tdt),
-                           prepare_motion_params_planar(mnet, tdt) if mode else (),
-                           net.spec, mode, dt)
-            args = (f, xyz, ids, dir_enc, d_rgb, d_sigma, flags)
-            got = field_bwd(*args)
-            sync(device)
-            ref = field_bwd_reference(*args)
-            for g in got:
-                check(bool(torch.isfinite(g).all()), f"{name} {dt}: non-finite gradient")
-            check(bool((got[2][:, skipped] == 0).all() and (got[3][:, skipped] == 0).all()),
-                  f"{name} {dt}: skipped tiles have nonzero d_xyz or d_dir")
-            stats = _leaf_stats(f, got, ref)
-            if dt == "float32":
-                row["f32_max_abs_err"] = max(v["err"] for v in stats.values())
-                row["f32_max_rel_l2"] = max(v["rel"] for v in stats.values())
-                row["f32_entries_outside"] = {k: v["outside"] for k, v in stats.items()
-                                              if v["outside"]}
-                bad = {k: v for k, v in stats.items() if not f32_close(v)}
-                check(not bad, f"{name}: f32 kernel vs plain beyond the float32 bar: {bad}")
-            else:
-                worst = max(stats, key=lambda k: stats[k]["rel"])
-                row["bf16_worst_rel_l2"] = [worst, stats[worst]["rel"]]
-                check(stats[worst]["rel"] <= 1e-2,
-                      f"{name}: bf16 kernel vs plain relative L2 {stats[worst]['rel']:.3g} "
-                      f"on {worst} > 1e-2")
+        fields = {dt: pack_dtype(net, mnet, mode, dt) for dt in ("float32", "bfloat16")}
+        seeded = (xyz, ids, dir_enc, *cot, flags)
+        r_args = real["performer" if name.startswith("performer") else "background"]
+        row = {"case": name, "m": m, "samples_run": samples_run,
+               "bf16_real_m": int(r_args[0].shape[1])}
+        row.update(check_field_bwd(name, fields["float32"], seeded, skipped))
+        row.update(check_field_bwd(name, fields["bfloat16"], r_args,
+                                   _skipped(r_args[-1], r_args[0].shape[1]).to(device)))
+        f = fields["bfloat16"]
+        first, second = field_bwd(f, *seeded), field_bwd(f, *seeded)
+        check(all(torch.equal(a, b) for a, b in zip(first, second)),
+              f"{name}: bf16 gradients differ between two runs")
+        check(all(bool(torch.isfinite(g).all()) for g in first)
+              and bool((first[2][:, skipped] == 0).all() and (first[3][:, skipped] == 0).all()),
+              f"{name}: bf16 on seeded inputs: non-finite, or nonzero in skipped tiles")
+        stats = _leaf_stats(f, first, field_bwd_reference(f, *seeded))
+        row["bf16_seeded_max_rel_l2"] = max(v["rel"] for v in stats.values())
+        for dt, f in fields.items():
+            args = (f, *seeded)
             row[f"{dt}_ms"] = cuda_ms(lambda: field_bwd(*args), reps)
             row[f"{dt}_plain_ms"] = cuda_ms(lambda: field_bwd_reference(*args), reps)
-            if dt == "bfloat16":
-                # bytes: xyz, ids, dir_enc, both cotangents in, d_xyz and d_dir
-                # out, the weights read and their float32 gradients written once
-                nbytes = (4 * m * (4 + dir_enc.shape[0] + 4 + 3 + dir_enc.shape[0])
-                          + 2 * f.weights.numel() + 4 * (f.weights.numel() + f.biases.numel()))
-                row["bf16_bound_ms"], row["bound_by"] = bound_ms(
-                    2 * field_macs(f)["bwd"] * samples_run, nbytes, "bfloat16")
+            # bytes: xyz, ids, dir_enc, both cotangents in, d_xyz and d_dir
+            # out, the weights read and their float32 gradients written once
+            nbytes = (4 * m * (4 + dir_enc.shape[0] + 4 + 3 + dir_enc.shape[0])
+                      + f.weights.element_size() * f.weights.numel()
+                      + 4 * (f.weights.numel() + f.biases.numel()))
+            row[f"{dt}_bound_ms"], row[f"{dt}_bound_by"] = bound_ms(
+                2 * field_macs(f)["bwd"] * samples_run, nbytes, dt)
         print("field_bwd_vs_plain", json.dumps(row), flush=True)
         results.append(row)
+    background = real["background"]
+
+    def check_edge(name, fields, xyz, ids, dir_enc, flags, skipped):
+        """float32 on the edge case's seeded inputs, bf16 on the real
+        background inputs cut to its M, both with its flags."""
+        n = xyz.shape[1]
+        rng = np.random.default_rng(n)
+        cot = (t(rng.normal(size=(3, n))), t(rng.normal(size=n)))
+        row = {"case": name, "m": n}
+        row.update(check_field_bwd(name, fields["float32"], (xyz, ids, dir_enc, *cot, flags),
+                                   skipped))
+        cut = tuple(a[..., :n].contiguous() for a in background[:5])
+        row.update(check_field_bwd(name, fields["bfloat16"], (*cut, flags), skipped))
+        return row
+
+    results += edge_cases(device, check_edge, "field_bwd_vs_plain_edge", seed=SEED + 6)
     return results
+
+
+def check_field_bwd(name, f, args, skipped) -> dict:
+    """field_bwd against field_bwd_reference for one packed field on args =
+    (xyz, ids, dir_enc, d_rgb, d_sigma, tile_flags): finite gradients, zero
+    d_xyz and d_dir in skipped tiles (and all-zero weight gradients when
+    every tile is skipped); float32 per leaf within rtol 2e-3, atol 2e-3
+    max|g| but for at most one entry or 0.1% of the leaf (``f32_close``);
+    bf16 per leaf within relative L2 1e-2. -> the errors."""
+    import torch
+
+    from stnerf_tpu_torch.kernels.field_vjp import field_bwd, field_bwd_reference
+
+    dt = f.compute_dtype
+    got = field_bwd(f, *args)
+    sync(args[0].device)
+    ref = field_bwd_reference(f, *args)
+    for g in got:
+        check(bool(torch.isfinite(g).all()), f"{name} {dt}: non-finite gradient")
+    check(bool((got[2][:, skipped] == 0).all() and (got[3][:, skipped] == 0).all()),
+          f"{name} {dt}: skipped tiles have nonzero d_xyz or d_dir")
+    if bool(skipped.all()):
+        check(not got[0].any() and not got[1].any(),
+              f"{name} {dt}: every tile skipped, but weight gradients are nonzero")
+    stats = _leaf_stats(f, got, ref)
+    if dt == "float32":
+        bad = {k: v for k, v in stats.items() if not f32_close(v)}
+        check(not bad, f"{name}: f32 kernel vs plain beyond the float32 bar: {bad}")
+        return {"f32_max_abs_err": max(v["err"] for v in stats.values()),
+                "f32_max_rel_l2": max(v["rel"] for v in stats.values()),
+                "f32_entries_outside": {k: v["outside"] for k, v in stats.items()
+                                        if v["outside"]}}
+    worst = max(stats, key=lambda k: stats[k]["rel"])
+    check(stats[worst]["rel"] <= 1e-2, f"{name}: bf16 kernel vs plain relative L2 "
+                                      f"{stats[worst]['rel']:.3g} on {worst} > 1e-2")
+    return {"bf16_worst_rel_l2": [worst, stats[worst]["rel"]],
+            "bf16_max_abs_err": max(v["err"] for v in stats.values())}
 
 
 def _encoded_inputs(device, m: int, seed: int):
@@ -797,24 +1004,21 @@ def compare_train_step(device, bundle, scene, dtype: str, cfg_fn=None,
     every other leaf, and the bf16 bar only bounds the rounding on top."""
     import torch
 
-    from stnerf_tpu_torch.engine import (make_decode, make_optimizer, make_train_step,
-                                         pool_camera_num, sort_batch_by_hit,
-                                         split_compact_bundle)
-    from stnerf_tpu_torch.models import LayeredSpec, export_jax_params
+    from stnerf_tpu_torch.engine import make_optimizer, make_train_step
+    from stnerf_tpu_torch.models import export_jax_params
 
     cfg = (cfg_fn or taekwondo_cfg)()
     cfg.TPU.COMPUTE_DTYPE = dtype
     cfg.SOLVER.WARMUP_ITERS = 1
-    spec = LayeredSpec.from_cfg(cfg)
-    spec = dataclasses.replace(spec, camera_num=pool_camera_num(bundle, spec))
-    pool, tables, width = split_compact_bundle(bundle, device)
+    spec, batch = train_batch(device, bundle, scene, cfg)
     n = cfg.SOLVER.IMS_PER_BATCH
-    idx = torch.arange(n, device=device) * (pool.rgb.shape[0] // n)
-    batch = make_decode(tables, spec, width)(type(pool)(*(x[idx] for x in pool)))
-    if not spec.use_deform_view:  # as the trainer: only the fused path sorts
-        batch = sort_batch_by_hit(spec, scene, batch)
-    grads, seconds = {}, {}
+    from stnerf_tpu_torch.kernels.field_vjp import field_bwd
+    from stnerf_tpu_torch.kernels.fused_field import fused_field
+
+    grads, seconds, launches = {}, {}, {}
     for plain in (False, True):
+        for k in (fused_field, field_bwd):
+            k.launches = k.launches_tc = 0
         model = make_model(spec, device)
         opt, sched = make_optimizer(cfg, model)
         step = make_train_step(model, opt, sched, remove_outliers=True, plain=plain,
@@ -827,6 +1031,10 @@ def compare_train_step(device, bundle, scene, dtype: str, cfg_fn=None,
         step(scene, batch, torch.Generator(device=device).manual_seed(SEED + 1), 1.0)
         sync(device)
         seconds[plain] = time.perf_counter() - t0
+        if not plain:  # two steps through the kernels, by route
+            launches = {f"{k.__name__}{route}": n for k in (fused_field, field_bwd)
+                        for route, n in (("_tc", k.launches_tc),
+                                         ("", k.launches - k.launches_tc))}
     stats = {k: compare_leaf(grads[False][k], b) for k, b in grads[True].items()}
     worst = max(stats, key=lambda k: stats[k]["rel"])
     bars = {}
@@ -844,7 +1052,15 @@ def compare_train_step(device, bundle, scene, dtype: str, cfg_fn=None,
            "worst_rel_l2": [worst, stats[worst]["rel"]],
            "entries_outside": {k: v["outside"] for k, v in stats.items() if v["outside"]},
            "kernel_s_per_step": seconds[False], "plain_s_per_step": seconds[True],
-           "kernel_rays_per_s": n / seconds[False], "plain_rays_per_s": n / seconds[True]}
+           "kernel_rays_per_s": n / seconds[False], "plain_rays_per_s": n / seconds[True],
+           "launches": launches}
+    if not spec.use_deform_view:  # the fused path: every field through K1 and K2
+        route = "_tc" if dtype == "bfloat16" else ""
+        implied = 2 * 2 * (spec.layer_num + 1)  # two full steps, two stages
+        check(launches[f"fused_field{route}"] == implied == launches[f"field_bwd{route}"]
+              and sum(launches.values()) == 2 * implied,
+              f"{dtype} step launched {launches}; two full steps imply {implied} of each "
+              f"kernel on the {dtype} route")
     if f32_plain is not None:
         row["pose_bars"] = {k: [stats[k]["rel"], b] for k, b in bars.items()
                             if k.startswith("/cam_pose/")}
@@ -877,11 +1093,14 @@ def phase_train(device, bundle, scene) -> dict:
     handler.emit = lambda r: (records.append(r), print("train", r.getMessage(), flush=True))
     logger.addHandler(handler)
 
-    fused_field.launches = field_bwd.launches = 0
+    for k in (fused_field, field_bwd):
+        k.launches = k.launches_tc = 0
     zero_k6()
     history = do_train(cfg, model, scene, bundle, opt, sched, logger=logger, seed=SEED,
                        device=device)
     launches, fwd_launches, k6 = field_bwd.launches, fused_field.launches, read_k6()
+    check(field_bwd.launches_tc == launches and fused_field.launches_tc == fwd_launches,
+          "bf16 training launched a CUDA-core field kernel")
     steps = len(bundle["labels"]) // s.IMS_PER_BATCH
     lp1 = spec.layer_num + 1
     expected = sum(steps * (1 if epoch < s.COARSE_STAGE else 2) * lp1 for epoch, _ in history)
@@ -1340,12 +1559,14 @@ def phase_entry_point(device, workers: int = 2) -> dict:
                spacenet_fwd, spacenet_bwd, *k6_entries()]
     for k in kernels:
         k.launches = 0
+    fused_field.launches_tc = field_bwd.launches_tc = 0
     t0 = time.perf_counter()
     args = ["-c", cfg_file, "--seed", str(SEED), "--workers", str(workers),
             "--device", str(device)]
     history = train.main(args)
     train_s = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in kernels}
+    launches.update(fused_field_tc=fused_field.launches_tc, field_bwd_tc=field_bwd.launches_tc)
     calls = {**merges, **plain}
 
     cfg = get_cfg()
@@ -1371,7 +1592,8 @@ def phase_entry_point(device, workers: int = 2) -> dict:
     # path: both stages' fields through K1 and both merges sorted, as JAX's
     val_chunks = len(epochs) * -(-200 * 150 // cfg.TPU.RENDER_CHUNK)
     expect = {"fused_field": (stage_steps + 2 * val_chunks) * lp1,
-              "field_bwd": stage_steps * lp1,
+              "fused_field_tc": (stage_steps + 2 * val_chunks) * lp1,  # bf16: all of them
+              "field_bwd": stage_steps * lp1, "field_bwd_tc": stage_steps * lp1,
               "cross_successor": stage_steps, "cross_log_transmittance_fwd": stage_steps,
               "cross_log_transmittance_bwd": stage_steps}
     wrong = {k: [launches[k], v] for k, v in expect.items() if launches[k] != v}
@@ -1443,7 +1665,7 @@ def main():
     print(f"kernel build: {time.perf_counter() - t0:.1f} s", flush=True)
     for log in sorted(BUILD_DIR.glob("*.log")):
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if "entry function" in line or "registers" in line or "spill" in line:
                 print("ptxas", line.strip(), flush=True)
 
     t0 = time.perf_counter()
@@ -1484,27 +1706,48 @@ def main():
     entry = phase_entry_point(device)
     print(f"phase entry_point: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # the performer field in bf16: the main paths' case
+    # the performer field: the main paths' case. K1 and K2 in two routes
+    # each: bf16 fields on the tensor-core kernels (every main path), float32
+    # fields on the CUDA-core kernels (phase 5's float32 training step)
     perf, bwd, k3 = cases[0], bwd_cases[0], k3_cases[0]
+    f32_step = train["steps"][1]["launches"]
     kernels = [
+        {"name": "fused_field_tc", "route": "cuda",
+         "source": "stnerf_tpu_torch/kernels/csrc/fused_field_tc.cu",
+         "replaces": "stnerf_tpu/kernels/fused_field.py:144",
+         "launches": summary["launches_tc"],
+         "launches_by_path": {"render": summary["launches_tc"],
+                              "train": train["launches_fused_field"]},
+         "max_abs_err": max(c["bf16_vs_bf16_max_abs_err"] for c in cases),
+         "ms": perf["bfloat16_ms"], "plain_ms": perf["bfloat16_plain_ms"],
+         "bound_ms": perf["bfloat16_bound_ms"], "bound_by": perf["bfloat16_bound_by"],
+         "library_ms": None},
         {"name": "fused_field", "route": "cuda",
          "source": "stnerf_tpu_torch/kernels/csrc/fused_field.cu",
          "replaces": "stnerf_tpu/kernels/fused_field.py:144",
-         "launches": summary["launches"],
-         "launches_by_path": {"render": summary["launches"],
-                              "train": train["launches_fused_field"]},
+         "launches": f32_step["fused_field"],
+         "launches_by_path": {"train_step_float32": f32_step["fused_field"]},
          "max_abs_err": max(c["f32_max_abs_err"] for c in cases),
-         "ms": perf["bfloat16_ms"], "plain_ms": perf["bfloat16_plain_ms"],
-         "bound_ms": perf["bf16_bound_ms"], "bound_by": perf["bound_by"],
+         "ms": perf["float32_ms"], "plain_ms": perf["float32_plain_ms"],
+         "bound_ms": perf["float32_bound_ms"], "bound_by": perf["float32_bound_by"],
+         "library_ms": None},
+        {"name": "field_bwd_tc", "route": "cuda",
+         "source": "stnerf_tpu_torch/kernels/csrc/field_bwd_tc.cu",
+         "replaces": "stnerf_tpu/kernels/field_vjp.py:192",
+         "launches": train["launches"],
+         "launches_by_path": {"train": train["launches"]},
+         "max_abs_err": max(c["bf16_max_abs_err"] for c in bwd_cases),
+         "ms": bwd["bfloat16_ms"], "plain_ms": bwd["bfloat16_plain_ms"],
+         "bound_ms": bwd["bfloat16_bound_ms"], "bound_by": bwd["bfloat16_bound_by"],
          "library_ms": None},
         {"name": "field_bwd", "route": "cuda",
          "source": "stnerf_tpu_torch/kernels/csrc/field_bwd.cu",
          "replaces": "stnerf_tpu/kernels/field_vjp.py:192",
-         "launches": train["launches"],
-         "launches_by_path": {"train": train["launches"]},
+         "launches": f32_step["field_bwd"],
+         "launches_by_path": {"train_step_float32": f32_step["field_bwd"]},
          "max_abs_err": max(c["f32_max_abs_err"] for c in bwd_cases),
-         "ms": bwd["bfloat16_ms"], "plain_ms": bwd["bfloat16_plain_ms"],
-         "bound_ms": bwd["bf16_bound_ms"], "bound_by": bwd["bound_by"],
+         "ms": bwd["float32_ms"], "plain_ms": bwd["float32_plain_ms"],
+         "bound_ms": bwd["float32_bound_ms"], "bound_by": bwd["float32_bound_by"],
          "library_ms": None},
         {"name": "spacenet_fwd", "route": "cuda",
          "source": "stnerf_tpu_torch/kernels/csrc/spacenet.cu",
@@ -1525,8 +1768,13 @@ def main():
          "ms": k3["bfloat16_bwd_ms"], "plain_ms": k3["bfloat16_bwd_plain_ms"],
          "bound_ms": k3["bwd_bound_ms"], "bound_by": k3["bwd_bound_by"],
          "library_ms": None}]
-    for row in kernels:  # what each launched in the entry point's run too
-        row["launches_by_path"]["entry_point"] = entry["launches"][row["name"]]
+    # what each launched in the entry point's run too (bf16: the CUDA-core
+    # routes of K1 and K2 count what the tensor-core ones did not take)
+    entry_launches = dict(entry["launches"])
+    for name in ("fused_field", "field_bwd"):
+        entry_launches[name] -= entry_launches[f"{name}_tc"]
+    for row in kernels:
+        row["launches_by_path"]["entry_point"] = entry_launches[row["name"]]
     # K6's launches as counted in the five main paths' runs (no path calls it)
     main_paths = {"render": summary, "train": train, "view_pose_render": vp_render,
                   "view_pose_train": vp_train, "entry_point": entry}

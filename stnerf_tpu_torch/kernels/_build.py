@@ -4,7 +4,7 @@ The sources under ``csrc/`` have a plain C interface. At first use each is
 compiled with ``nvcc`` for Hopper (``sm_90a``), all of them at once in
 parallel, and the objects are linked into one shared library in
 ``build/kernels/`` at the repository root, loaded with ``ctypes``. The
-library's name carries a hash of the sources, the shared header and the
+library's name carries a hash of the sources, the shared headers and the
 flags, so an edit to any of them rebuilds it. Without ``nvcc`` the build
 raises.
 """
@@ -20,22 +20,33 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "fused_field.cu", CSRC / "field_bwd.cu", CSRC / "spacenet.cu",
-           CSRC / "cross_trans.cu")
-HEADERS = (CSRC / "field_common.cuh", CSRC / "mlp_blocks.cuh")
+SOURCES = (CSRC / "fused_field.cu", CSRC / "fused_field_tc.cu", CSRC / "field_bwd.cu",
+           CSRC / "field_bwd_tc.cu", CSRC / "spacenet.cu", CSRC / "cross_trans.cu")
+HEADERS = (CSRC / "field_common.cuh", CSRC / "mlp_blocks.cuh", CSRC / "tc_blocks.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
-    # xyz, ids, dir, flags, weights, biases, offsets (host), out, then
-    # M, dir_rows, width, head, motion_width, freqs, include_input,
-    # use_time, n_rgb, motion_mode, bf16, and the stream
-    "stnerf_fused_field": [_P] * 8 + [_I] * 11 + [_P],
-    # xyz, ids, dir, d_rgb, d_sigma, flags, weights, biases, offsets (host),
-    # gw, gb, d_xyz, d_dir, then the same 11 ints, and the stream
-    "stnerf_field_bwd": [_P] * 13 + [_I] * 11 + [_P],
+    # float32 fields: xyz, ids, dir, flags, weights, biases, offsets (host),
+    # out, then M, dir_rows, width, head, motion_width, freqs,
+    # include_input, use_time, n_rgb, motion_mode, and the stream
+    "stnerf_fused_field": [_P] * 8 + [_I] * 10 + [_P],
+    # bf16 fields (tensor cores): xyz, ids, dir, flags, weights, fragments,
+    # biases, offsets (host), out, then the same 10 ints, and the stream
+    "stnerf_fused_field_tc": [_P] * 9 + [_I] * 10 + [_P],
+    # float32: xyz, ids, dir, d_rgb, d_sigma, flags, weights, biases,
+    # offsets (host), gw, gb, d_xyz, d_dir, then the same 10 ints, and the
+    # stream
+    "stnerf_field_bwd": [_P] * 13 + [_I] * 10 + [_P],
+    # bf16 (tensor cores): the same with the fragments after the weights and
+    # the workspace after d_dir, then the same 10 ints, the packed weights'
+    # and biases' element counts, and the stream
+    "stnerf_field_bwd_tc": [_P] * 15 + [_I] * 12 + [_P],
+    # the 10 ints and the two counts, then a host int64 for the workspace's
+    # bytes
+    "stnerf_field_bwd_tc_workspace": [_I] * 12 + [_P],
     # pos, dir, time, weights, biases, offsets (host), active, out, then M,
     # pos_rows, dir_rows, time_rows, width, head, n_rgb, bf16, and the stream
     "stnerf_spacenet_fwd": [_P] * 8 + [_I] * 8 + [_P],

@@ -1,7 +1,10 @@
-// Backward of the fused field on Hopper (sm_90a).
+// Backward of the fused field on Hopper (sm_90a), float32 fields on CUDA
+// cores.
 //
 // Replaces stnerf_tpu/kernels/field_vjp.py::_call_bwd (the Pallas TPU kernel
-// _field_bwd_kernel / _field_bwd_body, with spacenet_vjp._bwd_math). Per
+// _field_bwd_kernel / _field_bwd_body, with spacenet_vjp._bwd_math) for
+// float32 fields; bf16 fields go to the tensor-core kernel of
+// field_bwd_tc.cu. Per
 // block of BM samples it recomputes the whole field forward — motion
 // encoding, the 6-layer flow MLP, the encoding of the displaced positions,
 // the SpaceNet trunk and both heads — then backpropagates the rgb and sigma
@@ -20,13 +23,11 @@
 //   * CUDA-core FMA loops, no tensor cores, no TMA, one block per SM
 //     (8 warps), as fused_field.cu. The block products (dense forward,
 //     weight gradients, dx) are in mlp_blocks.cuh, shared with spacenet.cu.
-//   * Shared memory holds one tile's activations in the compute dtype
-//     (bf16 or float32, exactly the rounding the TPU kernel applies to its
-//     saved activations), float32 cotangents, and the encodings. The seven
-//     trunk activations, both heads' and the motion net's do not fit at
-//     width 256 (7 x 256 x 64 x 2 bytes for the trunk alone), so a block
-//     covers BM = 32 samples in bf16 and 16 in float32 (2 or 4 blocks per
-//     skip flag), keeps only trunk layers 4-7 through the head and stage-2
+//   * Shared memory holds one tile's activations, float32 cotangents, and
+//     the encodings. The seven trunk activations, both heads' and the
+//     motion net's do not fit at width 256 (7 x 256 x 16 x 4 bytes for the
+//     trunk alone), so a block covers BM = 16 samples (4 blocks per skip
+//     flag), keeps only trunk layers 4-7 through the head and stage-2
 //     backward, recomputes layers 1-3 after it, and recomputes the motion
 //     net at the end (about 13% more arithmetic than saving everything).
 //   * The cross-block sum of the weight gradients: the TPU kernel revisits
@@ -35,9 +36,10 @@
 //     with the result unused: a reduction in L2), four weights per float4
 //     atomic. The order of the additions changes from run to run, so
 //     float32 results agree with the plain version to a tolerance, not
-//     bitwise. With scalar atomics, one per weight and block, the bf16
-//     performer field took 49.0 ms at M = 240,000; with float4 atomics
-//     35.5 ms (chip_smoke.py on an H100 80GB HBM3, 700 W; PERF.md).
+//     bitwise. (With scalar atomics, one per weight and block, the bf16
+//     performer field took 49.0 ms at M = 240,000 in this kernel's former
+//     bf16 instantiation; with float4 atomics 35.5 ms: chip_smoke.py on an
+//     H100 80GB HBM3, 700 W; PERF.md.)
 // Numerics follow the TPU kernel: every cotangent is rounded to the compute
 // dtype where it casts (dy.astype(dtype) after each product), the masks of
 // ReLU compare the stored activation with 0, the position-encoding and
@@ -57,29 +59,6 @@ struct Params {
       motion_mode;
   int pos_rows, time_rows, menc_rows, g_rows, u_rows;
 };
-
-// VJP of one channel (of C) of the encoding wrt its raw input v, with the
-// cotangent rows dE (stride BM) scaled by `mul`: the forward's sin/cos,
-// recomputed by the same recursion, are the derivative factors
-// (field_vjp.py::_encode_vjp).
-__device__ float encode_vjp(float v, const float* dE, int ch, int C, int freqs, int inc,
-                            float mul, int stride, int m) {
-  float d = 0.f;
-  int base = 0;
-  if (inc) {
-    d = __fmul_rn(mul, dE[ch * stride + m]);
-    base = C;
-  }
-  float s = sinf(v), c = cosf(v), scale = 1.f;
-  for (int k = 0; k < freqs; ++k) {
-    if (k) next_octave(s, c);
-    const float ds = __fmul_rn(mul, dE[(base + 2 * C * k + ch) * stride + m]);
-    const float dc = __fmul_rn(mul, dE[(base + 2 * C * k + C + ch) * stride + m]);
-    d = __fadd_rn(d, __fmul_rn(scale, __fsub_rn(__fmul_rn(c, ds), __fmul_rn(s, dc))));
-    scale = 2.f * scale;
-  }
-  return d;
-}
 
 // Motion net forward: encode (xyz, id) into U's first menc_rows rows, the
 // five hidden layers after them, the flow (3 rows, float32) into R.
@@ -387,7 +366,7 @@ extern "C" int stnerf_field_bwd(const void* xyz, const void* ids, const void* di
                                 void* gw, void* gb, void* dxyz, void* ddir, int M, int dir_rows,
                                 int width, int head, int motion_width, int freqs,
                                 int include_input, int use_time, int n_rgb, int motion_mode,
-                                int bf16, void* stream) {
+                                void* stream) {
   if (M <= 0 || dir_rows <= 0 || !kernel_width(width) || !kernel_width(head) ||
       (motion_mode != 0 && !kernel_width(motion_width)) || (n_rgb != 2 && n_rgb != 4) ||
       motion_mode < 0 || motion_mode > 2) {
@@ -426,12 +405,7 @@ extern "C" int stnerf_field_bwd(const void* xyz, const void* ids, const void* di
   auto* gbf = static_cast<float*>(gb);
   auto* fdx = static_cast<float*>(dxyz);
   auto* fdd = static_cast<float*>(ddir);
-  // bf16: activations in bf16, 32 samples a block (~172 KB of shared memory
-  // at the taekwondo widths); float32: 16 samples a block (~135 KB)
-  const cudaError_t e =
-      bf16 ? launch<unsigned short, true, 32>(p, fx, fi, fd, fr, fs, fl, weights, fb, gwf, gbf,
-                                              fdx, fdd, s)
-           : launch<float, false, 16>(p, fx, fi, fd, fr, fs, fl, weights, fb, gwf, gbf, fdx,
-                                      fdd, s);
-  return static_cast<int>(e);
+  // 16 samples a block (~135 KB of shared memory at the taekwondo widths)
+  return static_cast<int>(launch<float, false, 16>(p, fx, fi, fd, fr, fs, fl, weights, fb, gwf,
+                                                   gbf, fdx, fdd, s));
 }

@@ -1,6 +1,6 @@
-// Device helpers shared by the field kernels (fused_field.cu, field_bwd.cu):
+// Device helpers shared by the field kernels (fused_field*.cu, field_bwd*.cu):
 // the packed operand slots, bf16 storage and rounding, vector weight loads, and the TPU kernels'
-// positional encoding by double-angle recursion.
+// positional encoding by double-angle recursion and its VJP.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -62,20 +62,20 @@ __device__ __forceinline__ void next_octave(float& s, float& c) {
 
 // One channel (of C) of the TPU kernel's _encode, as the blend
 // (1 - wt) * enc(v_lo) + wt * enc(v_hi) (wt = 0 and v_hi = v_lo give
-// enc(v_lo) exactly), into rows of `stride` samples at column m. Rows:
+// enc(v_lo) exactly), each row's value handed to emit(row, value). Rows:
 // [v (C) | sin, cos (C each) per octave]; every value rounded to the compute
 // dtype, and clipped at 0 when `relu`.
-template <bool RND, typename DS>
-__device__ void encode(float v_lo, float v_hi, float wt, int ch, int C, int freqs,
-                       int inc, bool relu, DS* dst, int stride, int m) {
+template <bool RND, class Emit>
+__device__ void encode_rows(float v_lo, float v_hi, float wt, int ch, int C, int freqs,
+                            int inc, bool relu, Emit emit) {
   const float omw = __fsub_rn(1.f, wt);
-  auto emit = [&](int row, float lo, float hi) {
+  auto blend = [&](int row, float lo, float hi) {
     const float v = rnd<RND>(__fadd_rn(__fmul_rn(omw, lo), __fmul_rn(wt, hi)));
-    put(dst + row * stride + m, relu ? fmaxf(v, 0.f) : v);
+    emit(row, relu ? fmaxf(v, 0.f) : v);
   };
   int base = 0;
   if (inc) {
-    emit(ch, v_lo, v_hi);
+    blend(ch, v_lo, v_hi);
     base = C;
   }
   float s0 = sinf(v_lo), c0 = cosf(v_lo), s1 = sinf(v_hi), c1 = cosf(v_hi);
@@ -84,9 +84,40 @@ __device__ void encode(float v_lo, float v_hi, float wt, int ch, int C, int freq
       next_octave(s0, c0);
       next_octave(s1, c1);
     }
-    emit(base + 2 * C * k + ch, s0, s1);
-    emit(base + 2 * C * k + C + ch, c0, c1);
+    blend(base + 2 * C * k + ch, s0, s1);
+    blend(base + 2 * C * k + C + ch, c0, c1);
   }
+}
+
+// encode_rows into rows of `stride` samples at column m
+template <bool RND, typename DS>
+__device__ void encode(float v_lo, float v_hi, float wt, int ch, int C, int freqs,
+                       int inc, bool relu, DS* dst, int stride, int m) {
+  encode_rows<RND>(v_lo, v_hi, wt, ch, C, freqs, inc, relu,
+                   [=](int row, float v) { put(dst + row * stride + m, v); });
+}
+
+// VJP of one channel (of C) of the encoding wrt its raw input v, with the
+// cotangent rows dE (float32, stride samples) scaled by `mul`: the
+// forward's sin/cos, recomputed by the same recursion, are the derivative
+// factors (field_vjp.py::_encode_vjp).
+__device__ float encode_vjp(float v, const float* dE, int ch, int C, int freqs, int inc,
+                            float mul, int stride, int m) {
+  float d = 0.f;
+  int base = 0;
+  if (inc) {
+    d = __fmul_rn(mul, dE[ch * stride + m]);
+    base = C;
+  }
+  float s = sinf(v), c = cosf(v), scale = 1.f;
+  for (int k = 0; k < freqs; ++k) {
+    if (k) next_octave(s, c);
+    const float ds = __fmul_rn(mul, dE[(base + 2 * C * k + ch) * stride + m]);
+    const float dc = __fmul_rn(mul, dE[(base + 2 * C * k + C + ch) * stride + m]);
+    d = __fadd_rn(d, __fmul_rn(scale, __fsub_rn(__fmul_rn(c, ds), __fmul_rn(s, dc))));
+    scale = 2.f * scale;
+  }
+  return d;
 }
 
 bool kernel_width(int w) { return w == 32 || w == 64 || w == 128 || w == 256; }

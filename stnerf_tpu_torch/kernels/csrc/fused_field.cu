@@ -1,7 +1,9 @@
-// Fused field evaluation on Hopper (sm_90a).
+// Fused field evaluation on Hopper (sm_90a), float32 fields on CUDA cores.
 //
 // Replaces stnerf_tpu/kernels/fused_field.py::fused_field (the Pallas TPU
-// kernel: _kernel, _kernel_body, _encode). Per block of BM = 64 samples,
+// kernel: _kernel, _kernel_body, _encode) for float32 fields; bf16 fields go
+// to the tensor-core kernel of fused_field_tc.cu (TF32 products would miss
+// the float32 bar). Per block of BM = 64 samples,
 // with every intermediate in shared memory:
 //   1. optional MotionNet: encode (xyz, id) — for "lerp" the floor/ceil
 //      blend of the id's encoding — run the 6-layer flow MLP, add the flow
@@ -15,7 +17,7 @@
 //
 // Bound: about 1 MFLOP per sample against ~40 bytes of sample input and
 // output (fused_field.py:184-188), so arithmetic, not memory, bounds it.
-// The weights (~1.1 MB in bf16 per field) are read from global memory by
+// The weights (~2.2 MB in float32 per field) are read from global memory by
 // every block and stay resident in the 50 MB L2.
 //
 // The simple design, and what it gives up:
@@ -31,10 +33,7 @@
 //     8 warps to hide the latency of L2 weight reads.
 //   * The 1- and 3-wide output layers use one thread per output, with idle
 //     threads beside them.
-// Numerics: products accumulate in float32. In bf16 mode the weights are
-// stored in bf16 and every activation is rounded to bf16 where the TPU
-// kernel casts it (astype(dtype)); a product of two bf16 values is exact in
-// float32, so this equals a bf16 matmul with float32 accumulation. The
+// Numerics: products accumulate in float32, as the plain version's. The
 // encodings use IEEE sinf/cosf and explicitly rounded products (no FMA
 // contraction), matching the plain PyTorch version's elementwise ops.
 
@@ -284,8 +283,7 @@ extern "C" int stnerf_fused_field(const void* xyz, const void* ids, const void* 
                                   const void* biases, const void* offsets, void* out,
                                   int M, int dir_rows, int width, int head,
                                   int motion_width, int freqs, int include_input,
-                                  int use_time, int n_rgb, int motion_mode, int bf16,
-                                  void* stream) {
+                                  int use_time, int n_rgb, int motion_mode, void* stream) {
   if (M <= 0 || dir_rows <= 0 || !kernel_width(width) || !kernel_width(head) ||
       (motion_mode != 0 && !kernel_width(motion_width)) || (n_rgb != 2 && n_rgb != 4) ||
       motion_mode < 0 || motion_mode > 2) {
@@ -324,8 +322,5 @@ extern "C" int stnerf_fused_field(const void* xyz, const void* ids, const void* 
   const auto* fl = static_cast<const int*>(flags);
   const auto* fb = static_cast<const float*>(biases);
   auto* fo = static_cast<float*>(out);
-  const cudaError_t e =
-      bf16 ? launch<unsigned short, true>(p, fx, fi, fd, fl, weights, fb, fo, smem, s)
-           : launch<float, false>(p, fx, fi, fd, fl, weights, fb, fo, smem, s);
-  return static_cast<int>(e);
+  return static_cast<int>(launch<float, false>(p, fx, fi, fd, fl, weights, fb, fo, smem, s));
 }

@@ -5,14 +5,17 @@ through a hand-written kernel — the port of
 Three pieces beside the forward kernel's:
 
 * :func:`field_bwd` — the wrapper of the backward. On a CUDA tensor it
-  launches ``csrc/field_bwd.cu`` (built at first use by ``_build.py``) or
-  raises; on a CPU tensor it runs the plain version.
+  launches a hand-written kernel (built at first use by ``_build.py``) or
+  raises: a bf16 field goes to the tensor-core kernel
+  ``csrc/field_bwd_tc.cu``, a float32 one to the CUDA-core kernel
+  ``csrc/field_bwd.cu``. On a CPU tensor it runs the plain version.
 * :func:`field_bwd_reference` — the plain PyTorch backward: the TPU kernel's
   ``_field_bwd_body`` written out (``_bwd_math``, shared with
   ``spacenet_vjp.py``; ``_motion_bwd``; ``_encode_vjp``), with every
   cotangent rounded to the compute dtype where the TPU kernel casts it. It
   is not autograd of the forward; a test holds the two equal in float32.
-* ``field_bwd.launches`` — how many times the wrapper launched the kernel.
+* ``field_bwd.launches`` — how many times the wrapper launched a kernel, and
+  ``field_bwd.launches_tc`` how many of those went to the tensor-core one.
 
 Both return the gradients in the packed layout of :class:`PackedField`
 (weights and biases float32, at the packed offsets), plus d_xyz (3, M) and
@@ -159,7 +162,8 @@ def field_bwd(field: PackedField, xyz: torch.Tensor, ids: torch.Tensor,
     -> (gw, gb, d_xyz, d_dir) as :func:`field_bwd_reference`.
 
     CPU tensors run :func:`field_bwd_reference`. CUDA tensors launch the
-    kernel, and any failure to build or launch it raises.
+    tensor-core kernel for a bf16 field and the CUDA-core kernel for a
+    float32 one, and any failure to build or launch it raises.
     """
     _check_inputs(field, xyz, ids, dir_enc, tile_flags)
     m = xyz.shape[1]
@@ -184,26 +188,43 @@ def field_bwd(field: PackedField, xyz: torch.Tensor, ids: torch.Tensor,
     d_dir = torch.empty(tuple(dir_enc.shape), dtype=torch.float32, device=dev)
     spec = field.spec
     ptr = ctypes.c_void_p
+    tc = field.compute_dtype == "bfloat16"
+    ints = (m, dir_enc.shape[0], spec.backbone_dim, spec.head_dim, field.motion_width,
+            spec.pos_freqs, int(spec.include_input), int(spec.use_time), field.n_rgb,
+            MOTION_MODES[field.motion_mode])
+    outputs = (ptr(gw.data_ptr()), ptr(gb.data_ptr()), ptr(d_xyz.data_ptr()),
+               ptr(d_dir.data_ptr()))
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.stnerf_field_bwd(
-            ptr(xyz.data_ptr()), ptr(ids.data_ptr()), ptr(dir_enc.data_ptr()),
-            ptr(d_rgb.data_ptr()), ptr(d_sigma.data_ptr()),
-            ptr(None if tile_flags is None else tile_flags.data_ptr()),
-            ptr(field.weights.data_ptr()), ptr(field.biases.data_ptr()),
-            field.offsets.ctypes.data_as(ptr), ptr(gw.data_ptr()),
-            ptr(gb.data_ptr()), ptr(d_xyz.data_ptr()), ptr(d_dir.data_ptr()),
-            m, dir_enc.shape[0], spec.backbone_dim, spec.head_dim,
-            field.motion_width, spec.pos_freqs, int(spec.include_input),
-            int(spec.use_time), field.n_rgb, MOTION_MODES[field.motion_mode],
-            int(field.compute_dtype == "bfloat16"), ptr(stream))
+        stream = ptr(torch.cuda.current_stream().cuda_stream)
+        inputs = (ptr(xyz.data_ptr()), ptr(ids.data_ptr()), ptr(dir_enc.data_ptr()),
+                  ptr(d_rgb.data_ptr()), ptr(d_sigma.data_ptr()),
+                  ptr(None if tile_flags is None else tile_flags.data_ptr()),
+                  ptr(field.weights.data_ptr()))
+        if tc:
+            frags, offsets = field.tc
+            counts = (field.weights.numel(), field.biases.numel())
+            nbytes = ctypes.c_int64()
+            err = lib.stnerf_field_bwd_tc_workspace(*ints, *counts, ctypes.byref(nbytes))
+            if err == 0:
+                # the two-pass weight gradients' records and partial sums
+                work = torch.empty(nbytes.value, dtype=torch.uint8, device=dev)
+                err = lib.stnerf_field_bwd_tc(
+                    *inputs, ptr(frags.data_ptr()), ptr(field.biases.data_ptr()),
+                    offsets.ctypes.data_as(ptr), *outputs, ptr(work.data_ptr()), *ints,
+                    *counts, stream)
+        else:
+            err = lib.stnerf_field_bwd(
+                *inputs, ptr(field.biases.data_ptr()), field.offsets.ctypes.data_as(ptr),
+                *outputs, *ints, stream)
     if err != 0:
         raise RuntimeError(f"field_bwd kernel launch failed: CUDA error {err}")
     field_bwd.launches += 1
+    field_bwd.launches_tc += int(tc)
     return gw, gb, d_xyz, d_dir
 
 
 field_bwd.launches = 0
+field_bwd.launches_tc = 0
 
 
 # ---------------------------------------------------------------------------

@@ -4,13 +4,17 @@ the SpaceNet MLP in one kernel — the port of
 
 Three pieces, as for every kernel of the port:
 
-* :func:`fused_field` — the wrapper. On a CUDA tensor it launches the
-  hand-written kernel in ``csrc/fused_field.cu`` (built at first use by
-  ``_build.py``) or raises; on a CPU tensor it runs the plain version.
+* :func:`fused_field` — the wrapper. On a CUDA tensor it launches a
+  hand-written kernel (built at first use by ``_build.py``) or raises: a
+  bf16 field goes to the tensor-core kernel ``csrc/fused_field_tc.cu``, a
+  float32 one to the CUDA-core kernel ``csrc/fused_field.cu``. On a CPU
+  tensor it runs the plain version.
 * :func:`fused_field_reference` — the plain PyTorch version: the same math
   on the same packed operands, with the kernel's double-angle encoding and
   its per-layer rounding to the compute dtype.
-* ``fused_field.launches`` — how many times the wrapper launched the kernel.
+* ``fused_field.launches`` — how many times the wrapper launched a kernel,
+  and ``fused_field.launches_tc`` how many of those went to the tensor-core
+  kernel.
 
 Layouts are the JAX kernel's: xyz (3, M), ids (1, M), dir_enc (dir_dim, M),
 optional int32 per-tile skip flags, outputs rgb (3, M) and sigma (M,) raw.
@@ -28,6 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import TYPE_CHECKING
 
 import numpy as np
@@ -134,6 +139,19 @@ class PackedField:
         buf = self.biases if buf is None else buf
         return buf[off:off + n]
 
+    @functools.cached_property
+    def tc(self) -> tuple:
+        """The tensor-core kernels' operands: (fragments, offsets). The
+        fragments are the weights gathered into :func:`tc_fragments` order
+        (one indexed copy on the weights' device); the offsets are
+        ``self.offsets`` followed by the forward and backward fragment
+        offsets, in 16-byte units (:func:`_tc_index`)."""
+        shapes = tuple(sorted((s, v) for s, v in self.shapes.items() if s in W_SLOTS))
+        idx, f_offs, g_offs = _tc_index(self.weights.device, self.weights.numel(), shapes,
+                                        tuple(int(o) for o in self.offsets[:len(W_SLOTS)]))
+        src = torch.cat([self.weights, self.weights.new_zeros(1)])
+        return src[idx], np.concatenate([self.offsets, f_offs, g_offs]).astype(np.int32)
+
 
 def pack_field(space_ops: tuple, motion_ops: tuple, spec: SpaceNetSpec,
                motion_mode: str | None = None,
@@ -180,6 +198,51 @@ def pack_field(space_ops: tuple, motion_ops: tuple, spec: SpaceNetSpec,
     return PackedField(weights, biases,
                        np.asarray(w_offs + b_offs, np.int32), shapes, spec,
                        motion_mode, motion_width, compute_dtype)
+
+
+def tc_fragments(a: np.ndarray) -> np.ndarray:
+    """A (M, K) matrix -> the flat A-operand fragments of wgmma m64k16 for
+    ``csrc/tc_blocks.cuh``. M is padded to a multiple of 64 and K to one of
+    16 with -1 (a zero weight). Order: m-tile, k-step, then the 128 threads
+    of a warpgroup (warp w, lane l), then each thread's 8 values: its four
+    registers hold (row, col), (row, col + 1) with row = 16 w + l // 4 (+ 8
+    in registers 1 and 3) and col = 2 (l % 4) (+ 8 in registers 2 and 3)."""
+    m, k = a.shape
+    mp, kp = -(-m // 64) * 64, -(-k // 16) * 16
+    p = np.full((mp, kp), -1, np.int64)
+    p[:m, :k] = a
+    # (m-tile, warp, row half, lane // 4, k-step, col half, lane % 4, pair)
+    p = p.reshape(mp // 64, 4, 2, 8, kp // 16, 2, 4, 2)
+    return p.transpose(0, 4, 1, 3, 6, 5, 2, 7).reshape(-1)
+
+
+@functools.lru_cache(maxsize=64)
+def _tc_index(device: torch.device, n_weights: int, shapes: tuple, offsets: tuple) -> tuple:
+    """The gather that lays a packed field's weights out for the tensor-core
+    kernels, built once per layout and device: -> (index into the weights,
+    ``n_weights`` for a zero; forward fragment offsets; backward fragment
+    offsets), the offsets per weight slot in 16-byte units (-1 for an absent
+    or a 1- or 3-wide layer). The forward (y = W^T x) reads A = W^T, the
+    backward's dx = W dy reads A = W, each through :func:`tc_fragments`.
+    ``shapes`` are the weight slots' (slot, (in, out)) pairs, ``offsets``
+    their packed offsets in W_SLOTS order."""
+    w_offs, shapes = dict(zip(W_SLOTS, offsets)), dict(shapes)
+    parts, f_offs, g_offs, total = [], [], [], 0
+    for dest, transpose in ((f_offs, True), (g_offs, False)):
+        for slot in W_SLOTS:
+            if slot not in shapes or shapes[slot][1] < 32:  # thin layers stay on CUDA cores
+                dest.append(-1)
+                continue
+            k_in, k_out = shapes[slot]
+            idx = w_offs[slot] + np.arange(k_in * k_out).reshape(k_in, k_out)
+            frag = tc_fragments(idx.T if transpose else idx)
+            dest.append(total // 8)
+            parts.append(frag)
+            total += frag.size
+    index = np.concatenate(parts)
+    index[index < 0] = n_weights
+    return (torch.as_tensor(index, device=device), np.asarray(f_offs, np.int32),
+            np.asarray(g_offs, np.int32))
 
 
 def _encode(v: torch.Tensor, spec: SpaceNetSpec) -> torch.Tensor:
@@ -313,7 +376,8 @@ def fused_field(field: PackedField, xyz: torch.Tensor, ids: torch.Tensor,
     -> (rgb (3, M), sigma (M,)), raw.
 
     CPU tensors run :func:`fused_field_reference`. CUDA tensors launch the
-    kernel, and any failure to build or launch it raises.
+    tensor-core kernel for a bf16 field and the CUDA-core kernel for a
+    float32 one, and any failure to build or launch it raises.
     """
     _check_inputs(field, xyz, ids, dir_enc, tile_flags)
     if xyz.device.type == "cpu":
@@ -328,24 +392,33 @@ def fused_field(field: PackedField, xyz: torch.Tensor, ids: torch.Tensor,
     out = torch.empty((4, m), dtype=torch.float32, device=xyz.device)
     spec = field.spec
     ptr = ctypes.c_void_p
+    tc = field.compute_dtype == "bfloat16"
+    ints = (m, dir_enc.shape[0], spec.backbone_dim, spec.head_dim, field.motion_width,
+            spec.pos_freqs, int(spec.include_input), int(spec.use_time), field.n_rgb,
+            MOTION_MODES[field.motion_mode])
     with torch.cuda.device(xyz.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.stnerf_fused_field(
-            ptr(xyz.data_ptr()), ptr(ids.data_ptr()), ptr(dir_enc.data_ptr()),
-            ptr(None if tile_flags is None else tile_flags.data_ptr()),
-            ptr(field.weights.data_ptr()), ptr(field.biases.data_ptr()),
-            field.offsets.ctypes.data_as(ptr), ptr(out.data_ptr()),
-            m, dir_enc.shape[0], spec.backbone_dim, spec.head_dim,
-            field.motion_width, spec.pos_freqs, int(spec.include_input),
-            int(spec.use_time), field.n_rgb, MOTION_MODES[field.motion_mode],
-            int(field.compute_dtype == "bfloat16"), ptr(stream))
+        stream = ptr(torch.cuda.current_stream().cuda_stream)
+        inputs = (ptr(xyz.data_ptr()), ptr(ids.data_ptr()), ptr(dir_enc.data_ptr()),
+                  ptr(None if tile_flags is None else tile_flags.data_ptr()),
+                  ptr(field.weights.data_ptr()))
+        if tc:
+            frags, offsets = field.tc
+            err = lib.stnerf_fused_field_tc(
+                *inputs, ptr(frags.data_ptr()), ptr(field.biases.data_ptr()),
+                offsets.ctypes.data_as(ptr), ptr(out.data_ptr()), *ints, stream)
+        else:
+            err = lib.stnerf_fused_field(
+                *inputs, ptr(field.biases.data_ptr()), field.offsets.ctypes.data_as(ptr),
+                ptr(out.data_ptr()), *ints, stream)
     if err != 0:
         raise RuntimeError(f"fused_field kernel launch failed: CUDA error {err}")
     fused_field.launches += 1
+    fused_field.launches_tc += int(tc)
     return out[:3], out[3]
 
 
 fused_field.launches = 0
+fused_field.launches_tc = 0
 
 
 # ---------------------------------------------------------------------------

@@ -215,3 +215,46 @@ def test_packing_matches_jax_operands():
     offs = field.offsets
     assert offs[W_SLOTS.index("rgb2")] == -1 and offs[len(W_SLOTS) + B_SLOTS.index("rgbb3")] == -1
     assert all(o % 16 == 0 for o in offs if o >= 0)
+
+
+def test_tensor_core_fragments_hold_the_weights():
+    """The tensor-core kernels' operand gather (``PackedField.tc``): every
+    fragment value sits where csrc/tc_blocks.cuh's register layout of a
+    64 x 16 wgmma A tile reads it — W^T for the forward, W for dx = W dy —
+    and the padding up to 64 rows and 16 columns is zero."""
+    import torch
+
+    from stnerf_tpu_torch.kernels.fused_field import W_SLOTS
+
+    _, field = _pair("lerp", deep_rgb=True, compute_dtype="bfloat16")
+    frags, offsets = field.tc
+    n_w = len(W_SLOTS)
+    assert frags.dtype == torch.bfloat16 and offsets.shape == (len(field.offsets) + 2 * n_w,)
+    f_offs = offsets[len(field.offsets):len(field.offsets) + n_w]
+    g_offs = offsets[len(field.offsets) + n_w:]
+    frags = frags.float().numpy()
+    # thread t = 32 w + 4 q + p holds registers j = 0..3 of two values each:
+    # row 16 w + q + 8 (j % 2), column 2 p + e + 8 (j // 2)
+    t, j, e = np.meshgrid(np.arange(128), np.arange(4), np.arange(2), indexing="ij")
+    rows = 16 * (t // 32) + (t % 32) // 4 + 8 * (j % 2)
+    cols = 2 * (t % 4) + e + 8 * (j // 2)
+    checked = 0
+    for slot in W_SLOTS:
+        if slot not in field.shapes:
+            continue
+        w = field.w(slot).float().numpy()
+        for off, a in ((f_offs[W_SLOTS.index(slot)], w.T), (g_offs[W_SLOTS.index(slot)], w)):
+            if w.shape[1] < 32:  # the 1- and 3-wide layers stay on CUDA cores
+                assert off == -1, slot
+                continue
+            mp, kp = -(-a.shape[0] // 64) * 64, -(-a.shape[1] // 16) * 16
+            padded = np.zeros((mp, kp), np.float32)
+            padded[:a.shape[0], :a.shape[1]] = a
+            got = frags[8 * off:8 * off + mp * kp].reshape(mp // 64, kp // 16, 128, 4, 2)
+            for mt in range(mp // 64):
+                for ks in range(kp // 16):
+                    want = padded[64 * mt + rows, 16 * ks + cols]
+                    np.testing.assert_array_equal(got[mt, ks], want, err_msg=slot)
+            checked += 1
+    # motion 0-4, trunk 1-4, s2a/b, s2w2/3 (the head is 16 wide here: thin)
+    assert checked == 2 * 13
