@@ -101,6 +101,20 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 12. The ``{"kernels": [...]}`` line (launches on the main paths, errors, times
    and bounds), the card line again, and the result line
    ``{"ok": true, "device": {...}}`` last.
+13. The render front end (it runs after phase 11, before phase 12's lines):
+   ``LayeredNeuralRenderer`` on phase 11's last checkpoint and scene with
+   the config's default inference approximations, which it must strip with
+   one warning naming each; the taekwondo demo's runs (origin, shift,
+   scale) on a 6-pose smooth path with the demo's key frames scaled into the
+   scene's 5 frames, a hide and a hide-both pass, an ``s_alpha`` fade and
+   ``render_path_walking``. Checks every frame on disk (decoded through
+   data/png.py to the rendered image, finite), that with both performers
+   hidden the mix is the background stream to one u8 step, acc in [0, 1],
+   K1 against its plain version on one pose of the path (>= 40 dB), K1's
+   launches against the poses rendered, and that a second renderer on an
+   exported reference ``.pt`` renders bitwise the same pose. Prints seconds
+   per pose of the path (end to end and device), then seconds per frame
+   and peak device memory of one pose at 1920x1080.
 
 Weights are random from a seeded generator. It needs one CUDA card, and
 fails where there is none or where the repository is not beside it.
@@ -1642,6 +1656,242 @@ def phase_entry_point(device, workers: int = 2) -> dict:
     return summary
 
 
+def scaled_key_frames(frames: list, frame_num: int, demo_frames: int = 101) -> list:
+    """The taekwondo demo's key frames (a 101-frame capture) scaled onto a
+    scene of ``frame_num`` frames."""
+    return [1 + (f - 1) * (frame_num - 1) / (demo_frames - 1) for f in frames]
+
+
+def check_written_frames(r, sub_dir: str) -> int:
+    """Every frame of the renderer's last ``render_path`` is on disk under
+    ``rendered/<sub_dir>``, decodes through data/png.py to the image that
+    was rendered, and is finite -> the number of files checked."""
+    from stnerf_tpu_torch.data.png import read_png
+    from stnerf_tpu_torch.render import to_uint8
+
+    root = os.path.join(r.output_dir, sub_dir)
+    streams = [("mixed", r.images, r.depths)] + [
+        (str(l), r.images_layer[l], r.depths_layer[l])
+        for l in range(r.layer_num + 1) if r.is_shown_layer(l)]
+    n = 0
+    for sub, colors, depths in streams:
+        check(len(colors) == len(depths) == r.image_num == len(r.poses),
+              f"{sub_dir}/{sub}: {len(colors)} frames kept for {len(r.poses)} poses")
+        for i, (c, d) in enumerate(zip(colors, depths)):
+            check(np.isfinite(c).all() and np.isfinite(d).all(),
+                  f"{sub_dir}/{sub} frame {i}: non-finite image")
+            for kind, img in (("color", c), ("depth", d)):
+                got = read_png(os.path.join(root, sub, kind, f"{i}.png"))
+                want = to_uint8(img)
+                check(np.array_equal(got, want[..., 0] if kind == "depth" else want),
+                      f"{sub_dir}/{sub}/{kind}/{i}.png does not decode to the rendered image")
+                n += 1
+    return n
+
+
+def phase_render_front_end(device, cfg_file: str, hd_size=(1920, 1080)) -> dict:
+    """The render front end on the checkpoint that phase 11 trained
+    (``cfg_file``'s OUTPUT_DIR, its scene): ``LayeredNeuralRenderer`` with
+    the config's default approximations (stripped with one warning), the
+    taekwondo demo's runs (origin, shift, scale) on a 6-pose smooth path
+    with its key frames scaled into the scene's frames, a hide and a
+    hide-both pass, an ``s_alpha`` fade, and ``render_path_walking``; the
+    frames on disk, K1 against its plain version on one pose of the path,
+    K1's launches, a ``.pt`` export read back by a second renderer, and one
+    1080p pose (``hd_size``, width and height) -> summary dict."""
+    import shutil
+
+    import torch
+
+    from stnerf_tpu_torch.config import get_cfg
+    from stnerf_tpu_torch.engine import export_reference_checkpoint
+    from stnerf_tpu_torch.kernels.fused_field import fused_field
+    from stnerf_tpu_torch.render import LayeredNeuralRenderer
+    from stnerf_tpu_torch.render.pose_device import (render_pose_host,
+                                                     render_pose_on_device, tile_grid)
+
+    cfg = get_cfg()
+    cfg.merge_from_file(cfg_file)
+    shutil.rmtree(os.path.join(cfg.OUTPUT_DIR, "rendered"), ignore_errors=True)
+    records = []
+    logger = logging.getLogger("stnerf_tpu_torch.render")
+    logger.setLevel(logging.INFO)
+    handler = logging.StreamHandler(sys.stdout)
+    handler.emit = lambda r: (records.append(r), print("render", r.getMessage(), flush=True))
+    logger.addHandler(handler)
+
+    # 1. the renderer with the config's default approximations
+    r = LayeredNeuralRenderer(cfg, device=device)
+    warned = [x.getMessage() for x in records if x.levelno == logging.WARNING]
+    stripped = ("TPU.FAST_FINE", "TPU.EARLY_EXIT_SEGMENTS=3", "TPU.FIDELITY_GATE",
+                "TPU.OCCUPANCY_SKIP")
+    check(len(warned) == 1 and all(k in warned[0] for k in stripped),
+          f"the renderer's warning does not name every stripped approximation: {warned}")
+    check(not r.spec.fast_fine and r.spec.coarse_exit_segments == 0
+          and r.spec.compute_dtype == "bfloat16", f"render spec {r.spec}")
+    check(os.path.basename(r._ckpt_path) == "stnerf_torch_checkpoint_4.pt",
+          f"the renderer loaded {r._ckpt_path}, not phase 11's last checkpoint")
+    frame_num, lp1 = cfg.DATASETS.FRAME_NUM, r.layer_num + 1
+    kf1 = scaled_key_frames([21, 49, 74, 87], frame_num)
+    kf2 = scaled_key_frames([13, 42, 80, 90], frame_num)
+    kf = scaled_key_frames([20, 50, 74, 85], frame_num)
+    steps = 6
+
+    # 2. the demo's runs and the other edits, counted
+    sync(device)
+    fused_field.launches = fused_field.launches_tc = 0
+    zero_k6()
+    # per run: (renderer, its mixed frames, its background stream's frames)
+    runs, files, poses, path_s = {}, 0, 0, 0.0
+    for name, kwargs in (("origin", {}), ("shift", {"shift": [[0, 0, 0], [0, 0.5, 0],
+                                                              [0, -0.5, 0]]}),
+                         ("scale", {"scale": [1, 0.75, 1.5]}),
+                         ("alpha", {"s_alpha": [1.0, 0.0]})):
+        rr = r if name == "origin" else LayeredNeuralRenderer(cfg, device=device, **kwargs)
+        rr.set_save_dir(name)
+        rr.set_fps(25)
+        rr.set_smooth_path_poses(steps, around=False)
+        rr.retime_by_key_frames(1, kf1, kf)
+        rr.retime_by_key_frames(2, kf2, kf)
+        t0 = time.perf_counter()
+        rr.render_path(False, 0, auto_save=True)
+        path_s += time.perf_counter() - t0
+        poses += rr.image_num
+        files += check_written_frames(rr, os.path.join(name, "video_0"))
+        rr.save_video()
+        runs[name] = (rr, list(rr.images), list(rr.images_layer[0]))
+    for layer, name in ((1, "hide_man_1"), (2, "hide_both")):
+        r.hide_layer(layer)
+        r.set_save_dir(name)
+        t0 = time.perf_counter()
+        r.render_path(False, 0, auto_save=True)
+        path_s += time.perf_counter() - t0
+        poses += r.image_num
+        files += check_written_frames(r, os.path.join(name, f"video_{r.save_count}"))
+        runs[name] = (r, list(r.images), list(r.images_layer[0]))
+        r.save_video()
+    walk = LayeredNeuralRenderer(cfg, device=device)
+    walk.set_pose_duration(1, min(14, walk.camera_num - 1))
+    walk.set_smooth_path_poses(steps, around=False)
+    walk.invert_poses()
+    walk.set_save_dir("walking")
+    t0 = time.perf_counter()
+    walk.render_path_walking(False, 0, 0, auto_save=True)
+    path_s += time.perf_counter() - t0
+    poses += walk.image_num
+    files += check_written_frames(walk, os.path.join("walking", "video_0"))
+    for i in range(walk.image_num):
+        check(os.path.exists(os.path.join(walk.output_dir, "02", "color", f"{i}.png")),
+              f"render_path_walking wrote no occlusion composite {i}")
+    sync(device)
+    launches, launches_tc, k6 = fused_field.launches, fused_field.launches_tc, read_k6()
+    h, w = r.height, r.width
+    _, _, _, _, n_pad = tile_grid(h, w, cfg.TPU.RENDER_CHUNK, cfg.TPU.TILE_COLS)
+    # 5. every pose runs each of the L+1 fields once per chunk and stage
+    expected = poses * (n_pad // cfg.TPU.RENDER_CHUNK) * 2 * lp1
+    check(launches == expected and launches_tc == expected,
+          f"fused_field launched {launches} times ({launches_tc} on tensor cores); "
+          f"{poses} poses imply {expected}")
+    check(not any(k6.values()), f"the front end launched K6: {k6}")
+
+    # 3. with every performer hidden the mix is the background alone (the
+    # same render's background stream, and the origin run's), to one u8 step
+    _, origin, origin_bg = runs["origin"]
+    _, hide_both, hide_both_bg = runs["hide_both"]
+    for i, mixed in enumerate(hide_both):
+        for ref, what in ((hide_both_bg[i], "its own background stream"),
+                          (origin_bg[i], "the origin run's background stream")):
+            err = float(np.abs(mixed - ref).max())
+            check(err <= 1.0 / 255 + 1e-7,
+                  f"hide_both pose {i}: the mix differs from {what} by {err}")
+    for name in ("shift", "scale", "alpha", "hide_man_1", "hide_both"):
+        check(any(not np.array_equal(a, b) for a, b in zip(runs[name][1], origin)),
+              f"{name}: the edit left every frame unchanged")
+
+    # 4. K1 against its plain version on one pose of the path, with the
+    # renderer's own model, scene and edits; acc in [0, 1]
+    sr, idx = runs["scale"][0], steps // 2
+    frame_ids = np.ones(lp1, np.float32)
+    for layer, fid in sr.layer_frame_pairs[idx]:
+        frame_ids[layer] = fid
+    edits = sr._edits(idx, 0, 0)
+    kw = dict(chunk=cfg.TPU.RENDER_CHUNK, tile_cols=cfg.TPU.TILE_COLS, far_clip=sr.far,
+              download_layers=list(range(lp1)), spec=sr.spec)
+    args = (sr.model, sr.scene, sr.Ks[idx], sr.poses[idx], frame_ids,
+            sr.dataset.near_far, edits, h, w)
+    kernel = render_pose_host(*args, **kw)
+    plain = render_pose_host(*args, plain=True, **kw)
+    db = min(psnr(a, b) for a, b in zip([kernel[0], *kernel[2]], [plain[0], *plain[2]]))
+    check(db >= 40.0, f"front-end pose, kernel vs plain {db:.1f} dB < 40")
+    check(np.array_equal(kernel[0], runs["scale"][1][idx]),
+          "render_pose_host on the renderer's inputs differs from its render_path frame")
+    frame = render_pose_on_device(
+        sr.model, sr.scene, np.asarray(sr.Ks[idx], np.float32),
+        torch.as_tensor(np.asarray(sr.poses[idx], np.float32), device=device),
+        torch.as_tensor(frame_ids, device=device),
+        torch.as_tensor(sr.dataset.near_far, device=device), edits, h=h, w=w,
+        chunk=cfg.TPU.RENDER_CHUNK, tile_cols=cfg.TPU.TILE_COLS, spec=sr.spec)
+    for acc in (frame.acc.float(), frame.layer_acc.float()):
+        check(bool(torch.isfinite(acc).all() and (acc >= 0).all() and (acc <= 1).all()),
+              "front-end pose: acc outside [0, 1]")
+
+    # 6. the reference .pt export, read back by a second renderer
+    pt_dir = os.path.join(cfg.OUTPUT_DIR, "reference_export")
+    shutil.rmtree(pt_dir, ignore_errors=True)
+    os.makedirs(pt_dir)
+    export_reference_checkpoint(os.path.join(pt_dir, "layered_rfnr_checkpoint_4.pt"), r.model)
+    pt_cfg = cfg.clone()
+    pt_cfg.OUTPUT_DIR = pt_dir
+    r_pt = LayeredNeuralRenderer(pt_cfg, device=device)
+    check(r_pt._ckpt_path.endswith("layered_rfnr_checkpoint_4.pt"),
+          f"the second renderer loaded {r_pt._ckpt_path}")
+    r_pt.set_smooth_path_poses(steps, around=False)
+    r0 = LayeredNeuralRenderer(cfg, device=device)
+    r0.set_smooth_path_poses(steps, around=False)
+    a = r0.render_pose(r0.poses[idx], r0.Ks[idx], r0.layer_frame_pairs[idx], frame_idx=idx)
+    b = r_pt.render_pose(r_pt.poses[idx], r_pt.Ks[idx], r_pt.layer_frame_pairs[idx],
+                         frame_idx=idx)
+    check(all(np.array_equal(x, y) for x, y in zip([a[0], a[1], *a[2], *a[3]],
+                                                   [b[0], b[1], *b[2], *b[3]])),
+          "the renderer on the exported .pt differs from the one on the port's checkpoint")
+
+    # 7. seconds per pose, then one pose at 1920x1080 (the Ks rescaled by the
+    # width ratio as RenderScene does; the 4:3 scene cropped to 16:9)
+    e2e = [x.args for x in records if x.msg.startswith("Rendered %d poses")]
+    device_s = sum(a[6] * a[0] for a in e2e) / sum(a[0] for a in e2e)
+    hd_cfg = cfg.clone()
+    hd_cfg.INPUT.SIZE_TEST = list(hd_size)
+    hd = LayeredNeuralRenderer(hd_cfg, device=device)
+    hd.set_smooth_path_poses(steps, around=False)
+    check(np.allclose(hd.gt_Ks[:, :2], r.gt_Ks[:, :2] * hd_size[0] / w),
+          "1080p Ks not rescaled")
+    hd_pairs = hd.layer_frame_pairs[idx]
+    hd.render_pose(hd.poses[idx], hd.Ks[idx], hd_pairs, frame_idx=idx)  # first use
+    sync(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    hd_s, hd_dev = [], []
+    for _ in range(2):
+        timings = {}
+        t0 = time.perf_counter()
+        color, depth, _, _ = hd.render_pose(hd.poses[idx], hd.Ks[idx], hd_pairs,
+                                            frame_idx=idx, timings=timings)
+        hd_s.append(time.perf_counter() - t0)
+        hd_dev.append(timings["device_s"])
+    peak = torch.cuda.max_memory_allocated(device)
+    check(color.shape == (hd_size[1], hd_size[0], 3) and np.isfinite(color).all()
+          and np.isfinite(depth).all(), "1080p frame: shape or non-finite values")
+    logger.removeHandler(handler)
+    summary = {"h": h, "w": w, "poses": poses, "files_checked": files,
+               "s_per_pose": path_s / poses, "device_s_per_pose": device_s,
+               "kernel_vs_plain_db": db, "launches": launches, "launches_tc": launches_tc,
+               "launches_expected": expected, "launches_k6": k6,
+               "hd_s_per_frame": hd_s, "hd_device_s_per_frame": hd_dev,
+               "hd_max_memory_allocated": peak,
+               "hd_max_memory_allocated_gib": peak / 2 ** 30}
+    print("render_front_end", json.dumps(summary), flush=True)
+    return summary
+
+
 def main():
     import torch
 
@@ -1705,6 +1955,9 @@ def main():
     t0 = time.perf_counter()
     entry = phase_entry_point(device)
     print(f"phase entry_point: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    front = phase_render_front_end(device, os.path.join(REPO, "build", "chip_smoke_train.yml"))
+    print(f"phase render_front_end: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # the performer field: the main paths' case. K1 and K2 in two routes
     # each: bf16 fields on the tensor-core kernels (every main path), float32
@@ -1717,7 +1970,8 @@ def main():
          "replaces": "stnerf_tpu/kernels/fused_field.py:144",
          "launches": summary["launches_tc"],
          "launches_by_path": {"render": summary["launches_tc"],
-                              "train": train["launches_fused_field"]},
+                              "train": train["launches_fused_field"],
+                              "render_front_end": front["launches_tc"]},
          "max_abs_err": max(c["bf16_vs_bf16_max_abs_err"] for c in cases),
          "ms": perf["bfloat16_ms"], "plain_ms": perf["bfloat16_plain_ms"],
          "bound_ms": perf["bfloat16_bound_ms"], "bound_by": perf["bfloat16_bound_by"],
@@ -1775,9 +2029,10 @@ def main():
         entry_launches[name] -= entry_launches[f"{name}_tc"]
     for row in kernels:
         row["launches_by_path"]["entry_point"] = entry_launches[row["name"]]
-    # K6's launches as counted in the five main paths' runs (no path calls it)
+    # K6's launches as counted in the six main paths' runs (no path calls it)
     main_paths = {"render": summary, "train": train, "view_pose_render": vp_render,
-                  "view_pose_train": vp_train, "entry_point": entry}
+                  "view_pose_train": vp_train, "entry_point": entry,
+                  "render_front_end": front}
     for name, line in (("fused_spacenet", 139), ("fused_spacenet_planar", 245),
                        ("fused_spacenet_stacked", 292)):
         row = k6[name]

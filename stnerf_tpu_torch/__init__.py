@@ -16,12 +16,16 @@ Layout (mirrors ``stnerf_tpu``):
   kernels/   hand-written Hopper kernels, each beside its plain version
   engine/    losses, optimizer, checkpoints, the training step and loop,
              validation
-  render/    whole-pose rendering in screen-tile order, chunked rendering
+  render/    whole-pose rendering in screen-tile order, chunked rendering,
+             the ``LayeredNeuralRenderer`` front end (camera paths, edits,
+             frame and video output)
   tools/     entry points (``python -m stnerf_tpu_torch.tools.train``)
+  demo/      the three demos (``python -m stnerf_tpu_torch.demo.walking_demo``)
 
-This carries the exact layered render path and training from a scene on
-disk. The renderer front end and the inference approximations are not
-ported yet (ROADMAP.md, Queue 1).
+This carries the exact layered render path, training from a scene on disk,
+and rendering edited videos from the port's, the JAX package's or the
+reference's checkpoints. The inference approximations are not ported yet
+(ROADMAP.md, Queue 1).
 """
 
 __version__ = "0.1.0"

@@ -11,13 +11,14 @@ the host unscrambles the tile order into row-major images.
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ..models.layered import (EditState, LayeredModel, RayInputs, SceneBoxes,
-                              render_rays)
+from ..models.layered import (EditState, LayeredModel, LayeredSpec, RayInputs,
+                              SceneBoxes, render_rays)
 
 
 class QuantizedFrame(NamedTuple):
@@ -80,12 +81,14 @@ def render_pose_on_device(model: LayeredModel, scene: SceneBoxes, K, c2w,
                           w: int, chunk: int = 32768, tile_cols: int = 256,
                           generator: torch.Generator | None = None,
                           layer_outputs: tuple | None = None,
-                          plain: bool = False) -> QuantizedFrame:
+                          plain: bool = False,
+                          spec: LayeredSpec | None = None) -> QuantizedFrame:
     """Render a full pose; K (3, 3) on the host, c2w (4, 4), frame_ids
     (L+1,) and near_far (2,) tensors on the model's device. Returns the
     quantized per-pixel outputs in TILE order (see
     :func:`tile_pixel_coords`). Chunks are queued on the device one after
-    another with no host synchronisation in between."""
+    another with no host synchronisation in between. ``spec`` is the
+    render spec ``render_rays`` takes (default: the model's)."""
     _, _, _, _, n_pad = tile_grid(h, w, chunk, tile_cols)
     o, dirs = _device_tile_rays(K, c2w, h, w, chunk, tile_cols)
     lp1 = frame_ids.shape[0]
@@ -98,7 +101,7 @@ def render_pose_on_device(model: LayeredModel, scene: SceneBoxes, K, c2w,
             cam_ids=torch.zeros(chunk, device=dirs.device),
             near_far=near_far.expand(chunk, 2))
         out = render_rays(model, scene, inputs, edits, generator,
-                          layer_outputs=layer_outputs, plain=plain)
+                          layer_outputs=layer_outputs, plain=plain, spec=spec)
         parts.append(QuantizedFrame(
             _q8(out.fine.color), out.fine.depth[:, 0].half(),
             out.fine.acc[:, 0].half(), _q8(out.fine_layers.color),
@@ -115,7 +118,8 @@ def render_pose_host(model: LayeredModel, scene: SceneBoxes, K, c2w,
                      chunk: int = 32768, tile_cols: int = 256,
                      generator: torch.Generator | None = None,
                      far_clip: float = 20.0, download_layers=None,
-                     plain: bool = False):
+                     plain: bool = False, spec: LayeredSpec | None = None,
+                     timings: dict | None = None):
     """-> (color (H,W,3), depth (H,W,1), color_layer list, depth_layer list),
     numpy images in [0, 1] (depth divided by ``far_clip``).
 
@@ -123,7 +127,11 @@ def render_pose_host(model: LayeredModel, scene: SceneBoxes, K, c2w,
     layers: the others' fine composites are not computed, they are not
     downloaded, and they come back as zero images. The mixed color and
     depth always come back. ``plain`` renders with the plain PyTorch field
-    evaluation instead of the kernel.
+    evaluation instead of the kernel; ``spec`` as
+    :func:`render_pose_on_device` takes it. ``timings`` (a dict) receives
+    ``device_s``, the seconds from the call to the device's end of the
+    pose (a CUDA synchronisation on a card), and ``download_s``, the
+    seconds of the copy to the host.
     """
     device = next(model.parameters()).device
     lp1 = model.spec.layer_num + 1
@@ -134,15 +142,23 @@ def render_pose_host(model: LayeredModel, scene: SceneBoxes, K, c2w,
     def dev(x):
         return torch.as_tensor(np.asarray(x, np.float32), device=device)
 
+    t0 = time.perf_counter()
     out = render_pose_on_device(
         model, scene, np.asarray(K, np.float32), dev(c2w), dev(frame_ids),
         dev(near_far), edits, h=h, w=w, chunk=chunk, tile_cols=tile_cols,
-        generator=generator, layer_outputs=lo, plain=plain)
+        generator=generator, layer_outputs=lo, plain=plain, spec=spec)
+    if timings is not None:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        timings["device_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
     lc, ld = out.layer_color, out.layer_depth
     if len(dl) < lp1:
         lc, ld = lc[dl], ld[dl]
     color_q, depth_q, lcolor_q, ldepth_q = (
         t.cpu().numpy() for t in (out.color, out.depth, lc, ld))
+    if timings is not None:
+        timings["download_s"] = time.perf_counter() - t0
     vs, us, valid = tile_pixel_coords(h, w, chunk, tile_cols)
 
     def unscramble(flat, channels):

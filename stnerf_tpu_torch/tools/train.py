@@ -15,9 +15,10 @@ scene has no labeled views), and ``engine.do_train``. It runs on the CUDA
 card unless ``--device`` names another. ``main(argv)`` runs in-process and
 returns ``do_train``'s history.
 
-Not ported yet: ``--auto-restart`` (the crash supervisor), importing a
-reference ``.pt`` or a JAX ``.ckpt`` checkpoint (``--resume`` refuses them),
-and multi-GPU training. ``--model-parallel`` is accepted and ignored with a
+Not ported yet: ``--auto-restart`` (the crash supervisor), resuming from a
+reference ``.pt`` or a JAX ``.ckpt`` checkpoint (``--resume`` refuses them:
+their optimizer state is not mapped onto torch's Adam; their parameters load
+for rendering through ``engine.load_params_any``), and multi-GPU training. ``--model-parallel`` is accepted and ignored with a
 warning, as in the JAX entry point: training replicates the parameters.
 """
 
@@ -107,8 +108,9 @@ def main(argv=None) -> list:
     if ckpt and not os.path.basename(ckpt).startswith("stnerf_torch_checkpoint_"):
         raise ValueError(f"--resume found {ckpt}, a checkpoint of the JAX package or of "
                          "the reference; the port resumes only from its own "
-                         "stnerf_torch_checkpoint_*.pt files (importing others is not "
-                         "ported yet)")
+                         "stnerf_torch_checkpoint_*.pt files (mapping a foreign optimizer "
+                         "state onto torch's Adam is not ported yet). Its parameters load "
+                         "for rendering: stnerf_tpu_torch.engine.load_params_any")
     model = LayeredModel(spec, torch.Generator().manual_seed(args.seed), device=device)
 
     mp = args.model_parallel or cfg.TPU.MESH_MODEL
