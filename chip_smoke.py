@@ -103,18 +103,31 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``{"ok": true, "device": {...}}`` last.
 13. The render front end (it runs after phase 11, before phase 12's lines):
    ``LayeredNeuralRenderer`` on phase 11's last checkpoint and scene with
-   the config's default inference approximations, which it must strip with
-   one warning naming each; the taekwondo demo's runs (origin, shift,
-   scale) on a 6-pose smooth path with the demo's key frames scaled into the
-   scene's 5 frames, a hide and a hide-both pass, an ``s_alpha`` fade and
-   ``render_path_walking``. Checks every frame on disk (decoded through
-   data/png.py to the rendered image, finite), that with both performers
-   hidden the mix is the background stream to one u8 step, acc in [0, 1],
-   K1 against its plain version on one pose of the path (>= 40 dB), K1's
-   launches against the poses rendered, and that a second renderer on an
-   exported reference ``.pt`` renders bitwise the same pose. Prints seconds
-   per pose of the path (end to end and device), then seconds per frame
-   and peak device memory of one pose at 1920x1080.
+   the config's default inference approximations (fast fine stage, a
+   3-segment early-exit coarse march, occupancy with an automatic tau, the
+   fidelity gate). Checks that nothing logs "not ported", that the boxes
+   were refined (K1 on the 64^3 lattice, held against its plain version
+   at relative L2 1e-2) and then read from the cache, that the gate ran,
+   set ``fidelity_db`` and kept the approximations. Then the taekwondo
+   demo's runs (origin, shift, scale) on a 6-pose smooth path with the
+   demo's key frames scaled into the scene's 5 frames, a hide and a
+   hide-both pass, an ``s_alpha`` fade and ``render_path_walking``: every
+   frame on disk (decoded through data/png.py to the rendered image,
+   finite), hiding performers leaves the background stream alone, with
+   both hidden the mix is the background stream (one u8 step on the exact
+   path, >= 40 dB on the approximate one), acc in [0, 1], K1 against its
+   plain version on one pose of
+   the approximate path (>= 40 dB), the approximate path against the exact
+   one on the gate's pose at the frame's size (the gate's bar; on the path's
+   pose read, unbarred), K1's launches against the poses, the
+   segments, the fields and the gates' probes, and a second renderer on an
+   exported reference ``.pt`` renders bitwise the same pose. Prints, each
+   line with the card's name and power limit: the refine time and the
+   cache hit, ``fidelity_db``, seconds per pose (end to end, device) and
+   K1's tiles run of the approximate and the exact path on the same path
+   (order approximate, exact, exact, approximate), seconds per 1920x1080
+   frame and peak device memory of both, and one pose with OCC_SLICES = 2
+   and OCC_GAP_SKIP on.
 
 Weights are random from a seeded generator. It needs one CUDA card, and
 fails where there is none or where the repository is not beside it.
@@ -1689,16 +1702,116 @@ def check_written_frames(r, sub_dir: str) -> int:
     return n
 
 
-def phase_render_front_end(device, cfg_file: str, hd_size=(1920, 1080)) -> dict:
+def k1_per_chunk(spec) -> int:
+    """K1 launches per chunk of one render with ``spec``: every field once
+    per coarse segment (one segment without the early exit) and once in
+    the fine stage."""
+    segments = (max(1, min(spec.coarse_exit_segments, spec.coarse_samples))
+                if spec.coarse_exit_segments > 1 else 1)
+    return (segments + 1) * (spec.layer_num + 1)
+
+
+def gate_launches(r) -> int:
+    """K1 launches of one renderer's fidelity gate: the probe (the first gt
+    pose, FIDELITY_PROBE_RES wide) through the approximate and the exact
+    spec."""
+    from stnerf_tpu_torch.render.pose_device import tile_grid
+
+    t = r.cfg.TPU
+    pw = max(16, int(t.FIDELITY_PROBE_RES))
+    ph = max(16, round(pw * r.height / r.width))
+    chunk = min(int(t.RENDER_CHUNK), pw * ph)
+    n_pad = tile_grid(ph, pw, chunk, min(int(t.TILE_COLS), pw))[4]
+    approx = dataclasses.replace(r.spec, fast_fine=bool(t.FAST_FINE),
+                                 coarse_exit_segments=int(t.EARLY_EXIT_SEGMENTS))
+    exact = dataclasses.replace(r.spec, fast_fine=False, coarse_exit_segments=0)
+    return n_pad // chunk * (k1_per_chunk(approx) + k1_per_chunk(exact))
+
+
+def count_tiles(run) -> dict:
+    """Run ``run()`` with every K1 call of the render core counted: launches,
+    64-sample tiles run and tiles in total (a launch without flags runs
+    them all) -> counts. A counting run only: each call syncs the card."""
+    from stnerf_tpu_torch.models import layered
+
+    real = layered.fused_field
+    counts = {"launches": 0, "tiles_run": 0, "tiles_total": 0}
+
+    def counted(field, xyz, ids, dir_enc, tile_flags=None):
+        n = -(-xyz.shape[1] // layered.TILE)
+        counts["launches"] += 1
+        counts["tiles_total"] += n
+        counts["tiles_run"] += n if tile_flags is None else int((tile_flags != 0).sum())
+        return real(field, xyz, ids, dir_enc, tile_flags)
+
+    layered.fused_field = counted
+    try:
+        run()
+    finally:
+        layered.fused_field = real
+    counts["share_run"] = counts["tiles_run"] / max(counts["tiles_total"], 1)
+    return counts
+
+
+def render_path_times(r, records) -> dict:
+    """Render ``r``'s queued path without saving -> seconds per pose end to
+    end and on the device, from the renderer's log line."""
+    before = len(records)
+    r.render_path(False, 0, auto_save=False)
+    (line,) = [x.args for x in records[before:] if x.msg.startswith("Rendered %d poses")]
+    return {"s_per_pose": line[5], "device_s_per_pose": line[6]}
+
+
+def hd_frames(r, idx: int, device) -> dict:
+    """One pose of ``r``'s path at its size: a first-use render, then two
+    timed ones -> seconds per frame (end to end, device), peak memory."""
+    import torch
+
+    pairs = r.layer_frame_pairs[idx]
+    r.render_pose(r.poses[idx], r.Ks[idx], pairs, frame_idx=idx)  # first use
+    sync(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    out = {"s_per_frame": [], "device_s_per_frame": []}
+    for _ in range(2):
+        timings = {}
+        t0 = time.perf_counter()
+        color, depth, _, _ = r.render_pose(r.poses[idx], r.Ks[idx], pairs,
+                                           frame_idx=idx, timings=timings)
+        out["s_per_frame"].append(time.perf_counter() - t0)
+        out["device_s_per_frame"].append(timings["device_s"])
+    peak = torch.cuda.max_memory_allocated(device)
+    check(color.shape == (r.height, r.width, 3) and np.isfinite(color).all()
+          and np.isfinite(depth).all(), f"{r.width}x{r.height} frame: shape or non-finite")
+    out.update(max_memory_allocated=peak, max_memory_allocated_gib=peak / 2 ** 30,
+               color=color)
+    return out
+
+
+def exact_cfg(cfg):
+    """``cfg`` rendering the exact path (no fast fine stage, no early exit,
+    no occupancy, so no gate)."""
+    out = cfg.clone()
+    out.TPU.FAST_FINE, out.TPU.EARLY_EXIT_SEGMENTS, out.TPU.OCCUPANCY_SKIP = False, 0, False
+    return out
+
+
+def phase_render_front_end(device, cfg_file: str, card: str,
+                           hd_size=(1920, 1080)) -> dict:
     """The render front end on the checkpoint that phase 11 trained
-    (``cfg_file``'s OUTPUT_DIR, its scene): ``LayeredNeuralRenderer`` with
-    the config's default approximations (stripped with one warning), the
-    taekwondo demo's runs (origin, shift, scale) on a 6-pose smooth path
-    with its key frames scaled into the scene's frames, a hide and a
-    hide-both pass, an ``s_alpha`` fade, and ``render_path_walking``; the
-    frames on disk, K1 against its plain version on one pose of the path,
-    K1's launches, a ``.pt`` export read back by a second renderer, and one
-    1080p pose (``hd_size``, width and height) -> summary dict."""
+    (``cfg_file``'s OUTPUT_DIR, its scene) with the config's default
+    inference approximations: ``LayeredNeuralRenderer`` refines the boxes
+    (K1 on the 64^3 lattice, then from the cache) and runs the fidelity
+    gate, which must keep the approximations; the taekwondo demo's runs
+    (origin, shift, scale) on a 6-pose smooth path with its key frames
+    scaled into the scene's frames, a hide and a hide-both pass, an
+    ``s_alpha`` fade, and ``render_path_walking``; the frames on disk, K1
+    against its plain version on one pose of the approximate path and on
+    one lattice, the approximate path against the exact one, K1's
+    launches, a ``.pt`` export read back by a second renderer; the
+    approximate and the exact path's seconds per pose, tiles and 1080p
+    frame (``hd_size``, width and height); one pose with OCC_SLICES = 2 and
+    OCC_GAP_SKIP. Each reading's line carries ``card`` -> summary dict."""
+    import glob
     import shutil
 
     import torch
@@ -1707,12 +1820,15 @@ def phase_render_front_end(device, cfg_file: str, hd_size=(1920, 1080)) -> dict:
     from stnerf_tpu_torch.engine import export_reference_checkpoint
     from stnerf_tpu_torch.kernels.fused_field import fused_field
     from stnerf_tpu_torch.render import LayeredNeuralRenderer
+    from stnerf_tpu_torch.render.occupancy import _occupancy_cube
     from stnerf_tpu_torch.render.pose_device import (render_pose_host,
                                                      render_pose_on_device, tile_grid)
 
     cfg = get_cfg()
     cfg.merge_from_file(cfg_file)
     shutil.rmtree(os.path.join(cfg.OUTPUT_DIR, "rendered"), ignore_errors=True)
+    for path in glob.glob(os.path.join(cfg.OUTPUT_DIR, "occ_boxes_*.npz")):
+        os.remove(path)
     records = []
     logger = logging.getLogger("stnerf_tpu_torch.render")
     logger.setLevel(logging.INFO)
@@ -1720,34 +1836,81 @@ def phase_render_front_end(device, cfg_file: str, hd_size=(1920, 1080)) -> dict:
     handler.emit = lambda r: (records.append(r), print("render", r.getMessage(), flush=True))
     logger.addHandler(handler)
 
-    # 1. the renderer with the config's default approximations
+    def logged(prefix, start=0):
+        return [x for x in records[start:] if x.getMessage().startswith(prefix)]
+
+    # 1. the renderer with the config's defaults: boxes refined on the
+    # lattice through K1, the gate run, the approximations kept
+    t = cfg.TPU
+    check(t.FAST_FINE and t.EARLY_EXIT_SEGMENTS == 3 and t.OCCUPANCY_SKIP and t.OCC_AUTO_TAU
+          and t.FIDELITY_GATE, "the synthetic config does not run the defaults")
+    sync(device)
+    fused_field.launches = 0
+    t0 = time.perf_counter()
     r = LayeredNeuralRenderer(cfg, device=device)
-    warned = [x.getMessage() for x in records if x.levelno == logging.WARNING]
-    stripped = ("TPU.FAST_FINE", "TPU.EARLY_EXIT_SEGMENTS=3", "TPU.FIDELITY_GATE",
-                "TPU.OCCUPANCY_SKIP")
-    check(len(warned) == 1 and all(k in warned[0] for k in stripped),
-          f"the renderer's warning does not name every stripped approximation: {warned}")
-    check(not r.spec.fast_fine and r.spec.coarse_exit_segments == 0
-          and r.spec.compute_dtype == "bfloat16", f"render spec {r.spec}")
+    ctor_s = time.perf_counter() - t0
+    ctor_launches = fused_field.launches
+    check(not any("not ported" in x.getMessage() for x in records),
+          "the renderer still logs an unported approximation")
     check(os.path.basename(r._ckpt_path) == "stnerf_torch_checkpoint_4.pt",
           f"the renderer loaded {r._ckpt_path}, not phase 11's last checkpoint")
+    refined = logged("occupancy: refined boxes in")
+    check(len(refined) == 1 and r.scene is not r._exact_scene, "the boxes were not refined")
     frame_num, lp1 = cfg.DATASETS.FRAME_NUM, r.layer_num + 1
+    lattice = frame_num * r.layer_num * 2                     # frames x performers x nets
+    check(ctor_launches == lattice + gate_launches(r),
+          f"the renderer's construction launched K1 {ctor_launches} times; the lattice "
+          f"and the gate imply {lattice} + {gate_launches(r)}")
+    check(r.fidelity_db is not None and np.isfinite(r.fidelity_db)
+          and r.fidelity_db >= float(t.FIDELITY_MIN_DB),
+          f"the gate read {r.fidelity_db} dB (bar {t.FIDELITY_MIN_DB})")
+    check(r.spec.fast_fine and r.spec.coarse_exit_segments == 3
+          and r.spec.compute_dtype == "bfloat16", f"render spec {r.spec}")
+    orig, new = r._exact_scene.boxes.cpu().numpy(), r.scene.boxes.cpu().numpy()
+    check(new.shape == orig.shape and (new[..., 0, :] >= orig[..., 0, :] - 1e-6).all()
+          and (new[..., 1, :] <= orig[..., 1, :] + 1e-6).all(),
+          "refined boxes do not lie inside the scene's")
+    vol = lambda b: np.prod(np.maximum(b[..., 1, :] - b[..., 0, :], 0), -1)
+    # K1 on one lattice against its plain version (bf16 bar of phase 2)
+    box = orig[frame_num // 2, 0]
+    cubes = [_occupancy_cube(r.model, 1, box, frame_num // 2 + 1, int(t.OCC_GRID), plain)
+             for plain in (False, True)]
+    cube_rel = float(np.linalg.norm(cubes[0] - cubes[1]) / max(np.linalg.norm(cubes[1]), 1e-30))
+    check(cube_rel <= 1e-2, f"occupancy lattice, K1 vs plain relative L2 {cube_rel:.2e}")
+    occupancy = {"card": card, "refine_s": refined[0].args[0], "constructor_s": ctor_s,
+                 "cache_hit": False, "lattice_launches": lattice,
+                 "box_volume_share": float(vol(new).sum() / vol(orig).sum()),
+                 "lattice_kernel_vs_plain_rel_l2": cube_rel,
+                 "fidelity_db": r.fidelity_db, "fidelity_min_db": float(t.FIDELITY_MIN_DB)}
     kf1 = scaled_key_frames([21, 49, 74, 87], frame_num)
     kf2 = scaled_key_frames([13, 42, 80, 90], frame_num)
     kf = scaled_key_frames([20, 50, 74, 85], frame_num)
     steps = 6
 
-    # 2. the demo's runs and the other edits, counted
+    # 2. the demo's runs and the other edits, counted; each renderer built
+    # here reads the cached boxes and runs its own gate
     sync(device)
     fused_field.launches = fused_field.launches_tc = 0
     zero_k6()
     # per run: (renderer, its mixed frames, its background stream's frames)
-    runs, files, poses, path_s = {}, 0, 0, 0.0
+    runs, files, poses, path_s, expected = {}, 0, 0, 0.0, 0
+    _, _, _, _, n_pad = tile_grid(r.height, r.width, t.RENDER_CHUNK, t.TILE_COLS)
+    chunks = n_pad // t.RENDER_CHUNK
     for name, kwargs in (("origin", {}), ("shift", {"shift": [[0, 0, 0], [0, 0.5, 0],
                                                               [0, -0.5, 0]]}),
                          ("scale", {"scale": [1, 0.75, 1.5]}),
                          ("alpha", {"s_alpha": [1.0, 0.0]})):
-        rr = r if name == "origin" else LayeredNeuralRenderer(cfg, device=device, **kwargs)
+        if name == "origin":
+            rr = r
+        else:
+            start = len(records)
+            rr = LayeredNeuralRenderer(cfg, device=device, **kwargs)
+            check(len(logged("occupancy: loaded cached boxes", start)) == 1,
+                  f"{name}: the renderer did not read the cached boxes")
+            check(rr.fidelity_db is not None and rr.spec == r.spec,
+                  f"{name}: the gate read {rr.fidelity_db} dB with spec {rr.spec}")
+            occupancy["cache_hit"] = True
+            expected += gate_launches(rr)
         rr.set_save_dir(name)
         rr.set_fps(25)
         rr.set_smooth_path_poses(steps, around=False)
@@ -1757,6 +1920,7 @@ def phase_render_front_end(device, cfg_file: str, hd_size=(1920, 1080)) -> dict:
         rr.render_path(False, 0, auto_save=True)
         path_s += time.perf_counter() - t0
         poses += rr.image_num
+        expected += rr.image_num * chunks * k1_per_chunk(rr.spec)
         files += check_written_frames(rr, os.path.join(name, "video_0"))
         rr.save_video()
         runs[name] = (rr, list(rr.images), list(rr.images_layer[0]))
@@ -1767,10 +1931,12 @@ def phase_render_front_end(device, cfg_file: str, hd_size=(1920, 1080)) -> dict:
         r.render_path(False, 0, auto_save=True)
         path_s += time.perf_counter() - t0
         poses += r.image_num
+        expected += r.image_num * chunks * k1_per_chunk(r.spec)
         files += check_written_frames(r, os.path.join(name, f"video_{r.save_count}"))
         runs[name] = (r, list(r.images), list(r.images_layer[0]))
         r.save_video()
     walk = LayeredNeuralRenderer(cfg, device=device)
+    expected += gate_launches(walk)
     walk.set_pose_duration(1, min(14, walk.camera_num - 1))
     walk.set_smooth_path_poses(steps, around=False)
     walk.invert_poses()
@@ -1779,6 +1945,7 @@ def phase_render_front_end(device, cfg_file: str, hd_size=(1920, 1080)) -> dict:
     walk.render_path_walking(False, 0, 0, auto_save=True)
     path_s += time.perf_counter() - t0
     poses += walk.image_num
+    expected += walk.image_num * chunks * k1_per_chunk(walk.spec)
     files += check_written_frames(walk, os.path.join("walking", "video_0"))
     for i in range(walk.image_num):
         check(os.path.exists(os.path.join(walk.output_dir, "02", "color", f"{i}.png")),
@@ -1786,56 +1953,104 @@ def phase_render_front_end(device, cfg_file: str, hd_size=(1920, 1080)) -> dict:
     sync(device)
     launches, launches_tc, k6 = fused_field.launches, fused_field.launches_tc, read_k6()
     h, w = r.height, r.width
-    _, _, _, _, n_pad = tile_grid(h, w, cfg.TPU.RENDER_CHUNK, cfg.TPU.TILE_COLS)
-    # 5. every pose runs each of the L+1 fields once per chunk and stage
-    expected = poses * (n_pad // cfg.TPU.RENDER_CHUNK) * 2 * lp1
+    # every pose: each of the L+1 fields once per chunk and coarse segment
+    # and once in the fine stage; every renderer built: its gate's probes
     check(launches == expected and launches_tc == expected,
           f"fused_field launched {launches} times ({launches_tc} on tensor cores); "
-          f"{poses} poses imply {expected}")
+          f"{poses} poses and the gates imply {expected}")
     check(not any(k6.values()), f"the front end launched K6: {k6}")
 
-    # 3. with every performer hidden the mix is the background alone (the
-    # same render's background stream, and the origin run's), to one u8 step
+    # 3. hiding a performer does not touch the background's stream (to one
+    # u8 step), and with every performer hidden the mix is the background
+    # alone up to the quadrature of the hidden samples' interleaved depths,
+    # which cut the background's segments: one u8 step on the exact path
+    # (checked in 6), the gate's bar on the approximate one, whose carried
+    # coarse-net samples cut differently
     _, origin, origin_bg = runs["origin"]
     _, hide_both, hide_both_bg = runs["hide_both"]
+    hide_both_db = []
     for i, mixed in enumerate(hide_both):
-        for ref, what in ((hide_both_bg[i], "its own background stream"),
-                          (origin_bg[i], "the origin run's background stream")):
-            err = float(np.abs(mixed - ref).max())
-            check(err <= 1.0 / 255 + 1e-7,
-                  f"hide_both pose {i}: the mix differs from {what} by {err}")
+        err = float(np.abs(hide_both_bg[i] - origin_bg[i]).max())
+        check(err <= 1.0 / 255 + 1e-7,
+              f"hide_both pose {i}: hiding the performers moved the background stream by {err}")
+        hide_both_db.append(psnr(mixed, hide_both_bg[i]))
+        check(hide_both_db[-1] >= float(t.FIDELITY_MIN_DB),
+              f"hide_both pose {i}: the mix is {hide_both_db[-1]:.1f} dB from the background "
+              f"stream")
     for name in ("shift", "scale", "alpha", "hide_man_1", "hide_both"):
         check(any(not np.array_equal(a, b) for a, b in zip(runs[name][1], origin)),
               f"{name}: the edit left every frame unchanged")
 
-    # 4. K1 against its plain version on one pose of the path, with the
-    # renderer's own model, scene and edits; acc in [0, 1]
+    # 4. on one pose of the approximate path, with the renderer's own model,
+    # scene and edits: K1 against its plain version; the approximate path
+    # against the exact one on the original boxes (what the gate measures,
+    # its bar) and on the refined boxes (unbarred: the tighter intervals
+    # move every sample); acc in [0, 1]
     sr, idx = runs["scale"][0], steps // 2
     frame_ids = np.ones(lp1, np.float32)
     for layer, fid in sr.layer_frame_pairs[idx]:
         frame_ids[layer] = fid
     edits = sr._edits(idx, 0, 0)
-    kw = dict(chunk=cfg.TPU.RENDER_CHUNK, tile_cols=cfg.TPU.TILE_COLS, far_clip=sr.far,
-              download_layers=list(range(lp1)), spec=sr.spec)
-    args = (sr.model, sr.scene, sr.Ks[idx], sr.poses[idx], frame_ids,
-            sr.dataset.near_far, edits, h, w)
-    kernel = render_pose_host(*args, **kw)
-    plain = render_pose_host(*args, plain=True, **kw)
-    db = min(psnr(a, b) for a, b in zip([kernel[0], *kernel[2]], [plain[0], *plain[2]]))
+    kw = dict(chunk=t.RENDER_CHUNK, tile_cols=t.TILE_COLS, far_clip=sr.far,
+              download_layers=list(range(lp1)))
+    exact_spec = dataclasses.replace(sr.spec, fast_fine=False, coarse_exit_segments=0)
+
+    def pose(scene, spec, **extra):
+        return render_pose_host(sr.model, scene, sr.Ks[idx], sr.poses[idx], frame_ids,
+                                sr.dataset.near_far, edits, h, w, spec=spec, **kw, **extra)
+
+    def images_db(a, b):
+        return min(psnr(x, y) for x, y in zip([a[0], *a[2]], [b[0], *b[2]]))
+
+    kernel = pose(sr.scene, sr.spec)
+    plain = pose(sr.scene, sr.spec, plain=True)
+    db = images_db(kernel, plain)
     check(db >= 40.0, f"front-end pose, kernel vs plain {db:.1f} dB < 40")
     check(np.array_equal(kernel[0], runs["scale"][1][idx]),
           "render_pose_host on the renderer's inputs differs from its render_path frame")
+    # the approximate path against the exact one, the gate's measure (the
+    # mixed colour's PSNR) on the gate's own pose at the frame's size with
+    # deterministic sampling: its bar holds there. On the path's pose (and
+    # the per-layer images, the refined boxes) it is read, unbarred: the
+    # gate certifies its one pose, not every pose of a path
+    exact = pose(sr._exact_scene, exact_spec)
+    approx = pose(sr._exact_scene, sr.spec)
+    approx_db, approx_layers_db = psnr(approx[0], exact[0]), images_db(approx, exact)
+    refined_db, refined_layers_db = psnr(kernel[0], exact[0]), images_db(kernel, exact)
+    # which approximation the path pose's gap comes from
+    parts_db = {f"path_pose_{name}_only_db": psnr(pose(sr._exact_scene, spec_)[0], exact[0])
+                for name, spec_ in (("fast_fine", dataclasses.replace(sr.spec,
+                                                                      coarse_exit_segments=0)),
+                                    ("early_exit", dataclasses.replace(sr.spec,
+                                                                       fast_fine=False)))}
+    err = (r._fidelity_probe(r.spec, r._exact_scene, None, width=w)
+           - r._fidelity_probe(exact_spec, r._exact_scene, None, width=w))
+    gate_pose_db = float(-10.0 * torch.log10(torch.clamp(torch.mean(err * err), min=1e-12)))
     frame = render_pose_on_device(
         sr.model, sr.scene, np.asarray(sr.Ks[idx], np.float32),
         torch.as_tensor(np.asarray(sr.poses[idx], np.float32), device=device),
         torch.as_tensor(frame_ids, device=device),
         torch.as_tensor(sr.dataset.near_far, device=device), edits, h=h, w=w,
-        chunk=cfg.TPU.RENDER_CHUNK, tile_cols=cfg.TPU.TILE_COLS, spec=sr.spec)
+        chunk=t.RENDER_CHUNK, tile_cols=t.TILE_COLS, spec=sr.spec)
     for acc in (frame.acc.float(), frame.layer_acc.float()):
         check(bool(torch.isfinite(acc).all() and (acc >= 0).all() and (acc <= 1).all()),
               "front-end pose: acc outside [0, 1]")
+    tiles = {name: count_tiles(lambda: pose(scene, spec))
+             for name, scene, spec in (("approximate", sr.scene, sr.spec),
+                                       ("exact", sr._exact_scene, exact_spec))}
+    check(tiles["approximate"]["launches"] == chunks * k1_per_chunk(sr.spec),
+          f"approximate pose: {tiles['approximate']['launches']} K1 launches")
+    print("render_fidelity", json.dumps({
+        "card": card, "fidelity_db": r.fidelity_db, "kernel_vs_plain_db": db,
+        "gate_pose_full_size_db": gate_pose_db, "path_pose_approximate_vs_exact_db": approx_db,
+        "path_pose_least_image_db": approx_layers_db,
+        "path_pose_refined_boxes_vs_exact_db": refined_db,
+        "path_pose_refined_boxes_least_image_db": refined_layers_db, **parts_db}), flush=True)
+    check(gate_pose_db >= float(t.FIDELITY_MIN_DB),
+          f"the gate's pose at {w}x{h}, approximate vs exact path {gate_pose_db:.2f} dB < "
+          f"{t.FIDELITY_MIN_DB}")
 
-    # 6. the reference .pt export, read back by a second renderer
+    # 5. the reference .pt export, read back by a second renderer
     pt_dir = os.path.join(cfg.OUTPUT_DIR, "reference_export")
     shutil.rmtree(pt_dir, ignore_errors=True)
     os.makedirs(pt_dir)
@@ -1855,39 +2070,76 @@ def phase_render_front_end(device, cfg_file: str, hd_size=(1920, 1080)) -> dict:
                                                    [b[0], b[1], *b[2], *b[3]])),
           "the renderer on the exported .pt differs from the one on the port's checkpoint")
 
-    # 7. seconds per pose, then one pose at 1920x1080 (the Ks rescaled by the
-    # width ratio as RenderScene does; the 4:3 scene cropped to 16:9)
-    e2e = [x.args for x in records if x.msg.startswith("Rendered %d poses")]
-    device_s = sum(a[6] * a[0] for a in e2e) / sum(a[0] for a in e2e)
-    hd_cfg = cfg.clone()
-    hd_cfg.INPUT.SIZE_TEST = list(hd_size)
-    hd = LayeredNeuralRenderer(hd_cfg, device=device)
-    hd.set_smooth_path_poses(steps, around=False)
-    check(np.allclose(hd.gt_Ks[:, :2], r.gt_Ks[:, :2] * hd_size[0] / w),
-          "1080p Ks not rescaled")
-    hd_pairs = hd.layer_frame_pairs[idx]
-    hd.render_pose(hd.poses[idx], hd.Ks[idx], hd_pairs, frame_idx=idx)  # first use
-    sync(device)
-    torch.cuda.reset_peak_memory_stats(device)
-    hd_s, hd_dev = [], []
-    for _ in range(2):
-        timings = {}
-        t0 = time.perf_counter()
-        color, depth, _, _ = hd.render_pose(hd.poses[idx], hd.Ks[idx], hd_pairs,
-                                            frame_idx=idx, timings=timings)
-        hd_s.append(time.perf_counter() - t0)
-        hd_dev.append(timings["device_s"])
-    peak = torch.cuda.max_memory_allocated(device)
-    check(color.shape == (hd_size[1], hd_size[0], 3) and np.isfinite(color).all()
-          and np.isfinite(depth).all(), "1080p frame: shape or non-finite values")
+    # 6. the approximate and the exact path on the same 6-pose path, in the
+    # order approximate, exact, exact, approximate; tiles run of one pose
+    re = LayeredNeuralRenderer(exact_cfg(cfg), device=device)
+    check(not re.spec.fast_fine and re.spec.coarse_exit_segments == 0
+          and re.scene is re._exact_scene and re.fidelity_db is None,
+          "the exact renderer runs an approximation")
+    re.set_smooth_path_poses(steps, around=False)
+    paths = {"approximate": [], "exact": []}
+    for name, rr in (("approximate", r0), ("exact", re), ("exact", re), ("approximate", r0)):
+        paths[name].append(render_path_times(rr, records))
+    re.hide_layer(1)
+    re.hide_layer(2)
+    for i in range(len(re.poses)):
+        c, _, cl, _ = re.render_pose(re.poses[i], re.Ks[i], re.layer_frame_pairs[i],
+                                     frame_idx=i, download_layers=[0])
+        err = float(np.abs(c - cl[0]).max())
+        check(err <= 1.0 / 255 + 1e-7,
+              f"exact hide_both pose {i}: the mix differs from the background stream by {err}")
+    for name in paths:
+        row = {"card": card, "path": name, "h": h, "w": w, "runs": paths[name],
+               "k1_launches_per_pose": tiles[name]["launches"],
+               "tiles_run": tiles[name]["tiles_run"], "tiles_total": tiles[name]["tiles_total"],
+               "tiles_share_run": tiles[name]["share_run"]}
+        print("render_path_times", json.dumps(row), flush=True)
+
+    # 7. one pose at 1920x1080, approximate and exact (the Ks rescaled by
+    # the width ratio as RenderScene does; the 4:3 scene cropped to 16:9)
+    hd = {}
+    for name, base in (("approximate", cfg), ("exact", exact_cfg(cfg))):
+        hd_cfg = base.clone()
+        hd_cfg.INPUT.SIZE_TEST = list(hd_size)
+        rh = LayeredNeuralRenderer(hd_cfg, device=device)
+        check(np.allclose(rh.gt_Ks[:, :2], r.gt_Ks[:, :2] * hd_size[0] / w),
+              "1080p Ks not rescaled")
+        check(rh.spec.fast_fine == (name == "approximate"), f"1080p {name}: spec {rh.spec}")
+        rh.set_smooth_path_poses(steps, around=False)
+        hd[name] = hd_frames(rh, idx, device)
+    hd_db = psnr(hd["approximate"].pop("color"), hd["exact"].pop("color"))
+    for name, row in hd.items():
+        print("render_hd", json.dumps({"card": card, "path": name, "size": list(hd_size),
+                                       **row, "approximate_vs_exact_db": hd_db}), flush=True)
+
+    # 8. one pose with the boxes in two slices and the gap skip
+    sl_cfg = cfg.clone()
+    sl_cfg.TPU.OCC_SLICES, sl_cfg.TPU.OCC_GAP_SKIP = 2, True
+    start = len(records)
+    rs = LayeredNeuralRenderer(sl_cfg, device=device)
+    check(rs.scene.boxes.ndim == 5 and rs.scene.boxes.shape[2] == 2 and rs.spec.occ_gap_skip,
+          f"sliced renderer: boxes {tuple(rs.scene.boxes.shape)}")
+    rs.set_smooth_path_poses(steps, around=False)
+    t0 = time.perf_counter()
+    sc = rs.render_pose(rs.poses[idx], rs.Ks[idx], rs.layer_frame_pairs[idx], frame_idx=idx)
+    sliced_s = time.perf_counter() - t0
+    check(np.isfinite(sc[0]).all() and sc[0].shape == (h, w, 3), "sliced pose: non-finite")
+    sliced = {"card": card, "refine_s": logged("occupancy: refined boxes in", start)[0].args[0],
+              "fidelity_db": rs.fidelity_db, "s_per_pose": sliced_s,
+              "vs_approximate_db": psnr(sc[0], a[0])}
+    print("render_sliced", json.dumps(sliced), flush=True)
+    print("render_occupancy", json.dumps(occupancy), flush=True)
+
     logger.removeHandler(handler)
-    summary = {"h": h, "w": w, "poses": poses, "files_checked": files,
-               "s_per_pose": path_s / poses, "device_s_per_pose": device_s,
-               "kernel_vs_plain_db": db, "launches": launches, "launches_tc": launches_tc,
+    summary = {"card": card, "h": h, "w": w, "poses": poses, "files_checked": files,
+               "s_per_pose": path_s / poses, "kernel_vs_plain_db": db,
+               "launches": launches, "launches_tc": launches_tc,
                "launches_expected": expected, "launches_k6": k6,
-               "hd_s_per_frame": hd_s, "hd_device_s_per_frame": hd_dev,
-               "hd_max_memory_allocated": peak,
-               "hd_max_memory_allocated_gib": peak / 2 ** 30}
+               "fidelity_db": r.fidelity_db, "gate_pose_full_size_db": gate_pose_db,
+               "path_pose_approximate_vs_exact_db": approx_db,
+               "hide_both_mix_vs_background_db": hide_both_db,
+               "paths": paths, "tiles": tiles, "hd": hd, "occupancy": occupancy,
+               "sliced": sliced}
     print("render_front_end", json.dumps(summary), flush=True)
     return summary
 
@@ -1956,7 +2208,8 @@ def main():
     entry = phase_entry_point(device)
     print(f"phase entry_point: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    front = phase_render_front_end(device, os.path.join(REPO, "build", "chip_smoke_train.yml"))
+    front = phase_render_front_end(device, os.path.join(REPO, "build", "chip_smoke_train.yml"),
+                                   card)
     print(f"phase render_front_end: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # the performer field: the main paths' case. K1 and K2 in two routes

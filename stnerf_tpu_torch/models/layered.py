@@ -36,19 +36,24 @@ training compositor) instead of the sorted merge; with
 ``compositor_kernel`` too its cross-stream terms come from the kernels K4
 and K5 (``kernels.cross_trans``) on the card.
 
-Not ported yet: the fast fine stage and the early-exit coarse march
-(FAST_FINE, EARLY_EXIT_SEGMENTS > 1: a spec holds them, as the JAX
-package's does, and ``render_rays`` refuses to run them; the trainer and
-validation strip them, as JAX's do), the fast fine stage in training
-(FAST_FINE_TRAIN) and occupancy gap skipping (OCC_GAP_SKIP), which
-``LayeredSpec`` refuses, and occupancy sub-box slices, which
-``render_rays`` refuses.
+The inference approximations of the JAX package render as its do: the
+early-exit coarse march (EARLY_EXIT_SEGMENTS > 1,
+:func:`_coarse_march_segmented`), the fast fine stage (FAST_FINE: the fine
+nets evaluate only the new importance samples, a performer with ~no coarse
+opacity on a ray skips them there), and occupancy sub-box slices
+(``SceneBoxes.boxes`` of shape (F, L, K, 2, 3), ``render/occupancy.py``)
+with the gap skip (OCC_GAP_SKIP, ``ops.sampling.stratified_union``). Skips
+become K1's per-tile flags. The trainer and validation strip the first two,
+as JAX's do. Not ported yet: the fast fine stage in training
+(FAST_FINE_TRAIN), which ``LayeredSpec`` refuses, and so the fast fine
+stage with the sort-free compositor, which ``render_rays`` refuses.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import math
 from typing import NamedTuple
 
 import torch
@@ -63,10 +68,12 @@ from ..kernels.fused_field import (TILE, PackedField, fused_field,
 from ..kernels.spacenet_vjp import spacenet_planar_trainable
 from ..ops.encoding import positional_encoding_planar
 from ..ops.rounding import round_to
-from ..ops.sampling import (ray_aabb_intersect, sample_pdf,
-                            stratified_between, stratified_near_far)
+from ..ops.sampling import (MISS_T, ray_aabb_intersect, sample_pdf,
+                            stratified_between, stratified_near_far,
+                            stratified_union)
 from ..ops.volume import (composite_merged_nosort, merge_layers_planar,
-                          sort_merge_t, volume_render_planar)
+                          sort_merge_t, sort_samples_planar,
+                          volume_render_planar)
 from .camera import CameraTransform, apply_camera_transform
 from .motionnet import MotionNet, MotionNetSpec
 from .spacenet import SpaceNet, SpaceNetSpec
@@ -98,22 +105,25 @@ class LayeredSpec:
     compute_dtype: str = "float32"     # "bfloat16" | "float32"
     nosort_composite: bool = False     # sort-free merged compositor
     compositor_kernel: bool = False    # its cross-stream terms by K4/K5
-    # inference approximations of the JAX package: held, but render_rays
-    # refuses to run them (the trainer and validation strip them)
+    # inference approximations (the trainer and validation strip the first
+    # two): the fast fine stage skips a performer's fine samples on a ray
+    # whose coarse opacity is <= fine_skip_eps; the coarse march runs in
+    # coarse_exit_segments dispatches and skips a layer's rays whose own
+    # transmittance fell below coarse_exit_eps; 0/1 segments = one dispatch
     fast_fine: bool = False
+    fine_skip_eps: float = 1e-3
     coarse_exit_segments: int = 0
-    # paths of the JAX package this port does not have yet; either on is
-    # refused rather than silently rendered or trained another way
-    fast_fine_train: bool = False
+    coarse_exit_eps: float = 1e-3
+    # with occupancy sub-box slices: stratify each performer's coarse
+    # samples over the union of its hit slices (inert without slices)
     occ_gap_skip: bool = False
+    # the fast fine stage in training: not ported yet, refused
+    fast_fine_train: bool = False
 
     def __post_init__(self):
-        unported = {"FAST_FINE_TRAIN": self.fast_fine_train,
-                    "OCC_GAP_SKIP": self.occ_gap_skip}
-        on = [k for k, v in unported.items() if v]
-        if on:
+        if self.fast_fine_train:
             raise NotImplementedError(
-                f"not ported to stnerf_tpu_torch yet: {', '.join(on)}")
+                "not ported to stnerf_tpu_torch yet: FAST_FINE_TRAIN")
         if self.sample_method not in ("BBOX", "NEAR_FAR"):
             raise ValueError(f"unknown SAMPLE_METHOD {self.sample_method!r}")
         if self.compute_dtype not in ("bfloat16", "float32"):
@@ -148,8 +158,10 @@ class LayeredSpec:
             compute_dtype=cfg.TPU.COMPUTE_DTYPE,
             compositor_kernel=cfg.TPU.COMPOSITOR_KERNEL,
             fast_fine=cfg.TPU.FAST_FINE,
+            fine_skip_eps=float(cfg.TPU.FAST_FINE_EPS),
             fast_fine_train=cfg.TPU.FAST_FINE_TRAIN,
             coarse_exit_segments=int(cfg.TPU.EARLY_EXIT_SEGMENTS),
+            coarse_exit_eps=float(cfg.TPU.EARLY_EXIT_EPS),
             occ_gap_skip=cfg.TPU.OCC_GAP_SKIP,
         )
 
@@ -182,7 +194,8 @@ class RayInputs(NamedTuple):
 
 class SceneBoxes(NamedTuple):
     bkgd_box: torch.Tensor       # (2, 3) min/max
-    boxes: torch.Tensor          # (F, L, 2, 3) per-frame performer boxes
+    boxes: torch.Tensor          # (F, L, 2, 3) per-frame performer boxes, or
+    # (F, L, K, 2, 3) occupancy sub-box slices (render/occupancy.py)
     bkgd_near_far: torch.Tensor  # (2,) background near/far (NEAR_FAR)
 
 
@@ -313,12 +326,15 @@ class LayeredModel(nn.Module):
 
 def _gather_boxes(scene: SceneBoxes, frame_ids: torch.Tensor) -> torch.Tensor:
     """Per-ray, per-performer box, lerped at fractional frame ids
-    (ref: layered_rfrender.py:123-127,193). (N, L) -> (N, L, 2, 3)."""
+    (ref: layered_rfrender.py:123-127,193). (N, L) -> (N, L, 2, 3), or
+    (N, L, K, 2, 3) with sub-box slices (slice k lerps with slice k)."""
     F, L = scene.boxes.shape[:2]
     idx = frame_ids - 1.0
     lo = torch.clamp(torch.floor(idx), 0, F - 1)
     hi = torch.clamp(lo + 1, 0, F - 1)
     w = torch.clamp(idx - lo, 0.0, 1.0)[..., None, None]
+    if scene.boxes.ndim == 5:
+        w = w[..., None]
     lidx = torch.arange(L, device=frame_ids.device)[None, :]
     b_lo = scene.boxes[lo.long(), lidx]
     b_hi = scene.boxes[hi.long(), lidx]
@@ -327,10 +343,12 @@ def _gather_boxes(scene: SceneBoxes, frame_ids: torch.Tensor) -> torch.Tensor:
 
 def _edit_boxes(boxes: torch.Tensor, edits: EditState) -> torch.Tensor:
     """Forward scale/shift of the layer boxes (ref: layered_rfrender.py:
-    230-243). boxes (N, L+1, 2, 3)."""
+    230-243). boxes (N, L+1, 2, 3) or (N, L+1, K, 2, 3)."""
+    scale, shift = edits.scale[None, :, None, None], edits.shift[None, :, None, :]
+    if boxes.ndim == 5:  # the slice axis
+        scale, shift = scale[..., None], shift[:, :, None]
     pivot = edits.scale_pivot
-    boxes = (boxes - pivot) * edits.scale[None, :, None, None] + pivot
-    return boxes + edits.shift[None, :, None, :]
+    return (boxes - pivot) * scale + pivot + shift
 
 
 def _inverse_edit_points(xyz: torch.Tensor, edits: EditState) -> torch.Tensor:
@@ -343,7 +361,12 @@ def _inverse_edit_points(xyz: torch.Tensor, edits: EditState) -> torch.Tensor:
 
 def _coarse_sample(spec: LayeredSpec, scene: SceneBoxes, inputs: RayInputs,
                    boxes_all: torch.Tensor, generator):
-    """Coarse t's for every layer -> (t (L+1, N, S1), hit (L+1, N))."""
+    """Coarse t's for every layer -> (t (L+1, N, S1), hit (L+1, N)).
+
+    With sub-box slices (boxes_all (N, L+1, K, 2, 3)) a layer's interval is
+    the hull [min entry, max exit] of its hit slices (``layered.py:750-790``):
+    exact when the slices tile the box. With ``occ_gap_skip`` each performer
+    stratifies over the union of its hit slice intervals instead."""
     N = inputs.rays_o.shape[0]
     lp1 = spec.layer_num + 1
     S1 = spec.coarse_samples
@@ -354,16 +377,34 @@ def _coarse_sample(spec: LayeredSpec, scene: SceneBoxes, inputs: RayInputs,
                                    S1, generator) for _ in range(spec.layer_num)]
         return torch.stack(ts), torch.ones((lp1, N), dtype=torch.bool,
                                            device=inputs.rays_o.device)
-    o_b = inputs.rays_o[:, None, :].expand(N, lp1, 3)
-    d_b = inputs.rays_d[:, None, :].expand(N, lp1, 3)
-    t_near, t_far, hit = ray_aabb_intersect(o_b, d_b, boxes_all[..., 0, :],
-                                            boxes_all[..., 1, :])  # (N, L+1)
+    if boxes_all.ndim == 5:
+        K = boxes_all.shape[2]
+        o_b = inputs.rays_o[:, None, None, :].expand(N, lp1, K, 3)
+        d_b = inputs.rays_d[:, None, None, :].expand(N, lp1, K, 3)
+        t_n, t_f, h = ray_aabb_intersect(o_b, d_b, boxes_all[..., 0, :],
+                                         boxes_all[..., 1, :])  # (N, L+1, K)
+        hit = h.any(2)
+        t_near = torch.where(h, t_n, 3.4e38).amin(2)
+        t_far = torch.where(h, t_f, -3.4e38).amax(2)
+        t_near = torch.where(hit, t_near, MISS_T)
+        t_far = torch.where(hit, t_far, MISS_T)
+    else:
+        o_b = inputs.rays_o[:, None, :].expand(N, lp1, 3)
+        d_b = inputs.rays_d[:, None, :].expand(N, lp1, 3)
+        t_near, t_far, hit = ray_aabb_intersect(o_b, d_b, boxes_all[..., 0, :],
+                                                boxes_all[..., 1, :])  # (N, L+1)
     # background entry clamp: never start behind the camera
     # (ref: layers/RaySamplePoint.py:93-95)
     t_near = torch.cat([torch.where(t_near[:, :1] <= 0, 0.0, t_near[:, :1]),
                         t_near[:, 1:]], 1)
-    ts = [stratified_between(t_near[:, i], t_far[:, i], S1, generator)
-          for i in range(lp1)]
+    if boxes_all.ndim == 5 and spec.occ_gap_skip:
+        # the background's box is replicated over K: it keeps the hull
+        ts = [stratified_between(t_near[:, 0], t_far[:, 0], S1, generator)]
+        ts += [stratified_union(t_n[:, i], t_f[:, i], h[:, i], S1, generator)
+               for i in range(1, lp1)]
+    else:
+        ts = [stratified_between(t_near[:, i], t_far[:, i], S1, generator)
+              for i in range(lp1)]
     return torch.stack(ts), hit.T
 
 
@@ -545,22 +586,56 @@ _RENDER_SWITCHES = ("nosort_composite", "compositor_kernel", "fast_fine",
 def _render_spec(model: LayeredModel, spec: LayeredSpec | None) -> LayeredSpec:
     """``spec`` (default: the model's) after checking that it differs from
     the model's only in :data:`_RENDER_SWITCHES`, and that it asks for no
-    approximation this port does not have."""
+    path this port does not have: the fast fine stage with the sort-free
+    compositor is the JAX package's FAST_FINE_TRAIN path
+    (``composite_streams_nosort``, ``layered.py:1013-1041``)."""
     if spec is None:
         spec = model.spec
     elif dataclasses.replace(spec, **{k: getattr(model.spec, k)
                                       for k in _RENDER_SWITCHES}) != model.spec:
         raise ValueError("a render spec may differ from the model's only in "
                          f"{', '.join(_RENDER_SWITCHES)}")
-    on = [name for name, v in (("FAST_FINE", spec.fast_fine),
-                               ("EARLY_EXIT_SEGMENTS > 1", spec.coarse_exit_segments > 1))
-          if v]
-    if on:
+    if spec.fast_fine and spec.nosort_composite:
         raise NotImplementedError(
-            f"not ported to stnerf_tpu_torch yet: {', '.join(on)} (render with "
-            "dataclasses.replace(spec, fast_fine=False, coarse_exit_segments=0), "
-            "as the trainer and validation do)")
+            "not ported to stnerf_tpu_torch yet: FAST_FINE with the sort-free "
+            "compositor (the FAST_FINE_TRAIN path)")
     return spec
+
+
+def _coarse_march_segmented(eval_fields, spec: LayeredSpec, xyz: torch.Tensor,
+                            t_c: torch.Tensor, hit: torch.Tensor, edits: EditState):
+    """The coarse march front to back in ``spec.coarse_exit_segments``
+    dispatches with transmittance-driven early exit (``layered.py:800-845``).
+
+    After each segment a layer whose own log-transmittance on a ray fell to
+    ``log(coarse_exit_eps)`` or below stops evaluating that ray: the ray's
+    flag goes to ``eval_fields(xyz, fine, keep)``, which makes K1's per-tile
+    flags from it; skipped tiles come out as zeros, and a zero sigma has
+    zero weight. The transmittance uses exactly the sigma the compositor
+    sees (:func:`_mask_sigma_coarse`), and a segment's last delta closes
+    against the next segment's first t. Segment bounds are Python's
+    ``round(k * S1 / n_seg)``, as JAX's. At eps 0 every keep stays true and
+    the segments concatenate to the single dispatch's outputs."""
+    lp1, _, N, S1 = xyz.shape
+    n_seg = max(1, min(spec.coarse_exit_segments, S1))
+    bounds = [round(k * S1 / n_seg) for k in range(n_seg + 1)]
+    eps = spec.coarse_exit_eps
+    log_eps = math.log(eps) if eps > 0 else -math.inf
+    keep = hit
+    log_t = t_c.new_zeros((lp1, N))
+    rgb_parts, sig_parts = [], []
+    for k in range(n_seg):
+        lo, hi = bounds[k], bounds[k + 1]
+        rgb_k, sig_k = eval_fields(xyz[..., lo:hi], False, keep)
+        rgb_parts.append(rgb_k)
+        sig_parts.append(sig_k)
+        if k + 1 < n_seg:
+            t_seg = t_c[..., lo:hi]
+            sig_m = _mask_sigma_coarse(sig_k, t_seg, hit, edits)
+            delta = t_c[..., lo + 1:hi + 1] - t_seg
+            log_t = log_t - (torch.relu(sig_m) * delta).sum(-1)
+            keep = keep & (log_t > log_eps)
+    return torch.cat(rgb_parts, -1), torch.cat(sig_parts, -1)
 
 
 def render_rays(model: LayeredModel, scene: SceneBoxes, inputs: RayInputs,
@@ -568,8 +643,10 @@ def render_rays(model: LayeredModel, scene: SceneBoxes, inputs: RayInputs,
                 layer_outputs=None, plain: bool = False,
                 only_coarse: bool = False, trainable: bool = False,
                 spec: LayeredSpec | None = None) -> RenderOutputs:
-    """Render a batch of rays through all layers, exact reference
-    semantics (``layered.py:884-1087``, the exact fine branch).
+    """Render a batch of rays through all layers (``layered.py:884-1087``):
+    exact reference semantics, or with the spec's inference approximations
+    (the early-exit coarse march, the fast fine stage) and the scene's
+    sub-box slices.
 
     ``generator`` None samples deterministically (bin centres, det
     ``sample_pdf``). ``layer_outputs`` (iterable of layer ids) limits which
@@ -591,7 +668,7 @@ def render_rays(model: LayeredModel, scene: SceneBoxes, inputs: RayInputs,
     ``nosort_composite`` both merges go through
     ``composite_merged_nosort``, whose cross-stream terms come from K4 and
     K5 when ``compositor_kernel`` is on (on CUDA tensors, unless ``plain``).
-    A spec with FAST_FINE or EARLY_EXIT_SEGMENTS > 1 raises.
+    A spec with FAST_FINE and ``nosort_composite`` raises.
     """
     spec = _render_spec(model, spec)
     if not trainable and torch.is_grad_enabled():
@@ -604,15 +681,14 @@ def render_rays(model: LayeredModel, scene: SceneBoxes, inputs: RayInputs,
     L, lp1 = spec.layer_num, spec.layer_num + 1
     S1, S2 = spec.coarse_samples, spec.fine_samples
     bw = spec.boarder_weight
-    if scene.boxes.ndim != 4:
-        raise NotImplementedError("occupancy sub-box slices are not ported to "
-                                  "stnerf_tpu_torch yet")
 
-    bshape = (N, 1, 2, 3)
-    boxes_all = scene.bkgd_box.expand(bshape)
     if L:
-        boxes_all = torch.cat([boxes_all,
-                               _gather_boxes(scene, inputs.frame_ids[:, 1:])], 1)
+        boxes_l = _gather_boxes(scene, inputs.frame_ids[:, 1:])
+        # the background keeps one box, replicated over the slice axis
+        boxes_all = torch.cat([scene.bkgd_box.expand((N, 1) + boxes_l.shape[2:]),
+                               boxes_l], 1)
+    else:
+        boxes_all = scene.bkgd_box.expand((N, 1, 2, 3))
     boxes_all = _edit_boxes(boxes_all, edits)
 
     rays_o, rays_d = inputs.rays_o, inputs.rays_d
@@ -620,30 +696,35 @@ def render_rays(model: LayeredModel, scene: SceneBoxes, inputs: RayInputs,
         rays_o, rays_d = apply_camera_transform(model.cam_pose, rays_o, rays_d,
                                                 inputs.cam_ids)
     o_p, d_p = rays_o.T, rays_d.T.contiguous()
+    shown = edits.visible > 0
 
-    def eval_fields(xyz_, fine):
+    def eval_fields(xyz_, fine, keep):
+        """keep (L+1, N): the rays each field must evaluate. The fused path
+        makes K1's skip flags from it, a hidden performer costing nothing
+        (the background keeps its own flags, as the JAX path does); the
+        staged path skips a field no kept ray reaches, or that is hidden."""
         if spec.use_deform_view:
             xyz_ = _deform(model, xyz_, inputs.frame_ids, inputs.cam_ids)
-            return _eval_fields_staged(model, xyz_, d_p, inputs.frame_ids, fine, active,
-                                       plain)
+            return _eval_fields_staged(model, xyz_, d_p, inputs.frame_ids, fine,
+                                       keep.any(1) & shown, plain)
         if trainable:
             return _eval_fields_trainable(model, xyz_, d_p, inputs.frame_ids,
-                                          fine, hit, plain)
+                                          fine, keep, plain)
         return _eval_fields_fused(model, xyz_, d_p, inputs.frame_ids, fine,
-                                  ray_hit, plain)
+                                  torch.cat([keep[:1], keep[1:] & shown[1:, None]], 0),
+                                  plain)
 
     # --- coarse stage ---
     t_c, hit = _coarse_sample(spec, scene, inputs, boxes_all, generator)
     t_c = t_c.detach()
-    # kernel skip flags: a hidden performer costs nothing (the background
-    # keeps its bbox flags, as the JAX path does)
-    shown = edits.visible > 0
-    ray_hit = torch.cat([hit[:1], hit[1:] & shown[1:, None]], 0)
-    active = hit.any(1) & shown      # the staged path's chunk-level skip
     xyz = o_p[None, :, :, None] + t_c[:, None] * d_p[None, :, :, None]
     xyz = _inverse_edit_points(xyz, edits)                   # (L+1, 3, N, S1)
-    rgb_c, sig_c = eval_fields(xyz, False)
-    sig_c = _mask_sigma_coarse(sig_c, t_c, hit, edits)
+    if spec.coarse_exit_segments > 1:
+        rgb_c, sig_c_raw = _coarse_march_segmented(eval_fields, spec, xyz, t_c, hit,
+                                                   edits)
+    else:
+        rgb_c, sig_c_raw = eval_fields(xyz, False, hit)
+    sig_c = _mask_sigma_coarse(sig_c_raw, t_c, hit, edits)
     per_layer_c = volume_render_planar(t_c, rgb_c, sig_c, bw)
     coarse_layers = LayerOutputs(per_layer_c.color, per_layer_c.depth,
                                  per_layer_c.acc)
@@ -656,17 +737,32 @@ def render_rays(model: LayeredModel, scene: SceneBoxes, inputs: RayInputs,
     if only_coarse:
         return RenderOutputs(coarse, coarse, coarse_layers, coarse_layers, hit)
 
-    # --- fine stage: importance samples folded into the coarse set, every
-    # union position re-evaluated through the fine nets ---
+    # --- fine stage: importance samples from the coarse weights ---
     w_c = per_layer_c.weights[..., 0]                            # (L+1, N, S1)
     t_flat = t_c.reshape(lp1 * N, S1)
     z_new = sample_pdf(t_flat, w_c[:, :, 1:-1].reshape(lp1 * N, S1 - 2), S2,
                        generator).detach()
-    t_f = sort_merge_t(t_flat, z_new).reshape(lp1, N, S1 + S2)
-    xyz_f = o_p[None, :, :, None] + t_f[:, None] * d_p[None, :, :, None]
-    xyz_f = _inverse_edit_points(xyz_f, edits)
-    rgb_f, sig_f = eval_fields(xyz_f, True)
-    sig_f = _mask_sigma_fine(sig_f, hit, edits)
+    if spec.fast_fine:
+        # the fine nets evaluate only the S2 new samples; the S1 coarse
+        # positions carry the coarse nets' raw outputs. A performer whose
+        # coarse opacity on a ray is <= fine_skip_eps skips it (its share
+        # of the pixel is at most eps); the background never skips
+        t_n = z_new.reshape(lp1, N, S2)
+        xyz_n = o_p[None, :, :, None] + t_n[:, None] * d_p[None, :, :, None]
+        xyz_n = _inverse_edit_points(xyz_n, edits)
+        keep = hit & (per_layer_c.acc[..., 0] > spec.fine_skip_eps)
+        rgb_n, sig_n = eval_fields(xyz_n, True, torch.cat([hit[:1], keep[1:]], 0))
+        # masking is pointwise per (layer, ray): it commutes with the sort
+        sig_u = _mask_sigma_fine(torch.cat([sig_c_raw, sig_n], -1), hit, edits)
+        t_f, rgb_f, sig_f = sort_samples_planar(torch.cat([t_c, t_n], -1),
+                                                torch.cat([rgb_c, rgb_n], -1), sig_u)
+    else:
+        # every union position re-evaluated through the fine nets
+        t_f = sort_merge_t(t_flat, z_new).reshape(lp1, N, S1 + S2)
+        xyz_f = o_p[None, :, :, None] + t_f[:, None] * d_p[None, :, :, None]
+        xyz_f = _inverse_edit_points(xyz_f, edits)
+        rgb_f, sig_f = eval_fields(xyz_f, True, hit)
+        sig_f = _mask_sigma_fine(sig_f, hit, edits)
 
     sel = _select_layers(layer_outputs, lp1)
     if sel is None:

@@ -60,6 +60,52 @@ def stratified_near_far(near: torch.Tensor, far: torch.Tensor, num: int,
     return lower + (upper - lower) * _uniform(z.shape, near, generator)
 
 
+def stratified_union(t_near: torch.Tensor, t_far: torch.Tensor,
+                     hit: torch.Tensor, num: int,
+                     generator: torch.Generator | None = None):
+    """Stratified samples over the union of K per-ray intervals, the
+    occupancy gap skip (``ops/sampling.py:83-170``).
+
+    t_near, t_far, hit (N, K): slice intervals in any order, overlapping or
+    duplicated. -> t (N, num) ascending; a ray that hits no interval gets
+    MISS_T. The intervals are union-merged (sorted by entry, each start
+    clamped to the running max exit), the bins are laid over the merged
+    length and mapped back to ray depths, so samples land only inside hit
+    slices. With one contiguous union (slices that tile a box) this is
+    :func:`stratified_between` over [min entry, max exit] up to rounding.
+    """
+    n, K = t_near.shape
+    # misses park at a finite 1e30 entry / -1e30 exit: they sort to the
+    # tail and merge to zero length (JAX's 3.4e38 rounded to inf in a bf16
+    # gather there and poisoned the ray with 0 * inf)
+    big = 1e30
+    s_n, order = torch.sort(torch.where(hit, t_near, big), dim=1, stable=True)
+    s_f = torch.where(hit, t_far, -big).gather(1, order)
+    run_excl = torch.cat([torch.full_like(s_f[:, :1], -big),
+                          torch.cummax(s_f, 1).values[:, :-1]], 1)
+    eff_start = torch.maximum(s_n, run_excl)
+    length = torch.clamp(s_f - eff_start, min=0.0)
+    cum = torch.cumsum(length, 1)                            # (N, K) inclusive
+    total = cum[:, -1:]
+    bins = torch.arange(num, dtype=t_near.dtype, device=t_near.device)[None]
+    if generator is None:
+        u01 = torch.full((n, num), 0.5, dtype=t_near.dtype, device=t_near.device)
+    else:
+        u01 = _uniform((n, num), t_near, generator)
+    # float32 rounds (bins + u01) / num up to exactly 1 for a last-bin draw
+    # within ~2^-18 of 1, which would put u at the union's end; the clamp
+    # keeps it strictly below (2^-20 >> the 2^-24 rounding step)
+    u = torch.clamp((bins + u01) / num, max=1.0 - 2.0 ** -20) * total
+    # the interval of each u: how many of the first K-1 ends lie at or below
+    # it (zero-length merged intervals share an end with the one before)
+    idx = torch.searchsorted(cum[:, :-1].contiguous(), u.contiguous(), right=True)
+    cum_before = torch.cat([torch.zeros_like(cum[:, :1]), cum[:, :-1]], 1)
+    off = torch.minimum(torch.clamp(u - cum_before.gather(1, idx), min=0.0),
+                        length.gather(1, idx))
+    t = eff_start.gather(1, idx) + off
+    return torch.where(total > 0, t, MISS_T)
+
+
 def sample_pdf(z_vals: torch.Tensor, weights: torch.Tensor, num: int,
                generator: torch.Generator | None = None):
     """Inverse-CDF importance sampling (ref: utils/sample_pdf.py:18-63).

@@ -134,6 +134,19 @@ def composite_merged_nosort(t: torch.Tensor, rgb: torch.Tensor, sigma: torch.Ten
     return RenderedRays(color, depth, acc, weights)
 
 
+def sort_samples_planar(t: torch.Tensor, rgb: torch.Tensor,
+                        sigma: torch.Tensor):
+    """Per-ray ascending depth sort carrying the samples' payload
+    (``ops/volume.py:356-368``), for the fast fine stage's union of carried
+    coarse and new importance samples: t (L, N, S), rgb (L, 3, N, S), sigma
+    (L, N, S) -> the same shapes, each ray's samples in depth order. A
+    stable sort and one gather per payload; at tied depths the order may
+    differ from the JAX package's, the composite does not."""
+    t_s, order = torch.sort(t, dim=-1, stable=True)
+    rgb_s = rgb.gather(-1, order[:, None].expand(rgb.shape))
+    return t_s, rgb_s, sigma.gather(-1, order)
+
+
 def sort_merge_t(t_a: torch.Tensor, t_b: torch.Tensor) -> torch.Tensor:
     """Sorted union of two per-ray depth sets, (N,S1),(N,S2) -> (N,S1+S2)
     (ref: modeling/layered_rfrender.py:462)."""

@@ -11,13 +11,16 @@ rendering of paths with per-frame disk output, and video export. Edits are
 collected into an ``EditState`` per output frame and passed to the render:
 nothing is mutated on the model.
 
-Every pose renders through ``render_pose_host`` on the exact path: the field
-kernel K1 on a CUDA card. The inference approximations of the JAX renderer
-(the fast fine stage, the early-exit march, occupancy-refined boxes and the
-fidelity gate that guards them) are not ported: the renderer strips them
-from its spec with one warning, and ``fidelity_db`` stays None. Frames are
-written as PNG (the JAX renderer writes colour as JPEG), in the same
-directory tree.
+Every pose renders through ``render_pose_host``: the field kernel K1 on a
+CUDA card. The config's inference approximations render as the JAX
+renderer's do: the fast fine stage and the early-exit coarse march
+(``TPU.FAST_FINE``, ``TPU.EARLY_EXIT_SEGMENTS``), and boxes refined to the
+trained fields' occupancy (``TPU.OCCUPANCY_SKIP``, ``render/occupancy.py``,
+only with a checkpoint loaded). The fidelity gate (``TPU.FIDELITY_GATE``)
+probes them against the exact path on the first gt pose at the loaded
+weights, sets ``fidelity_db``, and below ``TPU.FIDELITY_MIN_DB`` falls back
+to the exact path for the renderer's life. Frames are written as PNG (the
+JAX renderer writes colour as JPEG), in the same directory tree.
 """
 
 from __future__ import annotations
@@ -34,25 +37,14 @@ from ..data import RenderScene
 from ..device import resolve_device
 from ..engine.checkpoint import latest_checkpoint, load_params_any
 from ..models import EditState, LayeredModel, LayeredSpec, compute_scale_pivot
+from .occupancy import refined_boxes_cached
 from .paths import lookat_path, lookat_path_centers, retime_frames, smooth_pose_path
-from .pose_device import render_pose_host
+from .pose_device import render_pose_host, render_pose_on_device
 from .video import write_image, write_video
 
 
-def _unported_approximations(cfg) -> list:
-    """The inference approximations ``cfg`` turns on that the port renders
-    without (ROADMAP Queue 1 item 4)."""
-    t = cfg.TPU
-    on = [("TPU.FAST_FINE", t.FAST_FINE),
-          (f"TPU.EARLY_EXIT_SEGMENTS={t.EARLY_EXIT_SEGMENTS}", t.EARLY_EXIT_SEGMENTS > 1),
-          ("TPU.FIDELITY_GATE", t.FIDELITY_GATE),
-          ("TPU.OCCUPANCY_SKIP", t.OCCUPANCY_SKIP)]
-    return [name for name, v in on if v]
-
-
 def _exact(spec: LayeredSpec) -> LayeredSpec:
-    """``spec`` with the approximations stripped, as validation and the
-    trainer strip them."""
+    """``spec`` with the approximations stripped: the gate's reference."""
     return dataclasses.replace(spec, fast_fine=False, coarse_exit_segments=0)
 
 
@@ -91,17 +83,29 @@ class LayeredNeuralRenderer:
 
         self.dataset = RenderScene(cfg, self.device)
         self.scene = self.dataset.scene_boxes
-        skipped = _unported_approximations(cfg)
-        if skipped:
-            self.logger.warning(
-                "rendering the exact path: the inference approximations %s are not "
-                "ported to stnerf_tpu_torch yet and are skipped (no fidelity gate "
-                "runs; fidelity_db stays None)", ", ".join(skipped))
+        self._exact_scene = self.scene  # the boxes before occupancy (the gate)
         self._ckpt_path = None
+        self._params_supplied = params is not None
         self.model = params if params is not None else self._load_params(
-            _exact(LayeredSpec.from_cfg(cfg, camera_num=self.dataset.camera_num)))
-        self.spec = _exact(self.model.spec)  # the spec every pose renders with
+            LayeredSpec.from_cfg(cfg, camera_num=self.dataset.camera_num))
+        # the spec every pose renders with: the model's, with the config's
+        # approximations, and the sorted merge as the JAX renderer's spec
+        self.spec = dataclasses.replace(
+            self.model.spec, fast_fine=cfg.TPU.FAST_FINE, nosort_composite=False,
+            coarse_exit_segments=int(cfg.TPU.EARLY_EXIT_SEGMENTS))
+        # the scale edit's pivot comes from the original frame-0 boxes, so
+        # edits do not move when occupancy shrinks the boxes
         self.scale_pivot = compute_scale_pivot(self.scene.bkgd_box, self.scene.boxes[0])
+        # occupancy only means something for a trained field: a fresh model
+        # (no checkpoint on disk) keeps the scene's boxes
+        if cfg.TPU.OCCUPANCY_SKIP and self._ckpt_path is not None:
+            self.scene = refined_boxes_cached(
+                self.model, self.scene, cache_dir=self.dataset_dir,
+                ckpt_path=self._ckpt_path, grid=cfg.TPU.OCC_GRID,
+                sigma_thresh=cfg.TPU.OCC_SIGMA_THRESH, pad_voxels=cfg.TPU.OCC_PAD_VOXELS,
+                refine_bkgd=cfg.TPU.OCC_BKGD, slices=cfg.TPU.OCC_SLICES,
+                auto_tau_db=(float(cfg.TPU.FIDELITY_MIN_DB)
+                             if cfg.TPU.OCC_AUTO_TAU else None))
 
         ln = cfg.DATASETS.LAYER_NUM
         self.layer_num = ln
@@ -133,7 +137,21 @@ class LayeredNeuralRenderer:
         self.s_shift_frame = None
         self.s_scale_frame = None
         self.s_alpha_frame = None
+
+        # the fidelity gate (renderer.py:118-143): a trained model, from disk
+        # or passed in, must hold FIDELITY_MIN_DB against the exact path
+        # before any frame ships with the approximations. Occupancy boxes
+        # enter the probe only under a manual tau: auto-tau culling carries
+        # its own analytic bound (render/occupancy.auto_tau)
         self.fidelity_db = None
+        occ_in_probe = (self.scene is not self._exact_scene
+                        and not cfg.TPU.OCC_AUTO_TAU)
+        approx = (self.spec.fast_fine or self.spec.coarse_exit_segments > 1
+                  or occ_in_probe)
+        if (approx and cfg.TPU.FIDELITY_GATE
+                and (self._ckpt_path is not None or self._params_supplied)
+                and len(self.gt_poses) > 0):
+            self._apply_fidelity_gate()
 
     # ------------------------------------------------------------------
     def _load_params(self, spec: LayeredSpec) -> LayeredModel:
@@ -146,6 +164,91 @@ class LayeredNeuralRenderer:
         self.logger.info("loading checkpoint %s", path)
         self._ckpt_path = path
         return load_params_any(path, model)
+
+    # ------------------------------------------------------------------
+    def _fidelity_probe(self, spec: LayeredSpec, scene, seed: int | None = 0,
+                        width: int | None = None) -> torch.Tensor:
+        """The gate's probe image: the first gt pose, ``FIDELITY_PROBE_RES``
+        (or ``width``) wide, frame ``min_frame[0]``, no edits, rendered with
+        ``spec`` on ``scene`` -> float colour in [0, 1] (u8 steps), tile
+        order, on the device. ``seed``: a generator seeded so for the
+        render (the JAX gate's ``PRNGKey(0)``), None for deterministic
+        sampling."""
+        cfg = self.cfg
+        pw = max(16, int(cfg.TPU.FIDELITY_PROBE_RES if width is None else width))
+        ph = max(16, round(pw * self.height / self.width))
+        K = np.array(self.gt_Ks[0], np.float32).copy()
+        K[0] *= pw / self.width
+        K[1] *= ph / self.height
+        c2w = np.array(self.gt_poses[0], np.float32)
+        if c2w.shape == (3, 4):
+            c2w = np.concatenate([c2w, [[0, 0, 0, 1]]], 0).astype(np.float32)
+
+        def dev(x):
+            return torch.as_tensor(np.asarray(x, np.float32), device=self.device)
+
+        generator = (None if seed is None else
+                     torch.Generator(device=self.device).manual_seed(seed))
+        out = render_pose_on_device(
+            self.model, scene, K, dev(c2w),
+            dev(np.full(self.layer_num + 1, self.min_frame[0])),
+            dev(self.dataset.near_far),
+            EditState.identity(self.layer_num, scale_pivot=self.scale_pivot,
+                               device=self.device),
+            h=ph, w=pw, chunk=min(int(cfg.TPU.RENDER_CHUNK), pw * ph),
+            tile_cols=min(int(cfg.TPU.TILE_COLS), pw), generator=generator, spec=spec)
+        return out.color.float() / 255.0
+
+    def _probe_db(self, scene) -> float:
+        """PSNR of the probe rendered with ``self.spec`` on ``scene``
+        against the exact spec on the original boxes, both with the same
+        stratification."""
+        err = self._fidelity_probe(self.spec, scene) - self._fidelity_probe(
+            _exact(self.spec), self._exact_scene)
+        mse = torch.clamp(torch.mean(err * err), min=1e-12)
+        return float(-10.0 * torch.log10(mse))
+
+    def _apply_fidelity_gate(self):
+        """Probe the approximate path against the exact one at the loaded
+        weights (``renderer.py:157-250``); below ``TPU.FIDELITY_MIN_DB``
+        fall back to the exact path (first, with manual-tau occupancy, by
+        dropping only the occupancy boxes). Sets ``self.fidelity_db``."""
+        cfg = self.cfg
+        # auto-tau culling carries its own worst-case bound, and probing the
+        # tightened boxes would reject it spuriously (the smaller interval
+        # re-stratifies every sample: the probe caps near 38 dB from the
+        # quadrature shift alone); the probe measures the approximations
+        # without analytic bounds on the original boxes
+        probe_scene = (self._exact_scene
+                       if cfg.TPU.OCCUPANCY_SKIP and cfg.TPU.OCC_AUTO_TAU
+                       else self.scene)
+        self.fidelity_db = self._probe_db(probe_scene)
+        min_db = float(cfg.TPU.FIDELITY_MIN_DB)
+        if self.fidelity_db >= min_db:
+            self.logger.info(
+                "fidelity gate: approximate path %.1f dB vs exact (>= %.1f dB) — "
+                "production fast path active", self.fidelity_db, min_db)
+            return
+        if probe_scene is not self._exact_scene:
+            # manual-tau occupancy was in the probe: before reverting the
+            # whole fast stack, probe the fast flags on the original boxes
+            no_occ_db = self._probe_db(self._exact_scene)
+            if no_occ_db >= min_db:
+                self.logger.warning(
+                    "fidelity gate: manual-tau occupancy takes the probe to %.1f "
+                    "dB (< %.1f) but the fast path alone holds %.1f dB — dropping "
+                    "occupancy boxes, keeping the fast path (OCC_AUTO_TAU culling "
+                    "would ship under its own analytic bound instead)",
+                    self.fidelity_db, min_db, no_occ_db)
+                self.fidelity_db = no_occ_db
+                self.scene = self._exact_scene
+                return
+        self.logger.warning(
+            "fidelity gate: approximate path %.1f dB vs exact at the loaded weights "
+            "(< %.1f dB) — falling back to the exact reference-semantics path for "
+            "this session", self.fidelity_db, min_db)
+        self.spec = _exact(self.spec)
+        self.scene = self._exact_scene
 
     # -- layer display --------------------------------------------------
     def hide_layer(self, layer_id: int):

@@ -238,31 +238,44 @@ def test_render_pose_host_matches_jax(download_layers):
 @pytest.mark.parametrize("flag", ["FAST_FINE", "FAST_FINE_TRAIN", "EARLY_EXIT_SEGMENTS",
                                   "OCC_GAP_SKIP", "sliced_boxes"])
 def test_unported_paths_refused(flag):
-    """Anything the slice does not port raises instead of rendering another
-    way: FAST_FINE_TRAIN and OCC_GAP_SKIP when the spec is built; the fast
-    fine stage and the early exit, which a spec holds as the JAX package's
-    does, and sliced boxes when ``render_rays`` would run them."""
+    """What the port does not have raises instead of rendering another
+    way: FAST_FINE_TRAIN when the spec is built, and the fast fine stage
+    with the sort-free compositor (that path's compositor) when
+    ``render_rays`` would run it. The other cases were refused until the
+    approximations were ported; now they render finite images, and
+    duplicate slices of every box render bitwise as the boxes themselves
+    (tests/test_torch_approx.py holds each against JAX)."""
+    import dataclasses
+
     import torch
 
     from stnerf_tpu_torch import models as T
 
     cfg = _cfg()
-    if flag in ("FAST_FINE_TRAIN", "OCC_GAP_SKIP"):
+    if flag == "FAST_FINE_TRAIN":
         cfg.TPU[flag] = True
         with pytest.raises(NotImplementedError):
             T.LayeredSpec.from_cfg(cfg)
         return
     _, _, model = _models(cfg)
     bkgd, boxes, nf = _scene()
-    if flag == "sliced_boxes":
+    inputs = T.RayInputs(*map(torch.tensor, _rays([2.0] * 3)))
+    plain = T.render_rays(model, T.SceneBoxes(*map(torch.tensor, (bkgd, boxes, nf))),
+                          inputs, T.EditState.identity(2))
+    if flag in ("OCC_GAP_SKIP", "sliced_boxes"):
         boxes = np.repeat(boxes[:, :, None], 2, axis=2)  # (F, L, K, 2, 3)
-    else:
+    if flag != "sliced_boxes":
         cfg.TPU[flag] = 3 if flag == "EARLY_EXIT_SEGMENTS" else True
         model.spec = T.LayeredSpec.from_cfg(cfg)
     scene = T.SceneBoxes(*map(torch.tensor, (bkgd, boxes, nf)))
-    with pytest.raises(NotImplementedError):
-        T.render_rays(model, scene, T.RayInputs(*map(torch.tensor, _rays([2.0] * 3))),
-                      T.EditState.identity(2))
+    out = T.render_rays(model, scene, inputs, T.EditState.identity(2))
+    assert torch.isfinite(out.fine.color).all() and out.fine.color.std() > 0.01
+    if flag == "sliced_boxes":
+        assert torch.equal(out.fine.color, plain.fine.color)
+    if flag == "FAST_FINE":
+        with pytest.raises(NotImplementedError, match="FAST_FINE"):
+            T.render_rays(model, scene, inputs, T.EditState.identity(2),
+                          spec=dataclasses.replace(model.spec, nosort_composite=True))
 
 
 def test_tile_geometry_matches_jax():

@@ -21,8 +21,12 @@ pytestmark = pytest.mark.isolate
 
 _APPROX_OFF = {"FAST_FINE": False, "EARLY_EXIT_SEGMENTS": 0, "FIDELITY_GATE": False,
                "OCCUPANCY_SKIP": False}
+# the approximations on at eps 0, occupancy at a manual tau of 0 (every box
+# comes back as it was) on an 8^3 lattice, a 16-pixel gate probe
 _APPROX_ON = {"FAST_FINE": True, "EARLY_EXIT_SEGMENTS": 3, "FIDELITY_GATE": True,
-              "OCCUPANCY_SKIP": True}
+              "OCCUPANCY_SKIP": True, "FAST_FINE_EPS": 0.0, "EARLY_EXIT_EPS": 0.0,
+              "OCC_AUTO_TAU": False, "OCC_SIGMA_THRESH": 0.0, "OCC_GRID": 8,
+              "FIDELITY_PROBE_RES": 16}
 # the edit cases: (name, renderer kwargs, path options, hidden layer)
 _CASES = [
     ("plain", {}, {}, None),
@@ -92,9 +96,13 @@ def _frames(r, lp1):
 
 def test_renderer_matches_jax(tmp_path, caplog):
     """Six edit cases through one JAX render program (the edits are data):
-    the same poses, Ks and layer/frame schedules, every image >= 60 dB; the
-    port with the config's approximations on renders the same images, with
-    one warning naming what it stripped."""
+    the same poses, Ks and layer/frame schedules, every image >= 60 dB.
+    Then both renderers with the config's approximations on (eps 0,
+    occupancy at tau 0): each refines its boxes (to themselves), runs the
+    gate and keeps the approximate path, the port logs no "not ported",
+    and the two render the same images >= 60 dB, which are the exact
+    path's too (fine nets equal to coarse nets make the fast fine stage
+    exact)."""
     from stnerf_tpu.render import LayeredNeuralRenderer as JRenderer
     from stnerf_tpu_torch.render import LayeredNeuralRenderer
 
@@ -147,19 +155,26 @@ def test_renderer_matches_jax(tmp_path, caplog):
         r.load_path_poses(np.stack(jr.poses[:3]))
     np.testing.assert_array_equal(np.stack(tr.Ks), np.stack(jr.Ks))
 
-    on = tcfg.clone()
-    for k, v in _APPROX_ON.items():
-        on.TPU[k] = v
+    ons = [cfg.clone() for cfg in (jcfg, tcfg)]
+    for on in ons:
+        for k, v in _APPROX_ON.items():
+            on.TPU[k] = v
     caplog.clear()
-    with caplog.at_level(logging.WARNING, logger="stnerf_tpu_torch.render"):
-        tr = LayeredNeuralRenderer(on, device="cpu")
-    warned = [r.getMessage() for r in caplog.records if "not ported" in r.getMessage()]
-    assert len(warned) == 1 and all(k in warned[0] for k in _APPROX_ON), warned
-    assert not tr.spec.fast_fine and tr.spec.coarse_exit_segments == 0
-    _author(tr, None)
-    for g, p in zip(_frames(tr, lp1), plain_frames):
-        for a, b in zip(g, p):
-            np.testing.assert_array_equal(a, b)
+    with caplog.at_level(logging.INFO):
+        jr, tr = JRenderer(ons[0]), LayeredNeuralRenderer(ons[1], device="cpu")
+    assert not any("not ported" in r.getMessage() for r in caplog.records)
+    for r in (jr, tr):
+        assert r.fidelity_db is not None and r.fidelity_db >= 40.0, r.fidelity_db
+        assert r.spec.fast_fine and r.spec.coarse_exit_segments == 3
+        assert r.scene is not r._exact_scene
+        np.testing.assert_array_equal(np.asarray(r.scene.boxes),
+                                      np.asarray(r._exact_scene.boxes))
+        _author(r, None)
+    for g, e, p in zip(_frames(tr, lp1), _frames(jr, lp1), plain_frames):
+        for k, (a, b, c) in enumerate(zip(g, e, p)):
+            for ref, what in ((b, "JAX"), (c, "the exact path")):
+                db = _psnr(a, ref)
+                assert db >= 60.0, f"approximate path image {k} vs {what}: {db:.1f} dB"
 
 
 def _tree(root):
