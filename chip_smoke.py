@@ -53,12 +53,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    against their plain versions at the taekwondo widths on M = 2000 x 120
    seeded encodings (every sample), for a performer with time, the
    background, a 4-layer rgb head and a field without directions: forward
-   float32 at rtol 2e-3, atol 2e-4 and bf16 vs float32 >= 40 dB; backward
-   float32 at phase 4's bar and bf16 relative L2 <= 1e-2 per leaf; for the
-   performer, the device-side ``active`` flag: 1 leaves the forward and
-   d_pos / d_dir bitwise unchanged, 0 gives zeros everywhere. Then the
-   three K6 entry points (``fused_spacenet*``, on K3's forward kernel)
-   against their plain versions at one shape. Prints both times of each.
+   float32 (CUDA cores) at rtol 2e-3, atol 2e-4 and bf16 (tensor cores) vs
+   float32 >= 40 dB; backward float32 at phase 4's bar and bf16 relative L2
+   <= 1e-2 per leaf, the bf16 gradients bitwise the same when run twice;
+   for the performer, the device-side ``active`` flag: 1 leaves the
+   forward and d_pos / d_dir (bf16: every gradient) bitwise unchanged, 0
+   gives zeros everywhere. The same checks on the edges: a narrow model
+   (trunk 64, head 32) and a ragged M with the flag unset, 1 and 0. Then
+   the three K6 entry points (``fused_spacenet*``, on K3's forward kernels)
+   against their plain versions at one shape. Prints both routes' times,
+   bounds and shares of bound.
 7. The view-deform + pose-refinement model (phase 3's model with
    USE_DEFORM_VIEW and POSE_REFINEMENT on, 8 cameras, camera 0's correction
    off the identity): three of phase 3's requests at 480x270 through
@@ -67,14 +71,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    the kernel still launches and its blocks exit). Checks finite
    images, exact zero acc for a hidden layer, >= 40 dB between the kernel
    and plain paths, and K3's forward launches against what the renders
-   imply. Prints seconds per pose.
+   imply, every one on the tensor-core route. Prints seconds per pose.
 8. Training that model on phase 5's pool as phase 5 does: finite losses, a
    falling loss over the full epoch, K3's forward and backward each once
-   per field and stage of every step, non-zero ``cam_pose`` and
-   ``view_deform`` gradients; then one step through the kernels and one
-   through the plain versions in float32 and in bf16 (every leaf at
-   relative L2 <= 1e-2 but the two ``cam_pose`` leaves, held to a tenth of
-   their own bf16 rounding error). Prints seconds per step and rays/s.
+   per field and stage of every step, all on the tensor-core route,
+   non-zero ``cam_pose`` and ``view_deform`` gradients; then one step
+   through the kernels and one through the plain versions in float32 and
+   in bf16 (every leaf at relative L2 <= 1e-2 but the two ``cam_pose``
+   leaves, held to a tenth of their own bf16 rounding error), each kernel
+   step's K3 launches by route. Prints seconds per step and rays/s.
 9. Cross-stream kernels vs plain: ``cross_successor`` (K4) and
    ``cross_log_transmittance_fwd`` / ``_bwd`` (K5) against their plain cube
    forms at (3, 2000, 120), (3, 2000, 90) and a ragged (3, 37, 24) with
@@ -218,7 +223,7 @@ def k6_entries() -> list:
 
 def zero_k6():
     for f in k6_entries():
-        f.launches = 0
+        f.launches = f.launches_tc = 0
 
 
 def read_k6() -> dict:
@@ -787,14 +792,101 @@ def _encoded_inputs(device, m: int, seed: int):
             "d_rgb": t(rng.normal(size=(3, m))), "d_sigma": t(rng.normal(size=m))}
 
 
-def phase_spacenet_vs_plain(device, m: int, reps: int):
-    """spacenet_fwd / spacenet_bwd (K3) against their plain versions on
-    seeded encodings at the taekwondo widths -> per-case results."""
+def check_spacenet(name, net, x, flags: bool) -> dict:
+    """spacenet_fwd / spacenet_bwd (K3) against their plain versions for one
+    SpaceNet on the encodings ``x`` (``_encoded_inputs``), both routes:
+    finite outputs; the float32 route (CUDA cores) at rtol 2e-3, atol 2e-4
+    in the forward and at phase 4's bar in the backward (``f32_close``); the
+    bf16 route (tensor cores) >= 40 dB from the float32 plain forward, its
+    backward within relative L2 1e-2 of the bf16 plain version per leaf and
+    bitwise the same when run twice. With ``flags``, the device-side
+    ``active`` flag on both routes: 1 leaves the forward and d_pos / d_dir
+    (bf16: every gradient) bitwise unchanged, 0 gives zeros everywhere,
+    weight gradients included. -> the errors; ``fields`` and the call
+    arguments under "_args" for the timing."""
     import torch
 
     from stnerf_tpu_torch.kernels.fused_field import pack_field, prepare_kernel_params_planar
     from stnerf_tpu_torch.kernels.spacenet_vjp import (spacenet_bwd, spacenet_bwd_reference,
                                                        spacenet_fwd, spacenet_fwd_reference)
+
+    pos = x["pos"]
+    m, device = pos.shape[1], pos.device
+    dir_enc = x["dir"] if net.spec.use_dir else torch.zeros((1, m), device=device)
+    time_enc = x["time"] if net.spec.use_time else None
+    row, args = {"case": name, "m": m}, {}
+    for dt in ("float32", "bfloat16"):
+        tdt = torch.bfloat16 if dt == "bfloat16" else torch.float32
+        f = pack_field(prepare_kernel_params_planar(net, tdt), (), net.spec, None, dt)
+        fwd_args = (f, pos, dir_enc, time_enc)
+        bwd_args = fwd_args + (x["d_rgb"], x["d_sigma"])
+        args[dt] = fwd_args, bwd_args
+        rgb_k, sig_k = spacenet_fwd(*fwd_args)
+        got = spacenet_bwd(*bwd_args)
+        sync(device)
+        check(bool(torch.isfinite(rgb_k).all() and torch.isfinite(sig_k).all()),
+              f"{name} {dt}: non-finite forward")
+        for g in got:
+            check(bool(torch.isfinite(g).all()), f"{name} {dt}: non-finite gradient")
+        if flags:  # the device-side skip flag
+            on, off = (torch.full((1,), v, dtype=torch.int32, device=device) for v in (1, 0))
+            fwd_on, got_on = spacenet_fwd(*fwd_args, on), spacenet_bwd(*bwd_args, on)
+            fwd_off, got_off = spacenet_fwd(*fwd_args, off), spacenet_bwd(*bwd_args, off)
+            same = got_on if dt == "bfloat16" else got_on[2:]
+            check(all(torch.equal(a, b) for a, b in zip(fwd_on, (rgb_k, sig_k)))
+                  and all(torch.equal(a, b) for a, b in zip(same, got[-len(same):])),
+                  f"{name} {dt}: active 1 changed the forward or a gradient")
+            check(not any(bool(a.any()) for a in (*fwd_off, *got_off)),
+                  f"{name} {dt}: active 0 left a nonzero output or gradient")
+        rgb_p, sig_p = spacenet_fwd_reference(*fwd_args)
+        ref = spacenet_bwd_reference(*bwd_args)
+        stats = _leaf_stats(f, got, ref, "d_pos")
+        fwd_err = max(float((rgb_k - rgb_p).abs().max()), float((sig_k - sig_p).abs().max()))
+        if dt == "float32":
+            close = (torch.allclose(rgb_k, rgb_p, rtol=2e-3, atol=2e-4)
+                     and torch.allclose(sig_k, sig_p, rtol=2e-3, atol=2e-4))
+            check(close, f"{name}: f32 forward kernel vs plain max |err| {fwd_err:.3g} "
+                         "outside rtol 2e-3, atol 2e-4")
+            row["f32_fwd_max_abs_err"] = fwd_err
+            row["f32_bwd_max_abs_err"] = max(v["err"] for v in stats.values())
+            row["f32_bwd_max_rel_l2"] = max(v["rel"] for v in stats.values())
+            row["f32_entries_outside"] = {k: v["outside"] for k, v in stats.items()
+                                          if v["outside"]}
+            bad = {k: v for k, v in stats.items() if not f32_close(v)}
+            check(not bad, f"{name}: f32 backward kernel vs plain beyond the float32 "
+                           f"bar: {bad}")
+            plain_rgb = rgb_p
+        else:
+            db = psnr(torch.sigmoid(rgb_k).cpu(), torch.sigmoid(plain_rgb).cpu())
+            check(db >= 40.0, f"{name}: bf16 forward kernel vs f32 plain {db:.1f} dB < 40")
+            row["bf16_vs_f32_db"] = db
+            row["bf16_fwd_max_abs_err"] = fwd_err
+            row["bf16_fwd_rel_l2"] = [compare_leaf(rgb_k, rgb_p)["rel"],
+                                      compare_leaf(sig_k, sig_p)["rel"]]
+            worst = max(stats, key=lambda k: stats[k]["rel"])
+            row["bf16_bwd_worst_rel_l2"] = [worst, stats[worst]["rel"]]
+            row["bf16_bwd_max_abs_err"] = max(v["err"] for v in stats.values())
+            check(stats[worst]["rel"] <= 1e-2,
+                  f"{name}: bf16 backward kernel vs plain relative L2 "
+                  f"{stats[worst]['rel']:.3g} on {worst} > 1e-2")
+            again = spacenet_bwd(*bwd_args)
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"{name}: bf16 gradients differ between two runs")
+    row["_args"] = args
+    return row
+
+
+def phase_spacenet_vs_plain(device, m: int, reps: int):
+    """spacenet_fwd / spacenet_bwd (K3) against their plain versions on
+    seeded encodings at the taekwondo widths (``check_spacenet``; the
+    performer with the ``active`` flag), both routes' times, bounds and
+    shares; then the edges: a narrow model (trunk 64, head 32) and a
+    ragged M with ``active`` None, 1 and 0 -> per-case results."""
+    import torch
+
+    from stnerf_tpu_torch.kernels.spacenet_vjp import (spacenet_bwd, spacenet_bwd_reference,
+                                                       spacenet_fwd, spacenet_fwd_reference,
+                                                       tc_workspace_bytes)
     from stnerf_tpu_torch.models import LayeredSpec, SpaceNet
 
     spec = LayeredSpec.from_cfg(view_pose_cfg(), camera_num=8)
@@ -809,90 +901,61 @@ def phase_spacenet_vs_plain(device, m: int, reps: int):
 
     results = []
     for name, net in cases:
-        row = {"case": name, "m": m}
-        dir_enc = x["dir"] if net.spec.use_dir else torch.zeros((1, m), device=device)
-        time_enc = x["time"] if net.spec.use_time else None
-        for dt in ("float32", "bfloat16"):
-            tdt = torch.bfloat16 if dt == "bfloat16" else torch.float32
-            f = pack_field(prepare_kernel_params_planar(net, tdt), (), net.spec, None, dt)
-            fwd_args = (f, x["pos"], dir_enc, time_enc)
-            bwd_args = fwd_args + (x["d_rgb"], x["d_sigma"])
-            rgb_k, sig_k = spacenet_fwd(*fwd_args)
-            got = spacenet_bwd(*bwd_args)
-            sync(device)
-            check(bool(torch.isfinite(rgb_k).all() and torch.isfinite(sig_k).all()),
-                  f"{name} {dt}: non-finite forward")
-            for g in got:
-                check(bool(torch.isfinite(g).all()), f"{name} {dt}: non-finite gradient")
-            if name == "performer_time":  # the device-side skip flag
-                on, off = (torch.full((1,), v, dtype=torch.int32, device=device)
-                           for v in (1, 0))
-                fwd_on, got_on = spacenet_fwd(*fwd_args, on), spacenet_bwd(*bwd_args, on)
-                fwd_off, got_off = spacenet_fwd(*fwd_args, off), spacenet_bwd(*bwd_args, off)
-                check(all(torch.equal(a, b) for a, b in zip(fwd_on, (rgb_k, sig_k)))
-                      and all(torch.equal(a, b) for a, b in zip(got_on[2:], got[2:])),
-                      f"{dt}: active 1 changed the forward or d_pos / d_dir")
-                check(not any(bool(a.any()) for a in (*fwd_off, *got_off)),
-                      f"{dt}: active 0 left a nonzero output or gradient")
-                row[f"{dt}_skipped_fwd_ms"] = cuda_ms(lambda: spacenet_fwd(*fwd_args, off),
-                                                      reps)
-                row[f"{dt}_skipped_bwd_ms"] = cuda_ms(lambda: spacenet_bwd(*bwd_args, off),
-                                                      reps)
-            ref = spacenet_bwd_reference(*bwd_args)
-            stats = _leaf_stats(f, got, ref, "d_pos")
-            if dt == "float32":
-                rgb_p, sig_p = spacenet_fwd_reference(*fwd_args)
-                err = max(float((rgb_k - rgb_p).abs().max()), float((sig_k - sig_p).abs().max()))
-                close = (torch.allclose(rgb_k, rgb_p, rtol=2e-3, atol=2e-4)
-                         and torch.allclose(sig_k, sig_p, rtol=2e-3, atol=2e-4))
-                check(close, f"{name}: f32 forward kernel vs plain max |err| {err:.3g} "
-                             "outside rtol 2e-3, atol 2e-4")
-                row["f32_fwd_max_abs_err"] = err
-                row["f32_bwd_max_abs_err"] = max(v["err"] for v in stats.values())
-                row["f32_bwd_max_rel_l2"] = max(v["rel"] for v in stats.values())
-                row["f32_entries_outside"] = {k: v["outside"] for k, v in stats.items()
-                                              if v["outside"]}
-                bad = {k: v for k, v in stats.items() if not f32_close(v)}
-                check(not bad, f"{name}: f32 backward kernel vs plain beyond the float32 "
-                               f"bar: {bad}")
-                plain_rgb = rgb_p
-            else:
-                db = psnr(torch.sigmoid(rgb_k).cpu(), torch.sigmoid(plain_rgb).cpu())
-                check(db >= 40.0, f"{name}: bf16 forward kernel vs f32 plain {db:.1f} dB < 40")
-                row["bf16_vs_f32_db"] = db
-                worst = max(stats, key=lambda k: stats[k]["rel"])
-                row["bf16_bwd_worst_rel_l2"] = [worst, stats[worst]["rel"]]
-                check(stats[worst]["rel"] <= 1e-2,
-                      f"{name}: bf16 backward kernel vs plain relative L2 "
-                      f"{stats[worst]['rel']:.3g} on {worst} > 1e-2")
-                rows = x["pos"].shape[0] + dir_enc.shape[0] + (
-                    0 if time_enc is None else time_enc.shape[0])
-                w_bytes = 2 * f.weights.numel()
-                g_bytes = 4 * (f.weights.numel() + f.biases.numel())
-                macs = field_macs(f)
-                # forward: the encodings in, rgb and sigma out, the weights once;
-                # backward: the encodings and cotangents in, d_pos and d_dir and
-                # the float32 weight gradients out
-                row["fwd_bound_ms"], row["fwd_bound_by"] = bound_ms(
-                    2 * macs["fwd"] * m, 4 * m * (rows + 4) + w_bytes, "bfloat16")
-                row["bwd_bound_ms"], row["bwd_bound_by"] = bound_ms(
-                    2 * macs["bwd"] * m,
-                    4 * m * (rows + 4 + x["pos"].shape[0] + dir_enc.shape[0]) + w_bytes
-                    + g_bytes, "bfloat16")
-            row[f"{dt}_fwd_ms"] = cuda_ms(lambda: spacenet_fwd(*fwd_args), reps)
-            row[f"{dt}_fwd_plain_ms"] = cuda_ms(lambda: spacenet_fwd_reference(*fwd_args), reps)
-            row[f"{dt}_bwd_ms"] = cuda_ms(lambda: spacenet_bwd(*bwd_args), reps)
-            row[f"{dt}_bwd_plain_ms"] = cuda_ms(lambda: spacenet_bwd_reference(*bwd_args),
-                                                reps)
+        row = check_spacenet(name, net, x, flags=name == "performer_time")
+        args = row.pop("_args")
+        f, pos, dir_enc, time_enc = args["float32"][0]
+        rows = pos.shape[0] + dir_enc.shape[0] + (0 if time_enc is None else time_enc.shape[0])
+        for dt, (fwd_args, bwd_args) in args.items():
+            f = fwd_args[0]
+            if dt == "bfloat16":  # the records and partial sums of the two passes
+                row["bf16_bwd_workspace_bytes"] = tc_workspace_bytes(*fwd_args)
+            if name == "performer_time":  # a skipped launch: its blocks exit
+                off = torch.zeros((1,), dtype=torch.int32, device=device)
+                row[f"{dt}_skipped_fwd_ms"] = cuda_ms(lambda: spacenet_fwd(*fwd_args, off), reps)
+                row[f"{dt}_skipped_bwd_ms"] = cuda_ms(lambda: spacenet_bwd(*bwd_args, off), reps)
+            w_bytes = f.weights.element_size() * f.weights.numel()
+            g_bytes = 4 * (f.weights.numel() + f.biases.numel())
+            macs = field_macs(f)
+            # forward: the encodings in, rgb and sigma out, the weights once;
+            # backward: the encodings and cotangents in, d_pos and d_dir and
+            # the float32 weight gradients out
+            fwd_bound = bound_ms(2 * macs["fwd"] * m, 4 * m * (rows + 4) + w_bytes, dt)
+            bwd_bound = bound_ms(2 * macs["bwd"] * m,
+                                 4 * m * (rows + 4 + pos.shape[0] + dir_enc.shape[0])
+                                 + w_bytes + g_bytes, dt)
+            for half, fn, plain, a, (b_ms, b_by) in (
+                    ("fwd", spacenet_fwd, spacenet_fwd_reference, fwd_args, fwd_bound),
+                    ("bwd", spacenet_bwd, spacenet_bwd_reference, bwd_args, bwd_bound)):
+                row[f"{dt}_{half}_ms"] = cuda_ms(lambda: fn(*a), reps)
+                row[f"{dt}_{half}_plain_ms"] = cuda_ms(lambda: plain(*a), reps)
+                row[f"{dt}_{half}_bound_ms"], row[f"{dt}_{half}_bound_by"] = b_ms, b_by
+                row[f"{dt}_{half}_share"] = b_ms / row[f"{dt}_{half}_ms"]
         print("spacenet_vs_plain", json.dumps(row), flush=True)
+        results.append(row)
+
+    # the edges: every width the tiling pads, and a ragged M (not a
+    # multiple of 64 or 128) with the flag unset, 1 and 0
+    narrow_cfg = view_pose_cfg()
+    narrow_cfg.merge_from_list(["MODEL.BACKBONE_DIM", 64, "MODEL.HEAD_DIM", 32,
+                                "MODEL.MOTION_DIM", 32])
+    narrow = make_model(LayeredSpec.from_cfg(narrow_cfg, camera_num=8), device)
+    xe = _encoded_inputs(device, 2000 * 61 + 45, SEED + 7)
+    for name, net, flags in (("narrow_performer", narrow.layers_fine[0], False),
+                             ("narrow_background", narrow.bkgd_fine, False),
+                             ("ragged_performer", model.layers_fine[0], True)):
+        row = check_spacenet(name, net, xe, flags)
+        row.pop("_args")
+        print("spacenet_vs_plain_edge", json.dumps(row), flush=True)
         results.append(row)
     return results
 
 
 def phase_fused_spacenet_vs_plain(device, m: int, reps: int):
     """The three K6 entry points against their plain versions at one shape
-    (L = 2 weight sets for the stacked one), float32 at K1's bar, and their
-    bf16 times -> {entry: result}."""
+    (L = 2 weight sets for the stacked one), float32 (K3's CUDA-core
+    forward) at K1's bar and bf16 (K3's tensor-core forward) at phase 2's
+    relative L2 1e-2 on rgb and sigma, and their bf16 times -> {entry:
+    result}."""
     import torch
 
     from stnerf_tpu_torch.kernels.fused_field import pack_field, prepare_kernel_params_planar
@@ -938,6 +1001,14 @@ def phase_fused_spacenet_vs_plain(device, m: int, reps: int):
                       "atol 2e-4")
                 row["f32_max_abs_err"] = err
             else:
+                (rgb_k, sig_k), (rgb_p, sig_p) = kernel(*args), plain(*args)
+                sync(device)
+                rel = [compare_leaf(rgb_k, rgb_p)["rel"], compare_leaf(sig_k, sig_p)["rel"]]
+                check(max(rel) <= 1e-2, f"{name}: bf16 kernel vs bf16 plain relative L2 "
+                                        f"(rgb, sigma) {rel} > 1e-2")
+                row["bf16_rel_l2"] = rel
+                row["bf16_max_abs_err"] = max(float((rgb_k - rgb_p).abs().max()),
+                                              float((sig_k - sig_p).abs().max()))
                 # the encodings in, rgb and sigma out, each weight set once
                 n_rows = sum(a.shape[0] for a in planar)
                 row["bf16_bound_ms"], row["bound_by"] = bound_ms(
@@ -1041,10 +1112,12 @@ def compare_train_step(device, bundle, scene, dtype: str, cfg_fn=None,
     n = cfg.SOLVER.IMS_PER_BATCH
     from stnerf_tpu_torch.kernels.field_vjp import field_bwd
     from stnerf_tpu_torch.kernels.fused_field import fused_field
+    from stnerf_tpu_torch.kernels.spacenet_vjp import spacenet_bwd, spacenet_fwd
 
+    counted = (fused_field, field_bwd, spacenet_fwd, spacenet_bwd)
     grads, seconds, launches = {}, {}, {}
     for plain in (False, True):
-        for k in (fused_field, field_bwd):
+        for k in counted:
             k.launches = k.launches_tc = 0
         model = make_model(spec, device)
         opt, sched = make_optimizer(cfg, model)
@@ -1059,7 +1132,7 @@ def compare_train_step(device, bundle, scene, dtype: str, cfg_fn=None,
         sync(device)
         seconds[plain] = time.perf_counter() - t0
         if not plain:  # two steps through the kernels, by route
-            launches = {f"{k.__name__}{route}": n for k in (fused_field, field_bwd)
+            launches = {f"{k.__name__}{route}": n for k in counted
                         for route, n in (("_tc", k.launches_tc),
                                          ("", k.launches - k.launches_tc))}
     stats = {k: compare_leaf(grads[False][k], b) for k, b in grads[True].items()}
@@ -1081,13 +1154,16 @@ def compare_train_step(device, bundle, scene, dtype: str, cfg_fn=None,
            "kernel_s_per_step": seconds[False], "plain_s_per_step": seconds[True],
            "kernel_rays_per_s": n / seconds[False], "plain_rays_per_s": n / seconds[True],
            "launches": launches}
-    if not spec.use_deform_view:  # the fused path: every field through K1 and K2
-        route = "_tc" if dtype == "bfloat16" else ""
-        implied = 2 * 2 * (spec.layer_num + 1)  # two full steps, two stages
-        check(launches[f"fused_field{route}"] == implied == launches[f"field_bwd{route}"]
-              and sum(launches.values()) == 2 * implied,
-              f"{dtype} step launched {launches}; two full steps imply {implied} of each "
-              f"kernel on the {dtype} route")
+    # the fused path: every field through K1 and K2; the staged path
+    # (view deformation): through K3's forward and backward
+    route = "_tc" if dtype == "bfloat16" else ""
+    pair = ("spacenet_fwd", "spacenet_bwd") if spec.use_deform_view else ("fused_field",
+                                                                            "field_bwd")
+    implied = 2 * 2 * (spec.layer_num + 1)  # two full steps, two stages
+    check(launches[pair[0] + route] == implied == launches[pair[1] + route]
+          and sum(launches.values()) == 2 * implied,
+          f"{dtype} step launched {launches}; two full steps imply {implied} of each of "
+          f"{pair} on the {dtype} route")
     if f32_plain is not None:
         row["pose_bars"] = {k: [stats[k]["rel"], b] for k, b in bars.items()
                             if k.startswith("/cam_pose/")}
@@ -1188,7 +1264,7 @@ def phase_view_pose_render(device, h: int, w: int, chunk: int, tile_cols: int):
     render_pose_host(model, scene, K, c2w, [1.0, 1.0, 1.0], near_far, requests[0][2],
                      h, w, chunk=chunk, tile_cols=tile_cols)  # untimed: first use
     sync(device)
-    spacenet_fwd.launches = fused_field.launches = 0
+    spacenet_fwd.launches = spacenet_fwd.launches_tc = fused_field.launches = 0
     zero_k6()
     renders, seconds, images = 0, {}, {}
     for name, fids, edits in requests:
@@ -1212,12 +1288,15 @@ def phase_view_pose_render(device, h: int, w: int, chunk: int, tile_cols: int):
             check(not c_layers[1].any(), "hidden layer 1 has a nonzero image")
         print("view_pose_pose", name, f"{seconds[name]:.3f} s",
               f"mean color {float(color.mean()):.4f}", flush=True)
-    launches, k6 = spacenet_fwd.launches, read_k6()
+    launches, launches_tc, k6 = spacenet_fwd.launches, spacenet_fwd.launches_tc, read_k6()
     check(fused_field.launches == 0, "the staged path launched the fused field kernel")
     _, _, _, _, n_pad = tile_grid(h, w, chunk, tile_cols)
     expected = renders * (n_pad // chunk) * 2 * lp1
     check(launches == expected,
           f"spacenet_fwd launched {launches} times, the renders imply {expected}")
+    check(launches_tc == launches,
+          f"bf16 render: {launches - launches_tc} of {launches} K3 forward launches missed "
+          "the tensor-core route")
     check(not np.array_equal(images["shift_scale_layer2"], images["plain"]),
           "the shift/scale edit left the image unchanged")
 
@@ -1230,7 +1309,7 @@ def phase_view_pose_render(device, h: int, w: int, chunk: int, tile_cols: int):
     check(db >= 40.0, f"view-pose kernel pose vs plain pose {db:.1f} dB < 40")
     summary = {"h": h, "w": w, "chunk": chunk, "kernel_s_per_pose": seconds,
                "plain_s_per_pose": plain_s, "kernel_vs_plain_db": db, "launches": launches,
-               "launches_k6": k6}
+               "launches_tc": launches_tc, "launches_k6": k6}
     print("view_pose_render", json.dumps(summary), flush=True)
     return summary
 
@@ -1263,12 +1342,17 @@ def phase_view_pose_train(device, bundle, scene) -> dict:
                               print("view_pose_train", r.getMessage(), flush=True))
     logger.addHandler(handler)
 
-    spacenet_fwd.launches = spacenet_bwd.launches = 0
+    for k in (spacenet_fwd, spacenet_bwd):
+        k.launches = k.launches_tc = 0
     fused_field.launches = field_bwd.launches = 0
     zero_k6()
     history = do_train(cfg, model, scene, bundle, opt, sched, logger=logger, seed=SEED,
                        device=device)
     fwd, bwd, k6 = spacenet_fwd.launches, spacenet_bwd.launches, read_k6()
+    fwd_tc, bwd_tc = spacenet_fwd.launches_tc, spacenet_bwd.launches_tc
+    check(fwd_tc == fwd and bwd_tc == bwd,
+          f"bf16 training: K3 launches {fwd} / {bwd}, on the tensor-core route {fwd_tc} / "
+          f"{bwd_tc}")
     check(fused_field.launches == 0 and field_bwd.launches == 0,
           "the staged path launched the fused field kernels")
     steps = len(bundle["labels"]) // s.IMS_PER_BATCH
@@ -1289,6 +1373,7 @@ def phase_view_pose_train(device, bundle, scene) -> dict:
         check(g > 0 and np.isfinite(g), f"{name}: gradient max |g| = {g}")
     epoch_s = {r.args[0]: r.args[1] for r in records if r.msg.startswith("Epoch %d done")}
     summary = {"steps_per_epoch": steps, "launches_fwd": fwd, "launches_bwd": bwd,
+               "launches_fwd_tc": fwd_tc, "launches_bwd_tc": bwd_tc,
                "launches_k6": k6, "camera_num": spec.camera_num,
                "loss_epoch2_first_last": [float(full[0]), float(full[-1])],
                "grad_max": grad_max,
@@ -1584,16 +1669,18 @@ def phase_entry_point(device, workers: int = 2) -> dict:
     kernels = [fused_field, field_bwd, cross_trans.cross_successor,
                cross_trans.cross_log_transmittance_fwd, cross_trans.cross_log_transmittance_bwd,
                spacenet_fwd, spacenet_bwd, *k6_entries()]
+    by_route = [fused_field, field_bwd, spacenet_fwd, spacenet_bwd]
     for k in kernels:
         k.launches = 0
-    fused_field.launches_tc = field_bwd.launches_tc = 0
+    for k in by_route:
+        k.launches_tc = 0
     t0 = time.perf_counter()
     args = ["-c", cfg_file, "--seed", str(SEED), "--workers", str(workers),
             "--device", str(device)]
     history = train.main(args)
     train_s = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in kernels}
-    launches.update(fused_field_tc=fused_field.launches_tc, field_bwd_tc=field_bwd.launches_tc)
+    launches.update({f"{k.__name__}_tc": k.launches_tc for k in by_route})
     calls = {**merges, **plain}
 
     cfg = get_cfg()
@@ -2217,6 +2304,7 @@ def main():
     # fields on the CUDA-core kernels (phase 5's float32 training step)
     perf, bwd, k3 = cases[0], bwd_cases[0], k3_cases[0]
     f32_step = train["steps"][1]["launches"]
+    vp_f32_step = vp_train["steps"][1]["launches"]  # K3's float32 route
     kernels = [
         {"name": "fused_field_tc", "route": "cuda",
          "source": "stnerf_tpu_torch/kernels/csrc/fused_field_tc.cu",
@@ -2256,29 +2344,47 @@ def main():
          "ms": bwd["float32_ms"], "plain_ms": bwd["float32_plain_ms"],
          "bound_ms": bwd["float32_bound_ms"], "bound_by": bwd["float32_bound_by"],
          "library_ms": None},
+        {"name": "spacenet_fwd_tc", "route": "cuda",
+         "source": "stnerf_tpu_torch/kernels/csrc/spacenet_tc.cu",
+         "replaces": "stnerf_tpu/kernels/spacenet_vjp.py:210",
+         "launches": vp_render["launches_tc"] + vp_train["launches_fwd_tc"],
+         "launches_by_path": {"render": vp_render["launches_tc"],
+                              "train": vp_train["launches_fwd_tc"]},
+         "max_abs_err": max(c["bf16_fwd_max_abs_err"] for c in k3_cases),
+         "ms": k3["bfloat16_fwd_ms"], "plain_ms": k3["bfloat16_fwd_plain_ms"],
+         "bound_ms": k3["bfloat16_fwd_bound_ms"], "bound_by": k3["bfloat16_fwd_bound_by"],
+         "library_ms": None},
         {"name": "spacenet_fwd", "route": "cuda",
          "source": "stnerf_tpu_torch/kernels/csrc/spacenet.cu",
          "replaces": "stnerf_tpu/kernels/spacenet_vjp.py:210",
-         "launches": vp_render["launches"] + vp_train["launches_fwd"],
-         "launches_by_path": {"render": vp_render["launches"],
-                              "train": vp_train["launches_fwd"]},
+         "launches": vp_f32_step["spacenet_fwd"],
+         "launches_by_path": {"train_step_float32": vp_f32_step["spacenet_fwd"]},
          "max_abs_err": max(c["f32_fwd_max_abs_err"] for c in k3_cases),
-         "ms": k3["bfloat16_fwd_ms"], "plain_ms": k3["bfloat16_fwd_plain_ms"],
-         "bound_ms": k3["fwd_bound_ms"], "bound_by": k3["fwd_bound_by"],
+         "ms": k3["float32_fwd_ms"], "plain_ms": k3["float32_fwd_plain_ms"],
+         "bound_ms": k3["float32_fwd_bound_ms"], "bound_by": k3["float32_fwd_bound_by"],
+         "library_ms": None},
+        {"name": "spacenet_bwd_tc", "route": "cuda",
+         "source": "stnerf_tpu_torch/kernels/csrc/spacenet_tc.cu",
+         "replaces": "stnerf_tpu/kernels/spacenet_vjp.py:238",
+         "launches": vp_train["launches_bwd_tc"],
+         "launches_by_path": {"train": vp_train["launches_bwd_tc"]},
+         "max_abs_err": max(c["bf16_bwd_max_abs_err"] for c in k3_cases),
+         "ms": k3["bfloat16_bwd_ms"], "plain_ms": k3["bfloat16_bwd_plain_ms"],
+         "bound_ms": k3["bfloat16_bwd_bound_ms"], "bound_by": k3["bfloat16_bwd_bound_by"],
          "library_ms": None},
         {"name": "spacenet_bwd", "route": "cuda",
          "source": "stnerf_tpu_torch/kernels/csrc/spacenet.cu",
          "replaces": "stnerf_tpu/kernels/spacenet_vjp.py:238",
-         "launches": vp_train["launches_bwd"],
-         "launches_by_path": {"train": vp_train["launches_bwd"]},
+         "launches": vp_f32_step["spacenet_bwd"],
+         "launches_by_path": {"train_step_float32": vp_f32_step["spacenet_bwd"]},
          "max_abs_err": max(c["f32_bwd_max_abs_err"] for c in k3_cases),
-         "ms": k3["bfloat16_bwd_ms"], "plain_ms": k3["bfloat16_bwd_plain_ms"],
-         "bound_ms": k3["bwd_bound_ms"], "bound_by": k3["bwd_bound_by"],
+         "ms": k3["float32_bwd_ms"], "plain_ms": k3["float32_bwd_plain_ms"],
+         "bound_ms": k3["float32_bwd_bound_ms"], "bound_by": k3["float32_bwd_bound_by"],
          "library_ms": None}]
     # what each launched in the entry point's run too (bf16: the CUDA-core
-    # routes of K1 and K2 count what the tensor-core ones did not take)
+    # routes of K1, K2 and K3 count what the tensor-core ones did not take)
     entry_launches = dict(entry["launches"])
-    for name in ("fused_field", "field_bwd"):
+    for name in ("fused_field", "field_bwd", "spacenet_fwd", "spacenet_bwd"):
         entry_launches[name] -= entry_launches[f"{name}_tc"]
     for row in kernels:
         row["launches_by_path"]["entry_point"] = entry_launches[row["name"]]
@@ -2291,10 +2397,10 @@ def main():
         row = k6[name]
         by_path = {p: r["launches_k6"][name] for p, r in main_paths.items()}
         kernels.append({"name": name, "route": "cuda",
-                        "source": "stnerf_tpu_torch/kernels/csrc/spacenet.cu",
+                        "source": "stnerf_tpu_torch/kernels/csrc/spacenet_tc.cu",
                         "replaces": f"stnerf_tpu/kernels/fused_spacenet.py:{line}",
                         "launches": sum(by_path.values()), "launches_by_path": by_path,
-                        "max_abs_err": row["f32_max_abs_err"],
+                        "max_abs_err": row["bf16_max_abs_err"],
                         "ms": row["bfloat16_ms"], "plain_ms": row["bfloat16_plain_ms"],
                         "bound_ms": row["bf16_bound_ms"], "bound_by": row["bound_by"],
                         "library_ms": None})

@@ -21,8 +21,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "fused_field.cu", CSRC / "fused_field_tc.cu", CSRC / "field_bwd.cu",
-           CSRC / "field_bwd_tc.cu", CSRC / "spacenet.cu", CSRC / "cross_trans.cu")
-HEADERS = (CSRC / "field_common.cuh", CSRC / "mlp_blocks.cuh", CSRC / "tc_blocks.cuh")
+           CSRC / "field_bwd_tc.cu", CSRC / "spacenet.cu", CSRC / "spacenet_tc.cu",
+           CSRC / "cross_trans.cu")
+HEADERS = (CSRC / "field_common.cuh", CSRC / "mlp_blocks.cuh", CSRC / "tc_blocks.cuh",
+           CSRC / "tc_bwd.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -47,12 +49,24 @@ SIGNATURES = {
     # the 10 ints and the two counts, then a host int64 for the workspace's
     # bytes
     "stnerf_field_bwd_tc_workspace": [_I] * 12 + [_P],
-    # pos, dir, time, weights, biases, offsets (host), active, out, then M,
-    # pos_rows, dir_rows, time_rows, width, head, n_rgb, bf16, and the stream
-    "stnerf_spacenet_fwd": [_P] * 8 + [_I] * 8 + [_P],
-    # pos, dir, time, d_rgb, d_sigma, weights, biases, offsets (host),
-    # active, gw, gb, d_pos, d_dir, then the same 8 ints, and the stream
-    "stnerf_spacenet_bwd": [_P] * 13 + [_I] * 8 + [_P],
+    # float32 fields: pos, dir, time, weights, biases, offsets (host),
+    # active, out, then M, pos_rows, dir_rows, time_rows, width, head, n_rgb,
+    # and the stream
+    "stnerf_spacenet_fwd": [_P] * 8 + [_I] * 7 + [_P],
+    # float32: pos, dir, time, d_rgb, d_sigma, weights, biases, offsets
+    # (host), active, gw, gb, d_pos, d_dir, then the same 7 ints, and the
+    # stream
+    "stnerf_spacenet_bwd": [_P] * 13 + [_I] * 7 + [_P],
+    # bf16 fields (tensor cores): pos, dir, time, weights, fragments, biases,
+    # offsets (host), active, out, then the same 7 ints, and the stream
+    "stnerf_spacenet_fwd_tc": [_P] * 9 + [_I] * 7 + [_P],
+    # the same 7 ints, the packed weights' and biases' element counts, then
+    # a host int64 for the workspace's bytes
+    "stnerf_spacenet_bwd_tc_workspace": [_I] * 9 + [_P],
+    # bf16 (tensor cores): pos, dir, time, d_rgb, d_sigma, weights,
+    # fragments, biases, offsets (host), active, gw, gb, d_pos, d_dir,
+    # workspace, then the same 7 ints and the two counts, and the stream
+    "stnerf_spacenet_bwd_tc": [_P] * 15 + [_I] * 9 + [_P],
     # t, out, then L, N, S, and the stream
     "stnerf_cross_successor": [_P] * 2 + [_I] * 3 + [_P],
     # t, logf (forward) or the cotangent (backward), out, then L, N, S, and

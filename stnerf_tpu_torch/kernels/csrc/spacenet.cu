@@ -1,16 +1,18 @@
-// SpaceNet forward and backward on encoded inputs, on Hopper (sm_90a).
+// SpaceNet forward and backward on encoded inputs in float32, on Hopper
+// (sm_90a) CUDA cores.
 //
-// Replaces stnerf_tpu/kernels/spacenet_vjp.py::spacenet_planar_trainable:
-// its forward Pallas kernel (_call_fwd, _fwd_kernel) and its backward one
-// (_call_bwd, _bwd_kernel with _bwd_math). The forward is also the kernel of
-// stnerf_tpu/kernels/fused_spacenet.py's three entry points, which compute
-// the same function (_kernel_planar).
+// Replaces stnerf_tpu/kernels/spacenet_vjp.py::spacenet_planar_trainable for
+// float32 fields (bf16 fields run the tensor-core kernels of
+// spacenet_tc.cu): its forward Pallas kernel (_call_fwd, _fwd_kernel) and its
+// backward one (_call_bwd, _bwd_kernel with _bwd_math). The forward is also
+// the float32 kernel of stnerf_tpu/kernels/fused_spacenet.py's three entry
+// points, which compute the same function (_kernel_planar).
 //
 // Inputs are planar float32: the position encoding (pos_rows, M), the
 // direction encoding (dir_rows, M; a zero row without directions) and the
-// time encoding (time_rows, M; absent without a time input). Each is rounded
-// to the compute dtype on load; the direction and time rows feed the rgb
-// head through its leading ReLU, so they are stored clipped at 0.
+// time encoding (time_rows, M; absent without a time input). The direction
+// and time rows feed the rgb head through its leading ReLU, so they are
+// stored clipped at 0.
 //   * stnerf_spacenet_fwd: trunk (4 layers, the stage-2 skip layer as split
 //     products over [trunk | pos_enc], 2 more), the density head and the
 //     rgb head over [features | dir | time] -> (4, M) float32: raw rgb in
@@ -34,17 +36,16 @@
 // The simple design: the fused field's kernels without the motion net and
 // without the in-kernel encoding, on the same block products
 // (mlp_blocks.cuh): CUDA-core FMA loops, no tensor cores, one block of 8
-// warps per SM, weights streamed from L2, activations in shared memory in
-// the compute dtype (exactly the values the TPU kernel's astype(dtype)
-// gives). The forward takes 64 samples a block. The backward takes K2's
-// blocking: 32 samples in bf16 and 16 in float32, trunk layers 4-7 kept
-// through the head and stage-2 backward and layers 1-3 recomputed after
-// it, weight gradients added across blocks with float4 atomics (so float32
-// results agree with the plain version to a tolerance, not bitwise). The
-// ragged tail of M is guarded: samples past M read as zeros, get zero
-// cotangents and are not written.
-// Numerics follow the TPU kernel: each cotangent is rounded to the compute
-// dtype where it casts, ReLU masks compare the stored activation with 0,
+// warps per SM, weights streamed from L2, activations in shared memory. The
+// forward takes 64 samples a block. The backward takes K2's float32
+// blocking: 16 samples a block, trunk layers 4-7 kept through the head and
+// stage-2 backward and layers 1-3 recomputed after it, weight gradients
+// added across blocks with float4 atomics (so the results agree with the
+// plain version to a tolerance, not bitwise). The ragged tail of M is
+// guarded: samples past M read as zeros, get zero cotangents and are not
+// written.
+// Numerics follow the TPU kernel: ReLU masks compare the stored activation
+// with 0,
 // d_pos_enc sums the first trunk layer's and the stage-2 skip input's
 // products, d_dir_enc is masked where the (rounded) direction encoding is
 // not positive.
@@ -387,22 +388,16 @@ extern "C" int stnerf_spacenet_fwd(const void* pos, const void* dir, const void*
                                    const void* weights, const void* biases,
                                    const void* offsets, const void* active, void* out, int M,
                                    int pos_rows, int dir_rows, int time_rows, int width,
-                                   int head, int n_rgb, int bf16, void* stream) {
+                                   int head, int n_rgb, void* stream) {
   Params p;
   if (!fill_params(p, offsets, M, pos_rows, dir_rows, time_rows, width, head, n_rgb)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const auto s = static_cast<cudaStream_t>(stream);
-  const auto* fp = static_cast<const float*>(pos);
-  const auto* fd = static_cast<const float*>(dir);
-  const auto* ft = static_cast<const float*>(time);
-  const auto* fb = static_cast<const float*>(biases);
-  const auto* fa = static_cast<const int*>(active);
-  auto* fo = static_cast<float*>(out);
-  const cudaError_t e =
-      bf16 ? launch_fwd<unsigned short, true>(p, fp, fd, ft, weights, fb, fa, fo, s)
-           : launch_fwd<float, false>(p, fp, fd, ft, weights, fb, fa, fo, s);
-  return static_cast<int>(e);
+  return static_cast<int>(launch_fwd<float, false>(
+      p, static_cast<const float*>(pos), static_cast<const float*>(dir),
+      static_cast<const float*>(time), weights, static_cast<const float*>(biases),
+      static_cast<const int*>(active), static_cast<float*>(out),
+      static_cast<cudaStream_t>(stream)));
 }
 
 // gw and gb (float32, the packed buffers' sizes) must be zeroed by the
@@ -412,29 +407,16 @@ extern "C" int stnerf_spacenet_bwd(const void* pos, const void* dir, const void*
                                    const void* biases, const void* offsets, const void* active,
                                    void* gw, void* gb, void* dpos, void* ddir, int M,
                                    int pos_rows, int dir_rows, int time_rows, int width,
-                                   int head, int n_rgb, int bf16, void* stream) {
+                                   int head, int n_rgb, void* stream) {
   Params p;
   if (!fill_params(p, offsets, M, pos_rows, dir_rows, time_rows, width, head, n_rgb)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const auto s = static_cast<cudaStream_t>(stream);
-  const auto* fp = static_cast<const float*>(pos);
-  const auto* fd = static_cast<const float*>(dir);
-  const auto* ft = static_cast<const float*>(time);
-  const auto* fr = static_cast<const float*>(drgb);
-  const auto* fs = static_cast<const float*>(dsig);
-  const auto* fb = static_cast<const float*>(biases);
-  const auto* fa = static_cast<const int*>(active);
-  auto* gwf = static_cast<float*>(gw);
-  auto* gbf = static_cast<float*>(gb);
-  auto* fdp = static_cast<float*>(dpos);
-  auto* fdd = static_cast<float*>(ddir);
-  // bf16: 32 samples a block (~171 KB of shared memory at the taekwondo
-  // widths); float32: 16 samples a block (~134 KB)
-  const cudaError_t e =
-      bf16 ? launch_bwd<unsigned short, true, 32>(p, fp, fd, ft, fr, fs, weights, fb, fa, gwf,
-                                                  gbf, fdp, fdd, s)
-           : launch_bwd<float, false, 16>(p, fp, fd, ft, fr, fs, weights, fb, fa, gwf, gbf, fdp,
-                                          fdd, s);
-  return static_cast<int>(e);
+  // 16 samples a block (~134 KB of shared memory at the taekwondo widths)
+  return static_cast<int>(launch_bwd<float, false, 16>(
+      p, static_cast<const float*>(pos), static_cast<const float*>(dir),
+      static_cast<const float*>(time), static_cast<const float*>(drgb),
+      static_cast<const float*>(dsig), weights, static_cast<const float*>(biases),
+      static_cast<const int*>(active), static_cast<float*>(gw), static_cast<float*>(gb),
+      static_cast<float*>(dpos), static_cast<float*>(ddir), static_cast<cudaStream_t>(stream)));
 }

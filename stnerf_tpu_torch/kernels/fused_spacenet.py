@@ -3,7 +3,8 @@ points of ``stnerf_tpu/kernels/fused_spacenet.py`` (K6).
 
 All three compute the SpaceNet forward of ``spacenet_vjp`` (the TPU
 ``_kernel_planar`` is K3's forward with the same casts), so all three
-launch the forward kernel of ``csrc/spacenet.cu``:
+launch K3's forward kernel: ``csrc/spacenet_tc.cu`` (tensor cores) for a
+bf16 field, ``csrc/spacenet.cu`` (CUDA cores) for a float32 one:
 
 * :func:`fused_spacenet_planar` — planar inputs (features, M), as
   :func:`spacenet_vjp.spacenet_fwd` (``fused_spacenet.py:245``);
@@ -13,8 +14,9 @@ launch the forward kernel of ``csrc/spacenet.cu``:
   inputs with a leading L axis (``:292``).
 
 Each has its plain version beside it (``*_reference``) and its own launch
-count. The operands are one ``PackedField`` per weight set (the fused
-field's packing without a motion net); without a time input the time
+counts (``launches``, and ``launches_tc`` for the tensor-core route). The
+operands are one ``PackedField`` per weight set (the fused field's packing
+without a motion net); without a time input the time
 encoding is ignored. On CPU tensors the wrappers run the plain versions; on
 CUDA tensors they launch the kernel or raise.
 """
@@ -45,6 +47,7 @@ def fused_spacenet_planar(field: PackedField, pos_enc: torch.Tensor,
 
 
 fused_spacenet_planar.launches = 0
+fused_spacenet_planar.launches_tc = 0
 
 
 def fused_spacenet_reference(field: PackedField, pos_enc: torch.Tensor,
@@ -66,6 +69,7 @@ def fused_spacenet(field: PackedField, pos_enc: torch.Tensor, dir_enc: torch.Ten
 
 
 fused_spacenet.launches = 0
+fused_spacenet.launches_tc = 0
 
 
 def fused_spacenet_stacked_reference(fields: Sequence[PackedField], pos_enc: torch.Tensor,
@@ -92,3 +96,4 @@ def fused_spacenet_stacked(fields: Sequence[PackedField], pos_enc: torch.Tensor,
 
 
 fused_spacenet_stacked.launches = 0
+fused_spacenet_stacked.launches_tc = 0

@@ -8,8 +8,10 @@ the direction-encoding gradient into the camera poses; the SpaceNet MLP
 runs here. The pieces, as for every kernel of the port:
 
 * :func:`spacenet_fwd` and :func:`spacenet_bwd` — the wrappers. On CUDA
-  tensors they launch ``csrc/spacenet.cu`` (built at first use by
-  ``_build.py``) or raise; on CPU tensors they run the plain versions.
+  tensors they launch a hand-written kernel (built at first use by
+  ``_build.py``) or raise: a bf16 field goes to the tensor-core kernels of
+  ``csrc/spacenet_tc.cu``, a float32 one to the CUDA-core kernels of
+  ``csrc/spacenet.cu``. On CPU tensors they run the plain versions.
 * :func:`spacenet_fwd_reference` and :func:`spacenet_bwd_reference` — the
   plain PyTorch versions. The backward writes out the TPU kernel's
   ``_bwd_math`` (:func:`spacenet_bwd_math`, shared with the fused field's
@@ -17,7 +19,11 @@ runs here. The pieces, as for every kernel of the port:
   rounded where the TPU kernel casts it, masks taken where the stored value
   is positive, weight gradients and d_pos/d_dir in float32. It is not
   autograd of the forward; a test holds the two equal in float32.
-* ``spacenet_fwd.launches`` and ``spacenet_bwd.launches``.
+* ``spacenet_fwd.launches`` and ``spacenet_bwd.launches`` — how many times
+  each wrapper launched a kernel, and ``launches_tc`` how many of those went
+  to the tensor-core one.
+* :func:`tc_workspace_bytes` — the device workspace the tensor-core
+  backward allocates per call (its records and partial sums).
 * ``active``: an optional (1,) int32 tensor on the inputs' device. Where it
   holds 0 the field is skipped, as the JAX path's chunk-level ``lax.cond``
   skips a hidden or missed performer: rgb and sigma are zeros, and so is
@@ -199,8 +205,7 @@ def _kernel_args(field: PackedField, pos_enc, dir_enc, time_enc, active) -> tupl
                          f"got {widths}")
     time_rows = time_enc.shape[0] if spec.use_time else 0
     ints = (pos_enc.shape[1], pos_enc.shape[0], dir_enc.shape[0], time_rows,
-            spec.backbone_dim, spec.head_dim, field.n_rgb,
-            int(field.compute_dtype == "bfloat16"))
+            spec.backbone_dim, spec.head_dim, field.n_rgb)
     return (ints, ctypes.c_void_p(time_enc.data_ptr() if time_rows else None),
             ctypes.c_void_p(None if active is None else active.data_ptr()))
 
@@ -208,7 +213,9 @@ def _kernel_args(field: PackedField, pos_enc, dir_enc, time_enc, active) -> tupl
 def _launch_fwd(field: PackedField, pos_enc: torch.Tensor, dir_enc: torch.Tensor,
                 time_enc: torch.Tensor | None, active: torch.Tensor | None) -> torch.Tensor:
     """One launch of the forward kernel on checked CUDA inputs -> (4, M):
-    raw rgb rows, then sigma. Counts nothing: :func:`counted_fwd` does."""
+    raw rgb rows, then sigma. A bf16 field runs the tensor-core kernel, a
+    float32 one the CUDA-core kernel. Counts nothing: :func:`counted_fwd`
+    does."""
     from ._build import load_library
 
     lib = load_library()
@@ -216,15 +223,36 @@ def _launch_fwd(field: PackedField, pos_enc: torch.Tensor, dir_enc: torch.Tensor
     out = torch.empty((4, pos_enc.shape[1]), dtype=torch.float32, device=pos_enc.device)
     ptr = ctypes.c_void_p
     with torch.cuda.device(pos_enc.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.stnerf_spacenet_fwd(
-            ptr(pos_enc.data_ptr()), ptr(dir_enc.data_ptr()), time_ptr,
-            ptr(field.weights.data_ptr()), ptr(field.biases.data_ptr()),
-            field.offsets.ctypes.data_as(ptr), active_ptr, ptr(out.data_ptr()), *ints,
-            ptr(stream))
+        stream = ptr(torch.cuda.current_stream().cuda_stream)
+        inputs = (ptr(pos_enc.data_ptr()), ptr(dir_enc.data_ptr()), time_ptr,
+                  ptr(field.weights.data_ptr()))
+        if field.compute_dtype == "bfloat16":
+            frags, offsets = field.tc
+            err = lib.stnerf_spacenet_fwd_tc(
+                *inputs, ptr(frags.data_ptr()), ptr(field.biases.data_ptr()),
+                offsets.ctypes.data_as(ptr), active_ptr, ptr(out.data_ptr()), *ints, stream)
+        else:
+            err = lib.stnerf_spacenet_fwd(
+                *inputs, ptr(field.biases.data_ptr()), field.offsets.ctypes.data_as(ptr),
+                active_ptr, ptr(out.data_ptr()), *ints, stream)
     if err != 0:
         raise RuntimeError(f"spacenet forward kernel launch failed: CUDA error {err}")
     return out
+
+
+def tc_workspace_bytes(field: PackedField, pos_enc: torch.Tensor, dir_enc: torch.Tensor,
+                       time_enc: torch.Tensor | None) -> int:
+    """Bytes of device workspace the tensor-core backward allocates for
+    these inputs: its records and partial sums (``csrc/spacenet_tc.cu``)."""
+    from ._build import load_library
+
+    ints = _kernel_args(field, pos_enc, dir_enc, time_enc, None)[0]
+    nbytes = ctypes.c_int64()
+    err = load_library().stnerf_spacenet_bwd_tc_workspace(
+        *ints, field.weights.numel(), field.biases.numel(), ctypes.byref(nbytes))
+    if err != 0:
+        raise RuntimeError(f"spacenet backward workspace query failed: CUDA error {err}")
+    return nbytes.value
 
 
 def _on_cuda(name: str, t: torch.Tensor) -> bool:
@@ -239,12 +267,14 @@ def counted_fwd(wrapper, field: PackedField, pos_enc: torch.Tensor,
                 active: torch.Tensor | None = None):
     """The body of every wrapper of the forward kernel (``spacenet_fwd``
     and K6's entries): on CPU tensors the plain version; on CUDA tensors
-    one launch, counted on ``wrapper.launches``. -> (rgb (3, M), sigma (M,))."""
+    one launch, counted on ``wrapper.launches`` (and, on the tensor-core
+    route, ``wrapper.launches_tc``). -> (rgb (3, M), sigma (M,))."""
     _check_inputs(field, pos_enc, dir_enc, time_enc, active)
     if not _on_cuda(wrapper.__name__, pos_enc):
         return spacenet_fwd_reference(field, pos_enc, dir_enc, time_enc, active)
     out = _launch_fwd(field, pos_enc, dir_enc, time_enc, active)
     wrapper.launches += 1
+    wrapper.launches_tc += int(field.compute_dtype == "bfloat16")
     return out[:3], out[3]
 
 
@@ -253,12 +283,14 @@ def spacenet_fwd(field: PackedField, pos_enc: torch.Tensor, dir_enc: torch.Tenso
     """SpaceNet forward on encoded inputs. -> (rgb (3, M), sigma (M,)), raw.
 
     CPU tensors run :func:`spacenet_fwd_reference`. CUDA tensors launch the
-    kernel, and any failure to build or launch it raises.
+    tensor-core kernel for a bf16 field and the CUDA-core kernel for a
+    float32 one, and any failure to build or launch it raises.
     """
     return counted_fwd(spacenet_fwd, field, pos_enc, dir_enc, time_enc, active)
 
 
 spacenet_fwd.launches = 0
+spacenet_fwd.launches_tc = 0
 
 
 def spacenet_bwd(field: PackedField, pos_enc: torch.Tensor, dir_enc: torch.Tensor,
@@ -269,7 +301,9 @@ def spacenet_bwd(field: PackedField, pos_enc: torch.Tensor, dir_enc: torch.Tenso
     -> (gw, gb, d_pos, d_dir) as :func:`spacenet_bwd_reference`.
 
     CPU tensors run :func:`spacenet_bwd_reference`. CUDA tensors launch the
-    kernel, and any failure to build or launch it raises.
+    tensor-core kernels for a bf16 field (two passes and a fixed-order sum:
+    the weight gradients are the same bits on every run) and the CUDA-core
+    kernel for a float32 one, and any failure to build or launch them raises.
     """
     _check_inputs(field, pos_enc, dir_enc, time_enc, active, d_rgb=d_rgb, d_sigma=d_sigma)
     if not _on_cuda("spacenet_bwd", pos_enc):
@@ -285,22 +319,35 @@ def spacenet_bwd(field: PackedField, pos_enc: torch.Tensor, dir_enc: torch.Tenso
     d_pos = torch.empty(tuple(pos_enc.shape), dtype=torch.float32, device=dev)
     d_dir = torch.empty(tuple(dir_enc.shape), dtype=torch.float32, device=dev)
     ptr = ctypes.c_void_p
+    tc = field.compute_dtype == "bfloat16"
+    outputs = (ptr(gw.data_ptr()), ptr(gb.data_ptr()), ptr(d_pos.data_ptr()),
+               ptr(d_dir.data_ptr()))
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.stnerf_spacenet_bwd(
-            ptr(pos_enc.data_ptr()), ptr(dir_enc.data_ptr()), time_ptr,
-            ptr(d_rgb.data_ptr()), ptr(d_sigma.data_ptr()),
-            ptr(field.weights.data_ptr()), ptr(field.biases.data_ptr()),
-            field.offsets.ctypes.data_as(ptr), active_ptr, ptr(gw.data_ptr()),
-            ptr(gb.data_ptr()),
-            ptr(d_pos.data_ptr()), ptr(d_dir.data_ptr()), *ints, ptr(stream))
+        stream = ptr(torch.cuda.current_stream().cuda_stream)
+        inputs = (ptr(pos_enc.data_ptr()), ptr(dir_enc.data_ptr()), time_ptr,
+                  ptr(d_rgb.data_ptr()), ptr(d_sigma.data_ptr()), ptr(field.weights.data_ptr()))
+        if tc:
+            frags, offsets = field.tc
+            # the two-pass weight gradients' records and partial sums
+            work = torch.empty(tc_workspace_bytes(field, pos_enc, dir_enc, time_enc),
+                               dtype=torch.uint8, device=dev)
+            err = lib.stnerf_spacenet_bwd_tc(
+                *inputs, ptr(frags.data_ptr()), ptr(field.biases.data_ptr()),
+                offsets.ctypes.data_as(ptr), active_ptr, *outputs, ptr(work.data_ptr()),
+                *ints, field.weights.numel(), field.biases.numel(), stream)
+        else:
+            err = lib.stnerf_spacenet_bwd(
+                *inputs, ptr(field.biases.data_ptr()), field.offsets.ctypes.data_as(ptr),
+                active_ptr, *outputs, *ints, stream)
     if err != 0:
         raise RuntimeError(f"spacenet backward kernel launch failed: CUDA error {err}")
     spacenet_bwd.launches += 1
+    spacenet_bwd.launches_tc += int(tc)
     return gw, gb, d_pos, d_dir
 
 
 spacenet_bwd.launches = 0
+spacenet_bwd.launches_tc = 0
 
 
 # ---------------------------------------------------------------------------

@@ -265,3 +265,39 @@ def test_fused_spacenet_matches_jax(rng, entry):
     for a, b in zip(got, jax.device_get(ref)):
         assert tuple(a.shape) == b.shape
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=2e-3, atol=2e-4)
+
+
+def test_build_sources_and_cpu_routes(rng):
+    """The build hash covers every kernel source: ``_build.SOURCES`` and
+    ``HEADERS`` are exactly the ``.cu`` and ``.cuh`` files under
+    ``kernels/csrc/``. On CPU tensors ``spacenet_fwd`` and ``spacenet_bwd``
+    launch nothing on either route (``launches`` and ``launches_tc`` stay 0)
+    and return their plain versions' results, with and without ``active``,
+    for a float32 and a bf16 field."""
+    import torch
+
+    from stnerf_tpu_torch.kernels import _build
+    from stnerf_tpu_torch.kernels.spacenet_vjp import (spacenet_bwd, spacenet_bwd_reference,
+                                                       spacenet_fwd, spacenet_fwd_reference)
+
+    assert set(_build.SOURCES) == set(_build.CSRC.glob("*.cu"))
+    assert set(_build.HEADERS) == set(_build.CSRC.glob("*.cuh"))
+    assert len(_build.SOURCES) == len(set(_build.SOURCES))
+    assert len(_build.HEADERS) == len(set(_build.HEADERS))
+
+    jspec, _, net = _net(9, use_dir=True, use_time=True)
+    pos, dirs, time = (torch.tensor(a) for a in _encodings(rng, jspec))
+    c_rgb = torch.tensor(rng.normal(size=(3, M)).astype(np.float32))
+    c_sig = torch.tensor(rng.normal(size=(M,)).astype(np.float32))
+    for dt in ("float32", "bfloat16"):
+        field = _pack(net, dt)
+        for active in (None, torch.tensor([1], dtype=torch.int32),
+                       torch.tensor([0], dtype=torch.int32)):
+            fwd = spacenet_fwd(field, pos, dirs, time, active)
+            ref = spacenet_fwd_reference(field, pos, dirs, time, active)
+            assert all(torch.equal(a, b) for a, b in zip(fwd, ref))
+            bwd = spacenet_bwd(field, pos, dirs, time, c_rgb, c_sig, active)
+            ref = spacenet_bwd_reference(field, pos, dirs, time, c_rgb, c_sig, active)
+            assert all(torch.equal(a, b) for a, b in zip(bwd, ref))
+    assert [spacenet_fwd.launches, spacenet_fwd.launches_tc,
+            spacenet_bwd.launches, spacenet_bwd.launches_tc] == [0, 0, 0, 0]

@@ -14,8 +14,11 @@ run. Compare checkouts only within one invocation.
 * ``view_pose`` (default): the K3 phase (kernel vs plain at M = 2000 x
   120), the view-pose render phase (three requests at 480x270) and the
   view-pose training phase (one coarse-only and one full epoch of 20 steps
-  at batch 2000): K3's bf16 forward and backward ms on the performer field,
-  seconds per pose by request, seconds per step by epoch, the launches.
+  at batch 2000): K3's bf16 and float32 forward and backward ms on the
+  performer field, seconds per pose by request, seconds per step by epoch,
+  the launches; and K2's bf16 ms on phase 4's seeded inputs (M = 2000 x
+  120, 25% of tiles off) for the performer and the background field, the
+  kernel that shares K3's backward passes.
 * ``field``: the K1 phase (M = 4096 x 120, 25% of tiles off), the render
   phase (five requests at 480x270 on the taekwondo model), the K2 phase
   (M = 2000 x 120) and the fused training phase (one coarse-only and one
@@ -48,12 +51,34 @@ load_library()
 cfg = cs.taekwondo_cfg()
 """
 CHILD = {"view_pose": PRELUDE + """
-k3 = cs.phase_spacenet_vs_plain(device, m=cfg.SOLVER.IMS_PER_BATCH * 120, reps=5)[0]
+import numpy as np
+from stnerf_tpu_torch.kernels.field_vjp import field_bwd
+from stnerf_tpu_torch.models import LayeredSpec
+from stnerf_tpu_torch.ops.encoding import positional_encoding_planar
+m = cfg.SOLVER.IMS_PER_BATCH * 120
+model = cs.make_model(LayeredSpec.from_cfg(cfg), device)
+rng = np.random.default_rng(cs.SEED + 2)
+t = lambda a: torch.tensor(a, dtype=torch.float32, device=device).contiguous()
+d = rng.normal(size=(3, m))
+d /= np.linalg.norm(d, axis=0, keepdims=True)
+seeded = (t(rng.uniform(-3.0, 3.0, (3, m))),
+          t(rng.integers(1, 101, (1, m)) + rng.choice([0.0, 0.25, 0.5], (1, m))),
+          positional_encoding_planar(t(d), 4, True, recursive=True).contiguous(),
+          t(rng.normal(size=(3, m))), t(rng.normal(size=m)),
+          torch.tensor((rng.random(-(-m // 64)) > 0.25).astype(np.int32), device=device))
+k2 = {}
+for name, net, mnet, mode in (("performer", model.layers_fine[0], model.motion[0], "lerp"),
+                              ("background", model.bkgd_fine, None, None)):
+    f = cs.pack_dtype(net, mnet, mode, "bfloat16")
+    k2[name] = cs.cuda_ms(lambda: field_bwd(f, *seeded), 5)
+k3 = cs.phase_spacenet_vs_plain(device, m=m, reps=5)[0]
 render = cs.phase_view_pose_render(device, h=270, w=480, chunk=cfg.TPU.RENDER_CHUNK,
                                    tile_cols=cfg.TPU.TILE_COLS)
 scene, _ = cs.scene_and_requests(device)
 train = cs.phase_view_pose_train(device, cs.ring_bundle(scene), scene)
 print("AB " + json.dumps({"k3_bf16_ms": [k3["bfloat16_fwd_ms"], k3["bfloat16_bwd_ms"]],
+                          "k3_f32_ms": [k3["float32_fwd_ms"], k3["float32_bwd_ms"]],
+                          "k2_bf16_ms": k2,
                           "s_per_pose": render["kernel_s_per_pose"],
                           "render_launches": render["launches"],
                           "s_per_step": train["s_per_step"],
