@@ -82,10 +82,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    step's K3 launches by route. Prints seconds per step and rays/s.
 9. Cross-stream kernels vs plain: ``cross_successor`` (K4) and
    ``cross_log_transmittance_fwd`` / ``_bwd`` (K5) against their plain cube
-   forms at (3, 2000, 120), (3, 2000, 90) and a ragged (3, 37, 24) with
-   exact cross-layer ties, saturated factors and parked depths: K4 bitwise
-   equal, K5 within rtol 1e-5, atol 1e-6 max|plain|. Prints both times and
-   the bound per case.
+   forms at (3, 2000, 120), (3, 2000, 90), a ragged (3, 37, 24) with
+   exact cross-layer ties, saturated factors and parked depths (sorted
+   streams: the kernels' search route), the same with three streams
+   shuffled and a NaN depth (the all-pairs route), and the edges S = 1,
+   L = 1, N = 0, (5, 257, 45) and S = 512: K4 equal, NaN in the same
+   places; K5 within rtol 1e-5, atol 1e-6 max|plain| wherever the plain
+   form is finite, and bitwise the same run twice; each wrapper's
+   ``pairwise_rays`` equal to the rays with an unsorted or NaN stream (0
+   on sorted ones). Prints per case the kernel's device time (a CUDA
+   graph's replay) and a call's time from the host, the plain version's,
+   the bound for these inputs and the share of it.
 10. The sort-free compositor at (3, 2000, 120) in float32:
    ``composite_merged_nosort(kernel=True)`` against ``kernel=False`` at the
    JAX package's bars, and against the sorted merge at phase 4's float32
@@ -98,7 +105,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    steps at batch 2000 (widths 256/128/128, bf16). Checks finite losses, a
    falling loss over the last epoch, a finite validation PSNR each epoch,
    K1, K2, K4 and K5 launched exactly as the steps and validation renders
-   imply, no sorted merge in training and no plain compositor at all, the
+   imply, no ray on K4/K5's all-pairs route (the training streams come
+   sorted), no sorted merge in training and no plain compositor at all, the
    per-epoch checkpoints; then ``--resume`` for one more epoch, whose first
    loss must equal that of ``do_train`` from checkpoint 3's parameters;
    then one float32 step with the flag on and one with it off from the same
@@ -187,6 +195,25 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean milliseconds of ``fn()`` as the device runs it: ``reps`` calls
+    captured in one CUDA graph and replayed, so that the host's cost of a
+    call (Python, the argument checks, the launch) stays out; after a
+    warm-up call on a side stream."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(graph.replay, 3) / reps
 
 
 def field_macs(field) -> dict:
@@ -1386,75 +1413,151 @@ def phase_view_pose_train(device, bundle, scene) -> dict:
     return summary
 
 
-def cross_inputs(device, L: int, N: int, S: int, seed: int, hard: bool = False) -> dict:
+def cross_inputs(device, L: int, N: int, S: int, seed: int, hard: bool = False,
+                 unsorted: bool = False, special: bool = False) -> dict:
     """Seeded (L, N, S) inputs of K4/K5: ascending depths per stream, log
     factors as a compositor makes them (log of 1 - alpha + 1e-10, floored at
-    1e-10) and cotangents. ``hard`` adds exact cross-layer ties (copied
-    depths, as tests/test_ops.py:503-505), saturated factors (log 1e-10) and
-    one ray whose streams all park at one depth."""
+    1e-10) and cotangents. ``hard`` adds exact cross-layer ties (depths of
+    rays 0-4 copied from stream 0 into every third sample of the others
+    before each stream is sorted), saturated factors (log 1e-10) and one
+    ray (7) whose streams all park at one depth; the streams stay sorted.
+    ``special`` puts -inf, -3.4028235e38, the smallest denormals, -0, +0,
+    3.4028235e38 and +inf into the streams of rays 12-17 before the sort.
+    ``unsorted`` then shuffles one stream of rays 2, 11 and 23 and puts a
+    NaN in ray 30. -> tensors, and ``pairwise``: the rays with a stream that
+    is not non-decreasing or holds a NaN, counted in NumPy."""
     import torch
 
     rng = np.random.default_rng(seed)
-    t = np.sort(rng.uniform(0.5, 16.0, (L, N, S)), -1).astype(np.float32)
+    t = rng.uniform(0.5, 16.0, (L, N, S)).astype(np.float32)
     alpha = rng.uniform(0.0, 1.0, (L, N, S)) ** 4
     logf = np.log(np.maximum(1.0 - alpha + 1e-10, 1e-10)).astype(np.float32)
     if hard:
-        t[1, :5, 3:7] = t[0, :5, 3:7]
-        t[2, :5, 10] = t[0, :5, 10]
+        for b in range(1, L):
+            t[b, :5, b % S::3] = t[0, :5, :len(range(b % S, S, 3))]
+        logf[0, :3, S // 2] = np.log(np.float32(1e-10))
+    if special:
+        edge = np.array([-np.inf, -3.4028235e38, -1e-45, -0.0, 0.0, 1e-45, 3.4028235e38,
+                         np.inf], np.float32)
+        for n in range(12, 18):
+            t[:, n, :len(edge)] = np.roll(edge, n)[:S]
+    t = np.sort(t, -1)
+    if hard and N > 7:
         t[:, 7] = 4.0
-        logf[0, :3, 4] = np.log(np.float32(1e-10))
+    if unsorted:
+        for n in (2, 11, 23):
+            t[n % L, n] = rng.permutation(t[n % L, n])
+        t[min(1, L - 1), 30, S // 3] = np.nan
     g = rng.normal(size=(L, N, S)).astype(np.float32)
-    return {k: torch.tensor(v, device=device) for k, v in
-            (("t", t), ("logf", logf), ("g", g))}
+    bad = ~(np.diff(t, axis=-1) >= 0).all(-1) | np.isnan(t).any(-1)
+    return {**{k: torch.tensor(v, device=device) for k, v in
+               (("t", t), ("logf", logf), ("g", g))},
+            "pairwise": int(bad.any(0).sum())}
+
+
+def cross_bound_ms(L: int, N: int, S: int, pairwise: int, n_io: int, scan: bool) -> tuple:
+    """K4's or K5's bound for these inputs: each of ``n_io`` (L, N, S)
+    float32 operands and outputs moved once; the operations the data
+    needs: per sorted ray L(L-1) S binary searches of ceil(log2(S+1))
+    compares and one min or add each, and for K5 L S scan adds; per
+    all-pairs ray (an unsorted or NaN stream) a compare and a min or add
+    for each of its (L-1) L S^2 sample pairs."""
+    searches = L * (L - 1) * S * (int(np.ceil(np.log2(S + 1))) + 1) + (L * S if scan else 0)
+    ops = (N - pairwise) * searches + pairwise * 2.0 * L * (L - 1) * S * S
+    return bound_ms(ops, 4.0 * n_io * L * N * S, "float32")
+
+
+def same_values(a, b) -> bool:
+    """Equal, NaN in the same places (``torch.equal`` fails on NaN)."""
+    import torch
+
+    return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def same_bits(a, b) -> bool:
+    import torch
+
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def max_abs(x) -> float:
+    return float(x.abs().max()) if x.numel() else 0.0
 
 
 def phase_cross_vs_plain(device, reps: int) -> list:
     """K4 and K5 (forward and backward) against their plain versions at the
-    training shapes (3, 2000, 120) and (3, 2000, 90) and a ragged (3, 37, 24)
-    with ties, saturated factors and parked depths: K4 bitwise equal; K5
-    float32 within rtol 1e-5, atol 1e-6 max|plain| (sums of 10^2-10^3
-    same-signed terms in another order). -> per-case rows with kernel and
-    plain ms and the bounds (2 operations, a compare and a min or an add,
-    per pair of samples of different streams; each operand read once and
-    the output written once)."""
+    training shapes (3, 2000, 120) and (3, 2000, 90), a ragged (3, 37, 24)
+    with ties, saturated factors and parked depths, the same with a few
+    streams shuffled and a NaN depth (the kernels' all-pairs route), the
+    same sorted with infinities, signed zeros and denormals, and the edges
+    S = 1, L = 1, N = 0, L = 5 at an S that is no multiple of 4 and
+    S = 512: K4 equal to plain, NaN in the same places; K5 float32
+    within rtol 1e-5, atol 1e-6 max|plain| wherever the plain form is
+    finite (sums of 10^2-10^3 terms in another order), and bitwise the same
+    when run twice; every wrapper's ``pairwise_rays`` equal to the rays
+    with an unsorted or NaN stream (0 on sorted streams). -> per-case rows
+    with kernel and plain ms, the bound for these inputs
+    (``cross_bound_ms``) and the share of it."""
     import torch
 
     from stnerf_tpu_torch.kernels import cross_trans as ct
 
+    wrappers = (ct.cross_successor, ct.cross_log_transmittance_fwd,
+                ct.cross_log_transmittance_bwd)
     rows = []
-    for L, N, S, hard in ((3, 2000, 120, False), (3, 2000, 90, False), (3, 37, 24, True)):
-        x = cross_inputs(device, L, N, S, SEED + 7 + S, hard)
+    for L, N, S, hard, unsorted, special in (
+            (3, 2000, 120, False, False, False), (3, 2000, 90, False, False, False),
+            (3, 37, 24, True, False, False), (3, 37, 24, True, False, True),
+            (3, 37, 24, True, True, False), (3, 50, 1, True, False, False),
+            (1, 50, 24, True, False, False), (3, 0, 24, True, False, False),
+            (5, 257, 45, True, False, False), (3, 64, 512, True, False, False)):
+        x = cross_inputs(device, L, N, S, SEED + 7 + S, hard, unsorted, special)
         t, logf, g = x["t"], x["logf"], x["g"]
+        name = f"{L}x{N}x{S}" + ("_ties_saturated_parked" if hard else "") + \
+            ("_infinities_zeros_denormals" if special else "") + \
+            ("_unsorted_nan" if unsorted else "")
+        for w in wrappers:
+            w.pairwise_rays.clear()
         succ, succ_p = ct.cross_successor(t), ct.cross_successor_reference(t)
         fwd, fwd_p = ct.cross_log_transmittance_fwd(t, logf), \
             ct.cross_log_transmittance_reference(t, logf)
         bwd, bwd_p = ct.cross_log_transmittance_bwd(t, g), \
             ct.cross_log_transmittance_bwd_reference(t, g)
+        pairwise = {w.__name__: ct.read_pairwise_rays(w) for w in wrappers}
+        again = (ct.cross_log_transmittance_fwd(t, logf), ct.cross_log_transmittance_bwd(t, g))
         sync(device)
-        name = f"{L}x{N}x{S}" + ("_ties_saturated_parked" if hard else "")
-        check(torch.equal(succ, succ_p), f"K4 {name}: not bitwise equal to plain")
-        row = {"case": name, "succ_max_abs_err": float((succ - succ_p).abs().max())}
-        for key, got, ref in (("fwd", fwd, fwd_p), ("bwd", bwd, bwd_p)):
-            check(bool(torch.isfinite(got).all()), f"K5 {key} {name}: non-finite")
-            err = float((got - ref).abs().max())
-            scale = float(ref.abs().max())
-            check(torch.allclose(got, ref, rtol=1e-5, atol=1e-6 * scale),
+        check(all(v == x["pairwise"] for v in pairwise.values()),
+              f"{name}: all-pairs rays {pairwise}, the inputs have {x['pairwise']}")
+        check(same_values(succ, succ_p), f"K4 {name}: not equal to plain")
+        ok = ~succ_p.isnan()  # equal infinities count as no error
+        row = {"case": name, "pairwise_rays": x["pairwise"],
+               "succ_max_abs_err": max_abs(torch.where(succ == succ_p, 0.0, succ - succ_p)[ok]),
+               "succ_nan": int((~ok).sum())}
+        for key, got, ref, twice in (("fwd", fwd, fwd_p, again[0]), ("bwd", bwd, bwd_p, again[1])):
+            fin = ref.isfinite()
+            got_f, ref_f = got[fin], ref[fin]
+            check(bool(got_f.isfinite().all()), f"K5 {key} {name}: non-finite where plain is not")
+            err, scale = max_abs(got_f - ref_f), max_abs(ref_f)
+            check(bool((got_f - ref_f).abs().le(1e-5 * ref_f.abs() + 1e-6 * scale).all()),
                   f"K5 {key} {name}: max |err| {err:.3g} outside rtol 1e-5, atol "
                   f"1e-6 x {scale:.3g}")
+            check(same_bits(got, twice), f"K5 {key} {name}: not bitwise equal run to run")
             row[f"{key}_max_abs_err"], row[f"{key}_max_abs_plain"] = err, scale
-        ops = 2.0 * L * (L - 1) * N * S * S
-        elems = L * N * S
-        for key, fn, plain, n_io in (
+        for key, fn, plain, n_io, scan in (
                 ("succ", lambda: ct.cross_successor(t),
-                 lambda: ct.cross_successor_reference(t), 2),
+                 lambda: ct.cross_successor_reference(t), 2, False),
                 ("fwd", lambda: ct.cross_log_transmittance_fwd(t, logf),
-                 lambda: ct.cross_log_transmittance_reference(t, logf), 3),
+                 lambda: ct.cross_log_transmittance_reference(t, logf), 3, True),
                 ("bwd", lambda: ct.cross_log_transmittance_bwd(t, g),
-                 lambda: ct.cross_log_transmittance_bwd_reference(t, g), 3)):
-            row[f"{key}_ms"] = cuda_ms(fn, reps)
+                 lambda: ct.cross_log_transmittance_bwd_reference(t, g), 3, True)):
+            # the kernel's device time; beside it a call's from the host
+            # (the wrapper's Python and launch), which bounds it at these sizes
+            row[f"{key}_ms"] = graph_ms(fn, 50) if N else cuda_ms(fn, reps)
+            row[f"{key}_call_ms"] = cuda_ms(fn, reps)
             row[f"{key}_plain_ms"] = cuda_ms(plain, reps)
-            row[f"{key}_bound_ms"], row[f"{key}_bound_by"] = bound_ms(
-                ops, 4.0 * n_io * elems, "float32")
+            row[f"{key}_bound_ms"], row[f"{key}_bound_by"] = cross_bound_ms(
+                L, N, S, x["pairwise"], n_io, scan)
+            row[f"{key}_share"] = row[f"{key}_bound_ms"] / row[f"{key}_ms"]
         print("cross_vs_plain", json.dumps(row), flush=True)
         rows.append(row)
     return rows
@@ -1666,14 +1769,16 @@ def phase_entry_point(device, workers: int = 2) -> dict:
     plain = count_calls(cross_trans, ["cross_successor_reference",
                                       "cross_log_transmittance_reference",
                                       "cross_log_transmittance_bwd_reference"])
-    kernels = [fused_field, field_bwd, cross_trans.cross_successor,
-               cross_trans.cross_log_transmittance_fwd, cross_trans.cross_log_transmittance_bwd,
-               spacenet_fwd, spacenet_bwd, *k6_entries()]
+    cross = [cross_trans.cross_successor, cross_trans.cross_log_transmittance_fwd,
+             cross_trans.cross_log_transmittance_bwd]
+    kernels = [fused_field, field_bwd, *cross, spacenet_fwd, spacenet_bwd, *k6_entries()]
     by_route = [fused_field, field_bwd, spacenet_fwd, spacenet_bwd]
     for k in kernels:
         k.launches = 0
     for k in by_route:
         k.launches_tc = 0
+    for k in cross:
+        k.pairwise_rays.clear()
     t0 = time.perf_counter()
     args = ["-c", cfg_file, "--seed", str(SEED), "--workers", str(workers),
             "--device", str(device)]
@@ -1682,6 +1787,9 @@ def phase_entry_point(device, workers: int = 2) -> dict:
     launches = {k.__name__: k.launches for k in kernels}
     launches.update({f"{k.__name__}_tc": k.launches_tc for k in by_route})
     calls = {**merges, **plain}
+    # the training streams come sorted: no ray takes K4/K5's all-pairs route
+    pairwise = {k.__name__: cross_trans.read_pairwise_rays(k) for k in cross}
+    check(not any(pairwise.values()), f"K4/K5 all-pairs rays in training: {pairwise}")
 
     cfg = get_cfg()
     cfg.merge_from_file(cfg_file)
@@ -1745,7 +1853,8 @@ def phase_entry_point(device, workers: int = 2) -> dict:
     epoch_s.update({r.args[0]: r.args[1] for r in records
                     if r.msg.startswith("Epoch %d done")})
     summary = {"scene_s": scene_s, "train_main_s": train_s, "steps_per_epoch": steps,
-               "launches": launches, "calls": calls, "val_psnr": val,
+               "launches": launches, "pairwise_rays": pairwise, "calls": calls,
+               "val_psnr": val,
                "loss_epoch3_first_last": [float(last[0]), float(last[-1])],
                "resumed_first_loss": [first, ref],
                "launches_k6": {k.__name__: launches[k.__name__] for k in k6_entries()},
@@ -2288,7 +2397,7 @@ def main():
     vp_train = phase_view_pose_train(device, bundle, scene)
     print(f"phase view_pose_train: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    cross = phase_cross_vs_plain(device, reps=5)
+    cross = phase_cross_vs_plain(device, reps=20)
     compositor = phase_compositor(device, reps=3)
     print(f"phase cross_vs_plain + compositor: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
@@ -2404,8 +2513,9 @@ def main():
                         "ms": row["bfloat16_ms"], "plain_ms": row["bfloat16_plain_ms"],
                         "bound_ms": row["bf16_bound_ms"], "bound_by": row["bound_by"],
                         "library_ms": None})
-    # K4 and K5 at the training shape (3, 2000, 120), float32; launches in
-    # the entry point's run (the paths above composite with the sorted merge)
+    # K4 and K5 at the training shape (3, 2000, 120), float32: ms the
+    # device's time, call_ms a call's from the host; launches in the entry
+    # point's run (the paths above composite with the sorted merge)
     for name, key, replaces in (
             ("cross_successor", "succ", "stnerf_tpu/kernels/cross_trans.py:109"),
             ("cross_log_transmittance_fwd", "fwd", "stnerf_tpu/kernels/cross_trans.py:126"),
@@ -2415,7 +2525,8 @@ def main():
                         "replaces": replaces, "launches": entry["launches"][name],
                         "launches_by_path": {"entry_point": entry["launches"][name]},
                         "max_abs_err": max(c[f"{key}_max_abs_err"] for c in cross),
-                        "ms": cross[0][f"{key}_ms"], "plain_ms": cross[0][f"{key}_plain_ms"],
+                        "ms": cross[0][f"{key}_ms"], "call_ms": cross[0][f"{key}_call_ms"],
+                        "plain_ms": cross[0][f"{key}_plain_ms"],
                         "bound_ms": cross[0][f"{key}_bound_ms"],
                         "bound_by": cross[0][f"{key}_bound_by"], "library_ms": None})
     print("compositor_fwd_bwd_ms", json.dumps({k: v for k, v in compositor.items()

@@ -67,12 +67,13 @@ SIGNATURES = {
     # fragments, biases, offsets (host), active, gw, gb, d_pos, d_dir,
     # workspace, then the same 7 ints and the two counts, and the stream
     "stnerf_spacenet_bwd_tc": [_P] * 15 + [_I] * 9 + [_P],
-    # t, out, then L, N, S, and the stream
-    "stnerf_cross_successor": [_P] * 2 + [_I] * 3 + [_P],
-    # t, logf (forward) or the cotangent (backward), out, then L, N, S, and
-    # the stream
-    "stnerf_cross_logt_fwd": [_P] * 3 + [_I] * 3 + [_P],
-    "stnerf_cross_logt_bwd": [_P] * 3 + [_I] * 3 + [_P],
+    # t, out, the int32 count of all-pairs rays (or null), then L, N, S,
+    # and the stream
+    "stnerf_cross_successor": [_P] * 3 + [_I] * 3 + [_P],
+    # t, logf (forward) or the cotangent (backward), out, the count, then
+    # L, N, S, and the stream
+    "stnerf_cross_logt_fwd": [_P] * 4 + [_I] * 3 + [_P],
+    "stnerf_cross_logt_bwd": [_P] * 4 + [_I] * 3 + [_P],
 }
 
 

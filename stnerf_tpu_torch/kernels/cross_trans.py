@@ -13,14 +13,21 @@ pieces, as for every kernel of the port:
 * :func:`cross_successor`, :func:`cross_log_transmittance_fwd` and
   :func:`cross_log_transmittance_bwd` — the wrappers. On CUDA tensors they
   launch ``csrc/cross_trans.cu`` (built at first use by ``_build.py``) or
-  raise; on CPU tensors they run the plain versions.
+  raise; on CPU tensors they run the plain versions. The kernels take one
+  warp per ray: on sorted streams (as every caller gives them) a binary
+  search per sample and other stream plus prefix or suffix scans of the
+  log factors or cotangents; a ray with an unsorted or NaN stream the
+  all-pairs loop, inside the same kernel.
 * :func:`cross_successor_reference`,
   :func:`cross_log_transmittance_reference` and
   :func:`cross_log_transmittance_bwd_reference` — the plain PyTorch
   versions: the JAX package's cube form (``ops/volume.py:315-345``), one
   (N, S, S) precedence cube per ordered pair, the log-factor sum as an
   einsum, and autograd's transpose of it.
-* ``.launches`` on each wrapper.
+* ``.launches`` on each wrapper, and ``.pairwise_rays``: per CUDA device,
+  an int32 tensor to which the kernel adds the rays that took the
+  all-pairs route (:func:`read_pairwise_rays`; no path of the package
+  reads it, so it costs no host sync).
 * :func:`cross_log_transmittance` — a ``torch.autograd.Function`` over the
   forward and backward kernels. Its context keeps only the depths: the
   backward rebuilds the masks from them. Depths get no gradient (they are
@@ -37,7 +44,9 @@ import ctypes
 import torch
 
 NO_SUCCESSOR = 3.4e38
-_SHARED_BYTES = 48 * 1024  # csrc/cross_trans.cu: one ray's operands per block
+# csrc/cross_trans.cu: a block's shared memory and its warps, one ray each
+_SHARED_BYTES = 48 * 1024
+_MAX_RAYS = 4
 
 
 def _cube(t: torch.Tensor, a: int, b: int) -> torch.Tensor:
@@ -84,6 +93,8 @@ def cross_log_transmittance_reference(t: torch.Tensor, logf: torch.Tensor) -> to
 def cross_log_transmittance_bwd_reference(t: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """Plain version of K5's backward: autograd's transpose of
     :func:`cross_log_transmittance_reference` applied to the cotangent g."""
+    if t.shape[0] == 1:  # no other stream: the forward is zeros, whatever logf is
+        return torch.zeros_like(g)
     with torch.enable_grad():
         logf = torch.zeros_like(t, requires_grad=True)
         (d_logf,) = torch.autograd.grad(cross_log_transmittance_reference(t, logf), logf, g)
@@ -109,23 +120,51 @@ def _check(name: str, **tensors):
             raise ValueError(f"{name} runs on cpu or cuda, not {x.device}")
 
 
-def _launch(entry: str, out: torch.Tensor, *inputs: torch.Tensor) -> torch.Tensor:
-    """One launch of ``entry`` on checked CUDA tensors, into ``out``."""
+def rays_per_block(L: int, S: int, operands: int) -> int:
+    """The kernel's rays (warps) a block: as many of one ray's shared
+    memory as fit in a block's 48 KB, at most 4; 0 where one ray does not
+    fit. A ray takes ``operands`` floats a sample (the depths, and for K5
+    the log factors or cotangents, scanned in place), each stream with one
+    spare word every 32 samples."""
+    return min(_MAX_RAYS, _SHARED_BYTES // _ray_bytes(L, S, operands))
+
+
+def _ray_bytes(L: int, S: int, operands: int) -> int:
+    return 4 * operands * L * (S + -(-S // 32))
+
+
+def read_pairwise_rays(fn) -> int:
+    """The rays that ``fn`` (one of the three wrappers) sent down the
+    all-pairs route on every device since its ``pairwise_rays`` was
+    cleared. Synchronises with the device."""
+    return sum(int(c.item()) for c in fn.pairwise_rays.values())
+
+
+def _launch(entry: str, fn, out: torch.Tensor, *inputs: torch.Tensor) -> torch.Tensor:
+    """One launch of ``entry`` on checked CUDA tensors, into ``out``,
+    counted in ``fn.launches``; the all-pairs rays count into
+    ``fn.pairwise_rays``."""
     from ._build import load_library
 
     L, N, S = out.shape
-    need = 4 * len(inputs) * L * S
-    if need > _SHARED_BYTES:
+    rays = rays_per_block(L, S, len(inputs))
+    if rays == 0:
+        need = _ray_bytes(L, S, len(inputs))
         raise ValueError(f"{entry}: one ray's L*S = {L * S} samples need {need} bytes of "
-                         f"shared memory, the kernel takes at most {_SHARED_BYTES}")
+                         f"shared memory, a block of the kernel takes at most {_SHARED_BYTES}")
+    counter = fn.pairwise_rays.get(out.device)
+    if counter is None:
+        counter = fn.pairwise_rays[out.device] = torch.zeros(1, dtype=torch.int32,
+                                                             device=out.device)
     lib = load_library()
     ptr = ctypes.c_void_p
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, entry)(*(ptr(x.data_ptr()) for x in (*inputs, out)), L, N, S,
-                                  ptr(stream))
+        err = getattr(lib, entry)(*(ptr(x.data_ptr()) for x in (*inputs, out, counter)), L, N,
+                                  S, ptr(stream))
     if err != 0:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
+    fn.launches += 1
     return out
 
 
@@ -138,12 +177,11 @@ def cross_successor(t: torch.Tensor) -> torch.Tensor:
     t = t.detach()
     if t.device.type == "cpu":
         return cross_successor_reference(t)
-    out = _launch("stnerf_cross_successor", torch.empty_like(t), t)
-    cross_successor.launches += 1
-    return out
+    return _launch("stnerf_cross_successor", cross_successor, torch.empty_like(t), t)
 
 
 cross_successor.launches = 0
+cross_successor.pairwise_rays = {}
 
 
 def cross_log_transmittance_fwd(t: torch.Tensor, logf: torch.Tensor) -> torch.Tensor:
@@ -155,12 +193,12 @@ def cross_log_transmittance_fwd(t: torch.Tensor, logf: torch.Tensor) -> torch.Te
     if t.device.type == "cpu":
         with torch.no_grad():
             return cross_log_transmittance_reference(t, logf)
-    out = _launch("stnerf_cross_logt_fwd", torch.empty_like(t), t, logf)
-    cross_log_transmittance_fwd.launches += 1
-    return out
+    return _launch("stnerf_cross_logt_fwd", cross_log_transmittance_fwd, torch.empty_like(t),
+                   t, logf)
 
 
 cross_log_transmittance_fwd.launches = 0
+cross_log_transmittance_fwd.pairwise_rays = {}
 
 
 def cross_log_transmittance_bwd(t: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -172,12 +210,12 @@ def cross_log_transmittance_bwd(t: torch.Tensor, g: torch.Tensor) -> torch.Tenso
     _check("cross_log_transmittance_bwd", t=t, g=g)
     if t.device.type == "cpu":
         return cross_log_transmittance_bwd_reference(t, g)
-    out = _launch("stnerf_cross_logt_bwd", torch.empty_like(t), t, g)
-    cross_log_transmittance_bwd.launches += 1
-    return out
+    return _launch("stnerf_cross_logt_bwd", cross_log_transmittance_bwd, torch.empty_like(t),
+                   t, g)
 
 
 cross_log_transmittance_bwd.launches = 0
+cross_log_transmittance_bwd.pairwise_rays = {}
 
 
 class _CrossLogTransmittance(torch.autograd.Function):

@@ -18,18 +18,52 @@
 //     and s of [a's j precedes b's s] * g[b,n,s].
 // No input is assumed sorted.
 //
-// Bound: (L-1) * L * S^2 compares and adds per ray (1.7e8 of each at L=3,
-// N=2000, S=120) against 12-24 bytes moved per sample, so operations bound
-// all three on paper; at these sizes they sit near launch cost either way.
+// The sorted route. The compositor's streams come sorted (each layer's
+// depths ascend), and then every mask above is a prefix or a suffix of the
+// other stream. For x = t[b,n,s] and another stream a, the count of a's
+// samples that precede x is c = #{j : t[a,n,j] <= x} for a < b and
+// #{j : t[a,n,j] < x} for a > b, one binary search. The successor from a is
+// t[a,n,c] (none where c = S), so K4 is an exact min and bitwise the plain
+// form's; K5's forward reads the prefix sum of a's log factors over j < c;
+// its backward, for y = t[a,n,j] in stream b, the suffix sum of g[b] over
+// s >= c' with c' = #{s : t[b,n,s] < y} for a < b and #{s : t[b,n,s] <= y}
+// for a > b. The side of a tie is one rule in all three: the count is
+// inclusive where the searched stream comes first. Prefix and suffix sums
+// are scans over the same terms as the plain sum, never a total minus a
+// prefix (the cotangents have mixed signs). Work per ray: L(L-1) S searches
+// of ceil(log2 S) + 1 compares, against (L-1) L S^2 for the all-pairs form.
 //
-// The simple design: one block per ray. The block loads the ray's L*S depths
-// (and log factors or cotangents) into shared memory (2.9 KB at L=3, S=120);
-// each thread owns output samples and loops over the other streams' samples
-// in index order, so every float32 sum runs in a fixed order and the
-// successor is an exact min. All threads of a warp read the same shared word
-// at once (a broadcast). Any N; nothing is padded and nothing is written past
-// N. The masks are rebuilt from the depths, never stored: no (N, S, S) cube
-// touches device memory.
+// The all-pairs route. A ray with a stream that is not non-decreasing, or
+// with a NaN depth, takes the all-pairs loop of the plain form instead,
+// inside the same kernel: every sample against every sample of the other
+// streams, in index order. K4 there follows the plain (cube) form's NaN
+// rule: for a > b a candidate is every t[a,n,j] that is not < x, a NaN
+// included, and a NaN candidate wins the min. Each such ray adds one to the
+// optional device counter `pairwise` (null: not counted).
+//
+// One warp per ray, up to kMaxRays rays a block, each warp in its own part
+// of shared memory, never waiting on another warp. A warp copies its ray's
+// depths (and log factors or cotangents) into shared memory with cp.async,
+// every copy in flight at once (one round trip to device memory; no row
+// alignment is assumed: S = 90 gives 360-byte rows), checks that each stream
+// is non-decreasing with a warp vote (a NaN reads as unsorted), scans the
+// log factors (prefix) or cotangents (suffix) in place by shuffles, 32 at a
+// time with the chunks chained in order, so that every output is bitwise the
+// same from run to run, and then searches. Each lane takes kGroup samples of
+// one stream (32 apart) and searches the other streams for all of them side
+// by side, so that their dependent shared-memory reads overlap. A search
+// halves lengths that do not depend on the data (the branchless lower
+// bound), so all lanes step together; the strict side compares <= against
+// the next float below x. Shared memory keeps one spare word after every 32
+// samples: the searches read at power-of-two strides, which would otherwise
+// fall in one bank (bank conflicts made the search 85% of a first build's
+// time, tools/torch_cross_timeline.py).
+//
+// Bound: the bytes. Each operand is read once and the output written once
+// (8 or 12 bytes a sample: 5.8 MB for K4 and 8.6 MB for K5 at L = 3,
+// N = 2000, S = 120, 1.7 and 2.6 us at 3.35 TB/s), against 1.2e7 compares.
+// At that size 2000 rays give 15 warps an SM, and the instructions of the
+// vote, the searches and the stores, not the bytes, set the time.
 
 #include <cuda_runtime.h>
 
@@ -38,132 +72,262 @@
 namespace {
 
 constexpr float kNoSuccessor = 3.4e38f;  // the JAX package's finite sentinel
-constexpr int kThreads = 128;
+constexpr int kWarp = 32;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxRays = 4;  // warps a block, fewer where a ray's operands are large
 constexpr int kMaxSharedBytes = 48 * 1024;
+constexpr int kGroup = 4;  // a lane's samples (scan chunks) worked side by side
+
+enum Mode { kSuccessor, kForward, kBackward };
+
+// a probe build's per-warp time stamps at the phase boundaries
+// (tools/torch_cross_timeline.py); nothing in the library
+#ifndef CROSS_STAMP
+#define CROSS_STAMP(phase, n, lane)
+#endif
 
 __device__ __forceinline__ size_t at(int l, int n, int s, int N, int S) {
   return (static_cast<size_t>(l) * N + n) * S + s;
 }
 
-// the ray's L*S values of x into shared memory, stream-major
+// sample s's word in a stream's shared memory: one spare word every 32
+__device__ __forceinline__ int pad(int s) { return s + (s >> 5); }
+
+// the words of one stream in shared memory
+__host__ __device__ constexpr int padded(int S) { return S + (S + 31) / 32; }
+
+// the ray's L streams of x into the warp's shared memory, stream l from
+// word l * padded(S): asynchronous copies (cp.async), every one in flight
+// at once
 __device__ __forceinline__ void load_ray(const float* __restrict__ x, float* sm, int n, int L,
-                                         int N, int S) {
-  for (int i = threadIdx.x; i < L * S; i += blockDim.x) {
-    const int l = i / S;
-    sm[i] = x[at(l, n, i - l * S, N, S)];
+                                        int N, int S, int lane) {
+  for (int l = 0; l < L; ++l) {
+    const float* row = x + at(l, n, 0, N, S);
+    float* dst = sm + l * padded(S);
+    for (int s = lane; s < S; s += kWarp) {
+      const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst + pad(s)));
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(row + s)
+                   : "memory");
+    }
   }
 }
 
-__global__ void successor_kernel(const float* __restrict__ t, float* __restrict__ out, int L,
-                                 int N, int S) {
-  extern __shared__ float sm[];
-  const int n = blockIdx.x;
-  load_ray(t, sm, n, L, N, S);
-  __syncthreads();
-  for (int i = threadIdx.x; i < L * S; i += blockDim.x) {
-    const int b = i / S;
-    const float tb = sm[i];
-    float best = kNoSuccessor;
-    for (int a = 0; a < L; ++a) {
-      if (a == b) continue;
-      const float* ta = sm + a * S;
-      if (a < b) {
-        for (int j = 0; j < S; ++j) best = fminf(best, ta[j] > tb ? ta[j] : kNoSuccessor);
-      } else {
-        for (int j = 0; j < S; ++j) best = fminf(best, ta[j] >= tb ? ta[j] : kNoSuccessor);
+__device__ __forceinline__ void wait_loads() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+  __syncwarp();
+}
+
+// every stream of the ray non-decreasing and free of NaN, by a warp vote
+__device__ __forceinline__ bool ray_sorted(const float* st, int L, int S, int lane) {
+  bool bad = false;
+  for (int l = 0; l < L; ++l) {
+    const float* x = st + l * padded(S);
+    for (int s = lane; s < S; s += kWarp) {
+      const float a = x[pad(s)], b = x[pad(min(s + 1, S - 1))];
+      bad |= (a != a) | (a > b);  // a NaN b is caught at its own sample
+    }
+  }
+  return !__any_sync(kFull, bad);
+}
+
+// inclusive prefix sums of each of the L streams in place (reverse: suffix
+// sums, from the stream's end): a shuffle scan of each chunk of 32, kGroup
+// chunks side by side, then each chunk adds the running total of the ones
+// before it, in order
+__device__ __forceinline__ void scan_streams(float* sm, int L, int S, bool reverse, int lane) {
+  for (int l = 0; l < L; ++l) {
+    float* x = sm + l * padded(S);
+    float carry = 0.0f;
+    for (int base = 0; base < S; base += kWarp * kGroup) {
+      float v[kGroup];
+#pragma unroll
+      for (int g = 0; g < kGroup; ++g) {
+        const int r = base + g * kWarp + lane;
+        v[g] = r < S ? x[pad(reverse ? S - 1 - r : r)] : 0.0f;
+      }
+#pragma unroll
+      for (int d = 1; d < kWarp; d <<= 1) {
+#pragma unroll
+        for (int g = 0; g < kGroup; ++g) {
+          const float u = __shfl_up_sync(kFull, v[g], d);
+          if (lane >= d) v[g] += u;
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < kGroup; ++g) {
+        v[g] += carry;
+        const int r = base + g * kWarp + lane;
+        if (r < S) x[pad(reverse ? S - 1 - r : r)] = v[g];
+        carry = __shfl_sync(kFull, v[g], kWarp - 1);
       }
     }
-    out[at(b, n, i - b * S, N, S)] = best;
   }
 }
 
-__global__ void logt_fwd_kernel(const float* __restrict__ t, const float* __restrict__ logf,
-                                float* __restrict__ out, int L, int N, int S) {
-  extern __shared__ float sm[];
-  float* st = sm;
-  float* sf = sm + L * S;
-  const int n = blockIdx.x;
-  load_ray(t, st, n, L, N, S);
-  load_ray(logf, sf, n, L, N, S);
-  __syncthreads();
-  for (int i = threadIdx.x; i < L * S; i += blockDim.x) {
-    const int b = i / S;
-    const float tb = st[i];
-    float acc = 0.0f;
-    for (int a = 0; a < L; ++a) {
-      if (a == b) continue;
-      const float* ta = st + a * S;
-      const float* fa = sf + a * S;
-      if (a < b) {
-        for (int j = 0; j < S; ++j) acc += ta[j] <= tb ? fa[j] : 0.0f;
-      } else {
-        for (int j = 0; j < S; ++j) acc += ta[j] < tb ? fa[j] : 0.0f;
+// the largest float below x (x not NaN), so that t < x is t <= below(x)
+// for every t that is not NaN; NaN for x = -inf, below which lies nothing
+__device__ __forceinline__ float below(float x) {
+  if (x == 0.0f) return -__int_as_float(1);  // -0 and +0: the negative denormal
+  if (x < -3.4028235e38f) return __int_as_float(0x7fffffff);
+  const int b = __float_as_int(x);
+  return __int_as_float(x > 0.0f ? b - 1 : b + 1);
+}
+
+// outputs s0 + 32 g (kGroup of them) of stream o on sorted streams, sv
+// holding the scans; out_row is stream o's row of the ray
+template <int kMode>
+__device__ __forceinline__ void searched(const float* st, const float* sv,
+                                         float* __restrict__ out_row, int L, int S, int o,
+                                         int s0) {
+  const int Sp = padded(S);
+  float x[kGroup], acc[kGroup];
+#pragma unroll
+  for (int g = 0; g < kGroup; ++g) {
+    x[g] = st[o * Sp + pad(min(s0 + g * kWarp, S - 1))];
+    acc[g] = kMode == kSuccessor ? kNoSuccessor : 0.0f;
+  }
+  for (int p = 0; p < L; ++p) {
+    if (p == o) continue;
+    const float* tp = st + p * Sp;
+    // the count c of p's samples <= y: a branchless lower bound over
+    // lengths that halve alike for every lane, then one compare
+    float y[kGroup];
+    int c[kGroup];
+#pragma unroll
+    for (int g = 0; g < kGroup; ++g) {
+      y[g] = p < o ? x[g] : below(x[g]);
+      c[g] = 0;
+    }
+    for (int len = S; len > 1;) {
+      const int half = len >> 1;
+#pragma unroll
+      for (int g = 0; g < kGroup; ++g)
+        c[g] = tp[pad(c[g] + half - 1)] <= y[g] ? c[g] + half : c[g];
+      len -= half;
+    }
+#pragma unroll
+    for (int g = 0; g < kGroup; ++g) {
+      c[g] += tp[pad(c[g])] <= y[g] ? 1 : 0;
+      if (kMode == kSuccessor) {
+        if (c[g] < S) acc[g] = fminf(acc[g], tp[pad(c[g])]);
+      } else if (kMode == kForward) {  // sum of p's log factors over j < c
+        if (c[g] > 0) acc[g] += sv[p * Sp + pad(c[g] - 1)];
+      } else {  // sum of p's cotangents over s >= c
+        if (c[g] < S) acc[g] += sv[p * Sp + pad(c[g])];
       }
     }
-    out[at(b, n, i - b * S, N, S)] = acc;
   }
+#pragma unroll
+  for (int g = 0; g < kGroup; ++g)
+    if (s0 + g * kWarp < S) out_row[s0 + g * kWarp] = acc[g];
 }
 
-__global__ void logt_bwd_kernel(const float* __restrict__ t, const float* __restrict__ g,
-                                float* __restrict__ d_logf, int L, int N, int S) {
-  extern __shared__ float sm[];
-  float* st = sm;
-  float* sg = sm + L * S;
-  const int n = blockIdx.x;
-  load_ray(t, st, n, L, N, S);
-  load_ray(g, sg, n, L, N, S);
-  __syncthreads();
-  for (int i = threadIdx.x; i < L * S; i += blockDim.x) {
-    const int a = i / S;
-    const float ta = st[i];
-    float acc = 0.0f;
-    for (int b = 0; b < L; ++b) {
-      if (b == a) continue;
-      const float* tb = st + b * S;
-      const float* gb = sg + b * S;
-      if (a < b) {
-        for (int s = 0; s < S; ++s) acc += ta <= tb[s] ? gb[s] : 0.0f;
-      } else {
-        for (int s = 0; s < S; ++s) acc += ta < tb[s] ? gb[s] : 0.0f;
+// the plain form's min: a NaN candidate wins
+__device__ __forceinline__ float min_nan(float best, float cand) {
+  return (cand < best || cand != cand) ? cand : best;
+}
+
+// output s of stream o of the ray by the all-pairs loop
+template <int kMode>
+__device__ __forceinline__ float all_pairs(const float* st, const float* sv, int L, int S, int o,
+                                           int s) {
+  const int Sp = padded(S);
+  const float x = st[o * Sp + pad(s)];
+  float acc = kMode == kSuccessor ? kNoSuccessor : 0.0f;
+  for (int p = 0; p < L; ++p) {
+    if (p == o) continue;
+    const float* tp = st + p * Sp;
+    const float* vp = sv + p * Sp;
+    for (int j = 0; j < S; ++j) {
+      const float t = tp[pad(j)];
+      if (kMode == kSuccessor) {
+        acc = min_nan(acc, p < o ? (t > x ? t : kNoSuccessor) : (t < x ? kNoSuccessor : t));
+      } else if (kMode == kForward) {  // p's sample j precedes x
+        acc += (p < o ? t <= x : t < x) ? vp[pad(j)] : 0.0f;
+      } else {  // x precedes p's sample j
+        acc += (o < p ? x <= t : x < t) ? vp[pad(j)] : 0.0f;
       }
     }
-    d_logf[at(a, n, i - a * S, N, S)] = acc;
   }
+  return acc;
 }
 
-bool valid(int L, int N, int S, int operands) {
-  if (L < 1 || N < 0 || S < 1) return false;
-  const long long bytes = 4LL * operands * L * S;
-  return bytes <= kMaxSharedBytes;
+// t (L, N, S) depths; v the log factors (forward), the cotangents
+// (backward) or unused (successor); out (L, N, S)
+template <int kMode>
+__global__ void cross_kernel(const float* __restrict__ t, const float* __restrict__ v,
+                             float* __restrict__ out, int* __restrict__ pairwise, int L, int N,
+                             int S) {
+  extern __shared__ float sm[];
+  constexpr int kOperands = kMode == kSuccessor ? 1 : 2;
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int n = blockIdx.x * (blockDim.x / kWarp) + warp;
+  if (n >= N) return;  // the whole warp
+  CROSS_STAMP(0, n, lane);
+  float* st = sm + warp * kOperands * L * padded(S);
+  float* sv = st + L * padded(S);
+  load_ray(t, st, n, L, N, S, lane);
+  if (kMode != kSuccessor) load_ray(v, sv, n, L, N, S, lane);
+  wait_loads();
+  CROSS_STAMP(1, n, lane);
+  const bool sorted = ray_sorted(st, L, S, lane);
+  CROSS_STAMP(2, n, lane);
+  if (!sorted) {
+    if (lane == 0 && pairwise != nullptr) atomicAdd(pairwise, 1);
+    for (int o = 0; o < L; ++o)
+      for (int s = lane; s < S; s += kWarp)
+        out[at(o, n, s, N, S)] = all_pairs<kMode>(st, sv, L, S, o, s);
+    return;
+  }
+  if (kMode != kSuccessor) {
+    scan_streams(sv, L, S, kMode == kBackward, lane);
+    __syncwarp();
+  }
+  CROSS_STAMP(3, n, lane);
+  for (int o = 0; o < L; ++o)
+    for (int s0 = lane; s0 < S; s0 += kWarp * kGroup)
+      searched<kMode>(st, sv, out + at(o, n, 0, N, S), L, S, o, s0);
+  CROSS_STAMP(4, n, lane);
+}
+
+// rays a block for one ray's operands in shared memory; 0 where one does
+// not fit
+int rays_per_block(int L, int S, int operands) {
+  const long long ray_bytes = 4LL * operands * L * padded(S);
+  if (ray_bytes > kMaxSharedBytes) return 0;
+  const long long fit = kMaxSharedBytes / ray_bytes;
+  return fit < kMaxRays ? static_cast<int>(fit) : kMaxRays;
+}
+
+template <int kMode>
+int launch(const void* t, const void* v, void* out, void* pairwise, int L, int N, int S,
+           void* stream) {
+  constexpr int kOperands = kMode == kSuccessor ? 1 : 2;
+  if (L < 1 || N < 0 || S < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int rays = rays_per_block(L, S, kOperands);
+  if (rays == 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (N == 0) return 0;
+  const size_t shared = 4ull * rays * kOperands * L * padded(S);
+  cross_kernel<kMode><<<(N + rays - 1) / rays, rays * kWarp, shared,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(t), static_cast<const float*>(v), static_cast<float*>(out),
+      static_cast<int*>(pairwise), L, N, S);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int stnerf_cross_successor(const void* t, void* out, int L, int N, int S,
-                                      void* stream) {
-  if (!valid(L, N, S, 1)) return static_cast<int>(cudaErrorInvalidValue);
-  if (N == 0) return 0;
-  successor_kernel<<<N, kThreads, 4 * L * S, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(t), static_cast<float*>(out), L, N, S);
-  return static_cast<int>(cudaGetLastError());
+extern "C" int stnerf_cross_successor(const void* t, void* out, void* pairwise, int L, int N,
+                                      int S, void* stream) {
+  return launch<kSuccessor>(t, nullptr, out, pairwise, L, N, S, stream);
 }
 
-extern "C" int stnerf_cross_logt_fwd(const void* t, const void* logf, void* out, int L, int N,
-                                     int S, void* stream) {
-  if (!valid(L, N, S, 2)) return static_cast<int>(cudaErrorInvalidValue);
-  if (N == 0) return 0;
-  logt_fwd_kernel<<<N, kThreads, 8 * L * S, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(t), static_cast<const float*>(logf), static_cast<float*>(out),
-      L, N, S);
-  return static_cast<int>(cudaGetLastError());
+extern "C" int stnerf_cross_logt_fwd(const void* t, const void* logf, void* out, void* pairwise,
+                                     int L, int N, int S, void* stream) {
+  return launch<kForward>(t, logf, out, pairwise, L, N, S, stream);
 }
 
-extern "C" int stnerf_cross_logt_bwd(const void* t, const void* g, void* d_logf, int L, int N,
-                                     int S, void* stream) {
-  if (!valid(L, N, S, 2)) return static_cast<int>(cudaErrorInvalidValue);
-  if (N == 0) return 0;
-  logt_bwd_kernel<<<N, kThreads, 8 * L * S, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(t), static_cast<const float*>(g), static_cast<float*>(d_logf),
-      L, N, S);
-  return static_cast<int>(cudaGetLastError());
+extern "C" int stnerf_cross_logt_bwd(const void* t, const void* g, void* d_logf, void* pairwise,
+                                     int L, int N, int S, void* stream) {
+  return launch<kBackward>(t, g, d_logf, pairwise, L, N, S, stream);
 }

@@ -58,7 +58,7 @@ def test_cross_successor_matches_jax(rng, L):
     assert ct.cross_successor.launches == 0  # CPU tensors: the plain version
 
 
-@pytest.mark.parametrize("L", [2, 3])
+@pytest.mark.parametrize("L", [1, 2, 3])
 def test_cross_log_transmittance_matches_jax(rng, L):
     """Forward, and the backward through torch.autograd.grad against
     jax.vjp, at rtol 1e-5, atol 1e-6 max|ref|."""
@@ -79,6 +79,90 @@ def test_cross_log_transmittance_matches_jax(rng, L):
         b = np.asarray(b)
         np.testing.assert_allclose(a.numpy(), b, rtol=1e-5, atol=1e-6 * np.abs(b).max())
     assert ct.cross_log_transmittance_fwd.launches == ct.cross_log_transmittance_bwd.launches == 0
+
+
+def _sorted_streams(rng, L, S, N=37):
+    """(L, N, S) non-decreasing depths with exact cross-layer ties wherever
+    S allows (depths copied from stream 0 into the others before each
+    stream is sorted), one ray whose streams all park at one depth; log
+    factors as ``_streams`` makes them, some saturated; cotangents."""
+    t = rng.uniform(0.5, 16.0, (L, N, S)).astype(np.float32)
+    for b in range(1, L):
+        t[b, :5, b % S::3] = t[0, :5, :len(range(b % S, S, 3))]
+    t = np.sort(t, -1)
+    t[:, 7] = 4.0
+    alpha = rng.uniform(size=(L, N, S)) ** 4
+    logf = np.log(np.maximum(1.0 - alpha + 1e-10, 1e-10)).astype(np.float32)
+    logf[0, :3, S // 2] = np.log(np.float32(1e-10))
+    return t, logf, rng.normal(size=(L, N, S)).astype(np.float32)
+
+
+def _searched_mirror(t, logf, g):
+    """What csrc/cross_trans.cu computes on sorted streams, in torch: per
+    output stream o and other stream p, the count c of p's samples before
+    each of o's (``searchsorted``, inclusive where p comes first), then K4
+    reads ``t[p][c]`` (3.4e38 at c = S), K5's forward the prefix sum of
+    p's log factors over j < c and its backward the suffix sum of p's
+    cotangents over s >= c."""
+    import torch
+
+    L, N, S = t.shape
+    zero = torch.zeros(N, 1)
+    succ, fwd, bwd = torch.full_like(t, 3.4e38), torch.zeros_like(t), torch.zeros_like(t)
+    for o in range(L):
+        for p in range(L):
+            if p == o:
+                continue
+            c = torch.searchsorted(t[p], t[o], right=p < o)
+            succ[o] = torch.minimum(succ[o], torch.cat([t[p], zero + 3.4e38], 1).gather(1, c))
+            fwd[o] += torch.cat([zero, logf[p].cumsum(1)], 1).gather(1, c)
+            bwd[o] += torch.cat([g[p].flip(1).cumsum(1).flip(1), zero], 1).gather(1, c)
+    return succ, fwd, bwd
+
+
+@pytest.mark.parametrize("L", [1, 2, 3, 4])
+def test_searched_route_matches_jax(L):
+    """The CUDA kernels' sorted route (binary search and scans, mirrored in
+    torch by ``_searched_mirror``) against the JAX kernels in interpret
+    mode on sorted streams with exact cross-layer ties, a parked ray and
+    saturated factors, at S = 1, 7 and 24: K4 bitwise, K5 forward and
+    backward (``jax.vjp``) at rtol 1e-5, atol 1e-6 max|ref|. Pins the tie
+    sides."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from stnerf_tpu.kernels.cross_trans import cross_log_transmittance as jclt
+    from stnerf_tpu.kernels.cross_trans import cross_successor as jsucc
+
+    for S in (1, 7, 24):
+        t, logf, g = _sorted_streams(np.random.default_rng(100 * L + S), L, S)
+        assert (np.diff(t, axis=-1) >= 0).all()
+        if L > 1:
+            assert np.isin(t[1, :5], t[0, :5]).any()  # cross-layer ties
+        ref_succ = np.asarray(jsucc(jnp.asarray(t), interpret=True))
+        ref_fwd, vjp = jax.vjp(lambda lf: jclt(jnp.asarray(t), lf, 32, True),
+                               jnp.asarray(logf))
+        (ref_bwd,) = vjp(jnp.asarray(g))
+        succ, fwd, bwd = _searched_mirror(*map(torch.tensor, (t, logf, g)))
+        np.testing.assert_array_equal(succ.numpy(), ref_succ, err_msg=f"S={S}")
+        for got, ref in ((fwd, ref_fwd), (bwd, ref_bwd)):
+            ref = np.asarray(ref)
+            np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5,
+                                       atol=1e-6 * max(np.abs(ref).max(), 1e-30),
+                                       err_msg=f"S={S}")
+
+
+def test_kernel_blocks_fit_training_shapes():
+    """Every shipped config's shapes (up to 4 performers and the
+    background, S1 + S2 <= 120) take the kernel's full 4 rays a block;
+    S = 512 at L = 3 still fits; a ray too large for a block is refused."""
+    from stnerf_tpu_torch.kernels import cross_trans as ct
+
+    for operands in (1, 2):
+        assert ct.rays_per_block(5, 120, operands) == 4
+        assert ct.rays_per_block(3, 512, operands) >= 1
+    assert ct.rays_per_block(3, 1024, 2) == 1 and ct.rays_per_block(3, 4096, 2) == 0
 
 
 def _composite_inputs(rng, L=3, N=37, S=24):

@@ -2,7 +2,7 @@
 """Compare phases of two checkouts of the PyTorch port on one CUDA card.
 
     python3 tools/torch_ab_phases.py OTHER_CHECKOUT [OTHER_CHECKOUT ...]
-        [--set view_pose|field] [--rounds 1]
+        [--set view_pose|field|cross] [--rounds 1]
 
 Runs ``chip_smoke.py``'s phases from each OTHER_CHECKOUT and from this one,
 each in a fresh process from its own root (so each builds and loads its own
@@ -26,6 +26,16 @@ run. Compare checkouts only within one invocation.
   bf16 and float32 ms on the performer field (and K2's bf16 ms on the
   background), seconds per pose by request,
   seconds per step by epoch, the launches.
+* ``cross``: K4 and K5 (forward and backward) at (3, 2000, 120) and (3,
+  2000, 90) on ``chip_smoke.cross_inputs`` (sorted streams), each timed
+  alike in every checkout by this checkout's ``chip_smoke``: the device
+  time (``graph_ms``: 50 calls replayed from a CUDA graph) and a call's
+  time from the host (``cuda_ms``); the checkout's own phase 9 (its
+  checks); phase 10, the sort-free compositor's forward + backward ms at
+  (3, 2000, 120); and phase 11's entry point (the ``train`` CLI on the
+  synthetic scene with TPU.COMPOSITOR_KERNEL on, one coarse-only and two
+  full epochs of 20 steps): seconds per step by epoch and K4/K5's
+  launches.
 """
 
 from __future__ import annotations
@@ -99,10 +109,57 @@ print("AB " + json.dumps({"k1_ms": {k: k1[k] for k in ("bfloat16_ms", "float32_m
                           "s_per_step": train["s_per_step"],
                           "train_launches": [train["launches_fused_field"], train["launches"]]}))
 """}
+CHILD["cross"] = PRELUDE + """
+import importlib.util, logging, os, shutil
+from stnerf_tpu_torch.data import make_synthetic_scene
+from stnerf_tpu_torch.kernels import cross_trans as ct
+from stnerf_tpu_torch.tools import train
+spec = importlib.util.spec_from_file_location("timing", sys.argv[1])
+timing = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(timing)
+kernels = {}
+for L, N, S in ((3, 2000, 120), (3, 2000, 90)):
+    x = cs.cross_inputs(device, L, N, S, cs.SEED + 7 + S)
+    t, logf, g = x["t"], x["logf"], x["g"]
+    for key, fn in (("succ", lambda: ct.cross_successor(t)),
+                    ("fwd", lambda: ct.cross_log_transmittance_fwd(t, logf)),
+                    ("bwd", lambda: ct.cross_log_transmittance_bwd(t, g))):
+        kernels[f"{key}_{S}"] = {"ms": timing.graph_ms(fn, 50),
+                                 "call_ms": timing.cuda_ms(fn, 20)}
+cs.phase_cross_vs_plain(device, reps=20)
+comp = cs.phase_compositor(device, reps=20)
+root = os.path.join(cs.REPO, "build", "ab_synthetic")
+out_dir = os.path.join(cs.REPO, "build", "ab_entry")
+for d in (root, out_dir):
+    shutil.rmtree(d, ignore_errors=True)
+make_synthetic_scene(root, width=200, height=150, num_cams=12, num_frames=5, layer_num=2,
+                     seed=cs.SEED)
+cfg_file = cs.entry_point_cfg_file(root, out_dir)
+seconds, steps = {}, []
+class Epochs(logging.Handler):
+    def emit(self, r):
+        if r.msg.startswith("Epoch %d done"):
+            seconds[r.args[0]] = r.args[1]
+        elif r.msg.startswith("pool resident on"):
+            steps.append(r.args[2])
+logger = logging.getLogger("stnerf_tpu_torch.train")
+logger.setLevel(logging.INFO)
+logger.addHandler(Epochs())
+wrappers = (ct.cross_successor, ct.cross_log_transmittance_fwd, ct.cross_log_transmittance_bwd)
+for w in wrappers:
+    w.launches = 0
+train.main(["-c", cfg_file, "--seed", str(cs.SEED), "--workers", "2", "--device", "cuda:0"])
+print("AB " + json.dumps({"kernels": kernels,
+                          "compositor_fwd_bwd_ms": {k: v for k, v in comp.items()
+                                                    if k.endswith("_ms")},
+                          "entry_s_per_step": {e: s / steps[0] for e, s in seconds.items()},
+                          "entry_launches": [w.launches for w in wrappers]}))
+"""
 
 
 def run(root: str, phases: str) -> dict:
-    out = subprocess.run([sys.executable, "-c", CHILD[phases]], cwd=root, check=True,
+    out = subprocess.run([sys.executable, "-c", CHILD[phases],
+                          os.path.join(REPO, "chip_smoke.py")], cwd=root, check=True,
                          stdout=subprocess.PIPE, text=True).stdout
     return json.loads(next(l for l in out.splitlines() if l.startswith("AB "))[3:])
 
