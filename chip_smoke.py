@@ -16,7 +16,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    flags that zero some tiles: float32 kernel (CUDA cores) vs float32 plain
    (TF32 off) within rtol 2e-3, atol 2e-4; bf16 kernel (tensor cores) vs
    bf16 plain within relative L2 1e-2 on rgb and on sigma, and vs float32
-   plain >= 40 dB on sigmoid(rgb). Then the edges: a narrow model (trunk
+   plain >= 40 dB on sigmoid(rgb); the training forward (``checked``: the
+   near-tie outputs recomputed in float32) within relative L2 1e-2 too,
+   and the share of outputs not bitwise the plain version's printed for
+   both. Then the edges: a narrow model (trunk
    64, head 32, motion 32) and a ragged M with all tiles on, all off and no
    flags. Prints both routes' times and bounds per case.
 3. The slice: five edit requests of the taekwondo model (L=2, 90+30
@@ -107,13 +110,38 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    K1, K2, K4 and K5 launched exactly as the steps and validation renders
    imply, no ray on K4/K5's all-pairs route (the training streams come
    sorted), no sorted merge in training and no plain compositor at all, the
-   per-epoch checkpoints; then ``--resume`` for one more epoch, whose first
-   loss must equal that of ``do_train`` from checkpoint 3's parameters;
-   then one float32 step with the flag on and one with it off from the same
-   weights and batch, every gradient leaf at phase 4's bar.
+   per-epoch checkpoints; with CHECKPOINT_PERIOD and VAL_PERIOD 10, the
+   ``_{epoch}_10`` checkpoints and a validation at each epoch's step 10;
+   the event file under OUTPUT_DIR/tb read back (JAX's tags at the global
+   steps, the validation panels); then ``--resume`` for one more epoch,
+   whose first loss must equal that of ``do_train`` from checkpoint 3's
+   parameters; ``--resume`` from the mid-epoch ``_3_10`` file alone, whose
+   losses must equal the uninterrupted epoch 3's from step 10 on, bitwise;
+   ``--auto-restart 1`` on a healthy run in a process of its own (exit 0;
+   the supervisor never initialised CUDA); then one float32 step with the
+   flag on and one with it off from the same weights and batch, every
+   gradient leaf at phase 4's bar.
 12. The ``{"kernels": [...]}`` line (launches on the main paths, errors, times
    and bounds), the card line again, and the result line
    ``{"ok": true, "device": {...}}`` last.
+14. (runs after phase 13, before phase 12's lines) Training with the fast
+   fine stage (TPU.FAST_FINE_TRAIN) and pose refinement on: ``do_train`` of
+   the taekwondo model (bf16, 8 pose corrections) on phase 5's pool, one
+   full epoch of 20 steps with TPU.COMPOSITOR_KERNEL off (the payload sort
+   and the sorted merge) and one with it on (K4/K5 on the coarse stage,
+   ``composite_streams_nosort`` on the fine one). Checks finite losses, a
+   falling loss (mean of the last five steps under the first five's), K1
+   and K2 once per field and stage of every step on the tensor-core route,
+   K4/K5 once per step with the flag on and never without it, no plain
+   field or compositor evaluation; prints the fine stage's tiles skipped
+   (coarse opacity <= FAST_FINE_EPS) and seconds per step and rays/s
+   beside phase 5's exact step, K1's and K2's times at the fine stage's M
+   on the run's own last fine-stage inputs. Then one step through the
+   kernels and one through the plain versions in float32 and in bf16 on
+   the fast fine path and on the exact fused path with pose refinement
+   (the port's default training model): every leaf at phase 4's float32
+   bar, bf16 relative L2 <= 1e-2 but the two ``cam_pose`` leaves, held to
+   a tenth of their own bf16 rounding error (phase 8's bar).
 13. The render front end (it runs after phase 11, before phase 12's lines):
    ``LayeredNeuralRenderer`` on phase 11's last checkpoint and scene with
    the config's default inference approximations (fast fine stage, a
@@ -348,6 +376,9 @@ def phase_kernel_vs_plain(device, m: int, reps: int):
             row[f"{dt}_bound_ms"], row[f"{dt}_bound_by"] = bound_ms(
                 2 * field_macs(f)["fwd"] * samples_run, nbytes, dt)
             row[f"{dt}_ms"] = cuda_ms(lambda: fused_field(f, xyz, ids, dir_enc, flags), reps)
+            if dt == "bfloat16":  # the training forward
+                row["bfloat16_checked_ms"] = cuda_ms(
+                    lambda: fused_field(f, xyz, ids, dir_enc, flags, checked=True), reps)
             row[f"{dt}_plain_ms"] = cuda_ms(
                 lambda: fused_field_reference(f, xyz, ids, dir_enc, flags), reps)
         print("kernel_vs_plain", json.dumps(row), flush=True)
@@ -396,12 +427,22 @@ def check_fused_field(name, fields, xyz, ids, dir_enc, flags, skipped) -> dict:
     rel = [compare_leaf(rgb_b, rgb_bp)["rel"], compare_leaf(sig_b, sig_bp)["rel"]]
     check(max(rel) <= 1e-2, f"{name}: bf16 kernel vs bf16 plain relative L2 (rgb, sigma) {rel} "
                             "> 1e-2")
+    # the training forward: near-tie outputs recomputed as the plain version
+    # rounds them; the share of outputs not bitwise the plain version's
+    rgb_c, sig_c = fused_field(fields["bfloat16"], xyz, ids, dir_enc, flags, checked=True)
+    rel_c = [compare_leaf(rgb_c, rgb_bp)["rel"], compare_leaf(sig_c, sig_bp)["rel"]]
+    check(max(rel_c) <= 1e-2, f"{name}: checked bf16 kernel vs bf16 plain relative L2 "
+                              f"(rgb, sigma) {rel_c} > 1e-2")
+    differ = [float(((rgb != rgb_bp).sum() + (sig != sig_bp).sum()) / (4 * sig.numel()))
+              for rgb, sig in ((rgb_b, sig_b), (rgb_c, sig_c))]
     db = psnr(torch.sigmoid(rgb_b).cpu(), torch.sigmoid(rgb_p).cpu())
     check(db >= 40.0, f"{name}: bf16 kernel vs f32 plain {db:.1f} dB < 40")
     bf_err = max(float((rgb_b - rgb_bp).abs().max()), float((sig_b - sig_bp).abs().max()))
     return {"case": name, "m": int(xyz.shape[1]), "f32_max_abs_err": err,
             "bf16_vs_bf16_rel_l2": rel, "bf16_vs_bf16_max_abs_err": bf_err,
-            "bf16_vs_f32_db": db}
+            "bf16_vs_f32_db": db, "bf16_checked_vs_bf16_rel_l2": rel_c,
+            "bf16_share_not_plain_bits": differ[0],
+            "bf16_checked_share_not_plain_bits": differ[1]}
 
 
 def edge_cases(device, check_fn, label: str, seed: int) -> list:
@@ -1176,6 +1217,7 @@ def compare_train_step(device, bundle, scene, dtype: str, cfg_fn=None,
         bad = {k: v for k, v in stats.items() if not f32_close(v)}
         check(not bad, f"f32 step: kernel vs plain gradients beyond the float32 bar: {bad}")
     row = {"model": "view_pose" if spec.use_deform_view else "taekwondo", "dtype": dtype,
+           "pose_refinement": spec.pose_refinement, "fast_fine_train": spec.fast_fine_train,
            "worst_rel_l2": [worst, stats[worst]["rel"]],
            "entries_outside": {k: v["outside"] for k, v in stats.items() if v["outside"]},
            "kernel_s_per_step": seconds[False], "plain_s_per_step": seconds[True],
@@ -1658,19 +1700,27 @@ def count_calls(module, names: list) -> dict:
     return counts
 
 
-def entry_point_cfg_file(scene_root: str, output_dir: str) -> str:
+def read_event_dir(log_dir: str) -> list:
+    """The records of every event file under ``log_dir``, oldest first."""
+    from stnerf_tpu_torch.utils import read_events
+
+    return [read_events(os.path.join(log_dir, f)) for f in sorted(os.listdir(log_dir))]
+
+
+def entry_point_cfg_file(scene_root: str, output_dir: str,
+                         name: str = "chip_smoke_train.yml") -> str:
     """configs/config_synthetic.yml's keys with the entry-point phase's
-    overrides, written to build/ -> its path."""
+    overrides, written to build/``name`` -> its path."""
     import yaml
 
     with open(os.path.join(REPO, "configs", "config_synthetic.yml")) as f:
         raw = yaml.safe_load(f)
     raw["DATASETS"].update(TRAIN=scene_root, MAX_POOL_RAYS=40_000)
     raw["MODEL"].update(COARSE_RAY_SAMPLING=90, FINE_RAY_SAMPLING=30)
-    raw["SOLVER"].update(COARSE_STAGE=2, MAX_EPOCHS=4)
+    raw["SOLVER"].update(COARSE_STAGE=2, MAX_EPOCHS=4, CHECKPOINT_PERIOD=10, VAL_PERIOD=10)
     raw.setdefault("TPU", {})["COMPOSITOR_KERNEL"] = True
     raw["OUTPUT_DIR"] = output_dir
-    path = os.path.join(REPO, "build", "chip_smoke_train.yml")
+    path = os.path.join(REPO, "build", name)
     with open(path, "w") as f:
         yaml.safe_dump(raw, f)
     return path
@@ -1808,11 +1858,34 @@ def phase_entry_point(device, workers: int = 2) -> dict:
     val = {r.args[0]: r.args[3] for r in records if r.msg.startswith("Validation - Epoch")}
     check(sorted(val) == epochs and all(np.isfinite(v) for v in val.values()),
           f"validation PSNR by epoch: {val}")
+    mid = [os.path.join(out_dir, f"stnerf_torch_checkpoint_{e}_10.pt") for e in epochs]
+    check(all(os.path.exists(p) for p in mid), "a mid-epoch checkpoint (_{epoch}_10) is missing")
+    events = read_event_dir(os.path.join(out_dir, "tb"))
+    check(len(events) == 1, f"{len(events)} event files after one run")
+    events = events[0]
+    scalars = {}
+    for step, tag, _ in events:
+        scalars.setdefault(tag, []).append(step)
+    train_steps = [(e - 1) * steps for e in epochs]     # LOG_PERIOD 20: each epoch's step 0
+    val_steps = [x for e in epochs for x in ((e - 1) * steps + 10, e)]
+    want = {**{t: train_steps for t in ("Loss/train_loss", "TrainPsnr", "Loss/mask_loss",
+                                        "Loss/rgb_loss")},
+            **{t: val_steps for t in ("Val/psnr", "GT/Image", "stage2/rendered", "stage2/depth",
+                                      "stage2/alpha", "stage2_bkgd/rendered",
+                                      "stage2_layer1/rendered", "stage2_layer2/rendered")}}
+    check(scalars == want, f"event file tags and steps {scalars}, expected {want}")
+    losses = [v for _, tag, v in events if tag == "Loss/train_loss"]
+    check(np.allclose(losses, [float(m.loss[0]) for _, m in history], rtol=1e-6),
+          f"event file losses {losses}")
     stage_steps = sum(steps * (1 if e < s.COARSE_STAGE else 2) for e in epochs)
     lp1 = cfg.DATASETS.LAYER_NUM + 1
-    # validation renders one 200x150 view per epoch through the inference
-    # path: both stages' fields through K1 and both merges sorted, as JAX's
-    val_chunks = len(epochs) * -(-200 * 150 // cfg.TPU.RENDER_CHUNK)
+    # validation renders one 200x150 view at each epoch's step 10 and end
+    # through the inference path: both stages' fields through K1 and both
+    # merges sorted, as JAX's
+    val_runs = [r for r in records if r.msg.startswith("Validation - Epoch")]
+    check(len(val_runs) == 2 * len(epochs), f"{len(val_runs)} validations in "
+                                            f"{len(epochs)} epochs, VAL_PERIOD 10 implies 2 each")
+    val_chunks = len(val_runs) * -(-200 * 150 // cfg.TPU.RENDER_CHUNK)
     expect = {"fused_field": (stage_steps + 2 * val_chunks) * lp1,
               "fused_field_tc": (stage_steps + 2 * val_chunks) * lp1,  # bf16: all of them
               "field_bwd": stage_steps * lp1, "field_bwd_tc": stage_steps * lp1,
@@ -1848,7 +1921,53 @@ def phase_entry_point(device, workers: int = 2) -> dict:
     first, ref = float(resumed[0][1].loss[0]), float(replay[0][1].loss[0])
     check(abs(first - ref) <= 1e-6 * abs(ref),
           f"resumed epoch 4 first loss {first} vs {ref} from checkpoint 3's parameters")
+
+    # --resume from the mid-epoch file alone: epoch 3 from step 10, the
+    # uninterrupted run's losses bitwise
+    mid_dir = os.path.join(REPO, "build", "chip_smoke_entry_mid")
+    shutil.rmtree(mid_dir, ignore_errors=True)
+    os.makedirs(mid_dir)
+    shutil.copy(mid[-1], mid_dir)
+    mid_args = ["-c", entry_point_cfg_file(root, mid_dir, "chip_smoke_train_mid.yml"),
+                "--seed", str(SEED), "--workers", str(workers), "--device", str(device)]
+    records.clear()
+    mid_run = train.main(mid_args + ["--resume", "--epochs", "4"])
+    check([e for e, _ in mid_run] == [3] and len(mid_run[0][1].loss) == steps - 10,
+          f"mid-epoch resume ran {[(e, len(m.loss)) for e, m in mid_run]}")
+    check(any(r.msg.startswith("resumed %s") and r.args[1:3] == (3, 10) for r in records),
+          "the mid-epoch resume did not start from epoch 3, step 10")
+    mid_losses = [mid_run[0][1].loss.tolist(), history[-1][1].loss[10:].tolist()]
+    check(mid_losses[0] == mid_losses[1],
+          f"epoch 3 from step 10: resumed {mid_losses[0]} vs uninterrupted {mid_losses[1]}")
     logger.removeHandler(handler)
+
+    # --auto-restart 1 on a healthy run: the supervisor in a process of its
+    # own, the run (epoch 4 of the mid-epoch directory) in its child
+    code = ("import json, runpy, sys\n"
+            "sys.argv = ['train'] + sys.argv[1:]\n"
+            "try:\n"
+            "    runpy.run_module('stnerf_tpu_torch.tools.train', run_name='__main__')\n"
+            "    rc = 0\n"
+            "except SystemExit as e:\n"
+            "    rc = e.code\n"
+            "t = sys.modules.get('torch')\n"
+            "print('supervisor', json.dumps({'rc': rc, 'torch_loaded': t is not None, "
+            "'cuda_initialized': bool(t is not None and t.cuda.is_initialized())}))\n")
+    t0 = time.perf_counter()
+    sup = subprocess.run([sys.executable, "-c", code, *mid_args, "--resume", "--epochs", "5",
+                          "--auto-restart", "1"], cwd=REPO, capture_output=True, text=True,
+                         timeout=600, env=dict(os.environ, PYTHONPATH=REPO))
+    supervised_s = time.perf_counter() - t0
+    lines = [x for x in sup.stdout.splitlines() if x.startswith("supervisor ")]
+    check(sup.returncode == 0 and len(lines) == 1,
+          f"--auto-restart run exited {sup.returncode}: {sup.stdout[-3000:]}{sup.stderr[-3000:]}")
+    supervisor = json.loads(lines[0].split(" ", 1)[1])
+    check(supervisor["rc"] == 0 and not supervisor["cuda_initialized"],
+          f"--auto-restart 1: {supervisor}")
+    check(os.path.exists(os.path.join(mid_dir, "stnerf_torch_checkpoint_4.pt"))
+          and "Epoch 4 done" in sup.stdout,
+          "the supervised run did not train epoch 4")
+    supervisor["s"] = supervised_s
 
     epoch_s.update({r.args[0]: r.args[1] for r in records
                     if r.msg.startswith("Epoch %d done")})
@@ -1857,6 +1976,8 @@ def phase_entry_point(device, workers: int = 2) -> dict:
                "val_psnr": val,
                "loss_epoch3_first_last": [float(last[0]), float(last[-1])],
                "resumed_first_loss": [first, ref],
+               "mid_epoch_resume_losses": mid_losses[0], "supervisor": supervisor,
+               "event_tags": sorted(scalars), "val_steps": val_steps,
                "launches_k6": {k.__name__: launches[k.__name__] for k in k6_entries()},
                "s_per_step": {e: t / steps for e, t in epoch_s.items()},
                "rays_per_s": {e: steps * s.IMS_PER_BATCH / t for e, t in epoch_s.items()}}
@@ -2340,6 +2461,173 @@ def phase_render_front_end(device, cfg_file: str, card: str,
     return summary
 
 
+def fast_fine_cfg():
+    """taekwondo_cfg with the fast fine stage kept in training and pose
+    refinement on (phase 14's model)."""
+    cfg = pose_cfg()
+    cfg.TPU.FAST_FINE_TRAIN = True
+    return cfg
+
+
+def pose_cfg():
+    """taekwondo_cfg with pose refinement on: the exact fused path of the
+    port's default training model."""
+    cfg = taekwondo_cfg()
+    cfg.MODEL.POSE_REFINEMENT = True
+    return cfg
+
+
+def fine_stage_times(call: tuple, reps: int) -> dict:
+    """K1 (the training forward, ``checked``) and K2, bf16, against their
+    plain versions on one recorded fine-stage performer call of the fast
+    fine path (its samples, frame ids, directions and skip flags; seeded
+    cotangents): K1's relative L2 (bar 1e-2, phase 2's), both kernels' and
+    plain versions' ms, bounds."""
+    import torch
+
+    from stnerf_tpu_torch.kernels.field_vjp import field_bwd, field_bwd_reference
+    from stnerf_tpu_torch.kernels.fused_field import TILE, fused_field, fused_field_reference
+
+    net, motion, mode, xyz, ids, dir_enc, flags = call
+    f = pack_dtype(net, motion, mode, "bfloat16")
+    m = xyz.shape[1]
+    run = min(int(flags.sum()) * TILE, m)
+    gen = torch.Generator(device=xyz.device).manual_seed(SEED + 14)
+    d_rgb = torch.randn((3, m), generator=gen, device=xyz.device)
+    d_sigma = torch.randn((m,), generator=gen, device=xyz.device)
+    got, ref = fused_field(f, xyz, ids, dir_enc, flags, checked=True), fused_field_reference(
+        f, xyz, ids, dir_enc, flags)
+    rel = [compare_leaf(a, b)["rel"] for a, b in zip(got, ref)]
+    check(max(rel) <= 1e-2, f"fine stage K1 vs plain relative L2 (rgb, sigma) {rel} > 1e-2")
+    macs = field_macs(f)
+    io = 4 * m * (4 + dir_enc.shape[0] + 4)
+    weights = f.weights.element_size() * f.weights.numel()
+    row = {"m": m, "samples_run": run, "tiles_run": int(flags.sum()),
+           "tiles": int(flags.numel()), "k1_rel_l2": rel}
+    row["k1_bound_ms"], row["k1_bound_by"] = bound_ms(2 * macs["fwd"] * run, io + weights,
+                                                      "bfloat16")
+    row["k2_bound_ms"], row["k2_bound_by"] = bound_ms(2 * macs["bwd"] * run,
+                                                      io + 2 * weights, "bfloat16")
+    row["k1_ms"] = cuda_ms(lambda: fused_field(f, xyz, ids, dir_enc, flags, checked=True),
+                           reps)
+    row["k1_plain_ms"] = cuda_ms(lambda: fused_field_reference(f, xyz, ids, dir_enc, flags),
+                                 reps)
+    args = (f, xyz, ids, dir_enc, d_rgb, d_sigma, flags)
+    row["k2_ms"] = cuda_ms(lambda: field_bwd(*args), reps)
+    row["k2_plain_ms"] = cuda_ms(lambda: field_bwd_reference(*args), reps)
+    return row
+
+
+def phase_fast_fine_train(device, bundle, scene, card: str, exact: dict) -> dict:
+    """do_train with TPU.FAST_FINE_TRAIN and pose refinement on phase 5's
+    pool, one full epoch in each compositor form, its checks and readings
+    (``exact``: phase 5's summary, the exact step on this card), then the
+    kernel vs plain step comparisons on the fast fine and the exact fused
+    path with pose refinement -> summary dict."""
+    import torch
+
+    from stnerf_tpu_torch.engine import do_train, make_optimizer, pool_camera_num
+    from stnerf_tpu_torch.kernels import cross_trans, field_vjp
+    from stnerf_tpu_torch.kernels.field_vjp import field_bwd
+    from stnerf_tpu_torch.kernels.fused_field import fused_field
+    from stnerf_tpu_torch.models import LayeredSpec, layered
+
+    cross = [cross_trans.cross_successor, cross_trans.cross_log_transmittance_fwd,
+             cross_trans.cross_log_transmittance_bwd]
+    plain = count_calls(field_vjp, ["fused_field_reference", "field_bwd_reference"])
+    plain.update(count_calls(cross_trans, ["cross_successor_reference",
+                                           "cross_log_transmittance_reference",
+                                           "cross_log_transmittance_bwd_reference"]))
+    real = layered.field_planar_trainable
+    tiles, last_fine = [], {}
+
+    def recording(net, motion, xyz, ids, dir_enc, flags=None, mode=None, *rest):
+        # the performers' skip flags (kept on the device until the end)
+        if flags is not None:
+            tiles.append((xyz.shape[1], (flags == 0).sum(), flags.numel()))
+            last_fine[xyz.shape[1]] = (net, motion, mode, xyz.detach(), ids.detach(),
+                                       dir_enc.detach(), flags)
+        return real(net, motion, xyz, ids, dir_enc, flags, mode, *rest)
+
+    layered.field_planar_trainable = recording
+    rows = {}
+    try:
+        for kernel in (False, True):
+            cfg = fast_fine_cfg()
+            cfg.TPU.COMPOSITOR_KERNEL = kernel
+            s = cfg.SOLVER
+            s.COARSE_STAGE, s.MAX_EPOCHS, s.WARMUP_ITERS, s.LOG_PERIOD = 1, 2, 1, 5
+            spec = LayeredSpec.from_cfg(cfg)
+            spec = dataclasses.replace(spec, camera_num=pool_camera_num(bundle, spec))
+            model = make_model(spec, device)
+            opt, sched = make_optimizer(cfg, model)
+            label = "nosort" if kernel else "sorted"
+            records = []
+            logger = logging.getLogger(f"chip_smoke.fast_fine_train.{label}")
+            logger.setLevel(logging.INFO)
+            handler = logging.StreamHandler(sys.stdout)
+            handler.emit = lambda r, label=label: (
+                records.append(r), print("fast_fine_train", label, r.getMessage(), flush=True))
+            logger.addHandler(handler)
+            for k in (fused_field, field_bwd, *cross):
+                k.launches = 0
+            fused_field.launches_tc = field_bwd.launches_tc = 0
+            for k in plain:
+                plain[k] = 0
+            zero_k6()
+            tiles.clear()
+            history = do_train(cfg, model, scene, bundle, opt, sched, logger=logger, seed=SEED,
+                               device=device)
+            launches = {k.__name__: k.launches for k in (fused_field, field_bwd, *cross)}
+            launches.update(fused_field_tc=fused_field.launches_tc,
+                            field_bwd_tc=field_bwd.launches_tc)
+            k6 = read_k6()
+            steps = len(bundle["labels"]) // s.IMS_PER_BATCH
+            lp1 = spec.layer_num + 1
+            check([e for e, _ in history] == [1], f"epochs run: {[e for e, _ in history]}")
+            loss = history[0][1].loss
+            check(bool(np.isfinite(loss).all()), f"{label}: non-finite loss")
+            check(loss[-5:].mean() < loss[:5].mean(),
+                  f"{label}: loss did not fall: first five {loss[:5].mean():.4g}, last five "
+                  f"{loss[-5:].mean():.4g}")
+            implied = {"fused_field": 2 * lp1 * steps, "fused_field_tc": 2 * lp1 * steps,
+                       "field_bwd": 2 * lp1 * steps, "field_bwd_tc": 2 * lp1 * steps,
+                       **{k.__name__: steps if kernel else 0 for k in cross}}
+            check(launches == implied, f"{label}: launches {launches}, the steps imply {implied}")
+            check(not any(plain.values()), f"{label}: plain evaluations {plain}")
+            m_fine = s.IMS_PER_BATCH * spec.fine_samples
+            by_stage = {}
+            for m, off, total in tiles:
+                st = by_stage.setdefault("fine" if m == m_fine else "coarse", [0, 0])
+                st[0] += int(off)
+                st[1] += total
+            t = [r.args[1] for r in records if r.msg.startswith("Epoch %d done")][0]
+            rows[label] = {"card": card, "steps": steps, "launches": launches,
+                           "launches_k6": k6, "plain_calls": dict(plain),
+                           "tiles_skipped_of_total": by_stage,
+                           "loss_first_last": [float(loss[0]), float(loss[-1])],
+                           "s_per_step": t / steps, "rays_per_s": steps * s.IMS_PER_BATCH / t,
+                           "exact_s_per_step": exact["s_per_step"][2],
+                           "exact_rays_per_s": exact["rays_per_s"][2]}
+            print("fast_fine_train", json.dumps({"compositor": label, **rows[label]}),
+                  flush=True)
+            logger.removeHandler(handler)
+    finally:
+        layered.field_planar_trainable = real
+    summary = {"forms": rows,
+               "fine_stage": fine_stage_times(last_fine[s.IMS_PER_BATCH * spec.fine_samples],
+                                              reps=5)}
+    print("fast_fine_stage_kernels", json.dumps({"card": card, **summary["fine_stage"]}),
+          flush=True)
+    steps_rows = {}
+    for name, cfg_fn in (("fast_fine", fast_fine_cfg), ("exact_fused", pose_cfg)):
+        row32, plain32 = compare_train_step(device, bundle, scene, "float32", cfg_fn)
+        row16, _ = compare_train_step(device, bundle, scene, "bfloat16", cfg_fn, plain32)
+        steps_rows[name] = [row16, row32]
+    summary["steps"] = steps_rows
+    return summary
+
+
 def main():
     import torch
 
@@ -2407,6 +2695,9 @@ def main():
     front = phase_render_front_end(device, os.path.join(REPO, "build", "chip_smoke_train.yml"),
                                    card)
     print(f"phase render_front_end: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    fast = phase_fast_fine_train(device, bundle, scene, card, train)
+    print(f"phase fast_fine_train: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # the performer field: the main paths' case. K1 and K2 in two routes
     # each: bf16 fields on the tensor-core kernels (every main path), float32
@@ -2423,7 +2714,8 @@ def main():
                               "train": train["launches_fused_field"],
                               "render_front_end": front["launches_tc"]},
          "max_abs_err": max(c["bf16_vs_bf16_max_abs_err"] for c in cases),
-         "ms": perf["bfloat16_ms"], "plain_ms": perf["bfloat16_plain_ms"],
+         "ms": perf["bfloat16_ms"], "checked_ms": perf["bfloat16_checked_ms"],
+         "plain_ms": perf["bfloat16_plain_ms"],
          "bound_ms": perf["bfloat16_bound_ms"], "bound_by": perf["bfloat16_bound_by"],
          "library_ms": None},
         {"name": "fused_field", "route": "cuda",
@@ -2497,10 +2789,20 @@ def main():
         entry_launches[name] -= entry_launches[f"{name}_tc"]
     for row in kernels:
         row["launches_by_path"]["entry_point"] = entry_launches[row["name"]]
+    # the fast fine training path in both compositor forms (bf16: K1 and K2
+    # on the tensor-core routes only)
+    for form, r in fast["forms"].items():
+        for row in kernels:
+            name = row["name"]
+            n = r["launches"].get(name, 0)
+            if name in ("fused_field", "field_bwd"):
+                n -= r["launches"][f"{name}_tc"]
+            row["launches_by_path"][f"fast_fine_train_{form}"] = n
     # K6's launches as counted in the six main paths' runs (no path calls it)
     main_paths = {"render": summary, "train": train, "view_pose_render": vp_render,
                   "view_pose_train": vp_train, "entry_point": entry,
-                  "render_front_end": front}
+                  "render_front_end": front,
+                  **{f"fast_fine_train_{k}": r for k, r in fast["forms"].items()}}
     for name, line in (("fused_spacenet", 139), ("fused_spacenet_planar", 245),
                        ("fused_spacenet_stacked", 292)):
         row = k6[name]
@@ -2523,7 +2825,9 @@ def main():
         kernels.append({"name": name, "route": "cuda",
                         "source": "stnerf_tpu_torch/kernels/csrc/cross_trans.cu",
                         "replaces": replaces, "launches": entry["launches"][name],
-                        "launches_by_path": {"entry_point": entry["launches"][name]},
+                        "launches_by_path": {"entry_point": entry["launches"][name],
+                                             **{f"fast_fine_train_{k}": r["launches"][name]
+                                                for k, r in fast["forms"].items()}},
                         "max_abs_err": max(c[f"{key}_max_abs_err"] for c in cross),
                         "ms": cross[0][f"{key}_ms"], "call_ms": cross[0][f"{key}_call_ms"],
                         "plain_ms": cross[0][f"{key}_plain_ms"],

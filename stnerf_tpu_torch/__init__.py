@@ -21,11 +21,14 @@ Layout (mirrors ``stnerf_tpu``):
              frame and video output)
   tools/     entry points (``python -m stnerf_tpu_torch.tools.train``)
   demo/      the three demos (``python -m stnerf_tpu_torch.demo.walking_demo``)
+  utils/     the TensorBoard event writer
 
-This carries the exact layered render path, training from a scene on disk,
-and rendering edited videos from the port's, the JAX package's or the
-reference's checkpoints. The inference approximations are not ported yet
-(ROADMAP.md, Queue 1).
+This carries the layered render path, exact or with the inference
+approximations, rendering edited videos from the port's, the JAX
+package's or the reference's checkpoints, and training from a scene on
+disk (the fast fine stage too) with mid-epoch checkpoints, resumption from
+any of those checkpoints and a crash supervisor. Multi-GPU training and
+rendering are not ported (ROADMAP.md, Queue 1).
 """
 
 __version__ = "0.1.0"

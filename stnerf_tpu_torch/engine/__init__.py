@@ -1,5 +1,6 @@
 from .checkpoint import (export_reference_checkpoint, latest_checkpoint, load_checkpoint,
-                         load_jax_checkpoint, load_params_any, save_checkpoint)
+                         load_jax_checkpoint, load_optax_state, load_params_any,
+                         resume_checkpoint, save_checkpoint)
 from .evaluate import do_evaluate, make_val_fn, render_view
 from .loss import mask_alpha_loss, rgb_loss
 from .solver import (make_frozen_mask, make_lr_schedule, make_optimizer,
@@ -11,7 +12,8 @@ from .trainer import (CamTables, CompactPool, StepMetrics, TrainBatch, do_train,
 
 __all__ = [
     "export_reference_checkpoint", "latest_checkpoint", "load_checkpoint",
-    "load_jax_checkpoint", "load_params_any", "save_checkpoint",
+    "load_jax_checkpoint", "load_optax_state", "load_params_any", "resume_checkpoint",
+    "save_checkpoint",
     "do_evaluate", "make_val_fn", "render_view", "mask_alpha_loss", "rgb_loss",
     "make_frozen_mask", "make_lr_schedule", "make_optimizer", "make_warmup_multistep",
     "CamTables", "CompactPool", "StepMetrics", "TrainBatch", "do_train", "make_decode",

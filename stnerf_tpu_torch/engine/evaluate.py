@@ -2,8 +2,8 @@
 ``stnerf_tpu/engine/evaluate.py``; ref: engine/layered_trainer.py:17-130
 TensorBoard image panels; :357-421 MAE/PSNR/SSIM sweep over fixed views).
 
-The TensorBoard event writer (the JAX package's ``utils/tb_writer.py``) is
-not ported yet: ``swriter`` must stay None.
+Validation writes the JAX package's TensorBoard tags to an
+``utils.EventWriter`` when one is given.
 """
 
 from __future__ import annotations
@@ -37,23 +37,41 @@ def render_view(model, spec, scene, inputs, H, W, chunk=8192):
     return color, out
 
 
+def _norm01(x: np.ndarray) -> np.ndarray:
+    lo, hi = x.min(), x.max()
+    return (x - lo) / max(hi - lo, 1e-8)
+
+
 def make_val_fn(cfg, spec, scene, view_scene, logger, swriter=None):
     """Build the periodic-validation callback used by do_train: renders one
-    labeled view and logs its PSNR. -> val_fn(model, epoch) -> PSNR."""
-    if swriter is not None:
-        raise NotImplementedError("the TensorBoard event writer is not ported to "
-                                  "stnerf_tpu_torch yet")
+    labeled view, logs its PSNR and, with ``swriter``, writes JAX's
+    TensorBoard panels (``Val/psnr``, ``GT/Image``, ``stage2/rendered``,
+    ``stage2/depth``, ``stage2/alpha`` and each layer's ``rendered``) at the
+    global step when given (mid-epoch), else at the epoch as JAX's does.
+    -> val_fn(model, epoch, step=None) -> PSNR."""
     rng = np.random.default_rng(123)
 
-    def val_fn(model, epoch):
+    def val_fn(model, epoch, step=None):
         inputs, rgbs, labels, image, view, frame = view_scene.get_random_image(rng)
         _, H, W = image.shape
-        color, _ = render_view(model, spec, scene, inputs, H, W,
-                               chunk=cfg.TPU.RENDER_CHUNK)
+        color, out = render_view(model, spec, scene, inputs, H, W,
+                                 chunk=cfg.TPU.RENDER_CHUNK)
         gt = np.moveaxis(image, 0, -1)
         val_psnr = _metric(psnr_fn, color, gt)
         logger.info("Validation - Epoch %d view %d frame %d PSNR %.2f",
                     epoch, view, frame, val_psnr)
+        if swriter is not None:
+            at = epoch if step is None else step
+            swriter.add_scalar("Val/psnr", val_psnr, at)
+            swriter.add_image("GT/Image", np.moveaxis(gt, -1, 0), at)
+            swriter.add_image("stage2/rendered", np.moveaxis(color, -1, 0), at)
+            depth = np.asarray(out.fine.depth).reshape(H, W)
+            swriter.add_image("stage2/depth", _norm01(depth)[None], at)
+            swriter.add_image("stage2/alpha", np.asarray(out.fine.acc).reshape(1, H, W), at)
+            for i in range(spec.layer_num + 1):
+                li = np.asarray(out.fine_layers.color[i]).reshape(H, W, 3)
+                tag = "stage2_bkgd" if i == 0 else f"stage2_layer{i}"
+                swriter.add_image(f"{tag}/rendered", np.moveaxis(li, -1, 0), at)
         return val_psnr
 
     return val_fn

@@ -6,28 +6,31 @@ kernels on the card), the RGB and mask-alpha losses, and the optimizer
 update. ``make_train_epoch`` loops it over batches drawn from a pool
 resident on the device, and ``do_train`` is the host loop with the
 reference trainer's observability: the per-LOG_PERIOD "rays/s" log line
-(ref: engine/layered_trainer.py:301-306), the coarse-only stage
-(ref: :191-194), the mask-loss epochs, a checkpoint per epoch and an
-optional validation callback.
+and TensorBoard scalars (ref: engine/layered_trainer.py:295-306), the
+coarse-only stage (ref: :191-194), the mask-loss epochs, a checkpoint every
+CHECKPOINT_PERIOD steps and per epoch, validation every VAL_PERIOD steps
+and per epoch (ref: :308-317), and re-entry of an epoch at a saved step.
 
-Training keeps the exact semantics, as the JAX trainer forces them: the
-step renders with its own spec (:func:`training_spec`, JAX's
-``trainer.py:210-213``), the model's with the inference approximations
-stripped (no fast fine stage, no early exit). The merge of every layer's
+The step renders with its own spec (:func:`training_spec`, JAX's
+``trainer.py:206-213``): the model's with the early exit stripped and the
+fast fine stage kept only with FAST_FINE_TRAIN. The merge of every layer's
 samples follows ``TPU.COMPOSITOR_KERNEL``: on, the step composites through
-the JAX trainer's sort-free compositor (``composite_merged_nosort``), whose
-cross-stream terms the kernels K4 and K5 compute on the card; off, through
-the sorted merge under autograd, the GPU-native form chosen for the JAX
-trainer's default cube compositor (the two are gradient-equal, PARITY.md).
-The decoded camera ids drive the pose refinement and the view-deform net.
-Randomness comes from a ``torch.Generator`` on the device. Multi-GPU
-training is not ported yet; nor is JAX's mid-epoch ``resume_step``, a
-workaround for TPU workers dying mid-epoch (resumption is per epoch).
+the JAX trainer's sort-free compositors (``composite_merged_nosort``, whose
+cross-stream terms the kernels K4 and K5 compute on the card, and for the
+fast fine stage ``composite_streams_nosort``); off, through the payload
+sort and the sorted merge under autograd, the GPU-native form chosen for
+the JAX trainer's default cube compositor (the two are gradient-equal,
+PARITY.md). The decoded camera ids drive the pose refinement and the
+view-deform net. Randomness comes from ``torch.Generator`` objects on the
+device keyed by position: an epoch's batch order by (seed, epoch), a
+step's sampling noise by (seed, epoch, step), so a run resumed at any step
+draws what the uninterrupted run drew. Multi-GPU training is not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import logging
 import time
 from typing import NamedTuple
@@ -127,10 +130,10 @@ def make_decode(tables: CamTables, spec: LayeredSpec, width: int):
 
 
 def training_spec(spec: LayeredSpec) -> LayeredSpec:
-    """The spec a training step renders with (JAX ``trainer.py:210-213``):
-    the inference approximations stripped (the early exit always, the fast
-    fine stage unless FAST_FINE_TRAIN, which ``LayeredSpec`` refuses), and
-    the sort-free compositor exactly when its kernels are on."""
+    """The spec a training step renders with (JAX ``trainer.py:206-213``):
+    the early exit stripped, the fast fine stage kept exactly when
+    FAST_FINE_TRAIN is on, and the sort-free compositor exactly when its
+    kernels are on."""
     return dataclasses.replace(spec, nosort_composite=spec.compositor_kernel,
                                coarse_exit_segments=0,
                                fast_fine=bool(spec.fast_fine_train))
@@ -217,14 +220,18 @@ def make_train_epoch(model: LayeredModel, optimizer, scheduler=None,
                      remove_outliers: bool = False, mesh=None, decode=None,
                      block: int = 1, device=None):
     """-> epoch(scene, pool, generator, mask_on, batch_size, steps,
-    only_coarse=False) -> StepMetrics of (steps,) tensors.
+    only_coarse=False, first=0, step_generator=None, after_step=None) ->
+    StepMetrics of (steps - first,) tensors.
 
     ``pool`` (a TrainBatch, or a CompactPool with ``decode``) lives on the
     device. Each step draws ``batch_size`` rays — a permutation of the pool
     when the epoch's draws fit in it four times over or less, else
     independent indices — or, with ``block`` > 1, ``batch_size / block``
     contiguous blocks (pools ordered by hit pattern). Batches are sorted by
-    hit pattern when drawn ray by ray."""
+    hit pattern when drawn ray by ray. ``generator`` draws the whole
+    epoch's order; steps ``first`` to ``steps - 1`` run, each sampling from
+    ``step_generator(i)`` (default: ``generator`` itself), and
+    ``after_step(i + 1)`` is called after step i."""
     if mesh is not None:
         raise NotImplementedError("multi-GPU training is not ported to "
                                   "stnerf_tpu_torch yet")
@@ -237,7 +244,8 @@ def make_train_epoch(model: LayeredModel, optimizer, scheduler=None,
     sort_hits = spec.layer_num > 0 and block == 1 and not spec.use_deform_view
 
     def epoch(scene: SceneBoxes, pool, generator, mask_on: float, batch_size: int,
-              steps: int, only_coarse: bool = False) -> StepMetrics:
+              steps: int, only_coarse: bool = False, first: int = 0,
+              step_generator=None, after_step=None) -> StepMetrics:
         n_pool = pool.rgb.shape[0]
         dev = pool.rgb.device
         unit, per = (block, batch_size // block) if block > 1 else (1, batch_size)
@@ -252,14 +260,17 @@ def make_train_epoch(model: LayeredModel, optimizer, scheduler=None,
             order = order.reshape(steps, per)
         offsets = torch.arange(unit, device=dev)
         metrics = []
-        for starts in order:
-            idx = (starts[:, None] * unit + offsets).reshape(-1)
+        for i in range(first, steps):
+            idx = (order[i][:, None] * unit + offsets).reshape(-1)
             batch = _take(pool, idx)
             if decode is not None:
                 batch = decode(batch)
             if sort_hits:
                 batch = sort_batch_by_hit(spec, scene, batch)
-            metrics.append(step(scene, batch, generator, mask_on, only_coarse))
+            gen = generator if step_generator is None else step_generator(i)
+            metrics.append(step(scene, batch, gen, mask_on, only_coarse))
+            if after_step is not None:
+                after_step(i + 1)
         return StepMetrics(*(torch.stack(x) for x in zip(*metrics)))
 
     return epoch
@@ -301,33 +312,51 @@ def pool_camera_num(train_pool: dict, spec: LayeredSpec) -> int:
     return int(cam_ids.max()) + 1 if cam_ids.numel() else 0
 
 
-def _epoch_seed(seed: int, epoch: int) -> int:
-    """Position-keyed: an epoch draws the same batches whatever ran before."""
-    return int(np.random.SeedSequence([seed, epoch]).generate_state(1)[0])
+def _position_seed(*key: int) -> int:
+    """Position-keyed: an epoch (seed, epoch) draws the same batches, and a
+    step (seed, epoch, step) the same sampling noise, whatever ran before."""
+    return int(np.random.SeedSequence(list(key)).generate_state(1)[0])
+
+
+def _call_val(val_fn, model, epoch: int, step: int | None = None):
+    """Call a validation callback, passing the mid-epoch global step only
+    when it takes one (JAX ``trainer.py:454-464``)."""
+    try:
+        takes_step = len(inspect.signature(val_fn).parameters) >= 3
+    except (TypeError, ValueError):
+        takes_step = False
+    return val_fn(model, epoch, step) if takes_step else val_fn(model, epoch)
 
 
 def do_train(cfg, model: LayeredModel, scene: SceneBoxes, train_pool: dict,
              optimizer=None, scheduler=None, *, mesh=None, val_fn=None,
-             resume_epoch: int = 0, psnr_thres: float = 100.0,
-             seed: int = 0, logger: logging.Logger | None = None,
-             device=None) -> list:
-    """Training host loop (ref: engine/layered_trainer.py:133-331).
+             resume_epoch: int = 0, resume_step: int = 0, psnr_thres: float = 100.0,
+             seed: int = 0, logger: logging.Logger | None = None, device=None,
+             swriter=None) -> list:
+    """Training host loop (ref: engine/layered_trainer.py:133-331; JAX
+    ``trainer.py:467-637``).
 
     ``train_pool`` is a compact bundle (``"pix"`` in it) or the
     pregenerated {rays, rgbs, labels, near_fars} arrays; it is uploaded to
     the device once. Epochs run from ``resume_epoch + 1`` to
     ``SOLVER.MAX_EPOCHS - 1``: coarse only before ``COARSE_STAGE``, the
-    mask loss on before epoch 3; an epoch's batches depend on ``seed`` and
-    its number alone, so a resumed run draws what the uninterrupted one
-    would have. Each epoch logs the reference's line every
-    LOG_PERIOD steps, saves a checkpoint when ``OUTPUT_DIR`` is set, and
-    calls ``val_fn(model, epoch)`` if given; training stops after an epoch
-    whose mean fine PSNR exceeds ``psnr_thres``. Without an optimizer,
-    ``make_optimizer`` builds one. With pose refinement the model must
-    hold a correction for every camera of the pool: build it with
-    ``LayeredSpec.from_cfg(cfg, camera_num=pool_camera_num(train_pool,
-    spec))``; a model with fewer raises. -> [(epoch, StepMetrics of numpy
-    arrays)].
+    mask loss on before epoch 3. The first of them skips its first
+    ``resume_step`` steps (a mid-epoch checkpoint's step; an epoch skipped
+    whole is logged and passed over). Draws are keyed by position
+    (``seed``, epoch, step), so a resumed run draws what the uninterrupted
+    one would have. Each epoch logs the reference's line every LOG_PERIOD
+    steps, with its loss, PSNR, mask and RGB losses written to ``swriter``
+    (an ``utils.EventWriter``) at the global step ``(epoch - 1) * steps +
+    step``. With ``OUTPUT_DIR`` set it saves a checkpoint every
+    ``SOLVER.CHECKPOINT_PERIOD`` steps run (``_{epoch}_{step}``, none at an
+    epoch's last step) and one per epoch; ``val_fn(model, epoch[, step])``
+    runs every ``SOLVER.VAL_PERIOD`` steps (with the global step) and after
+    each epoch. Training stops after an epoch whose mean fine PSNR exceeds
+    ``psnr_thres``. Without an optimizer, ``make_optimizer`` builds one.
+    With pose refinement the model must hold a correction for every camera
+    of the pool: build it with ``LayeredSpec.from_cfg(cfg,
+    camera_num=pool_camera_num(train_pool, spec))``; a model with fewer
+    raises. -> [(epoch, StepMetrics of numpy arrays over the steps run)].
     """
     logger = logger or logging.getLogger("stnerf_tpu_torch.train")
     device = resolve_device(device)
@@ -367,27 +396,62 @@ def do_train(cfg, model: LayeredModel, scene: SceneBoxes, train_pool: dict,
     scene = SceneBoxes(*(t.to(device) for t in scene))
     logger.info("pool resident on %s: %d rays, %d steps/epoch%s", device, n_pool, steps,
                 " (compact pixel format)" if compact else "")
+    ckpt_period = int(s.CHECKPOINT_PERIOD or 0)
+    val_period = int(getattr(s, "VAL_PERIOD", 0) or 0)
 
     history = []
     for epoch in range(1 + resume_epoch, s.MAX_EPOCHS):
+        skip = resume_step if epoch == resume_epoch + 1 else 0
+        if skip >= steps:
+            logger.info("Epoch %d already complete at resume; skipping", epoch)
+            continue
         start = time.time()
         only_coarse = epoch < s.COARSE_STAGE
         mask_on = 1.0 if epoch < 3 else 0.0
-        gen = torch.Generator(device=device).manual_seed(_epoch_seed(seed, epoch))
-        m = epoch_fn(scene, pool, gen, mask_on, batch_size, steps, only_coarse)
+        gen = torch.Generator(device=device).manual_seed(_position_seed(seed, epoch))
+        since = {"ckpt": 0, "val": 0}
+
+        def step_generator(i):
+            return torch.Generator(device=device).manual_seed(_position_seed(seed, epoch, i))
+
+        def after_step(done):
+            # in-epoch checkpoints and validation, counted in steps run
+            # (JAX trainer.py:595-608); none at the epoch's last step
+            since["ckpt"] += 1
+            since["val"] += 1
+            if done >= steps:
+                return
+            if ckpt_period and since["ckpt"] >= ckpt_period and cfg.OUTPUT_DIR:
+                save_checkpoint(cfg.OUTPUT_DIR, model, optimizer, scheduler, epoch,
+                                step=done)
+                since["ckpt"] = 0
+            if val_period and since["val"] >= val_period and val_fn is not None:
+                _call_val(val_fn, model, epoch, (epoch - 1) * steps + done)
+                since["val"] = 0
+
+        m = epoch_fn(scene, pool, gen, mask_on, batch_size, steps, only_coarse,
+                     first=skip, step_generator=step_generator, after_step=after_step)
         metrics = StepMetrics(*(x.cpu().numpy() for x in m))
         elapsed = time.time() - start
-        rays_per_s = steps * batch_size / max(elapsed, 1e-9)
-        for i in range(0, steps, max(s.LOG_PERIOD, 1)):
+        ran = steps - skip
+        rays_per_s = ran * batch_size / max(elapsed, 1e-9)
+        for i in range(0, ran, max(s.LOG_PERIOD, 1)):
             # the reference's line (ref: engine/layered_trainer.py:304-306)
             logger.info("Epoch[%d] Iteration[%d/%d] Loss: %.3e  Psnr coarse: %.2f "
-                        "Psnr fine: %.2f Speed: %.1f[rays/s]", epoch, i, steps,
+                        "Psnr fine: %.2f Speed: %.1f[rays/s]", epoch, skip + i, steps,
                         float(metrics.loss[i]), float(metrics.psnr_coarse[i]),
                         float(metrics.psnr_fine[i]), rays_per_s)
+            if swriter is not None:
+                global_step = (epoch - 1) * steps + skip + i
+                swriter.add_scalar("Loss/train_loss", float(metrics.loss[i]), global_step)
+                swriter.add_scalar("TrainPsnr", float(metrics.psnr_fine[i]), global_step)
+                swriter.add_scalar("Loss/mask_loss", float(metrics.mask_loss[i]),
+                                   global_step)
+                swriter.add_scalar("Loss/rgb_loss", float(metrics.rgb_loss[i]), global_step)
         if cfg.OUTPUT_DIR:
             save_checkpoint(cfg.OUTPUT_DIR, model, optimizer, scheduler, epoch)
         if val_fn is not None:
-            val_fn(model, epoch)
+            _call_val(val_fn, model, epoch)
         logger.info("Epoch %d done. Time: %.3f[s] Speed: %.1f[rays/s]", epoch, elapsed,
                     rays_per_s)
         history.append((epoch, metrics))

@@ -37,7 +37,7 @@ SIGNATURES = {
     "stnerf_fused_field": [_P] * 8 + [_I] * 10 + [_P],
     # bf16 fields (tensor cores): xyz, ids, dir, flags, weights, fragments,
     # biases, offsets (host), out, then the same 10 ints, and the stream
-    "stnerf_fused_field_tc": [_P] * 9 + [_I] * 10 + [_P],
+    "stnerf_fused_field_tc": [_P] * 9 + [_I] * 11 + [_P],
     # float32: xyz, ids, dir, d_rgb, d_sigma, flags, weights, biases,
     # offsets (host), gw, gb, d_xyz, d_dir, then the same 10 ints, and the
     # stream

@@ -33,6 +33,14 @@
 //     flags 0 writes its zeros and exits.
 // Numerics as the CUDA-core kernel and the TPU kernel: bf16 products,
 // float32 accumulation, bias, ReLU, then one rounding to bf16 per layer.
+// With `checked` (the training forward) every product layer is
+// tc_blocks.cuh's dense_checked: the outputs whose tensor-core sum lies near
+// a bf16 rounding tie are recomputed in float32 as the plain version sums
+// them, so that they round as it rounds them. wgmma truncates its float32
+// accumulation, and in training such flips move the pose-refinement
+// gradients past their bar (PERF.md, Findings PR 11); rendering keeps the
+// plain products. The check takes a 4 KB mask and 16 KB of lists of shared
+// memory (184 KB of the 227 KB at the taekwondo widths).
 
 #include "field_common.cuh"
 #include "tc_blocks.cuh"
@@ -50,6 +58,7 @@ struct Params {
   int rows_a, pos_rows, time_rows, menc_rows, pos_pad, dir_pad, time_pad, menc_pad;
 };
 
+template <bool CHECKED>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 fused_field_tc_kernel(const float* __restrict__ xyz, const float* __restrict__ ids,
                       const float* __restrict__ dir, const int* __restrict__ flags,
@@ -82,7 +91,12 @@ fused_field_tc_kernel(const float* __restrict__ xyz, const float* __restrict__ i
   unsigned short* T = D + p.dir_pad * BM;                        // time_pad: relu(time encoding)
   float* X = reinterpret_cast<float*>(T + p.time_pad * BM);      // 4 x BM: xyz rows, id row
   float* R = X + 4 * BM;                                         // 4 x BM: flow or rgb, sigma
+  unsigned* mask = reinterpret_cast<unsigned*>(R + 4 * BM);      // CHECKED: rows_a x BM bits
+  unsigned short* lists = reinterpret_cast<unsigned short*>(mask + p.rows_a * BM / 32);
 
+  if (CHECKED) {
+    for (int i = t; i < p.rows_a * BM / 32; i += TC_THREADS) mask[i] = 0;
+  }
   for (int i = t; i < 4 * BM; i += TC_THREADS) {
     const int r = i / BM, gm = m0 + i % BM;
     X[i] = gm < M ? (r < 3 ? xyz[static_cast<size_t>(r) * M + gm] : ids[gm]) : 0.f;
@@ -92,11 +106,18 @@ fused_field_tc_kernel(const float* __restrict__ xyz, const float* __restrict__ i
   const auto W = [&](int slot) { return wts + p.w_off[slot]; };
   const auto F = [&](int slot) { return frags + p.f_off[slot]; };
   const auto Bi = [&](int slot) { return bias + p.b_off[slot]; };
+  const auto dense = [&](const Seg* s, int nseg, int O, int bslot, unsigned short* o) {
+    if constexpr (CHECKED) {
+      dense_checked<BM, false>(s, nseg, O, Bi(bslot), o, mask, lists, n_lo, n_cnt);
+    } else {
+      tc_dense<BM>(s, nseg, O, Bi(bslot), o, n_lo, n_cnt);
+    }
+    layer_sync();
+  };
   const auto dense1 = [&](int slot, const unsigned short* in, int k_rows, int bslot, int O,
                           unsigned short* o) {
     const Seg s{F(slot), in, k_rows / 16};
-    tc_dense<BM>(&s, 1, O, Bi(bslot), o, n_lo, n_cnt);
-    layer_sync();
+    dense(&s, 1, O, bslot, o);
   };
 
   if (p.motion_mode) {
@@ -156,8 +177,7 @@ fused_field_tc_kernel(const float* __restrict__ xyz, const float* __restrict__ i
   dense1(W_1 + 3, A, wd, B_1 + 3, wd, B);
   {
     const Seg s[2] = {{F(W_S2A), B, wd / 16}, {F(W_S2B), P, kp / 16}};
-    tc_dense<BM>(s, 2, wd, Bi(B_SB1), A, n_lo, n_cnt);
-    layer_sync();
+    dense(s, 2, wd, B_SB1, A);
   }
   dense1(W_S2W2, A, wd, B_SB2, wd, B);
   dense1(W_S2W3, B, wd, B_SB3, wd, A);
@@ -166,8 +186,7 @@ fused_field_tc_kernel(const float* __restrict__ xyz, const float* __restrict__ i
     // rgb head: relu([x | dir | time]); x >= 0 already, D and T hold relu'd values
     const Seg s[3] = {{F(W_R1A), A, wd / 16}, {F(W_R1B), D, p.dir_pad / 16},
                       {F(W_R1C), T, p.time_pad / 16}};
-    tc_dense<BM>(s, p.use_time ? 3 : 2, p.head, Bi(B_RB1), B, n_lo, n_cnt);
-    layer_sync();
+    dense(s, p.use_time ? 3 : 2, p.head, B_RB1, B);
   }
   if (p.n_rgb == 2) {
     small_fwd<BM>(W(W_RGB1), B, p.head, Bi(B_RGB1), 3, R);
@@ -191,14 +210,15 @@ int round16(int v) { return (v + 15) / 16 * 16; }
 // C entry point. Pointers are device pointers except `offsets`, a host array
 // of N_W weight, N_B bias and N_W forward-fragment offsets (-1 = absent
 // operand): weights are the packed bf16 buffer (fused_field.py pack_field),
-// frags its PackedField.tc fragments. Returns the CUDA error of the launch
-// (0 = launched).
+// frags its PackedField.tc fragments. `checked` != 0 recomputes the near-tie
+// outputs (the training forward). Returns the CUDA error of the launch (0 =
+// launched).
 extern "C" int stnerf_fused_field_tc(const void* xyz, const void* ids, const void* dir,
                                      const void* flags, const void* weights, const void* frags,
                                      const void* biases, const void* offsets, void* out, int M,
                                      int dir_rows, int width, int head, int motion_width,
                                      int freqs, int include_input, int use_time, int n_rgb,
-                                     int motion_mode, void* stream) {
+                                     int motion_mode, int checked, void* stream) {
   if (M <= 0 || dir_rows <= 0 || !kernel_width(width) || !kernel_width(head) ||
       (motion_mode != 0 && !kernel_width(motion_width)) || (n_rgb != 2 && n_rgb != 4) ||
       motion_mode < 0 || motion_mode > 2) {
@@ -233,14 +253,15 @@ extern "C" int stnerf_fused_field_tc(const void* xyz, const void* ids, const voi
     rows_a = rows_a > p.menc_pad ? rows_a : p.menc_pad;
   }
   p.rows_a = rows_a;
-  const size_t smem =
-      static_cast<size_t>(2 * rows_a + p.pos_pad + p.dir_pad + p.time_pad) * BM * 2 +
-      static_cast<size_t>(8) * BM * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(fused_field_tc_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+  // the act tiles, the encodings, the float32 rows; checked: the mask and lists
+  size_t smem = static_cast<size_t>(2 * rows_a + p.pos_pad + p.dir_pad + p.time_pad) * BM * 2 +
+                static_cast<size_t>(8) * BM * sizeof(float);
+  if (checked) smem += static_cast<size_t>(rows_a) * BM / 8 + (TC_THREADS / 32) * LIST * 2;
+  const auto kernel = checked ? &fused_field_tc_kernel<true> : &fused_field_tc_kernel<false>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  fused_field_tc_kernel<<<(M + BM - 1) / BM, TC_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<(M + BM - 1) / BM, TC_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(xyz), static_cast<const float*>(ids),
       static_cast<const float*>(dir), static_cast<const int*>(flags),
       static_cast<const unsigned short*>(weights), static_cast<const uint4*>(frags),

@@ -1,7 +1,8 @@
 // Tensor-core building blocks of the bf16 field kernels (fused_field_tc.cu,
-// field_bwd_tc.cu) on Hopper (sm_90a): dense layers over a tile of BM
-// samples as warpgroup matrix products (wgmma), bf16 operands and float32
-// accumulation, exactly the TPU kernels' products.
+// field_bwd_tc.cu, spacenet_tc.cu) on Hopper (sm_90a): dense layers over a
+// tile of BM samples as warpgroup matrix products (wgmma), bf16 operands and
+// float32 accumulation, exactly the TPU kernels' products; dense_checked
+// recomputes the outputs that lie near a bf16 rounding tie in float32.
 //
 // Operand roles. For y = W^T x a layer's outputs are the MMA's M, the
 // samples its N and the inputs its K; for dx = W dy the inputs are M and the
@@ -293,6 +294,153 @@ __device__ void tc_dense(const Seg* segs, int nseg, int O, const float* __restri
     *reinterpret_cast<unsigned*>(out + act_idx<BM>(r, c)) =
         static_cast<unsigned>(f_bf(y0)) | (static_cast<unsigned>(f_bf(y1)) << 16);
   });
+}
+
+// ------------------------------ products checked against the plain rounding
+
+// The forward's activations are rounded to bf16 as the plain version rounds
+// them. A wgmma k-step aligns its products and accumulator to the largest
+// exponent, keeps 25 bits and truncates toward zero, so a chained sum of
+// K = 256 inputs lies a few float32 ulps from the plain version's float32
+// product, which sums each output with FMAs in k order, and off it always
+// toward zero. Rounded to bf16, the two differ only where they straddle a
+// bf16 rounding tie, and a training step's fine sampling turns such flips
+// into a different step (the pose gradients, PERF.md). So every
+// output whose tensor-core sum lies within NEAR float32 ulps of a tie (NEAR /
+// 2^15 of the positive ones) is recomputed as the plain version sums it:
+// float32 FMAs in k order on CUDA cores, each K segment on its own, the
+// segments then the bias added in order.
+constexpr unsigned NEAR = 128;
+constexpr int LIST = 1024;  // entries of a warp's list: one chunk of 32 mask words
+
+// whether y (> 0) lies within NEAR float32 ulps of a bf16 rounding tie
+__device__ __forceinline__ bool near_tie(float y) {
+  const unsigned low = __float_as_uint(y) & 0xffffu;
+  return y > 0.f && (low > 0x8000u ? low - 0x8000u : 0x8000u - low) < NEAR;
+}
+
+// acc + sum_k w_k x_k over one k-step (16 inputs) in k order: the four
+// fragments of output row r (PackedField.tc, registers x and z, or y and w
+// for rows 8-15 of a 16-row group, each the bf16 pair (k, k + 1)), x the
+// input tile's (k-step, column) element, act layout of TB samples
+template <int TB>
+__device__ __forceinline__ float fma_kstep(const uint4 (&v)[4], bool hi,
+                                           const unsigned short* x, float acc) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {  // inputs 0-7, then 8-15
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const unsigned wp = h ? (hi ? v[q].w : v[q].z) : (hi ? v[q].y : v[q].x);
+      const unsigned short* xq = x + h * TB * 8 + 2 * q * 8;
+      acc = fmaf(__uint_as_float(wp << 16), bf_f(xq[0]), acc);
+      acc = fmaf(__uint_as_float(wp & 0xffff0000u), bf_f(xq[8]), acc);
+    }
+  }
+  return acc;
+}
+
+// output i = r * TB + c recomputed as the plain version sums it: each
+// segment's k-steps in order (KB of them loaded at a time), the segments,
+// the bias; rounded to bf16 into out
+template <int TB>
+__device__ void recompute_one(const Seg* segs, int nseg, const float* __restrict__ bias, int i,
+                              unsigned short* out) {
+  constexpr int KB = 4;
+  const int r = i / TB, c = i % TB;
+  const bool hi = (r & 15) >= 8;
+  // row r's fragments: m-tile r / 64, warp (r % 64) / 16, lanes 4 (r % 8) + 0..3
+  const int t0 = ((r & 63) >> 4) * 32 + (r & 7) * 4;
+  float sum = 0.f;
+  for (int s = 0; s < nseg; ++s) {
+    const int ks_n = segs[s].ks;
+    const uint4* f = segs[s].frag + static_cast<size_t>(r >> 6) * ks_n * 128 + t0;
+    const unsigned short* x = segs[s].b + (c >> 3) * 64 + (c & 7);
+    float acc = 0.f;
+    for (int k0 = 0; k0 < ks_n; k0 += KB) {
+      uint4 v[KB][4];
+#pragma unroll
+      for (int j = 0; j < KB; ++j) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          v[j][q] = k0 + j < ks_n ? __ldg(f + (k0 + j) * 128 + q) : make_uint4(0, 0, 0, 0);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < KB; ++j) {
+        if (k0 + j < ks_n) acc = fma_kstep<TB>(v[j], hi, x + (k0 + j) * 2 * TB * 8, acc);
+      }
+    }
+    sum = s ? __fadd_rn(sum, acc) : acc;
+  }
+  out[act_idx<TB>(r, c)] = f_bf(rnd<true>(fmaxf(__fadd_rn(sum, bias[r]), 0.f)));
+}
+
+// out = round_bf16(relu(sum_s W_s^T x_s + bias)), rows < O, into an act
+// tile of TB samples: tc_dense's products, each output flagged in `mask`
+// (O x TB bits, row-major; zero on entry and on exit) when it lies near a
+// tie; then the flagged outputs recomputed (recompute_one), each by one lane
+// from the segments' fragments. `lists` (LIST entries a warp) is
+// shared-memory scratch. FULL: every column (K3); otherwise the columns
+// [n_lo, n_lo + n_cnt) (K1's blocks with one skip flag off).
+template <int TB, bool FULL>
+__device__ void dense_checked(const Seg* segs, int nseg, int O, const float* __restrict__ bias,
+                              unsigned short* out, unsigned* mask, unsigned short* lists,
+                              int n_lo = 0, int n_cnt = TB) {
+  if (FULL) {
+    n_lo = 0;
+    n_cnt = TB;
+  }
+  tc_product<TB>(segs, nseg, O, n_lo, n_cnt, [=](int r, int c, float v0, float v1) {
+    const float b = bias[r];
+    const float y0 = v0 + b, y1 = v1 + b;
+    *reinterpret_cast<unsigned*>(out + act_idx<TB>(r, c)) =
+        static_cast<unsigned>(f_bf(rnd<true>(fmaxf(y0, 0.f)))) |
+        (static_cast<unsigned>(f_bf(rnd<true>(fmaxf(y1, 0.f)))) << 16);
+    const unsigned bits = (near_tie(y0) ? 1u : 0u) | (near_tie(y1) ? 2u : 0u);
+    if (bits) {
+      const int i = r * TB + c;
+      atomicOr(mask + (i >> 5), bits << (i & 31));
+    }
+  });
+  __syncthreads();
+  // each warp lists the flagged outputs of its share of the mask in word
+  // order, then its lanes recompute them (one output a lane); a list that
+  // would overflow is recomputed and emptied first
+  constexpr int WARPS = TC_THREADS / 32;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int words = O * TB / 32, per = words / WARPS;
+  unsigned short* list = lists + warp * LIST;
+  const auto recompute = [&](int n) {
+    for (int e = lane; e < n; e += 32) recompute_one<TB>(segs, nseg, bias, list[e], out);
+    __syncwarp();
+  };
+  int n = 0;
+  for (int w0 = warp * per; w0 < (warp + 1) * per; w0 += 32) {
+    const int j = w0 + lane;
+    unsigned word = 0;
+    if (j < (warp + 1) * per) {
+      word = mask[j];
+      mask[j] = 0;
+    }
+    const int cnt = __popc(word);
+    int incl = cnt;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, d);
+      if (lane >= d) incl += v;
+    }
+    const int total = __shfl_sync(0xffffffffu, incl, 31);
+    if (n + total > LIST) {
+      recompute(n);
+      n = 0;
+    }
+    for (int off = n + incl - cnt; word; word &= word - 1) {
+      list[off++] = static_cast<unsigned short>((j << 5) | (__ffs(word) - 1));
+    }
+    n += total;
+    __syncwarp();
+  }
+  recompute(n);
 }
 
 // ---------------------------------------- the thin layers, on CUDA cores

@@ -239,8 +239,10 @@ class _TrainableField(torch.autograd.Function):
         field = pack_field(prepare_kernel_params_planar(net, dt),
                            prepare_motion_params_planar(motion, dt) if motion_mode else (),
                            net.spec, motion_mode, compute_dtype)
-        evaluate = fused_field_reference if plain else fused_field
-        rgb, sigma = evaluate(field, xyz, ids, dir_enc, tile_flags)
+        if plain:
+            rgb, sigma = fused_field_reference(field, xyz, ids, dir_enc, tile_flags)
+        else:  # rounded as the plain version rounds near bf16 ties
+            rgb, sigma = fused_field(field, xyz, ids, dir_enc, tile_flags, checked=True)
         ctx.field, ctx.plain = field, plain
         ctx.save_for_backward(xyz, ids, dir_enc, tile_flags)
         return rgb, sigma

@@ -367,7 +367,8 @@ def _check_kernel_support(field: PackedField):
 
 
 def fused_field(field: PackedField, xyz: torch.Tensor, ids: torch.Tensor,
-                dir_enc: torch.Tensor, tile_flags: torch.Tensor | None = None):
+                dir_enc: torch.Tensor, tile_flags: torch.Tensor | None = None,
+                checked: bool = False):
     """Evaluate one (optionally deformed) radiance field.
 
     xyz (3, M) canonical positions, ids (1, M) frame ids, dir_enc
@@ -377,7 +378,10 @@ def fused_field(field: PackedField, xyz: torch.Tensor, ids: torch.Tensor,
 
     CPU tensors run :func:`fused_field_reference`. CUDA tensors launch the
     tensor-core kernel for a bf16 field and the CUDA-core kernel for a
-    float32 one, and any failure to build or launch it raises.
+    float32 one, and any failure to build or launch it raises. ``checked``
+    (the training forward) has the tensor-core kernel recompute in float32
+    the outputs whose sum lies near a bf16 rounding tie, so that they round
+    as the plain version rounds them (``csrc/fused_field_tc.cu``).
     """
     _check_inputs(field, xyz, ids, dir_enc, tile_flags)
     if xyz.device.type == "cpu":
@@ -405,7 +409,8 @@ def fused_field(field: PackedField, xyz: torch.Tensor, ids: torch.Tensor,
             frags, offsets = field.tc
             err = lib.stnerf_fused_field_tc(
                 *inputs, ptr(frags.data_ptr()), ptr(field.biases.data_ptr()),
-                offsets.ctypes.data_as(ptr), ptr(out.data_ptr()), *ints, stream)
+                offsets.ctypes.data_as(ptr), ptr(out.data_ptr()), *ints, int(checked),
+                stream)
         else:
             err = lib.stnerf_fused_field(
                 *inputs, ptr(field.biases.data_ptr()), field.offsets.ctypes.data_as(ptr),

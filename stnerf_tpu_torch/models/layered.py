@@ -44,9 +44,11 @@ opacity on a ray skips them there), and occupancy sub-box slices
 (``SceneBoxes.boxes`` of shape (F, L, K, 2, 3), ``render/occupancy.py``)
 with the gap skip (OCC_GAP_SKIP, ``ops.sampling.stratified_union``). Skips
 become K1's per-tile flags. The trainer and validation strip the first two,
-as JAX's do. Not ported yet: the fast fine stage in training
-(FAST_FINE_TRAIN), which ``LayeredSpec`` refuses, and so the fast fine
-stage with the sort-free compositor, which ``render_rays`` refuses.
+as JAX's do; with FAST_FINE_TRAIN the trainer keeps the fast fine stage,
+trainable through K1 and K2 with the same per-tile flags. With the
+sort-free compositor that stage composites its carried coarse and new
+importance streams through ``ops.volume.composite_streams_nosort``, as the
+JAX trainer does; otherwise through the payload sort and the sorted merge.
 """
 
 from __future__ import annotations
@@ -71,8 +73,8 @@ from ..ops.rounding import round_to
 from ..ops.sampling import (MISS_T, ray_aabb_intersect, sample_pdf,
                             stratified_between, stratified_near_far,
                             stratified_union)
-from ..ops.volume import (composite_merged_nosort, merge_layers_planar,
-                          sort_merge_t, sort_samples_planar,
+from ..ops.volume import (composite_merged_nosort, composite_streams_nosort,
+                          merge_layers_planar, sort_merge_t, sort_samples_planar,
                           volume_render_planar)
 from .camera import CameraTransform, apply_camera_transform
 from .motionnet import MotionNet, MotionNetSpec
@@ -117,13 +119,10 @@ class LayeredSpec:
     # with occupancy sub-box slices: stratify each performer's coarse
     # samples over the union of its hit slices (inert without slices)
     occ_gap_skip: bool = False
-    # the fast fine stage in training: not ported yet, refused
+    # keep the fast fine stage in training (engine.training_spec)
     fast_fine_train: bool = False
 
     def __post_init__(self):
-        if self.fast_fine_train:
-            raise NotImplementedError(
-                "not ported to stnerf_tpu_torch yet: FAST_FINE_TRAIN")
         if self.sample_method not in ("BBOX", "NEAR_FAR"):
             raise ValueError(f"unknown SAMPLE_METHOD {self.sample_method!r}")
         if self.compute_dtype not in ("bfloat16", "float32"):
@@ -585,20 +584,13 @@ _RENDER_SWITCHES = ("nosort_composite", "compositor_kernel", "fast_fine",
 
 def _render_spec(model: LayeredModel, spec: LayeredSpec | None) -> LayeredSpec:
     """``spec`` (default: the model's) after checking that it differs from
-    the model's only in :data:`_RENDER_SWITCHES`, and that it asks for no
-    path this port does not have: the fast fine stage with the sort-free
-    compositor is the JAX package's FAST_FINE_TRAIN path
-    (``composite_streams_nosort``, ``layered.py:1013-1041``)."""
+    the model's only in :data:`_RENDER_SWITCHES`."""
     if spec is None:
-        spec = model.spec
-    elif dataclasses.replace(spec, **{k: getattr(model.spec, k)
-                                      for k in _RENDER_SWITCHES}) != model.spec:
+        return model.spec
+    if dataclasses.replace(spec, **{k: getattr(model.spec, k)
+                                    for k in _RENDER_SWITCHES}) != model.spec:
         raise ValueError("a render spec may differ from the model's only in "
                          f"{', '.join(_RENDER_SWITCHES)}")
-    if spec.fast_fine and spec.nosort_composite:
-        raise NotImplementedError(
-            "not ported to stnerf_tpu_torch yet: FAST_FINE with the sort-free "
-            "compositor (the FAST_FINE_TRAIN path)")
     return spec
 
 
@@ -638,6 +630,32 @@ def _coarse_march_segmented(eval_fields, spec: LayeredSpec, xyz: torch.Tensor,
     return torch.cat(rgb_parts, -1), torch.cat(sig_parts, -1)
 
 
+def _fast_fine_streams(t_c, rgb_c, t_n, rgb_n, sig_u, edits: EditState, bw: float,
+                       sel) -> tuple:
+    """The fast fine stage's composites without a payload sort (JAX
+    ``layered.py:1013-1041``): per layer the carried coarse stream and the
+    new stream, two streams each (only the layers of ``sel``, None: all);
+    the merged pixel from all 2 (L+1) streams, the near clip applied. ->
+    (fine, fine_layers) LayerOutputs."""
+    lp1, N, S1 = t_c.shape
+    sig_c, sig_n = sig_u[..., :S1], sig_u[..., S1:]
+    zc, z1 = t_c.new_zeros((N, 3)), t_c.new_zeros((N, 1))
+    per = {l: composite_streams_nosort([(t_c[l], rgb_c[l], sig_c[l]),
+                                        (t_n[l], rgb_n[l], sig_n[l])], bw)
+           for l in (range(lp1) if sel is None else sel)}
+    fine_layers = LayerOutputs(*(torch.stack([getattr(per[l], k) if l in per else z
+                                              for l in range(lp1)])
+                                 for k, z in (("color", zc), ("depth", z1), ("acc", z1))))
+
+    def near(t, s):  # ref: :605
+        return torch.where(t >= edits.near, s, 0.0)
+
+    mixed = composite_streams_nosort(
+        [(t_c[l], rgb_c[l], near(t_c[l], sig_c[l])) for l in range(lp1)]
+        + [(t_n[l], rgb_n[l], near(t_n[l], sig_n[l])) for l in range(lp1)], bw)
+    return LayerOutputs(mixed.color, mixed.depth, mixed.acc), fine_layers
+
+
 def render_rays(model: LayeredModel, scene: SceneBoxes, inputs: RayInputs,
                 edits: EditState, generator: torch.Generator | None = None,
                 layer_outputs=None, plain: bool = False,
@@ -667,8 +685,9 @@ def render_rays(model: LayeredModel, scene: SceneBoxes, inputs: RayInputs,
     trainer and validation render with a spec of their own. With
     ``nosort_composite`` both merges go through
     ``composite_merged_nosort``, whose cross-stream terms come from K4 and
-    K5 when ``compositor_kernel`` is on (on CUDA tensors, unless ``plain``).
-    A spec with FAST_FINE and ``nosort_composite`` raises.
+    K5 when ``compositor_kernel`` is on (on CUDA tensors, unless ``plain``);
+    the fast fine stage's fine composites then go through
+    ``composite_streams_nosort`` (JAX ``layered.py:1013-1041``).
     """
     spec = _render_spec(model, spec)
     if not trainable and torch.is_grad_enabled():
@@ -748,12 +767,20 @@ def render_rays(model: LayeredModel, scene: SceneBoxes, inputs: RayInputs,
         # coarse opacity on a ray is <= fine_skip_eps skips it (its share
         # of the pixel is at most eps); the background never skips
         t_n = z_new.reshape(lp1, N, S2)
+        if spec.nosort_composite:
+            # the stream compositor needs each stream ascending; the depths
+            # are constants, so the sort carries no payload
+            t_n = torch.sort(t_n, dim=-1).values
         xyz_n = o_p[None, :, :, None] + t_n[:, None] * d_p[None, :, :, None]
         xyz_n = _inverse_edit_points(xyz_n, edits)
         keep = hit & (per_layer_c.acc[..., 0] > spec.fine_skip_eps)
         rgb_n, sig_n = eval_fields(xyz_n, True, torch.cat([hit[:1], keep[1:]], 0))
         # masking is pointwise per (layer, ray): it commutes with the sort
         sig_u = _mask_sigma_fine(torch.cat([sig_c_raw, sig_n], -1), hit, edits)
+        if spec.nosort_composite:
+            fine, fine_layers = _fast_fine_streams(t_c, rgb_c, t_n, rgb_n, sig_u, edits, bw,
+                                                   _select_layers(layer_outputs, lp1))
+            return RenderOutputs(fine, coarse, fine_layers, coarse_layers, hit)
         t_f, rgb_f, sig_f = sort_samples_planar(torch.cat([t_c, t_n], -1),
                                                 torch.cat([rgb_c, rgb_n], -1), sig_u)
     else:

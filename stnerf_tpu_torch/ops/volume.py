@@ -85,6 +85,91 @@ def merge_layers_planar(t: torch.Tensor, rgb: torch.Tensor,
             sig_cat.gather(-1, order))
 
 
+def _stream_cube(ts, a: int, b: int) -> torch.Tensor:
+    """(N, S_a, S_b) 0/1: stream a's sample j precedes stream b's sample s
+    (ties follow the stream order: ``<=`` for a < b, ``<`` for a > b)."""
+    ta, tb = ts[a][:, :, None], ts[b][:, None, :]
+    return (ta <= tb if a < b else ta < tb).to(ts[b].dtype)
+
+
+class _CrossLogTStreams(torch.autograd.Function):
+    """Per stream b: sum over the other streams a of their log factors at
+    the samples preceding each of b's, ``cube[a][b]^T logf[a]``. The
+    precedence cubes are temporaries of the forward and are rebuilt from
+    the depths in the backward (the JAX package's ``jax.checkpoint``): the
+    context keeps the depths only, never an (N, S_a, S_b) mask."""
+
+    @staticmethod
+    def forward(ctx, m: int, *tensors):
+        ts, logfs = tensors[:m], tensors[m:]
+        ctx.m = m
+        ctx.save_for_backward(*ts)
+        out = [torch.zeros_like(lf) for lf in logfs]
+        for a in range(m):
+            for b in range(m):
+                if a != b:
+                    out[b] += torch.einsum("njs,nj->ns", _stream_cube(ts, a, b), logfs[a])
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ts = ctx.saved_tensors
+        m = ctx.m
+        d_logfs = [torch.zeros_like(t) for t in ts]
+        for a in range(m):
+            for b in range(m):
+                if a != b:
+                    d_logfs[a] += torch.einsum("njs,ns->nj", _stream_cube(ts, a, b), grads[b])
+        return (None,) + (None,) * m + tuple(d_logfs)
+
+
+def composite_streams_nosort(streams, boarder_weight: float = 1e10) -> RenderedRays:
+    """Exact union compositing of several per-ray ascending sample streams
+    without sorting their union (JAX ``ops/volume.py:159-262``): the
+    training compositor of the fast fine stage, whose carried coarse and
+    new importance streams differ in length.
+
+    ``streams``: a sequence of ``(t (N, S_i), rgb (3, N, S_i), sigma (N,
+    S_i))``, each stream's depths ascending per ray. Equal up to float
+    reassociation to sorting the union and running
+    :func:`volume_render_planar`. Each sample's union successor is the
+    smallest later depth over all streams (``>`` from a stream before it,
+    ``>=`` from one after it: ties follow the stream order); the "no
+    successor" sentinel is the finite 3.4e38, whose ``isfinite`` test never
+    picks ``boarder_weight`` (as JAX's). The exclusive transmittance is the
+    exp of the stream's own log-factor cumsum plus the other streams' log
+    factors at the samples that precede it (:class:`_CrossLogTStreams`,
+    whose backward rebuilds the precedence masks); factors are floored at
+    1e-10 before the log. Depths are constants (stop-gradient). ``weights``
+    is the per-stream weights concatenated in stream order, (N, sum S_i,
+    1)."""
+    m = len(streams)
+    ts = [s[0].detach() for s in streams]
+    rgbs = [s[1] for s in streams]
+    sigs = [s[2] for s in streams]
+    n = ts[0].shape[0]
+    nxt = [torch.cat([t[:, 1:], t.new_full((n, 1), 3.4e38)], -1) for t in ts]
+    for a in range(m):
+        for b in range(m):
+            if a == b:
+                continue
+            ta, tb = ts[a][:, :, None], ts[b][:, None, :]
+            after = ta >= tb if a > b else ta > tb
+            nxt[b] = torch.minimum(nxt[b], torch.where(after, ta, 3.4e38).amin(1))
+    deltas = [torch.where(torch.isfinite(x), x - t, boarder_weight)
+              for x, t in zip(nxt, ts)]
+    alphas = [1.0 - torch.exp(-torch.relu(sig) * d) for sig, d in zip(sigs, deltas)]
+    logfs = [torch.log(torch.clamp(1.0 - al + 1e-10, min=1e-10)) for al in alphas]
+    cross = _CrossLogTStreams.apply(m, *ts, *logfs)
+    ws = [al * torch.exp(torch.cat([torch.zeros_like(lf[:, :1]),
+                                    torch.cumsum(lf, -1)[:, :-1]], -1) + c)
+          for al, lf, c in zip(alphas, logfs, cross)]
+    color = sum((w[None] * torch.sigmoid(r)).sum(-1) for w, r in zip(ws, rgbs)).t()
+    depth = sum((w * t).sum(-1) for w, t in zip(ws, ts))[:, None]
+    acc = sum(w.sum(-1) for w in ws)[:, None]
+    return RenderedRays(color, depth, acc, torch.cat(ws, -1)[..., None])
+
+
 def composite_merged_nosort(t: torch.Tensor, rgb: torch.Tensor, sigma: torch.Tensor,
                             boarder_weight: float = 1e10,
                             kernel: bool = False) -> RenderedRays:

@@ -3,23 +3,29 @@
 
     python -m stnerf_tpu_torch.tools.train -c configs/config_synthetic.yml
         [--resume] [--epochs N] [--seed S] [--psnr-thres X] [--workers W]
-        [--device cpu|cuda[:i]]
+        [--auto-restart N] [--device cpu|cuda[:i]]
 
 The flow is the JAX entry point's: the config, then the training ray pool
 from the scene on disk (``data.make_train_data``, cached under
 ``DATASETS.TRAIN/TMP_RAYS``), then the model — fresh from ``--seed``, or
-with ``--resume`` the newest of the port's checkpoints in ``OUTPUT_DIR``,
-with its optimizer and schedule — then the optimizer with its frozen
-groups, the validation callback (a warning and no validation when the
-scene has no labeled views), and ``engine.do_train``. It runs on the CUDA
-card unless ``--device`` names another. ``main(argv)`` runs in-process and
-returns ``do_train``'s history.
+with ``--resume`` from the newest checkpoint in ``OUTPUT_DIR``: the port's
+own (model, optimizer and schedule, mid-epoch files re-entering their
+epoch at their step), a JAX ``.ckpt`` (parameters, its optax state mapped
+onto torch's optimizer, its epoch and step) or a reference ``.pt``
+(parameters, a fresh optimizer, epoch 0) — then the optimizer with its
+frozen groups, the TensorBoard event writer at ``OUTPUT_DIR/tb``, the
+validation callback (a warning and no validation when the scene has no
+labeled views), and ``engine.do_train``. It runs on the CUDA card unless
+``--device`` names another. ``main(argv)`` runs in-process and returns
+``do_train``'s history.
 
-Not ported yet: ``--auto-restart`` (the crash supervisor), resuming from a
-reference ``.pt`` or a JAX ``.ckpt`` checkpoint (``--resume`` refuses them:
-their optimizer state is not mapped onto torch's Adam; their parameters load
-for rendering through ``engine.load_params_any``), and multi-GPU training. ``--model-parallel`` is accepted and ignored with a
-warning, as in the JAX entry point: training replicates the parameters.
+``--auto-restart N`` supervises the run (:func:`supervise`): the training
+runs in a child process, relaunched with ``--resume`` up to N times after
+a crash, so at most the steps since the last checkpoint are lost
+(``SOLVER.CHECKPOINT_PERIOD``). The supervisor imports no torch and never
+initialises CUDA: one process owns the card. Multi-GPU training is not
+ported; ``--model-parallel`` is accepted and ignored with a warning, as in
+the JAX entry point: training replicates the parameters.
 """
 
 from __future__ import annotations
@@ -28,7 +34,11 @@ import argparse
 import dataclasses
 import logging
 import os
+import subprocess
 import sys
+import time
+
+_BACKOFF_S = (15, 30, 60, 120, 300)  # then 300 s between further restarts
 
 
 def _setup_logger(name: str, save_dir: str | None) -> logging.Logger:
@@ -48,6 +58,41 @@ def _setup_logger(name: str, save_dir: str | None) -> logging.Logger:
     return logger
 
 
+def supervise(cmd, restarts, backoffs=_BACKOFF_S, run=None):
+    """Run ``cmd`` (argv list); on a nonzero exit relaunch it up to
+    ``restarts`` times with growing backoff, ``--resume`` appended once.
+    -> the final exit code (0 on any success). ``run`` launches a command
+    (default ``subprocess.call``)."""
+    run = run or subprocess.call
+    for attempt in range(restarts + 1):
+        rc = run(cmd)
+        if rc == 0:
+            return 0
+        if attempt == restarts:
+            return rc
+        wait = backoffs[min(attempt, len(backoffs) - 1)]
+        print(f"[supervise] attempt {attempt + 1} exited rc={rc}; relaunching with "
+              f"--resume in {wait}s ({restarts - attempt} restarts left)",
+              file=sys.stderr, flush=True)
+        time.sleep(wait)
+        if "--resume" not in cmd:
+            cmd = cmd + ["--resume"]
+    return rc
+
+
+def _child_argv(argv: list) -> list:
+    """``argv`` without its ``--auto-restart N`` / ``--auto-restart=N``."""
+    out, skip = [], False
+    for a in argv:
+        if skip:
+            skip = False
+        elif a == "--auto-restart":
+            skip = True
+        elif not a.startswith("--auto-restart="):
+            out.append(a)
+    return out
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description="Train a layered ST-NeRF with the "
                                             "PyTorch port")
@@ -63,13 +108,25 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--workers", type=int, default=None,
                    help="ray-pregeneration processes (default: "
                         "DATALOADER.NUM_WORKERS capped at host CPUs)")
+    p.add_argument("--auto-restart", type=int, default=0, metavar="N",
+                   help="supervise the run: relaunch it with --resume up to N times "
+                        "after a crash")
     p.add_argument("--device", default=None,
                    help="torch device to train on (default: the CUDA card)")
     return p.parse_args(argv)
 
 
 def main(argv=None) -> list:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_args(argv)
+    if args.auto_restart > 0:
+        # the supervisor: the run is a child process with the same flags
+        root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+        cmd = [sys.executable, "-u", "-m", "stnerf_tpu_torch.tools.train"] + _child_argv(argv)
+        sys.exit(supervise(cmd, args.auto_restart,
+                           run=lambda c: subprocess.call(c, env=env)))
 
     import numpy as np
     import torch
@@ -77,10 +134,10 @@ def main(argv=None) -> list:
     from ..config import get_cfg
     from ..data import ViewScene, make_train_data
     from ..device import resolve_device
-    from ..engine import (do_train, latest_checkpoint, load_checkpoint,
-                          make_frozen_mask, make_optimizer, make_val_fn,
-                          pool_camera_num)
+    from ..engine import (do_train, latest_checkpoint, make_frozen_mask, make_optimizer,
+                          make_val_fn, pool_camera_num, resume_checkpoint)
     from ..models import LayeredModel, LayeredSpec
+    from ..utils import EventWriter
 
     cfg = get_cfg()
     cfg.merge_from_file(args.config)
@@ -105,12 +162,6 @@ def main(argv=None) -> list:
         spec = dataclasses.replace(spec, camera_num=pool_camera_num(pool, spec))
 
     ckpt = latest_checkpoint(cfg.OUTPUT_DIR) if args.resume else None
-    if ckpt and not os.path.basename(ckpt).startswith("stnerf_torch_checkpoint_"):
-        raise ValueError(f"--resume found {ckpt}, a checkpoint of the JAX package or of "
-                         "the reference; the port resumes only from its own "
-                         "stnerf_torch_checkpoint_*.pt files (mapping a foreign optimizer "
-                         "state onto torch's Adam is not ported yet). Its parameters load "
-                         "for rendering: stnerf_tpu_torch.engine.load_params_any")
     model = LayeredModel(spec, torch.Generator().manual_seed(args.seed), device=device)
 
     mp = args.model_parallel or cfg.TPU.MESH_MODEL
@@ -123,22 +174,31 @@ def main(argv=None) -> list:
                     list(cfg.SOLVER.FROZEN_GROUPS))
     optimizer, scheduler = make_optimizer(cfg, model, frozen_mask)
 
-    resume_epoch = 0
+    resume_epoch = resume_step = 0
     if ckpt:
-        info = load_checkpoint(ckpt, model, optimizer, scheduler)
-        resume_epoch = info["epoch"]
-        logger.info("resumed %s (epoch %d)", ckpt, resume_epoch)
+        info = resume_checkpoint(ckpt, cfg, model, optimizer, scheduler)
+        # a mid-epoch file (step > 0) re-enters its epoch at that step
+        resume_step = info["step"]
+        resume_epoch = info["epoch"] - (1 if resume_step else 0)
+        logger.info("resumed %s (epoch %d, step %d)%s", ckpt, info["epoch"], resume_step,
+                    "" if info["optimizer"] else ": parameters only, a fresh optimizer")
 
+    swriter = EventWriter(os.path.join(cfg.OUTPUT_DIR, "tb")) if cfg.OUTPUT_DIR else None
     val_fn = None
     try:
         view_scene = ViewScene(cfg)
-        val_fn = make_val_fn(cfg, model.spec, scene, view_scene, logger)
+        val_fn = make_val_fn(cfg, model.spec, scene, view_scene, logger, swriter)
     except (OSError, ValueError) as e:
         logger.warning("validation disabled: %s", e)
 
-    return do_train(cfg, model, scene, pool, optimizer, scheduler, val_fn=val_fn,
-                    resume_epoch=resume_epoch, psnr_thres=args.psnr_thres,
-                    seed=args.seed, logger=logger, device=device)
+    try:
+        return do_train(cfg, model, scene, pool, optimizer, scheduler, val_fn=val_fn,
+                        resume_epoch=resume_epoch, resume_step=resume_step,
+                        psnr_thres=args.psnr_thres, seed=args.seed, logger=logger,
+                        device=device, swriter=swriter)
+    finally:
+        if swriter is not None:
+            swriter.close()
 
 
 if __name__ == "__main__":

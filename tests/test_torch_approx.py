@@ -132,10 +132,12 @@ def _pair(cfg, dense: bool = False, fine_delta: float = 0.05, layer1=None):
     return jspec, params, model
 
 
-def _render_both(cfg, jscene, scene_np, frame_ids=(2.0, 2.0, 1.5), **pair_kw):
+def _render_both(cfg, jscene, scene_np, frame_ids=(2.0, 2.0, 1.5), edits=None,
+                 **pair_kw):
     """The JAX and the port's render_rays on the same rays, deterministic
-    sampling -> (jax outputs, port outputs, port model, port inputs, port
-    scene), outputs as numpy."""
+    sampling, with ``edits`` ({EditState field: value}, default none) ->
+    (jax outputs, port outputs, port model, port inputs, port scene),
+    outputs as numpy."""
     import jax
     import jax.numpy as jnp
     import torch
@@ -148,11 +150,14 @@ def _render_both(cfg, jscene, scene_np, frame_ids=(2.0, 2.0, 1.5), **pair_kw):
 
     jspec, params, model = _pair(cfg, **pair_kw)
     rays = _rays(list(frame_ids))
+    edits = {k: np.asarray(v, np.float32) for k, v in (edits or {}).items()}
+    jedit = JEdit.identity(2)._replace(**{k: jnp.asarray(v) for k, v in edits.items()})
+    tedit = T.EditState.identity(2)._replace(**{k: torch.tensor(v) for k, v in edits.items()})
     ref = jax.jit(jrender, static_argnames=("spec",))(params, jspec, JScene(*map(jnp.asarray, jscene)),
-                  JRays(*map(jnp.asarray, rays)), JEdit.identity(2), key=None)
+                  JRays(*map(jnp.asarray, rays)), jedit, key=None)
     scene = T.SceneBoxes(*map(torch.tensor, scene_np))
     inputs = T.RayInputs(*map(torch.tensor, rays))
-    out = T.render_rays(model, scene, inputs, T.EditState.identity(2))
+    out = T.render_rays(model, scene, inputs, tedit)
     to_np = lambda tree: type(tree)(*(to_np(x) if isinstance(x, tuple) else np.asarray(x)
                                       for x in tree))
     return to_np(ref), to_np(out), model, inputs, scene
@@ -170,7 +175,7 @@ def _assert_close_db(out, ref, what):
         assert db >= TARGET_DB, f"{what} {name}: {db:.1f} dB < {TARGET_DB}"
 
 
-@pytest.mark.parametrize("case", ["march", "fast_fine", "sliced"])
+@pytest.mark.parametrize("case", ["march", "fast_fine", "sliced", "edits"])
 def test_approx_render_matches_jax(case, monkeypatch):
     """The port's render_rays against JAX's with the approximation of each
     case on.
@@ -189,6 +194,10 @@ def test_approx_render_matches_jax(case, monkeypatch):
     per-layer fine colour and acc within eps (+1e-4) of JAX's, and the
     merged pixel within 2 eps (the skipped matter's own emission and the
     transmittance it would take from what lies behind it).
+
+    edits: the approximations on at eps 0, the fine nets apart from the
+    coarse ones, with a hidden performer, a shift, a scale and an alpha
+    fade: each >= 60 dB, hit masks equal.
 
     sliced: (F, L, K, 2, 3) boxes, each performer box cut in two with a gap,
     with OCC_GAP_SKIP off (the hull of the hit slices) and on (the union of
@@ -261,6 +270,18 @@ def test_approx_render_matches_jax(case, monkeypatch):
                                     layer1=(1e-3, -1.0))
         assert out.hit[1].any() and flags[1].any() and not flags[4].any()
         _assert_close_db(out, ref, "empty performer")
+        return
+
+    if case == "edits":
+        for name, edit in (("hide", {"visible": [1, 0, 1]}),
+                           ("shift", {"shift": [[0, 0, 0], [0, 0.4, 0], [0, -0.4, 0]]}),
+                           ("scale", {"scale": [1, 1.3, 0.8]}),
+                           ("alpha", {"alpha": [1, 0.5, 0.7]})):
+            ref, out, *_ = _render_both(cfg, (bkgd, boxes, nf), (bkgd, boxes, nf),
+                                        edits=edit)
+            _assert_close_db(out, ref, name)
+            if name == "hide":
+                assert out.hit[1].any() and not out.fine_layers.acc[1].any()
         return
 
     # sliced: each performer box split along x into two slices with a gap

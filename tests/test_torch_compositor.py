@@ -323,10 +323,10 @@ def test_train_step_nosort_matches_jax(rng, only_coarse):
 def test_every_config_builds_and_the_trainer_strips_approximations():
     """The config repair: LayeredSpec.from_cfg builds for the default
     config and every configs/*.yml (FAST_FINE and EARLY_EXIT_SEGMENTS held
-    as the JAX package's spec holds them), render_rays renders them but
-    refuses FAST_FINE with the sort-free compositor (the unported
-    FAST_FINE_TRAIN path), and the trainer's spec strips them and
-    composites sort-free exactly when the compositor kernels are on."""
+    as the JAX package's spec holds them), render_rays renders them, with
+    the sort-free compositor too (the FAST_FINE_TRAIN path's), and the
+    trainer's spec strips them and composites sort-free exactly when the
+    compositor kernels are on."""
     import torch
 
     from stnerf_tpu_torch import models as T
@@ -353,9 +353,9 @@ def test_every_config_builds_and_the_trainer_strips_approximations():
     inputs = T.RayInputs(*map(torch.tensor, _rays([2.0] * 3)))
     assert torch.isfinite(T.render_rays(model, scene, inputs,
                                         T.EditState.identity(2)).fine.color).all()
-    with pytest.raises(NotImplementedError, match="FAST_FINE"):
-        T.render_rays(model, scene, inputs, T.EditState.identity(2),
-                      spec=dataclasses.replace(model.spec, nosort_composite=True))
+    fast_nosort = T.render_rays(model, scene, inputs, T.EditState.identity(2),
+                                spec=dataclasses.replace(model.spec, nosort_composite=True))
+    assert torch.isfinite(fast_nosort.fine.color).all()
     spec = training_spec(model.spec)
     assert spec.nosort_composite and not spec.fast_fine and spec.coarse_exit_segments == 0
     out = T.render_rays(model, scene, inputs, T.EditState.identity(2), spec=spec)

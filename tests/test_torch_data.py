@@ -170,11 +170,18 @@ def test_frame_layer_scene_and_transform_match_jax(tmp_path):
             for cam in range(CAMS):
                 for x, y in zip(b.get_data(cam), a.get_data(cam)):
                     np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
-    with pytest.raises(NotImplementedError):
-        JointTransform((H, W), random_range=2)(np.zeros((H, W, 3), np.uint8), np.eye(3),
-                                                np.eye(4))
-    with pytest.raises(NotImplementedError):
-        tt(np.zeros((H + 2, W, 3), np.uint8), np.eye(3), np.eye(4))
+    # the augmenting and the resizing transform (tests/test_torch_train_resume.py
+    # holds every augmentation against JAX's PIL warp)
+    img = np.asarray(FrameLayerScene(cfgs[1], tt, 1, 1).get_data(0)[0])
+    img = (np.moveaxis(img, 0, -1) * 255).round().astype(np.uint8)
+    for kw, src in (({"random_range": 2}, img), ({}, np.repeat(img, 2, axis=0))):
+        ref = JTransform((H, W), rng=np.random.default_rng(4), **kw)(
+            src, np.eye(3), np.eye(4), src[..., 0])
+        got = JointTransform((H, W), rng=np.random.default_rng(4), **kw)(
+            src, np.eye(3), np.eye(4), src[..., 0])
+        for x, y in zip(got, ref):
+            np.testing.assert_allclose(x, y, rtol=0, atol=1 / 255 + 1e-6)
+        np.testing.assert_array_equal(got[1], ref[1])
 
 
 @pytest.mark.parametrize("case", ["hit_ordered_capped", "unordered_f32", "workers"])
@@ -337,8 +344,8 @@ def test_train_cli_on_cpu_and_resume(tmp_path):
     """``python -m stnerf_tpu_torch.tools.train`` in-process on the CPU with
     the compositor kernels on (their plain versions here): two epochs
     (coarse only, then full) with a checkpoint and a validation PSNR each,
-    then ``--resume`` goes on from epoch 2's checkpoint; a checkpoint of
-    another format is refused."""
+    then ``--resume`` goes on from epoch 2's checkpoint, and from a JAX
+    package checkpoint written beside it."""
     import yaml
 
     from stnerf_tpu_torch.data import make_synthetic_scene
@@ -381,10 +388,23 @@ def test_train_cli_on_cpu_and_resume(tmp_path):
     records.clear()
     resumed = train.main(args + ["--resume", "--epochs", "4"])
     assert [e for e, _ in resumed] == [3]
-    assert any(m.startswith("resumed") and "checkpoint_2.pt (epoch 2)" in m
+    assert any(m.startswith("resumed") and "checkpoint_2.pt (epoch 2, step 0)" in m
                for m in (r.getMessage() for r in records))
     assert os.path.exists(os.path.join(out, "stnerf_torch_checkpoint_3.pt"))
 
-    open(os.path.join(out, "layered_rfnr_checkpoint_9.ckpt"), "wb").close()
-    with pytest.raises(ValueError, match="layered_rfnr_checkpoint_9.ckpt"):
-        train.main(args + ["--resume", "--epochs", "12"])
+    # a JAX package checkpoint: its parameters and optax state resume epoch 10
+    import jax
+
+    from stnerf_tpu.engine import save_checkpoint
+    from stnerf_tpu.engine.solver import make_optimizer as jopt
+    from stnerf_tpu_torch.config import get_cfg
+    from stnerf_tpu_torch.models import LayeredModel, LayeredSpec, export_jax_params
+
+    cfg = get_cfg()
+    cfg.merge_from_file(cfg_file)
+    params = export_jax_params(LayeredModel(LayeredSpec.from_cfg(cfg), device="cpu"))
+    save_checkpoint(out, params, jax.device_get(jopt(cfg).init(params)), 9)
+    records.clear()
+    assert [e for e, _ in train.main(args + ["--resume", "--epochs", "11"])] == [10]
+    assert any("layered_rfnr_checkpoint_9.ckpt (epoch 9, step 0)" in r.getMessage()
+               for r in records)

@@ -2,7 +2,7 @@
 """Compare phases of two checkouts of the PyTorch port on one CUDA card.
 
     python3 tools/torch_ab_phases.py OTHER_CHECKOUT [OTHER_CHECKOUT ...]
-        [--set view_pose|field|cross] [--rounds 1]
+        [--set view_pose|field|kernels|cross] [--rounds 1]
 
 Runs ``chip_smoke.py``'s phases from each OTHER_CHECKOUT and from this one,
 each in a fresh process from its own root (so each builds and loads its own
@@ -26,6 +26,13 @@ run. Compare checkouts only within one invocation.
   bf16 and float32 ms on the performer field (and K2's bf16 ms on the
   background), seconds per pose by request,
   seconds per step by epoch, the launches.
+* ``kernels``: K1's bf16 ms on phase 2's performer inputs (M = 4096 x 120,
+  25% of tiles off), also with ``checked`` (the training forward) where the
+  checkout's ``fused_field`` takes it, and K3's bf16 forward ms on phase
+  6's performer encodings (M = 2000 x 120), each timed alike by this
+  checkout's ``chip_smoke.cuda_ms``; and ptxas's registers, stack and
+  spills for the tensor-core K1 and K3 forward kernels of the checkout's
+  build.
 * ``cross``: K4 and K5 (forward and backward) at (3, 2000, 120) and (3,
   2000, 90) on ``chip_smoke.cross_inputs`` (sorted streams), each timed
   alike in every checkout by this checkout's ``chip_smoke``: the device
@@ -109,6 +116,48 @@ print("AB " + json.dumps({"k1_ms": {k: k1[k] for k in ("bfloat16_ms", "float32_m
                           "s_per_step": train["s_per_step"],
                           "train_launches": [train["launches_fused_field"], train["launches"]]}))
 """}
+CHILD["kernels"] = PRELUDE + """
+import importlib.util, inspect
+import numpy as np
+from stnerf_tpu_torch.kernels._build import BUILD_DIR
+from stnerf_tpu_torch.kernels.fused_field import fused_field
+from stnerf_tpu_torch.kernels.spacenet_vjp import spacenet_fwd
+from stnerf_tpu_torch.models import LayeredSpec
+from stnerf_tpu_torch.ops.encoding import positional_encoding_planar
+spec = importlib.util.spec_from_file_location("timing", sys.argv[1])
+timing = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(timing)
+m = 4096 * 120
+model = cs.make_model(LayeredSpec.from_cfg(cfg), device)
+rng = np.random.default_rng(cs.SEED)
+t = lambda a: torch.tensor(a, dtype=torch.float32, device=device).contiguous()
+xyz = t(rng.uniform(-3.0, 3.0, (3, m)))
+ids = t(rng.integers(1, 101, (1, m)) + rng.choice([0.0, 0.25, 0.5], (1, m)))
+d = rng.normal(size=(3, m))
+d /= np.linalg.norm(d, axis=0, keepdims=True)
+dir_enc = positional_encoding_planar(t(d), 4, True).contiguous()
+flags = torch.tensor((rng.random(-(-m // 64)) > 0.25).astype(np.int32), device=device)
+f = cs.pack_dtype(model.layers_coarse[0], model.motion[0], "lerp", "bfloat16")
+out = {"k1_bf16_ms": timing.cuda_ms(lambda: fused_field(f, xyz, ids, dir_enc, flags), 10)}
+if "checked" in inspect.signature(fused_field).parameters:
+    out["k1_bf16_checked_ms"] = timing.cuda_ms(
+        lambda: fused_field(f, xyz, ids, dir_enc, flags, checked=True), 10)
+vp = cs.make_model(LayeredSpec.from_cfg(cs.view_pose_cfg(), camera_num=8), device)
+x = cs._encoded_inputs(device, 2000 * 120, cs.SEED + 5)
+g = cs.pack_dtype(vp.layers_fine[0], None, None, "bfloat16")
+out["k3_fwd_bf16_ms"] = timing.cuda_ms(lambda: spacenet_fwd(g, x["pos"], x["dir"], x["time"]),
+                                       10)
+ptxas, name = {}, None
+for line in "".join(p.read_text() for p in sorted(BUILD_DIR.glob("*.log"))).splitlines():
+    if "entry function" in line:
+        name = next((k for k in ("fused_field_tc_kernel", "spacenet_fwd_tc_kernel")
+                     if k in line), None)
+        name = name and name + ("<true>" if "ILb1E" in line else "")
+    elif name and ("registers" in line or "spill" in line):
+        ptxas.setdefault(name, []).append(line.strip())
+out["ptxas"] = ptxas
+print("AB " + json.dumps(out))
+"""
 CHILD["cross"] = PRELUDE + """
 import importlib.util, logging, os, shutil
 from stnerf_tpu_torch.data import make_synthetic_scene
