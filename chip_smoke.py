@@ -169,6 +169,29 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    (order approximate, exact, exact, approximate), seconds per 1920x1080
    frame and peak device memory of both, and one pose with OCC_SLICES = 2
    and OCC_GAP_SKIP on.
+15. Distributed (after 14), on phase 11's entry-point config. (a) NCCL at
+   world size 1 in this process: ``do_train(mesh=)`` over one full epoch
+   of 20 steps against ``do_train`` without a mesh from the same weights
+   (plain, mesh, mesh, plain): losses and parameters bitwise, s/step of
+   both beside the card's name and power limit (the flat ``all_reduce``'s
+   overhead); the first gt pose through ``render_pose_host(mesh=)``
+   bitwise the unsharded pose. (b) Two processes on this one card over
+   gloo: the pose sharded over both, then one sharded step on two fixed
+   halves of a 2000-ray batch. The reduced gradients and the parameters
+   after Adam bitwise the in-process reconstruction ((g0 + g1) / 2, one
+   Adam step), equal on both ranks; the gathered pose >= 60 dB against
+   the one-process pose with the hit masks equal (whether bitwise is
+   printed). (b)'s seconds are printed under a key that says they are no
+   speed figure: two processes share one card. No scaling across cards is
+   measured.
+16. The legacy renderer (after 15): ``NeuralRenderer`` on phase 11's last
+   checkpoint, each layer's nets as a background-only field, through K1,
+   with and without a textured quad (an OBJ with a PNG texture) as the
+   mesh background, rasterized by the native host library built from
+   ``stnerf_tpu_torch/native/``: ``mix_image``'s z-buffer the nearest
+   layer's depth, K1's launches the renders', K1 against its plain
+   version >= 40 dB on a field's rays.
+Then the whole script's seconds, the kernels' build included.
 
 Weights are random from a seeded generator. It needs one CUDA card, and
 fails where there is none or where the repository is not beside it.
@@ -1791,9 +1814,6 @@ def phase_entry_point(device, workers: int = 2) -> dict:
     from stnerf_tpu_torch.data import make_synthetic_scene, make_train_data
     from stnerf_tpu_torch.engine import do_train, load_checkpoint, make_optimizer
     from stnerf_tpu_torch.kernels import cross_trans
-    from stnerf_tpu_torch.kernels.field_vjp import field_bwd
-    from stnerf_tpu_torch.kernels.fused_field import fused_field
-    from stnerf_tpu_torch.kernels.spacenet_vjp import spacenet_bwd, spacenet_fwd
     from stnerf_tpu_torch.models import LayeredModel, LayeredSpec, layered
     from stnerf_tpu_torch.tools import train
 
@@ -1821,12 +1841,7 @@ def phase_entry_point(device, workers: int = 2) -> dict:
                                       "cross_log_transmittance_bwd_reference"])
     cross = [cross_trans.cross_successor, cross_trans.cross_log_transmittance_fwd,
              cross_trans.cross_log_transmittance_bwd]
-    kernels = [fused_field, field_bwd, *cross, spacenet_fwd, spacenet_bwd, *k6_entries()]
-    by_route = [fused_field, field_bwd, spacenet_fwd, spacenet_bwd]
-    for k in kernels:
-        k.launches = 0
-    for k in by_route:
-        k.launches_tc = 0
+    zero_launches()
     for k in cross:
         k.pairwise_rays.clear()
     t0 = time.perf_counter()
@@ -1834,8 +1849,7 @@ def phase_entry_point(device, workers: int = 2) -> dict:
             "--device", str(device)]
     history = train.main(args)
     train_s = time.perf_counter() - t0
-    launches = {k.__name__: k.launches for k in kernels}
-    launches.update({f"{k.__name__}_tc": k.launches_tc for k in by_route})
+    launches = read_launches()
     calls = {**merges, **plain}
     # the training streams come sorted: no ray takes K4/K5's all-pairs route
     pairwise = {k.__name__: cross_trans.read_pairwise_rays(k) for k in cross}
@@ -2628,7 +2642,511 @@ def phase_fast_fine_train(device, bundle, scene, card: str, exact: dict) -> dict
     return summary
 
 
+def path_kernels() -> tuple:
+    """(every kernel wrapper, those with a tensor-core route)."""
+    from stnerf_tpu_torch.kernels import cross_trans
+    from stnerf_tpu_torch.kernels.field_vjp import field_bwd
+    from stnerf_tpu_torch.kernels.fused_field import fused_field
+    from stnerf_tpu_torch.kernels.spacenet_vjp import spacenet_bwd, spacenet_fwd
+
+    by_route = [fused_field, field_bwd, spacenet_fwd, spacenet_bwd]
+    cross = [cross_trans.cross_successor, cross_trans.cross_log_transmittance_fwd,
+             cross_trans.cross_log_transmittance_bwd]
+    return [*by_route, *cross, *k6_entries()], by_route
+
+
+def zero_launches():
+    kernels, by_route = path_kernels()
+    for k in kernels:
+        k.launches = 0
+    for k in by_route:
+        k.launches_tc = 0
+
+
+def read_launches() -> dict:
+    """Each wrapper's launches since ``zero_launches``, the tensor-core
+    routes also under ``<name>_tc``."""
+    kernels, by_route = path_kernels()
+    out = {k.__name__: k.launches for k in kernels}
+    out.update({f"{k.__name__}_tc": k.launches_tc for k in by_route})
+    return out
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def set_rank_env(rank: int, world: int, port: int):
+    """What torchrun gives each rank: RANK, LOCAL_RANK, WORLD_SIZE and the
+    rendezvous address."""
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+
+
+def entry_model(cfg, device, state=None):
+    """Phase 11's model (its config's spec, weights from the seed, or
+    ``state``)."""
+    import torch
+
+    from stnerf_tpu_torch.models import LayeredModel, LayeredSpec
+
+    model = LayeredModel(LayeredSpec.from_cfg(cfg), torch.Generator().manual_seed(SEED),
+                         device=device)
+    if state is not None:
+        model.load_state_dict(state)
+    return model
+
+
+def flat_params(model):
+    import torch
+
+    return torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+
+
+def flat_grads(model):
+    import torch
+
+    return torch.cat([p.grad.reshape(-1) for p in model.parameters()])
+
+
+def pose_arrays(out) -> list:
+    """render_pose_host's (color, depth, color_layer, depth_layer) as one
+    list of arrays."""
+    return [out[0], out[1], *out[2], *out[3]]
+
+
+def entry_pose(cfg, device):
+    """The first gt camera of phase 11's scene at the config's test size ->
+    ((K, c2w, frame ids, near_far, h, w), the scene's boxes)."""
+    from stnerf_tpu_torch.data import RenderScene
+
+    scene = RenderScene(cfg, device)
+    lp1 = cfg.DATASETS.LAYER_NUM + 1
+    return ((scene.Ks[0], scene.poses[0], np.full(lp1, 2.0, np.float32), scene.near_far,
+             scene.height, scene.width), scene.scene_boxes)
+
+
+def dist_worker(rank: int, world: int, port: int, work: str, device: str):
+    """One of phase 15(b)'s ranks: two processes on one card over gloo. The
+    sharded pose, then one sharded training step on this rank's fixed
+    shard; saves the reduced gradients, the parameters after Adam, the
+    pose, the launches and the host seconds to ``work``/rank<r>.pt."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from stnerf_tpu_torch.config import get_cfg
+    from stnerf_tpu_torch.engine import make_optimizer, make_train_step
+    from stnerf_tpu_torch.models import EditState
+    from stnerf_tpu_torch.parallel import init_distributed, make_mesh
+    from stnerf_tpu_torch.render import LayeredNeuralRenderer, render_pose_host
+
+    set_rank_env(rank, world, port)
+    device = init_distributed(device, backend="gloo")
+    mesh = make_mesh(device=device)
+    blob = torch.load(os.path.join(work, "inputs.pt"), map_location=device,
+                      weights_only=False)
+    cfg = get_cfg()
+    cfg.merge_from_file(blob["cfg_file"])
+    model = entry_model(cfg, device, blob["model"])
+    scene = type(blob["scene"])(*(t.to(device) for t in blob["scene"]))
+    K, c2w, fids, nf, h, w = blob["pose"]
+    zero_launches()
+    sync(device)
+    t0 = time.perf_counter()
+    pose = render_pose_host(model, scene, K, c2w, fids, nf,
+                            EditState.identity(cfg.DATASETS.LAYER_NUM, device=device), h, w,
+                            chunk=cfg.TPU.RENDER_CHUNK, tile_cols=cfg.TPU.TILE_COLS, mesh=mesh)
+    pose_s = time.perf_counter() - t0
+    opt, sched = make_optimizer(cfg, model)
+    step = make_train_step(model, opt, sched, remove_outliers=True, device=device, mesh=mesh)
+    shard = blob["shards"][rank]
+    t0 = time.perf_counter()
+    m = step(scene, shard, torch.Generator(device=device).manual_seed(SEED + 100 + rank), 1.0)
+    sync(device)
+    step_s = time.perf_counter() - t0
+    launches = read_launches()
+    result = {"grads": flat_grads(model).cpu(), "params": flat_params(model).cpu(),
+              "loss": float(m.loss), "pose": pose_arrays(pose), "launches": launches,
+              "pose_s": pose_s, "step_s": step_s}
+    # the renderer front end on phase 11's checkpoint over both ranks
+    r = LayeredNeuralRenderer(cfg, mesh=mesh, device=device)
+    result["renderer_pose"] = pose_arrays(r.render_pose(*renderer_pose_args(r)))
+    result["renderer_state"] = (r.fidelity_db, str(r.spec))
+    torch.save(result, os.path.join(work, f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def renderer_pose_args(r) -> tuple:
+    """The renderer's first gt camera at frame 2 of every layer."""
+    return r.gt_poses[0], r.gt_Ks[0], [(i, 2) for i in range(r.layer_num + 1)]
+
+
+def phase_distributed(device, cfg_file: str, card: str) -> dict:
+    """Phase 15 on phase 11's entry-point config (its synthetic scene and
+    cached pool, TPU.COMPOSITOR_KERNEL on, bf16).
+
+    (a) NCCL at world size 1 in this process: do_train(mesh=) over one full
+    epoch of 20 steps against do_train without a mesh from the same
+    weights (order plain, mesh, mesh, plain): losses and parameters
+    bitwise; s/step of both from do_train's epoch seconds, and the flat
+    all_reduce of a step's gradients and metrics timed alone (host clock
+    to a sync, 50 calls). The first gt
+    pose through render_pose_host(mesh=) bitwise the unsharded pose.
+    (b) Two processes on this one card over gloo (``dist_worker``): one
+    sharded step on two fixed shards of a 2000-ray batch: the reduced
+    gradients bitwise (g0 + g1) / 2 reconstructed in this process, the
+    parameters after Adam bitwise the reconstruction's and equal on both
+    ranks; the gathered pose >= 60 dB against the one-process pose with the
+    hit masks (a layer's depth set) equal, and whether it is bitwise.
+    -> summary dict (launches by path)."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from stnerf_tpu_torch.config import get_cfg
+    from stnerf_tpu_torch.data import make_train_data
+    from stnerf_tpu_torch.engine import (do_train, make_decode, make_optimizer,
+                                         sort_batch_by_hit, split_compact_bundle,
+                                         training_spec)
+    from stnerf_tpu_torch.engine.trainer import _losses, _mean_over_ranks, _RawMetrics, _take
+    from stnerf_tpu_torch.models import EditState, LayeredSpec
+    from stnerf_tpu_torch.parallel import init_distributed, make_mesh
+    from stnerf_tpu_torch.render import LayeredNeuralRenderer, render_pose_host
+
+    cfg = get_cfg()
+    cfg.merge_from_file(cfg_file)
+    cfg.OUTPUT_DIR = ""
+    cfg.SOLVER.MAX_EPOCHS, cfg.SOLVER.COARSE_STAGE = 2, 1   # one full epoch
+    spec = LayeredSpec.from_cfg(cfg)
+    pool, scene = make_train_data(cfg, spec, np.random.default_rng(SEED), workers=1,
+                                  device=device)
+    state = {k: v.clone() for k, v in entry_model(cfg, device).state_dict().items()}
+    # do_train's "Epoch %d done" records give the epoch's seconds
+    quiet = logging.getLogger("chip_smoke.distributed")
+    quiet.setLevel(logging.INFO)
+    quiet.propagate = False
+    epoch_s = []
+
+    def on_record(r):
+        if r.msg.startswith("Epoch %d done"):
+            epoch_s.append(r.args[1])
+
+    handler = logging.Handler()
+    handler.emit = on_record
+    quiet.addHandler(handler)
+    L = cfg.DATASETS.LAYER_NUM
+    pose, _ = entry_pose(cfg, device)
+    K, c2w, fids, nf, h, w = pose
+    edits = EditState.identity(L, device=device)
+
+    # (a) NCCL, world size 1
+    set_rank_env(0, 1, free_port())
+    init_distributed(device)
+    mesh = make_mesh(device=device)
+    backend = mesh.backend
+    check(backend == ("nccl" if device.type == "cuda" else "gloo") and mesh.data == 1,
+          f"mesh {mesh}")
+    runs, seconds, launches_a, runs_model = {}, {"plain": [], "mesh": []}, None, {}
+    try:
+        for name in ("plain", "mesh", "mesh", "plain"):
+            model = entry_model(cfg, device, state)
+            if name == "mesh":
+                zero_launches()
+            hist = do_train(cfg, model, scene, pool, mesh=mesh if name == "mesh" else None,
+                            seed=SEED, logger=quiet, device=device)
+            seconds[name].append(epoch_s[-1])
+            runs_model[name] = model
+            if name == "mesh" and launches_a is None:
+                launches_a = read_launches()
+            runs.setdefault(name, []).append((hist[0][1].loss, flat_params(model)))
+        steps = len(runs["plain"][0][0])
+        for (la, pa), (lb, pb) in zip(runs["plain"], runs["mesh"]):
+            check(np.array_equal(la, lb) and torch.equal(pa, pb),
+                  "15(a): the one-rank NCCL epoch is not bitwise the unsharded epoch")
+        check(np.array_equal(runs["plain"][0][0], runs["plain"][1][0]),
+              "15(a): the unsharded epoch is not bitwise repeatable")
+        model = entry_model(cfg, device, state)
+        base = render_pose_host(model, scene, K, c2w, fids, nf, edits, h, w,
+                                chunk=cfg.TPU.RENDER_CHUNK, tile_cols=cfg.TPU.TILE_COLS)
+        sharded = render_pose_host(model, scene, K, c2w, fids, nf, edits, h, w,
+                                   chunk=cfg.TPU.RENDER_CHUNK, tile_cols=cfg.TPU.TILE_COLS,
+                                   mesh=mesh)
+        check(all(np.array_equal(a, b) for a, b in zip(pose_arrays(base),
+                                                        pose_arrays(sharded))),
+              "15(a): the one-rank NCCL pose is not bitwise the unsharded pose")
+        # the step's collective alone: the flat all_reduce of the last
+        # mesh epoch's gradients and metrics, host clock to a sync
+        grads_model = runs_model["mesh"]
+        params = [p for p in grads_model.parameters() if p.grad is not None]
+        raw = _RawMetrics(*torch.zeros(4, device=device).unbind())
+        flat_bytes = 4 * (sum(p.numel() for p in params) + len(raw))
+        _mean_over_ranks(mesh, params, raw)
+        sync(device)
+        t0 = time.perf_counter()
+        for _ in range(50):
+            _mean_over_ranks(mesh, params, raw)
+        sync(device)
+        all_reduce_ms = (time.perf_counter() - t0) / 50 * 1e3
+    finally:
+        dist.destroy_process_group()
+    on_path = ("fused_field_tc", "field_bwd_tc", "cross_successor",
+               "cross_log_transmittance_fwd", "cross_log_transmittance_bwd")
+    check(all(launches_a[k] > 0 for k in on_path),
+          f"15(a): a kernel of the training path did not launch: {launches_a}")
+    s_step = {k: [t / steps for t in v] for k, v in seconds.items()}
+    row_a = {"backend": backend, "world_size": 1, "steps": steps, "bitwise_epoch": True,
+             "bitwise_pose": True, "s_per_step": s_step,
+             "all_reduce_overhead_s_per_step": float(np.mean(s_step["mesh"])
+                                                     - np.mean(s_step["plain"])),
+             "flat_all_reduce_ms": all_reduce_ms, "flat_all_reduce_bytes": flat_bytes,
+             "flat_all_reduce_tensors": len(params),
+             "launches": launches_a, "card": card}
+    print("distributed_nccl_world1", json.dumps(row_a), flush=True)
+
+    # (b) two processes on this card over gloo
+    bundle_pool, tables, width = split_compact_bundle(pool, device)
+    n = cfg.SOLVER.IMS_PER_BATCH
+    idx = torch.arange(n, device=device) * (bundle_pool.rgb.shape[0] // n)
+    batch = make_decode(tables, spec, width)(_take(bundle_pool, idx))
+    batch = sort_batch_by_hit(spec, scene, batch)
+    shards = [_take(batch, torch.arange(r * n // 2, (r + 1) * n // 2, device=device))
+              for r in range(2)]
+    work = os.path.join(REPO, "build", "chip_smoke_dist")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    torch.save({"cfg_file": cfg_file, "model": state, "scene": scene, "pose": pose,
+                "shards": shards}, os.path.join(work, "inputs.pt"))
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mp.spawn(dist_worker, args=(2, free_port(), work, str(device)), nprocs=2, join=True)
+    spawn_s = time.perf_counter() - t0
+    got = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False) for r in range(2)]
+    check(torch.equal(got[0]["params"], got[1]["params"]),
+          "15(b): the two ranks' parameters differ after the step")
+
+    # the in-process reconstruction: (g0 + g1) / 2 and one Adam step
+    model = entry_model(cfg, device, state)
+    tspec = training_spec(model.spec)
+    grads = []
+    for r in range(2):
+        model.zero_grad(set_to_none=True)
+        loss, _ = _losses(model, edits, True, scene, shards[r],
+                          torch.Generator(device=device).manual_seed(SEED + 100 + r), 1.0,
+                          False, spec=tspec, mask_scale=2.0)
+        loss.backward()
+        grads.append([p.grad.clone() for p in model.parameters()])
+    opt, _ = make_optimizer(cfg, model)
+    for p, g0, g1 in zip(model.parameters(), *grads):
+        p.grad = (g0 + g1) / 2
+    mean_g = flat_grads(model).cpu()
+    opt.step()
+    g_equal = torch.equal(mean_g, got[0]["grads"])
+    p_equal = torch.equal(flat_params(model).cpu(), got[0]["params"])
+    diff = float((mean_g - got[0]["grads"]).abs().max())
+    check(g_equal and p_equal, f"15(b): reduced gradients bitwise {g_equal} (max diff "
+                               f"{diff}), parameters after Adam bitwise {p_equal}")
+    one = pose_arrays(base)
+    two = got[0]["pose"]
+    pose_db = min(psnr(a, b) for a, b in zip(two, one))
+    hits_equal = all(np.array_equal(a > 0, b > 0) for a, b in zip(two[-(L + 1):],
+                                                                   one[-(L + 1):]))
+    check(pose_db >= 60 and hits_equal, f"15(b): sharded pose {pose_db} dB, hit masks "
+                                        f"equal {hits_equal}")
+    check(all(np.array_equal(a, b) for a, b in zip(got[1]["pose"], two)),
+          "15(b): the two ranks hold different poses")
+    # LayeredNeuralRenderer(mesh=): both ranks on rank 0's gate and spec,
+    # against the renderer in this one process
+    fresh = get_cfg()
+    fresh.merge_from_file(cfg_file)
+    alone = LayeredNeuralRenderer(fresh, device=device)
+    ref = pose_arrays(alone.render_pose(*renderer_pose_args(alone)))
+    check(got[0]["renderer_state"] == got[1]["renderer_state"]
+          == (alone.fidelity_db, str(alone.spec)),
+          f"15(b): the ranks' renderers decided {[g['renderer_state'] for g in got]}, the "
+          f"one-process renderer {(alone.fidelity_db, str(alone.spec))}")
+    renderer_db = min(psnr(a, b) for a, b in zip(got[0]["renderer_pose"], ref))
+    check(renderer_db >= 60 and all(np.array_equal(a, b) for a, b in
+                                    zip(got[0]["renderer_pose"], got[1]["renderer_pose"])),
+          f"15(b): the sharded renderer's pose {renderer_db} dB against one process")
+    launches_b = {k: got[0]["launches"][k] + got[1]["launches"][k] for k in got[0]["launches"]}
+    check(all(g["launches"][k] > 0 for g in got for k in on_path),
+          f"15(b): a kernel of the path did not launch on a rank: "
+          f"{[g['launches'] for g in got]}")
+    row_b = {"backend": "gloo", "world_size": 2, "processes_on_one_card": True,
+             "grads_bitwise": bool(g_equal), "params_bitwise": bool(p_equal),
+             "pose_db_vs_one_process": pose_db, "pose_bitwise": bool(pose_db == float("inf")),
+             "hit_masks_equal": bool(hits_equal), "loss": [g["loss"] for g in got],
+             "renderer_pose_db_vs_one_process": renderer_db,
+             "renderer_fidelity_db": got[0]["renderer_state"][0],
+             "launches": launches_b, "spawn_s": spawn_s,
+             "times_not_a_speed_figure_two_processes_share_one_card": {
+                 "step_s": [g["step_s"] for g in got], "pose_s": [g["pose_s"] for g in got]},
+             "card": card}
+    print("distributed_gloo_two_processes", json.dumps(row_b), flush=True)
+    for key in ("RANK", "LOCAL_RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        os.environ.pop(key, None)
+    return {"nccl": row_a, "gloo": row_b}
+
+
+def write_quad(root: str, K, c2w, h: int, w: int, depth: float) -> str:
+    """A textured quad that fills the view of camera (K, c2w) at ``depth``
+    (camera z), as an OBJ with its MTL and a PNG texture under ``root`` ->
+    the OBJ's path."""
+    from stnerf_tpu_torch.data.png import write_png
+
+    os.makedirs(root, exist_ok=True)
+    corners = np.array([[-1, -1], [w + 1, -1], [w + 1, h + 1], [-1, h + 1]], np.float64)
+    cam = np.linalg.inv(np.asarray(K, np.float64)) @ np.concatenate(
+        [corners, np.ones((4, 1))], 1).T * depth                  # (3, 4)
+    c2w = np.asarray(c2w, np.float64)
+    world = (c2w[:3, :3] @ cam).T + c2w[:3, 3]
+    tex = np.zeros((32, 32, 3), np.uint8)
+    tex[..., 0] = np.arange(32)[None, :] * 8
+    tex[..., 1] = np.arange(32)[:, None] * 8
+    tex[..., 2] = 96
+    write_png(os.path.join(root, "wall.png"), tex)
+    with open(os.path.join(root, "wall.mtl"), "w") as f:
+        f.write("newmtl wall\nmap_Kd wall.png\n")
+    path = os.path.join(root, "wall.obj")
+    with open(path, "w") as f:
+        f.write("mtllib wall.mtl\n")
+        f.writelines(f"v {x:.6f} {y:.6f} {z:.6f}\n" for x, y, z in world)
+        f.write("vt 0 1\nvt 1 1\nvt 1 0\nvt 0 0\nf 1/1 2/2 3/3 4/4\n")
+    return path
+
+
+def phase_legacy_renderer(device, cfg_file: str, card: str) -> dict:
+    """Phase 16: ``NeuralRenderer`` on phase 11's last checkpoint, each
+    layer's nets as a background-only field (a performer's without its
+    motion net: the legacy renderer's fields are per frame), through K1,
+    at the config's test size from the scene's first camera; with a
+    textured quad behind the scene as the mesh background, rasterized by
+    the native library. Checks: finite images, ``mix_image``'s z-buffer
+    the nearest layer's depth, K1's launches (fields x chunks x 2 stages),
+    K1 against its plain version >= 40 dB on one field's rays ->
+    summary."""
+    import torch
+
+    from stnerf_tpu_torch.config import get_cfg
+    from stnerf_tpu_torch.data import native
+    from stnerf_tpu_torch.data.cameras import pixel_rays
+    from stnerf_tpu_torch.engine import latest_checkpoint, load_params_any
+    from stnerf_tpu_torch.models import EditState, LayeredModel, RayInputs, SceneBoxes, render_rays
+    from stnerf_tpu_torch.render import FieldEntry, NeuralRenderer
+
+    cfg = get_cfg()
+    cfg.merge_from_file(cfg_file)
+    ckpt = latest_checkpoint(cfg.OUTPUT_DIR)
+    trained = load_params_any(ckpt, entry_model(cfg, device))
+    spec = trained.spec
+    L = spec.layer_num
+    (K, c2w, _, _, h, w), pool_scene = entry_pose(cfg, device)
+    nf = pool_scene.bkgd_near_far.cpu().numpy()
+    nr = NeuralRenderer(output_dir=os.path.join(REPO, "build", "chip_smoke_legacy"))
+    for layer in range(L + 1):
+        # exact semantics: the legacy renderer has no fidelity gate
+        one = dataclasses.replace(spec, layer_num=0, fast_fine=False, coarse_exit_segments=0,
+                                  **({} if layer == 0 else dict(
+                                      bkgd_use_space_time=spec.use_space_time,
+                                      bkgd_use_deform_time=False)))
+        field = LayeredModel(one, device=device)
+        if layer == 0:
+            for name in ("bkgd_coarse", "bkgd_fine", "bkgd_motion"):
+                if getattr(field, name) is not None:
+                    getattr(field, name).load_state_dict(getattr(trained, name).state_dict())
+            bbox = pool_scene.bkgd_box
+        else:
+            field.bkgd_coarse.load_state_dict(trained.layers_coarse[layer - 1].state_dict())
+            field.bkgd_fine.load_state_dict(trained.layers_fine[layer - 1].state_dict())
+            bbox = pool_scene.boxes[0, layer - 1]
+        nr.add_model(0, layer, FieldEntry(field, one, bbox.cpu().numpy(), nf))
+    check(native.available(), "the native host library did not build")
+    obj = write_quad(os.path.join(REPO, "build", "chip_smoke_legacy", "mesh"), K, c2w, h, w,
+                     depth=float(nf[1]))    # behind the scene: the fields win in front
+    nr.set_bkgd_mesh(obj)
+    chunks = -(-h * w // 8192)
+
+    out = {}
+    for name, use_mesh in (("fields", False), ("mesh_background", True)):
+        zero_launches()
+        sync(device)
+        t0 = time.perf_counter()
+        colors, depths = [], []
+        if use_mesh:
+            c, d = nr.render_bkgd(c2w, K, h, w)
+            colors.append(c)
+            depths.append(d)
+        for layer in range(1 if use_mesh else 0, L + 1):
+            c, d = nr.render_frame_layer(0, layer, c2w, K, h, w)
+            colors.append(c)
+            depths.append(d)
+        mixed, zbuf = NeuralRenderer.mix_image(colors, depths)
+        sync(device)
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+        fields = L + (0 if use_mesh else 1)
+        check(launches["fused_field"] == fields * chunks * 2,
+              f"16 {name}: K1 launched {launches['fused_field']} times, the renders imply "
+              f"{fields * chunks * 2}")
+        check(launches["fused_field_tc"] == launches["fused_field"],
+              f"16 {name}: bf16 fields off the tensor-core route")
+        check(mixed.shape == (h, w, 3) and np.isfinite(mixed).all()
+              and mixed.min() >= 0 and mixed.max() <= 1, f"16 {name}: the mix is not an image")
+        check(np.array_equal(zbuf, np.minimum.reduce(depths)),
+              f"16 {name}: mix_image's z-buffer is not the nearest layer's depth")
+        pose_mixed, pose_zbuf = nr.render_pose(0, c2w, K, h, w, use_mesh_bkgd=use_mesh)
+        check(np.array_equal(pose_mixed, mixed) and np.array_equal(pose_zbuf, zbuf),
+              f"16 {name}: render_pose differs from its layers' mix")
+        hit = np.isfinite(zbuf)
+        out[name] = {"s_per_pose": seconds, "launches": launches, "covered": float(hit.mean()),
+                     "nearest_share_by_layer": [float(((d == zbuf) & hit).mean())
+                                                for d in depths]}
+    check(out["mesh_background"]["covered"] > 0.95,
+          f"16: the quad covers {out['mesh_background']['covered']} of the view")
+
+    # K1 against its plain version on the background field's rays
+    e = nr.models[0][0]
+    rays = pixel_rays(np.asarray(K, np.float32), np.asarray(c2w, np.float32), h, w)
+    rays = torch.as_tensor(rays[:8192], device=device)
+    m = rays.shape[0]
+    inputs = RayInputs(rays[:, :3], rays[:, 3:6], torch.ones(m, 1, device=device),
+                       torch.zeros(m, device=device),
+                       torch.as_tensor(nf, device=device).expand(m, 2))
+    scene0 = SceneBoxes(torch.as_tensor(e.bbox, device=device),
+                        torch.zeros(1, 0, 2, 3, device=device),
+                        torch.as_tensor(nf, device=device))
+    edits0 = EditState.identity(0, device=device)
+    with torch.no_grad():
+        k1, plain = (render_rays(e.params, scene0, inputs, edits0, None, plain=p).fine.color
+                     for p in (False, True))
+    k1_db = psnr(k1.float().cpu().numpy(), plain.float().cpu().numpy())
+    check(k1_db >= 40, f"16: K1 vs plain on the legacy field {k1_db} dB < 40")
+    row = {**out, "k1_vs_plain_db": k1_db, "checkpoint": os.path.basename(ckpt),
+           "size": [w, h], "card": card}
+    print("legacy_renderer", json.dumps(row), flush=True)
+    return row
+
+
+def route_launches(launches: dict, name: str) -> int:
+    """A kernel row's launches in a path's counts: a CUDA-core route counts
+    what its wrapper launched off the tensor-core route."""
+    n = launches.get(name, 0)
+    if f"{name}_tc" in launches:
+        n -= launches[f"{name}_tc"]
+    return n
+
+
 def main():
+    script_t0 = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -2698,6 +3216,13 @@ def main():
     t0 = time.perf_counter()
     fast = phase_fast_fine_train(device, bundle, scene, card, train)
     print(f"phase fast_fine_train: {time.perf_counter() - t0:.1f} s", flush=True)
+    entry_cfg = os.path.join(REPO, "build", "chip_smoke_train.yml")
+    t0 = time.perf_counter()
+    distributed = phase_distributed(device, entry_cfg, card)
+    print(f"phase distributed: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    legacy = phase_legacy_renderer(device, entry_cfg, card)
+    print(f"phase legacy_renderer: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # the performer field: the main paths' case. K1 and K2 in two routes
     # each: bf16 fields on the tensor-core kernels (every main path), float32
@@ -2833,8 +3358,21 @@ def main():
                         "plain_ms": cross[0][f"{key}_plain_ms"],
                         "bound_ms": cross[0][f"{key}_bound_ms"],
                         "bound_by": cross[0][f"{key}_bound_by"], "library_ms": None})
+    # the distributed paths (phase 15: the children's counts summed) and the
+    # legacy renderer (phase 16)
+    new_paths = {"distributed_nccl_world1": distributed["nccl"]["launches"],
+                 "distributed_gloo_two_processes": distributed["gloo"]["launches"],
+                 "legacy_renderer_fields": legacy["fields"]["launches"],
+                 "legacy_renderer_mesh_background": legacy["mesh_background"]["launches"]}
+    for row in kernels:
+        for path, launches in new_paths.items():
+            row["launches_by_path"][path] = route_launches(launches, row["name"])
+        if row["name"].startswith("fused_spacenet"):
+            row["launches"] = sum(row["launches_by_path"].values())
     print("compositor_fwd_bwd_ms", json.dumps({k: v for k, v in compositor.items()
                                                 if k.endswith("_ms")}), flush=True)
+    print(f"chip_smoke: {time.perf_counter() - script_t0:.1f} s in all, the kernels' "
+          "build included", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

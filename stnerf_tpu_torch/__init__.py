@@ -19,16 +19,22 @@ Layout (mirrors ``stnerf_tpu``):
   render/    whole-pose rendering in screen-tile order, chunked rendering,
              the ``LayeredNeuralRenderer`` front end (camera paths, edits,
              frame and video output)
-  tools/     entry points (``python -m stnerf_tpu_torch.tools.train``)
+  parallel/  process groups and the sharding policy (data-parallel
+             training, ray-sharded rendering over ``torch.distributed``)
+  native/    the C++ source of the host library (``data/native.py`` builds
+             it with g++ at first use)
+  tools/     entry points (``python -m stnerf_tpu_torch.tools.train``, also
+             under ``torchrun``)
   demo/      the three demos (``python -m stnerf_tpu_torch.demo.walking_demo``)
-  utils/     the TensorBoard event writer
+  utils/     the TensorBoard event writer, profiling helpers
 
 This carries the layered render path, exact or with the inference
 approximations, rendering edited videos from the port's, the JAX
 package's or the reference's checkpoints, and training from a scene on
 disk (the fast fine stage too) with mid-epoch checkpoints, resumption from
-any of those checkpoints and a crash supervisor. Multi-GPU training and
-rendering are not ported (ROADMAP.md, Queue 1).
+any of those checkpoints and a crash supervisor, on one card or
+data-parallel over several; the legacy per-field renderer with a
+textured-mesh background.
 """
 
 __version__ = "0.1.0"

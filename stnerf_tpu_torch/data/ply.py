@@ -8,8 +8,8 @@ binary_little_endian, reads the vertex element's x/y/z properties and
 ignores everything else. A writer is provided for the synthetic-scene
 generator and tests.
 
-The JAX package's optional native C++ reader (``data/native.py``) is not
-ported: the port always reads through NumPy.
+The native C++ reader (``data/native.py``) reads first when it builds, as
+in the JAX package; NumPy reads what it does not.
 """
 
 from __future__ import annotations
@@ -26,6 +26,11 @@ _DTYPES = {
 
 def read_ply_points(path: str) -> np.ndarray:
     """Read vertex (x, y, z) from a PLY file -> (N, 3) float32."""
+    from . import native
+
+    pts = native.ply_read_points(path)
+    if pts is not None:
+        return pts
     with open(path, "rb") as f:
         magic = f.readline().strip()
         if magic != b"ply":

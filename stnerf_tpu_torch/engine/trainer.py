@@ -89,11 +89,16 @@ class _RawMetrics(NamedTuple):
     mask: torch.Tensor
 
 
+def _map(fn, tree):
+    """``fn`` of every tensor of a (nested) NamedTuple."""
+    if isinstance(tree, tuple):
+        return type(tree)(*(_map(fn, x) for x in tree))
+    return fn(tree)
+
+
 def _take(tree, idx: torch.Tensor):
     """Rows ``idx`` of every tensor of a (nested) NamedTuple."""
-    if isinstance(tree, tuple):
-        return type(tree)(*(_take(x, idx) for x in tree))
-    return tree[idx]
+    return _map(lambda x: x[idx], tree)
 
 
 def _check_device(model: LayeredModel, device: torch.device):
@@ -141,21 +146,25 @@ def training_spec(spec: LayeredSpec) -> LayeredSpec:
 
 def _losses(model: LayeredModel, edits: EditState, remove_outliers: bool,
             scene: SceneBoxes, batch: TrainBatch, generator, mask_on: float,
-            only_coarse: bool, plain: bool = False, spec: LayeredSpec | None = None):
+            only_coarse: bool, plain: bool = False, spec: LayeredSpec | None = None,
+            mask_scale: float = 1.0):
     """Forward and loss: MSE on the coarse (and fine) mixed composites plus
     the gated mask-alpha loss (ref: engine/layered_trainer.py:216-281);
-    ``spec`` as ``render_rays`` takes it. -> (loss, _RawMetrics)."""
+    ``spec`` as ``render_rays`` takes it. ``mask_scale`` compensates the
+    mask loss on a shard (JAX ``trainer.py:131-150``): the reference's term
+    is a sum over rays, so a rank computing it over batch/D rays multiplies
+    by D before the ranks' mean. -> (loss, _RawMetrics)."""
     out = render_rays(model, scene, batch.inputs, edits, generator, plain=plain,
                       only_coarse=only_coarse, trainable=True, spec=spec)
     zero = out.coarse.color.new_zeros(())
     mse_c = rgb_loss(out.coarse.color, batch.rgb)
-    m = (mask_alpha_loss(out.coarse_layers.acc, batch.labels) * mask_on
+    m = (mask_alpha_loss(out.coarse_layers.acc, batch.labels) * mask_on * mask_scale
          if remove_outliers else zero)
     loss = mse_c + m
     mse_f = mse_c  # only_coarse: fine == coarse composite, as the reference logs it
     if not only_coarse:
         mse_f = rgb_loss(out.fine.color, batch.rgb)
-        m_f = (mask_alpha_loss(out.fine_layers.acc, batch.labels) * mask_on
+        m_f = (mask_alpha_loss(out.fine_layers.acc, batch.labels) * mask_on * mask_scale
                if remove_outliers else zero)
         loss = loss + mse_f + m_f
         m = m + m_f
@@ -188,30 +197,56 @@ def sort_batch_by_hit(spec: LayeredSpec, scene: SceneBoxes,
     return _take(batch, torch.argsort(key, stable=True))
 
 
+def _mean_over_ranks(mesh, params: list, raw: _RawMetrics) -> _RawMetrics:
+    """JAX's ``pmean`` of the gradient tree and the raw metrics
+    (``trainer.py:363-365``) as one ``all_reduce`` of one flat buffer: the
+    gradients of ``params`` that have one (every rank's step builds the
+    same graph, so the same ones everywhere), then the four metrics. The
+    averaged gradients are left in ``.grad`` -> the averaged metrics."""
+    grads = [p.grad for p in params if p.grad is not None]
+    flat = torch.cat([g.reshape(-1) for g in grads] + [torch.stack(tuple(raw))])
+    mesh.all_reduce_mean_(flat)
+    parts = flat.split([g.numel() for g in grads] + [len(raw)])
+    for p, part in zip((p for p in params if p.grad is not None), parts):
+        p.grad = part.view_as(p)
+    return _RawMetrics(*parts[-1].unbind())
+
+
 def make_train_step(model: LayeredModel, optimizer, scheduler=None,
                     remove_outliers: bool = False, plain: bool = False,
-                    device=None):
+                    device=None, mesh=None):
     """-> step(scene, batch, generator, mask_on, only_coarse=False) ->
     StepMetrics (0-d tensors on the device). The step renders with
     :func:`training_spec` of the model's spec and leaves the gradients it
     applied in the parameters' ``.grad``. ``plain`` runs the plain forward
     and backward of every kernel instead. The model must already be on
-    ``device`` (the CUDA card unless another is named)."""
+    ``device`` (the CUDA card unless another is named).
+
+    With a ``mesh`` the batch is this rank's shard: the mask loss is scaled
+    by the data size D, and the gradients and raw metrics are averaged over
+    the ranks (one flat ``all_reduce``) before the optimizer step, so every
+    rank takes the same step."""
     device = resolve_device(device)
     _check_device(model, device)
     spec = training_spec(model.spec)
     edits = EditState.identity(spec.layer_num, device=device)
+    mask_scale = 1.0 if mesh is None else float(mesh.data)
+    params = [p for p in model.parameters() if p.requires_grad]
 
     def step(scene: SceneBoxes, batch: TrainBatch, generator, mask_on: float,
              only_coarse: bool = False) -> StepMetrics:
         optimizer.zero_grad(set_to_none=True)
         loss, raw = _losses(model, edits, remove_outliers, scene, batch, generator,
-                            mask_on, only_coarse, plain=plain, spec=spec)
+                            mask_on, only_coarse, plain=plain, spec=spec,
+                            mask_scale=mask_scale)
         loss.backward()
+        raw = _RawMetrics(*(x.detach() for x in raw))
+        if mesh is not None:
+            raw = _mean_over_ranks(mesh, params, raw)
         optimizer.step()
         if scheduler is not None:
             scheduler.step()
-        return _finalize_metrics(_RawMetrics(*(x.detach() for x in raw)), only_coarse)
+        return _finalize_metrics(raw, only_coarse)
 
     return step
 
@@ -231,11 +266,20 @@ def make_train_epoch(model: LayeredModel, optimizer, scheduler=None,
     hit pattern when drawn ray by ray. ``generator`` draws the whole
     epoch's order; steps ``first`` to ``steps - 1`` run, each sampling from
     ``step_generator(i)`` (default: ``generator`` itself), and
-    ``after_step(i + 1)`` is called after step i."""
-    if mesh is not None:
-        raise NotImplementedError("multi-GPU training is not ported to "
-                                  "stnerf_tpu_torch yet")
-    step = make_train_step(model, optimizer, scheduler, remove_outliers, device=device)
+    ``after_step(i + 1)`` is called after step i.
+
+    With a ``mesh`` of D ranks, ``pool`` is this rank's shard
+    (:func:`shard_pool`), ``batch_size`` the global batch (a multiple of
+    D), and each step draws batch/D rays from the shard and averages the
+    gradients over the ranks (:func:`make_train_step`); the generators are
+    this rank's own. A mesh with a model axis and a data axis both over 1
+    raises, as JAX's: epoch training replicates the parameters."""
+    if mesh is not None and mesh.model > 1 and mesh.data > 1:
+        raise ValueError("epoch training is data-parallel; use a mesh with "
+                         "model axis 1 (params are replicated)")
+    n_data = 1 if mesh is None else mesh.data
+    step = make_train_step(model, optimizer, scheduler, remove_outliers, device=device,
+                           mesh=mesh)
     spec = model.spec
     block = max(int(block), 1)
     # only the fused path's skip flags profit from hit-sorted batches; the
@@ -246,6 +290,9 @@ def make_train_epoch(model: LayeredModel, optimizer, scheduler=None,
     def epoch(scene: SceneBoxes, pool, generator, mask_on: float, batch_size: int,
               steps: int, only_coarse: bool = False, first: int = 0,
               step_generator=None, after_step=None) -> StepMetrics:
+        if batch_size % n_data:
+            raise ValueError(f"batch {batch_size} does not split over {n_data} ranks")
+        batch_size //= n_data   # this rank's share
         n_pool = pool.rgb.shape[0]
         dev = pool.rgb.device
         unit, per = (block, batch_size // block) if block > 1 else (1, batch_size)
@@ -274,6 +321,24 @@ def make_train_epoch(model: LayeredModel, optimizer, scheduler=None,
         return StepMetrics(*(torch.stack(x) for x in zip(*metrics)))
 
     return epoch
+
+
+def shard_pool(pool, mesh) -> tuple:
+    """This rank's contiguous slice of the pool (a TrainBatch or a
+    CompactPool, tensors on any device): the ray axis padded to a multiple
+    of the data size by repeating the last row, then cut in D slices (JAX
+    ``trainer.py:403-425``) -> (this rank's pool, the padded size)."""
+    d = mesh.data
+    n = pool.rgb.shape[0]
+    n_pad = -(-n // d) * d
+
+    def cut(x):
+        if n_pad != n:
+            x = torch.cat([x, x[-1:].expand(n_pad - n, *x.shape[1:])])
+        per = n_pad // d
+        return x[mesh.rank * per:(mesh.rank + 1) * per]
+
+    return _map(cut, pool), n_pad
 
 
 def make_pool(train_pool: dict, spec: LayeredSpec, device) -> TrainBatch:
@@ -361,58 +426,82 @@ def do_train(cfg, model: LayeredModel, scene: SceneBoxes, train_pool: dict,
     logger = logger or logging.getLogger("stnerf_tpu_torch.train")
     device = resolve_device(device)
     _check_device(model, device)
-    if mesh is not None:
-        raise NotImplementedError("multi-GPU training is not ported to "
-                                  "stnerf_tpu_torch yet")
     s = cfg.SOLVER
     batch_size = s.IMS_PER_BATCH
+    n_data = 1 if mesh is None else mesh.data
+    main = mesh is None or mesh.is_main
+    if batch_size % n_data:
+        batch_size -= batch_size % n_data
+        if main:
+            logger.warning("IMS_PER_BATCH trimmed to %d (multiple of data axis %d)",
+                           batch_size, n_data)
     if optimizer is None:
         optimizer, scheduler = make_optimizer(cfg, model)
     spec = model.spec
     compact = "pix" in train_pool
     decode = None
+    # with a mesh the pool is cut on the host and each rank uploads its slice
+    host = device if mesh is None else torch.device("cpu")
     if compact:
-        pool, tables, width = split_compact_bundle(train_pool, device)
-        decode = make_decode(tables, spec, width)
+        pool, tables, width = split_compact_bundle(train_pool, host)
+        decode = make_decode(CamTables(*(t.to(device) for t in tables)), spec, width)
     else:
-        pool = make_pool(train_pool, spec, device)
+        pool = make_pool(train_pool, spec, host)
     n_cams = pool_camera_num(train_pool, spec)
     if model.cam_pose is not None and model.cam_pose.rvec.shape[0] < n_cams:
         raise ValueError(f"the pool draws from {n_cams} cameras, the pose refinement "
                          f"holds {model.cam_pose.rvec.shape[0]}: build the model from "
                          f"LayeredSpec.from_cfg(cfg, camera_num={n_cams})")
     n_pool = pool.rgb.shape[0]
+    if mesh is not None:
+        pool, _ = shard_pool(pool, mesh)
+        pool = _map(lambda t: t.to(device), pool)
     block = int(getattr(cfg.TPU, "POOL_BLOCK_DRAW", 0) or 0)
     if block > 1 and not (compact and bool(np.asarray(train_pool.get("hit_ordered", 0)))):
         block = 1  # unordered pools: a block is scan-order pixels, no tile payoff
-    while block > 1 and batch_size % block:
+    # block draws apply per shard (JAX trainer.py:520-537)
+    while block > 1 and (batch_size // n_data) % block:
         block -= 1
-    if block > n_pool:
+    if block > n_pool // n_data:
         block = 1
     epoch_fn = make_train_epoch(model, optimizer, scheduler,
-                                remove_outliers=cfg.MODEL.REMOVE_OUTLIERS,
+                                remove_outliers=cfg.MODEL.REMOVE_OUTLIERS, mesh=mesh,
                                 decode=decode, block=block, device=device)
     steps = max(n_pool // batch_size, 1)
     scene = SceneBoxes(*(t.to(device) for t in scene))
-    logger.info("pool resident on %s: %d rays, %d steps/epoch%s", device, n_pool, steps,
-                " (compact pixel format)" if compact else "")
+    if main:
+        logger.info("pool resident on %s: %d rays, %d steps/epoch%s%s", device, n_pool,
+                    steps, " (compact pixel format)" if compact else "",
+                    f", sharded over {n_data} ranks" if n_data > 1 else "")
     ckpt_period = int(s.CHECKPOINT_PERIOD or 0)
     val_period = int(getattr(s, "VAL_PERIOD", 0) or 0)
+    # per-rank draws only over several ranks: one rank draws as no mesh
+    rank_key = (mesh.rank,) if n_data > 1 else ()
+
+    def save(epoch, step=None):
+        # rank 0 writes; every rank waits until the file is there
+        if main:
+            save_checkpoint(cfg.OUTPUT_DIR, model, optimizer, scheduler, epoch, step=step)
+        if mesh is not None:
+            mesh.barrier()
 
     history = []
     for epoch in range(1 + resume_epoch, s.MAX_EPOCHS):
         skip = resume_step if epoch == resume_epoch + 1 else 0
         if skip >= steps:
-            logger.info("Epoch %d already complete at resume; skipping", epoch)
+            if main:
+                logger.info("Epoch %d already complete at resume; skipping", epoch)
             continue
         start = time.time()
         only_coarse = epoch < s.COARSE_STAGE
         mask_on = 1.0 if epoch < 3 else 0.0
-        gen = torch.Generator(device=device).manual_seed(_position_seed(seed, epoch))
+        gen = torch.Generator(device=device).manual_seed(
+            _position_seed(seed, epoch, *rank_key))
         since = {"ckpt": 0, "val": 0}
 
         def step_generator(i):
-            return torch.Generator(device=device).manual_seed(_position_seed(seed, epoch, i))
+            return torch.Generator(device=device).manual_seed(
+                _position_seed(seed, epoch, i, *rank_key))
 
         def after_step(done):
             # in-epoch checkpoints and validation, counted in steps run
@@ -422,11 +511,11 @@ def do_train(cfg, model: LayeredModel, scene: SceneBoxes, train_pool: dict,
             if done >= steps:
                 return
             if ckpt_period and since["ckpt"] >= ckpt_period and cfg.OUTPUT_DIR:
-                save_checkpoint(cfg.OUTPUT_DIR, model, optimizer, scheduler, epoch,
-                                step=done)
+                save(epoch, done)
                 since["ckpt"] = 0
             if val_period and since["val"] >= val_period and val_fn is not None:
-                _call_val(val_fn, model, epoch, (epoch - 1) * steps + done)
+                if main:
+                    _call_val(val_fn, model, epoch, (epoch - 1) * steps + done)
                 since["val"] = 0
 
         m = epoch_fn(scene, pool, gen, mask_on, batch_size, steps, only_coarse,
@@ -435,29 +524,36 @@ def do_train(cfg, model: LayeredModel, scene: SceneBoxes, train_pool: dict,
         elapsed = time.time() - start
         ran = steps - skip
         rays_per_s = ran * batch_size / max(elapsed, 1e-9)
-        for i in range(0, ran, max(s.LOG_PERIOD, 1)):
-            # the reference's line (ref: engine/layered_trainer.py:304-306)
-            logger.info("Epoch[%d] Iteration[%d/%d] Loss: %.3e  Psnr coarse: %.2f "
-                        "Psnr fine: %.2f Speed: %.1f[rays/s]", epoch, skip + i, steps,
-                        float(metrics.loss[i]), float(metrics.psnr_coarse[i]),
-                        float(metrics.psnr_fine[i]), rays_per_s)
-            if swriter is not None:
-                global_step = (epoch - 1) * steps + skip + i
-                swriter.add_scalar("Loss/train_loss", float(metrics.loss[i]), global_step)
-                swriter.add_scalar("TrainPsnr", float(metrics.psnr_fine[i]), global_step)
-                swriter.add_scalar("Loss/mask_loss", float(metrics.mask_loss[i]),
-                                   global_step)
-                swriter.add_scalar("Loss/rgb_loss", float(metrics.rgb_loss[i]), global_step)
+        if main:
+            for i in range(0, ran, max(s.LOG_PERIOD, 1)):
+                # the reference's line (ref: engine/layered_trainer.py:304-306)
+                logger.info("Epoch[%d] Iteration[%d/%d] Loss: %.3e  Psnr coarse: %.2f "
+                            "Psnr fine: %.2f Speed: %.1f[rays/s]", epoch, skip + i, steps,
+                            float(metrics.loss[i]), float(metrics.psnr_coarse[i]),
+                            float(metrics.psnr_fine[i]), rays_per_s)
+                if swriter is not None:
+                    global_step = (epoch - 1) * steps + skip + i
+                    swriter.add_scalar("Loss/train_loss", float(metrics.loss[i]),
+                                       global_step)
+                    swriter.add_scalar("TrainPsnr", float(metrics.psnr_fine[i]),
+                                       global_step)
+                    swriter.add_scalar("Loss/mask_loss", float(metrics.mask_loss[i]),
+                                       global_step)
+                    swriter.add_scalar("Loss/rgb_loss", float(metrics.rgb_loss[i]),
+                                       global_step)
         if cfg.OUTPUT_DIR:
-            save_checkpoint(cfg.OUTPUT_DIR, model, optimizer, scheduler, epoch)
-        if val_fn is not None:
-            _call_val(val_fn, model, epoch)
-        logger.info("Epoch %d done. Time: %.3f[s] Speed: %.1f[rays/s]", epoch, elapsed,
-                    rays_per_s)
+            save(epoch)
+        if main:
+            if val_fn is not None:
+                _call_val(val_fn, model, epoch)
+            logger.info("Epoch %d done. Time: %.3f[s] Speed: %.1f[rays/s]", epoch, elapsed,
+                        rays_per_s)
         history.append((epoch, metrics))
+        # the metrics are the ranks' means: every rank stops at the same epoch
         mean_psnr = float(np.mean(metrics.psnr_fine))
         if mean_psnr > psnr_thres:
-            logger.info("Mean epoch PSNR %.3f > threshold %.3f, stopping", mean_psnr,
-                        psnr_thres)
+            if main:
+                logger.info("Mean epoch PSNR %.3f > threshold %.3f, stopping",
+                            mean_psnr, psnr_thres)
             break
     return history

@@ -7,6 +7,12 @@ compact screen tile, so a performer off that tile gets all-zero kernel
 skip flags for the whole chunk — and rendered chunk by chunk. Outputs come
 back quantized as the JAX package's do (u8 color, f16 depth and alpha);
 the host unscrambles the tile order into row-major images.
+
+With a mesh (``parallel.make_mesh``) of D ranks each rank renders its
+contiguous 1/D of every chunk, and the pose is gathered once, after its
+last chunk, in one collective; every rank gets the whole frame. The chunk
+is rounded up to a multiple of D x 64 (``render.chunked.shard_chunk``), so
+each rank's 64-ray kernel tiles are those of the unsharded render.
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ import torch
 
 from ..models.layered import (EditState, LayeredModel, LayeredSpec, RayInputs,
                               SceneBoxes, render_rays)
+from ..parallel import gather_chunked
+from .chunked import shard_chunk
 
 
 class QuantizedFrame(NamedTuple):
@@ -82,24 +90,33 @@ def render_pose_on_device(model: LayeredModel, scene: SceneBoxes, K, c2w,
                           generator: torch.Generator | None = None,
                           layer_outputs: tuple | None = None,
                           plain: bool = False,
-                          spec: LayeredSpec | None = None) -> QuantizedFrame:
+                          spec: LayeredSpec | None = None,
+                          mesh=None) -> QuantizedFrame:
     """Render a full pose; K (3, 3) on the host, c2w (4, 4), frame_ids
     (L+1,) and near_far (2,) tensors on the model's device. Returns the
     quantized per-pixel outputs in TILE order (see
-    :func:`tile_pixel_coords`). Chunks are queued on the device one after
+    :func:`tile_pixel_coords`; with a mesh, of the chunk rounded as
+    ``shard_chunk`` rounds it). Chunks are queued on the device one after
     another with no host synchronisation in between. ``spec`` is the
-    render spec ``render_rays`` takes (default: the model's)."""
+    render spec ``render_rays`` takes (default: the model's). With a mesh
+    over several ranks ``generator`` must be None."""
+    if mesh is not None and mesh.data > 1 and generator is not None:
+        raise ValueError("a pose sharded over several ranks samples "
+                         "deterministically: pass generator=None")
+    chunk = shard_chunk(chunk, mesh)
     _, _, _, _, n_pad = tile_grid(h, w, chunk, tile_cols)
     o, dirs = _device_tile_rays(K, c2w, h, w, chunk, tile_cols)
     lp1 = frame_ids.shape[0]
+    D, r = (1, 0) if mesh is None else (mesh.data, mesh.rank)
+    part = chunk // D
     parts = []
     for c in range(n_pad // chunk):
-        d_c = dirs[:, c * chunk:(c + 1) * chunk]
+        d_c = dirs[:, c * chunk + r * part:c * chunk + (r + 1) * part]
         inputs = RayInputs(
-            rays_o=o.expand(chunk, 3), rays_d=d_c.T,
-            frame_ids=frame_ids.expand(chunk, lp1),
-            cam_ids=torch.zeros(chunk, device=dirs.device),
-            near_far=near_far.expand(chunk, 2))
+            rays_o=o.expand(part, 3), rays_d=d_c.T,
+            frame_ids=frame_ids.expand(part, lp1),
+            cam_ids=torch.zeros(part, device=dirs.device),
+            near_far=near_far.expand(part, 2))
         out = render_rays(model, scene, inputs, edits, generator,
                           layer_outputs=layer_outputs, plain=plain, spec=spec)
         parts.append(QuantizedFrame(
@@ -108,9 +125,11 @@ def render_pose_on_device(model: LayeredModel, scene: SceneBoxes, K, c2w,
             out.fine_layers.depth[..., 0].half(),
             out.fine_layers.acc[..., 0].half()))
     # per-layer leaves carry the layer axis first: chunks join along rays
-    return QuantizedFrame(*(torch.cat(xs, dim=1 if name.startswith("layer") else 0)
-                            for name, xs in zip(QuantizedFrame._fields,
-                                                zip(*parts))))
+    dims = [1 if name.startswith("layer") else 0 for name in QuantizedFrame._fields]
+    frame = [torch.cat(xs, dim=d) for d, xs in zip(dims, zip(*parts))]
+    if mesh is not None:
+        frame = gather_chunked(mesh, frame, dims, n_pad // chunk)
+    return QuantizedFrame(*frame)
 
 
 def render_pose_host(model: LayeredModel, scene: SceneBoxes, K, c2w,
@@ -119,7 +138,7 @@ def render_pose_host(model: LayeredModel, scene: SceneBoxes, K, c2w,
                      generator: torch.Generator | None = None,
                      far_clip: float = 20.0, download_layers=None,
                      plain: bool = False, spec: LayeredSpec | None = None,
-                     timings: dict | None = None):
+                     timings: dict | None = None, mesh=None):
     """-> (color (H,W,3), depth (H,W,1), color_layer list, depth_layer list),
     numpy images in [0, 1] (depth divided by ``far_clip``).
 
@@ -131,7 +150,9 @@ def render_pose_host(model: LayeredModel, scene: SceneBoxes, K, c2w,
     :func:`render_pose_on_device` takes it. ``timings`` (a dict) receives
     ``device_s``, the seconds from the call to the device's end of the
     pose (a CUDA synchronisation on a card), and ``download_s``, the
-    seconds of the copy to the host.
+    seconds of the copy to the host. With ``mesh`` the rays shard across
+    its ranks (:func:`render_pose_on_device`) and every rank returns the
+    whole images.
     """
     device = next(model.parameters()).device
     lp1 = model.spec.layer_num + 1
@@ -146,7 +167,7 @@ def render_pose_host(model: LayeredModel, scene: SceneBoxes, K, c2w,
     out = render_pose_on_device(
         model, scene, np.asarray(K, np.float32), dev(c2w), dev(frame_ids),
         dev(near_far), edits, h=h, w=w, chunk=chunk, tile_cols=tile_cols,
-        generator=generator, layer_outputs=lo, plain=plain, spec=spec)
+        generator=generator, layer_outputs=lo, plain=plain, spec=spec, mesh=mesh)
     if timings is not None:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
@@ -159,7 +180,7 @@ def render_pose_host(model: LayeredModel, scene: SceneBoxes, K, c2w,
         t.cpu().numpy() for t in (out.color, out.depth, lc, ld))
     if timings is not None:
         timings["download_s"] = time.perf_counter() - t0
-    vs, us, valid = tile_pixel_coords(h, w, chunk, tile_cols)
+    vs, us, valid = tile_pixel_coords(h, w, shard_chunk(chunk, mesh), tile_cols)
 
     def unscramble(flat, channels):
         img = np.zeros((h, w, channels), flat.dtype)

@@ -21,6 +21,13 @@ probes them against the exact path on the first gt pose at the loaded
 weights, sets ``fidelity_db``, and below ``TPU.FIDELITY_MIN_DB`` falls back
 to the exact path for the renderer's life. Frames are written as PNG (the
 JAX renderer writes colour as JPEG), in the same directory tree.
+
+With a mesh (``parallel.make_mesh``) every rank constructs the renderer
+and renders every pose with its rays sharded across the ranks
+(``render_pose_host(mesh=)``). Rank 0 alone refines the occupancy boxes,
+runs the fidelity gate and writes frames; the other ranks take its boxes,
+its gate decision and its parameters, so that no two ranks render a pose
+on different paths.
 """
 
 from __future__ import annotations
@@ -36,7 +43,8 @@ import torch
 from ..data import RenderScene
 from ..device import resolve_device
 from ..engine.checkpoint import latest_checkpoint, load_params_any
-from ..models import EditState, LayeredModel, LayeredSpec, compute_scale_pivot
+from ..models import EditState, LayeredModel, LayeredSpec, SceneBoxes, compute_scale_pivot
+from ..parallel import shard_params
 from .occupancy import refined_boxes_cached
 from .paths import lookat_path, lookat_path_centers, retime_frames, smooth_pose_path
 from .pose_device import render_pose_host, render_pose_on_device
@@ -58,12 +66,11 @@ class LayeredNeuralRenderer:
         built from ``cfg``, or, with none there, a fresh model from seed 0.
         ``device``: where the scene and the model live (default: the CUDA
         card; raises without one). ``rotation`` is accepted for ctor parity
-        and ignored, as in the JAX package and the reference. ``mesh``
-        (chunk sharding over several cards) is not ported."""
-        if mesh is not None:
-            raise NotImplementedError("rendering over several cards (mesh) is not "
-                                      "ported to stnerf_tpu_torch yet")
+        and ignored, as in the JAX package and the reference. ``mesh``: the
+        ranks to shard every pose's rays over (``parallel.make_mesh``), each
+        on its own ``device``."""
         self.cfg = cfg
+        self.mesh = mesh
         self.logger = logging.getLogger("stnerf_tpu_torch.render")
         self.device = resolve_device(device)
         self.scale = scale
@@ -88,6 +95,8 @@ class LayeredNeuralRenderer:
         self._params_supplied = params is not None
         self.model = params if params is not None else self._load_params(
             LayeredSpec.from_cfg(cfg, camera_num=self.dataset.camera_num))
+        if mesh is not None:
+            shard_params(mesh, self.model)
         # the spec every pose renders with: the model's, with the config's
         # approximations, and the sorted merge as the JAX renderer's spec
         self.spec = dataclasses.replace(
@@ -98,7 +107,7 @@ class LayeredNeuralRenderer:
         self.scale_pivot = compute_scale_pivot(self.scene.bkgd_box, self.scene.boxes[0])
         # occupancy only means something for a trained field: a fresh model
         # (no checkpoint on disk) keeps the scene's boxes
-        if cfg.TPU.OCCUPANCY_SKIP and self._ckpt_path is not None:
+        if cfg.TPU.OCCUPANCY_SKIP and self._ckpt_path is not None and self._main:
             self.scene = refined_boxes_cached(
                 self.model, self.scene, cache_dir=self.dataset_dir,
                 ckpt_path=self._ckpt_path, grid=cfg.TPU.OCC_GRID,
@@ -148,10 +157,26 @@ class LayeredNeuralRenderer:
                         and not cfg.TPU.OCC_AUTO_TAU)
         approx = (self.spec.fast_fine or self.spec.coarse_exit_segments > 1
                   or occ_in_probe)
-        if (approx and cfg.TPU.FIDELITY_GATE
+        if (approx and cfg.TPU.FIDELITY_GATE and self._main
                 and (self._ckpt_path is not None or self._params_supplied)
                 and len(self.gt_poses) > 0):
             self._apply_fidelity_gate()
+        if mesh is not None:
+            self._follow_main()
+
+    @property
+    def _main(self) -> bool:
+        return self.mesh is None or self.mesh.is_main
+
+    def _follow_main(self):
+        """Every rank renders with rank 0's boxes, spec and gate reading."""
+        state = None
+        if self._main:
+            state = (self.spec, self.fidelity_db, self.scene is self._exact_scene,
+                     [t.cpu().numpy() for t in self.scene])
+        self.spec, self.fidelity_db, exact, boxes = self.mesh.broadcast_object(state)
+        self.scene = self._exact_scene if exact else SceneBoxes(
+            *(torch.as_tensor(x, device=self.device) for x in boxes))
 
     # ------------------------------------------------------------------
     def _load_params(self, spec: LayeredSpec) -> LayeredModel:
@@ -458,7 +483,8 @@ class LayeredNeuralRenderer:
             self.model, self.scene, K, pose, frame_ids, self.dataset.near_far,
             edits, self.height, self.width, chunk=self.cfg.TPU.RENDER_CHUNK,
             tile_cols=self.cfg.TPU.TILE_COLS, far_clip=self.far,
-            download_layers=download_layers, spec=self.spec, timings=timings)
+            download_layers=download_layers, spec=self.spec, timings=timings,
+            mesh=self.mesh)
 
     def _video_dir(self, sub: str) -> str:
         parts = [self.output_dir]
@@ -474,14 +500,17 @@ class LayeredNeuralRenderer:
                     bkgd_density_threshold=0, auto_save=True):
         """Render every queued pose; save per-frame mixed + per-layer
         color/depth images and the pose/K tables
-        (ref: layered_neural_renderer.py:401-488)."""
-        save_dir = self._video_dir("mixed")
-        with open(os.path.join(save_dir, "poses"), "w") as f:
-            for pose in self.poses:
-                f.write(str(pose) + "\n")
-        with open(os.path.join(save_dir, "Ks"), "w") as f:
-            for K in self.Ks:
-                f.write(str(K) + "\n")
+        (ref: layered_neural_renderer.py:401-488). With a mesh every rank
+        renders every pose; rank 0 alone keeps and writes the frames."""
+        auto_save = auto_save and self._main
+        if self._main:
+            save_dir = self._video_dir("mixed")
+            with open(os.path.join(save_dir, "poses"), "w") as f:
+                for pose in self.poses:
+                    f.write(str(pose) + "\n")
+            with open(os.path.join(save_dir, "Ks"), "w") as f:
+                for K in self.Ks:
+                    f.write(str(K) + "\n")
 
         self.images, self.depths = [], []
         self.images_layer = [[] for _ in range(self.layer_num + 1)]
@@ -494,7 +523,8 @@ class LayeredNeuralRenderer:
         shown = [l for l in range(self.layer_num + 1)
                  if self.is_shown_layer(l)]
         for idx, pose in enumerate(self.poses):
-            self.logger.info("Rendering image %d", idx)
+            if self._main:
+                self.logger.info("Rendering image %d", idx)
             timings = {}
             color, depth, color_layer, depth_layer = self.render_pose(
                 pose, self.Ks[idx], self.layer_frame_pairs[idx],
@@ -524,7 +554,7 @@ class LayeredNeuralRenderer:
                     self.images_layer[layer_id].append(color_layer[layer_id])
                     self.depths_layer[layer_id].append(depth_layer[layer_id])
             self.image_num += 1
-        if self.image_num:
+        if self.image_num and self._main:
             elapsed = time.perf_counter() - path_t0
             # device: from the call to the end of the pose on the device (a
             # CUDA sync); download: the copy of the frames to the host; the
@@ -542,7 +572,7 @@ class LayeredNeuralRenderer:
         layer 2 (ref: layered_neural_renderer.py:550-617)."""
         self.render_path(inverse_y_axis, density_threshold,
                          bkgd_density_threshold, auto_save)
-        if not auto_save or self.layer_num < 2:
+        if not auto_save or self.layer_num < 2 or not self._main:
             return
         out_dir = os.path.join(self.output_dir, "02", "color")
         os.makedirs(out_dir, exist_ok=True)
@@ -555,7 +585,10 @@ class LayeredNeuralRenderer:
 
     def save_video(self):
         """Encode the last path's colour and depth frames as videos (where
-        an encoder imports; ``render.video.write_video``)."""
+        an encoder imports; ``render.video.write_video``); rank 0's alone
+        with a mesh."""
+        if not self._main:
+            return
         if not self.images:
             self.logger.warning("no rendered images; nothing to save")
             return

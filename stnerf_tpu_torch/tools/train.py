@@ -4,6 +4,7 @@
     python -m stnerf_tpu_torch.tools.train -c configs/config_synthetic.yml
         [--resume] [--epochs N] [--seed S] [--psnr-thres X] [--workers W]
         [--auto-restart N] [--device cpu|cuda[:i]]
+    torchrun --nproc_per_node N -m stnerf_tpu_torch.tools.train -c CONFIG ...
 
 The flow is the JAX entry point's: the config, then the training ray pool
 from the scene on disk (``data.make_train_data``, cached under
@@ -23,9 +24,20 @@ labeled views), and ``engine.do_train``. It runs on the CUDA card unless
 runs in a child process, relaunched with ``--resume`` up to N times after
 a crash, so at most the steps since the last checkpoint are lost
 (``SOLVER.CHECKPOINT_PERIOD``). The supervisor imports no torch and never
-initialises CUDA: one process owns the card. Multi-GPU training is not
-ported; ``--model-parallel`` is accepted and ignored with a warning, as in
-the JAX entry point: training replicates the parameters.
+initialises CUDA: one process owns the card.
+
+Under ``torchrun`` (``WORLD_SIZE`` > 1) the run trains data-parallel over
+the ranks, one card each (``cuda:LOCAL_RANK``, NCCL; gloo on the CPU with
+``--device cpu``): the parameters replicated from rank 0, each rank on its
+slice of the pool, one ``all_reduce`` a step (``engine.do_train(mesh=)``).
+``TPU.MESH_DATA`` -1 takes every rank; any other value must equal the
+world size. Rank 0 builds the ray pool and its cache, the other ranks load
+that cache after it; rank 0 alone logs, validates, writes events and saves
+checkpoints, and with ``--resume`` every rank loads the same file.
+``--auto-restart`` is refused under torchrun: a restart must take down
+every rank, which torchrun's own ``--max-restarts`` does.
+``--model-parallel`` is accepted and ignored with a warning, as in the JAX
+entry point: training replicates the parameters.
 """
 
 from __future__ import annotations
@@ -119,6 +131,10 @@ def parse_args(argv=None) -> argparse.Namespace:
 def main(argv=None) -> list:
     argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_args(argv)
+    world = int(os.environ.get("WORLD_SIZE", "1"))   # the ranks torchrun started
+    if args.auto_restart > 0 and world > 1:
+        raise SystemExit("--auto-restart supervises one process; under torchrun "
+                         "restart every rank with torchrun's --max-restarts instead")
     if args.auto_restart > 0:
         # the supervisor: the run is a child process with the same flags
         root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -128,33 +144,66 @@ def main(argv=None) -> list:
         sys.exit(supervise(cmd, args.auto_restart,
                            run=lambda c: subprocess.call(c, env=env)))
 
-    import numpy as np
     import torch
 
     from ..config import get_cfg
-    from ..data import ViewScene, make_train_data
     from ..device import resolve_device
-    from ..engine import (do_train, latest_checkpoint, make_frozen_mask, make_optimizer,
-                          make_val_fn, pool_camera_num, resume_checkpoint)
-    from ..models import LayeredModel, LayeredSpec
-    from ..utils import EventWriter
+    from ..parallel import init_distributed, make_mesh
 
     cfg = get_cfg()
     cfg.merge_from_file(args.config)
     if args.epochs is not None:
         cfg.SOLVER.MAX_EPOCHS = args.epochs
     cfg.freeze()
+    if cfg.TPU.MESH_DATA not in (-1, world):
+        raise SystemExit(f"TPU.MESH_DATA {cfg.TPU.MESH_DATA} does not match the {world} "
+                         "rank(s) started: launch with torchrun --nproc_per_node "
+                         f"{cfg.TPU.MESH_DATA}, or set TPU.MESH_DATA -1 (all ranks)")
 
-    logger = _setup_logger("stnerf_tpu_torch.train", cfg.OUTPUT_DIR or None)
-    device = resolve_device(args.device)
-    logger.info("device: %s%s", device, f" ({torch.cuda.get_device_name(device)})"
-                if device.type == "cuda" else "")
+    mesh = None
+    if world > 1:
+        device = init_distributed(args.device)
+        mesh = make_mesh(device=device)
+    else:
+        device = resolve_device(args.device)
+    main_rank = mesh is None or mesh.is_main
+    logger = _setup_logger("stnerf_tpu_torch.train",
+                           (cfg.OUTPUT_DIR or None) if main_rank else None)
+    if not main_rank:
+        logger.setLevel(logging.WARNING)  # rank 0 alone logs
+    logger.info("device: %s%s%s", device, f" ({torch.cuda.get_device_name(device)})"
+                if device.type == "cuda" else "",
+                f", rank 0 of {world} ({mesh.backend})" if mesh is not None else "")
 
+    try:
+        return _train(args, cfg, mesh, device, logger)
+    finally:
+        if mesh is not None:
+            torch.distributed.destroy_process_group()
+
+
+def _train(args, cfg, mesh, device, logger) -> list:
+    import numpy as np
+    import torch
+
+    from ..data import ViewScene, make_train_data
+    from ..engine import (do_train, latest_checkpoint, make_frozen_mask, make_optimizer,
+                          make_val_fn, pool_camera_num, resume_checkpoint)
+    from ..models import LayeredModel, LayeredSpec
+    from ..parallel import shard_params
+    from ..utils import EventWriter
+
+    main_rank = mesh is None or mesh.is_main
     spec = LayeredSpec.from_cfg(cfg)
     logger.info("building training ray pool (cached under %s/%s)...",
                 cfg.DATASETS.TRAIN, cfg.DATASETS.TMP_RAYS)
+    # the pool is built once: rank 0 fills the cache, the others read it
+    if not main_rank:
+        mesh.barrier()
     pool, scene = make_train_data(cfg, spec, np.random.default_rng(args.seed),
                                   workers=args.workers, device=device)
+    if main_rank and mesh is not None:
+        mesh.barrier()
     n_rays = pool["pix" if "pix" in pool else "rays"].shape[0]
     logger.info("ray pool: %d rays%s", n_rays,
                 " (compact pixel format)" if "pix" in pool else "")
@@ -168,6 +217,8 @@ def main(argv=None) -> list:
     if mp != 1:
         logger.warning("epoch training replicates params; ignoring "
                        "model_parallel=%d (render-path option only)", mp)
+    if mesh is not None:
+        shard_params(mesh, model)
     frozen_mask = make_frozen_mask(model, cfg.SOLVER.FROZEN_GROUPS)
     if frozen_mask is not None:
         logger.info("frozen param groups: %s (receive zero updates)",
@@ -183,17 +234,20 @@ def main(argv=None) -> list:
         logger.info("resumed %s (epoch %d, step %d)%s", ckpt, info["epoch"], resume_step,
                     "" if info["optimizer"] else ": parameters only, a fresh optimizer")
 
-    swriter = EventWriter(os.path.join(cfg.OUTPUT_DIR, "tb")) if cfg.OUTPUT_DIR else None
+    # rank 0 alone validates and writes events
+    swriter = (EventWriter(os.path.join(cfg.OUTPUT_DIR, "tb"))
+               if cfg.OUTPUT_DIR and main_rank else None)
     val_fn = None
-    try:
-        view_scene = ViewScene(cfg)
-        val_fn = make_val_fn(cfg, model.spec, scene, view_scene, logger, swriter)
-    except (OSError, ValueError) as e:
-        logger.warning("validation disabled: %s", e)
+    if main_rank:
+        try:
+            view_scene = ViewScene(cfg)
+            val_fn = make_val_fn(cfg, model.spec, scene, view_scene, logger, swriter)
+        except (OSError, ValueError) as e:
+            logger.warning("validation disabled: %s", e)
 
     try:
-        return do_train(cfg, model, scene, pool, optimizer, scheduler, val_fn=val_fn,
-                        resume_epoch=resume_epoch, resume_step=resume_step,
+        return do_train(cfg, model, scene, pool, optimizer, scheduler, mesh=mesh,
+                        val_fn=val_fn, resume_epoch=resume_epoch, resume_step=resume_step,
                         psnr_thres=args.psnr_thres, seed=args.seed, logger=logger,
                         device=device, swriter=swriter)
     finally:
