@@ -191,10 +191,28 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``stnerf_tpu_torch/native/``: ``mix_image``'s z-buffer the nearest
    layer's depth, K1's launches the renders', K1 against its plain
    version >= 40 dB on a field's rays.
+17. The model axis (after 16), on phase 11's config (the taekwondo widths),
+   each performer field on one model rank (``parallel.shard_params``).
+   (a) Two processes on this card over gloo, a (1, 2) mesh: one step on a
+   2000-ray batch, each rank's gradients and parameters after Adam bitwise
+   the in-process unsharded step's, K1 and K2 launched 4 times a rank (the
+   background and its performer, two stages; 6 unsharded); a do_train
+   epoch of 20 steps, losses and checkpoints bitwise the unsharded run's;
+   the first gt pose through ``render_pose_host(mesh=)`` bitwise. (b) Four
+   processes on this card over gloo, a (2, 2) mesh, one step with each
+   data row on its fixed half of the batch, every rank bitwise the
+   in-process reconstruction ((g0 + g1) / 2, one Adam step). (c) (b) over
+   NCCL, one card a rank, where the machine has four cards; with fewer it
+   prints that it did not run and why. Per rank: launches, bytes of
+   parameters and Adam state beside the unsharded step's, the bytes of
+   every gather and of the flat reduction; seconds under a key that says
+   they are no speed figure.
 Then the whole script's seconds, the kernels' build included.
 
 Weights are random from a seeded generator. It needs one CUDA card, and
 fails where there is none or where the repository is not beside it.
+``python3 chip_smoke.py --model-axis-nccl`` runs phase 17(c) alone (the
+build, phase 11's scene written afresh), for a machine with four cards.
 """
 
 from __future__ import annotations
@@ -3136,6 +3154,359 @@ def phase_legacy_renderer(device, cfg_file: str, card: str) -> dict:
     return row
 
 
+def performer_of(name: str):
+    """The performer whose field or motion net parameter ``name`` belongs
+    to, or None for the replicated groups."""
+    group, _, rest = name.partition(".")
+    return int(rest.split(".")[0]) if group in ("layers_coarse", "layers_fine",
+                                                "motion") else None
+
+
+def state_bytes(model, opt) -> dict:
+    """Bytes a rank holds: every parameter (resident), those it trains (a
+    gradient this step: the background's and its own performers'), their
+    gradients, and the optimizer's state tensors."""
+    import torch
+
+    trained = [p for p in model.parameters() if p.grad is not None]
+    return {"params_resident": sum(p.numel() * p.element_size() for p in model.parameters()),
+            "params_trained": sum(p.numel() * p.element_size() for p in trained),
+            "params_trained_count": sum(p.numel() for p in trained),
+            "grads": sum(p.grad.numel() * p.grad.element_size() for p in trained),
+            "adam": sum(t.numel() * t.element_size() for s in opt.state.values()
+                        for t in s.values() if isinstance(t, torch.Tensor))}
+
+
+def model_axis_worker(rank: int, world: int, port: int, work: str, device: str,
+                      backend: str):
+    """One rank of phase 17 on a (world / 2, 2) mesh: over gloo with every
+    process on ``device``, or over NCCL with rank r on card r. A
+    layer-sharded step on its data row's batch; on a (1, 2) mesh also a
+    do_train epoch and the first gt pose. The launches of each part, the
+    gathers' bytes (every call of the byte gather), the bytes held and
+    the host seconds go to ``work``/rank<r>.pt."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from stnerf_tpu_torch.config import get_cfg
+    from stnerf_tpu_torch.engine import do_train, make_optimizer, make_train_step
+    from stnerf_tpu_torch.models import EditState
+    from stnerf_tpu_torch.parallel import init_distributed, make_mesh, shard_params
+    from stnerf_tpu_torch.parallel import mesh as mesh_module
+    from stnerf_tpu_torch.render import render_pose_host
+
+    set_rank_env(rank, world, port)
+    device = init_distributed(f"cuda:{rank}" if backend == "nccl" else device,
+                              backend=backend)
+    mesh = make_mesh(model_parallel=2, device=device)
+    blob = torch.load(os.path.join(work, "inputs.pt"), map_location=device,
+                      weights_only=False)
+    cfg = get_cfg()
+    cfg.merge_from_file(blob["cfg_file"])
+    scene = type(blob["scene"])(*(t.to(device) for t in blob["scene"]))
+    gathered = []
+    gather = mesh_module._gather_bytes
+
+    def counted_gather(group, n, index, local):
+        gathered.append(n * local.numel())
+        return gather(group, n, index, local)
+
+    mesh_module._gather_bytes = counted_gather
+    out = {"mesh": [mesh.data, mesh.model, mesh.rank, mesh.model_rank, mesh.is_main],
+           "backend": mesh.backend, "device": str(device)}
+
+    model = shard_params(mesh, entry_model(cfg, device, blob["model"]))
+    opt, sched = make_optimizer(cfg, model)
+    step = make_train_step(model, opt, sched, remove_outliers=True, device=device, mesh=mesh)
+    gen = torch.Generator(device=device).manual_seed(SEED + 100 + mesh.rank)
+    zero_launches()
+    gathered.clear()
+    sync(device)
+    t0 = time.perf_counter()
+    m = step(scene, blob["batches"][mesh.rank], gen, 1.0)
+    sync(device)
+    seconds = time.perf_counter() - t0
+    out["step"] = {"s": seconds, "loss": float(m.loss), "launches": read_launches(),
+                   "gather_bytes": list(gathered), "bytes": state_bytes(model, opt),
+                   "performers": list(model.performers()),
+                   "grads": {n: p.grad.cpu() for n, p in model.named_parameters()
+                             if p.grad is not None},
+                   "params": {n: p.detach().cpu() for n, p in model.named_parameters()
+                              if p.grad is not None}}
+    if mesh.data == 1:
+        quiet = logging.getLogger(f"chip_smoke.model_axis.{rank}")
+        quiet.propagate = False
+        cfg.OUTPUT_DIR = os.path.join(work, "sharded")
+        cfg.SOLVER.MAX_EPOCHS, cfg.SOLVER.COARSE_STAGE = 2, 1    # one full epoch
+        model = shard_params(mesh, entry_model(cfg, device, blob["model"]))
+        zero_launches()
+        sync(device)
+        t0 = time.perf_counter()
+        hist = do_train(cfg, model, scene, blob["pool"], mesh=mesh, seed=SEED, logger=quiet,
+                        device=device)
+        sync(device)
+        out["epoch"] = {"s": time.perf_counter() - t0, "loss": hist[0][1].loss,
+                        "launches": read_launches()}
+        model = shard_params(mesh, entry_model(cfg, device, blob["model"]))
+        K, c2w, fids, nf, h, w = blob["pose"]
+        zero_launches()
+        gathered.clear()
+        sync(device)
+        t0 = time.perf_counter()
+        pose = render_pose_host(model, scene, K, c2w, fids, nf,
+                                EditState.identity(cfg.DATASETS.LAYER_NUM, device=device),
+                                h, w, chunk=cfg.TPU.RENDER_CHUNK, tile_cols=cfg.TPU.TILE_COLS,
+                                mesh=mesh)
+        out["pose"] = {"s": time.perf_counter() - t0, "arrays": pose_arrays(pose),
+                       "launches": read_launches(), "gather_bytes": list(gathered)}
+    torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def compare_named(got: dict, ref: dict) -> tuple:
+    """(every tensor of ``got`` bitwise ``ref``'s under its name, the
+    largest absolute difference)."""
+    import torch
+
+    same = all(torch.equal(t, ref[n]) for n, t in got.items())
+    diff = max(float((t - ref[n]).abs().max()) for n, t in got.items())
+    return same, diff
+
+
+def phase_model_axis(device, cfg_file: str, card: str,
+                     parts: tuple = ("1x2", "2x2", "2x2_nccl")) -> dict:
+    """Phase 17, the model axis, on phase 11's entry-point config (the
+    taekwondo widths, L = 2, 90+30 samples, bf16, batch 2000, the
+    compositor kernels on), each performer field on one model rank
+    (``parallel.shard_params``).
+
+    (a) "1x2": two processes on this card over gloo, a (1, 2) mesh: one
+    step on the whole 2000-ray batch, each rank's gradients (the
+    background's and its own performer's) and parameters after Adam
+    bitwise the in-process unsharded step's, K1 and K2 launched 4 times a
+    rank (2 fields x 2 stages); a do_train epoch of 20 steps whose losses
+    and checkpoints (mid-epoch and the epoch's) are bitwise the unsharded
+    run's; the first gt pose through render_pose_host(mesh=) bitwise the
+    unsharded pose. (b) "2x2": four processes on this card over gloo, a
+    (2, 2) mesh, one step with each data row on its fixed half of the
+    batch: every rank bitwise the in-process reconstruction ((g0 + g1) /
+    2, one Adam step). (c) "2x2_nccl": (b) over NCCL, one card a rank,
+    where the machine has four; with fewer it prints why it did not run.
+    Per rank: the launches, the bytes of parameters and Adam state (beside
+    the unsharded step's), the bytes of every gather and of the flat
+    reduction; host seconds under a key that says they are no speed
+    figure. -> summary dict (launches by path)."""
+    import shutil
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from stnerf_tpu_torch.config import get_cfg
+    from stnerf_tpu_torch.data import make_train_data
+    from stnerf_tpu_torch.engine import (do_train, make_decode, make_optimizer,
+                                         make_train_step, sort_batch_by_hit,
+                                         split_compact_bundle, training_spec)
+    from stnerf_tpu_torch.engine.trainer import _losses, _take
+    from stnerf_tpu_torch.models import EditState, LayeredSpec
+    from stnerf_tpu_torch.render import render_pose_host
+
+    cfg = get_cfg()
+    cfg.merge_from_file(cfg_file)
+    spec = LayeredSpec.from_cfg(cfg)
+    L = cfg.DATASETS.LAYER_NUM
+    pool, scene = make_train_data(cfg, spec, np.random.default_rng(SEED), workers=1,
+                                  device=device)
+    state = {k: v.clone() for k, v in entry_model(cfg, device).state_dict().items()}
+    pose, _ = entry_pose(cfg, device)
+    bundle_pool, tables, width = split_compact_bundle(pool, device)
+    n = cfg.SOLVER.IMS_PER_BATCH
+    idx = torch.arange(n, device=device) * (bundle_pool.rgb.shape[0] // n)
+    batch = sort_batch_by_hit(spec, scene, make_decode(tables, spec, width)(
+        _take(bundle_pool, idx)))
+    halves = [_take(batch, torch.arange(r * n // 2, (r + 1) * n // 2, device=device))
+              for r in range(2)]
+    edits = EditState.identity(L, device=device)
+    root = os.path.join(REPO, "build", "chip_smoke_model_axis")
+    shutil.rmtree(root, ignore_errors=True)
+
+    # the in-process references: the unsharded step on the whole batch, and
+    # the reconstruction of the (2, 2) step from the halves
+    model = entry_model(cfg, device, state)
+    opt, sched = make_optimizer(cfg, model)
+    zero_launches()
+    make_train_step(model, opt, sched, remove_outliers=True, device=device)(
+        scene, batch, torch.Generator(device=device).manual_seed(SEED + 100), 1.0)
+    unsharded = {"launches": read_launches(), "bytes": state_bytes(model, opt),
+                 "grads": {n: p.grad.cpu() for n, p in model.named_parameters()},
+                 "params": {n: p.detach().cpu() for n, p in model.named_parameters()}}
+    model = entry_model(cfg, device, state)
+    tspec = training_spec(model.spec)
+    grads = []
+    for r in range(2):
+        model.zero_grad(set_to_none=True)
+        loss, _ = _losses(model, edits, True, scene, halves[r],
+                          torch.Generator(device=device).manual_seed(SEED + 100 + r), 1.0,
+                          False, spec=tspec, mask_scale=2.0)
+        loss.backward()
+        grads.append([p.grad.clone() for p in model.parameters()])
+    opt, _ = make_optimizer(cfg, model)
+    for p, g0, g1 in zip(model.parameters(), *grads):
+        p.grad = (g0 + g1) / 2
+    halves_ref = {"grads": {n: p.grad.cpu() for n, p in model.named_parameters()}}
+    opt.step()
+    halves_ref["params"] = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    names = set(unsharded["grads"])
+
+    def run(part: str, world: int, backend: str) -> list:
+        work = os.path.join(root, part)
+        os.makedirs(work)
+        torch.save({"cfg_file": cfg_file, "model": state, "scene": scene, "pose": pose,
+                    "pool": pool, "batches": [batch] if world == 2 else halves},
+                   os.path.join(work, "inputs.pt"))
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        mp.spawn(model_axis_worker, args=(world, free_port(), work, str(device), backend),
+                 nprocs=world, join=True)
+        spawn_s = time.perf_counter() - t0
+        got = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+               for r in range(world)]
+        check([g["mesh"] for g in got] == [[world // 2, 2, r // 2, r % 2, r == 0]
+                                           for r in range(world)],
+              f"17 {part}: the ranks' places {[g['mesh'] for g in got]}")
+        for r, g in enumerate(got):
+            s = g["step"]
+            check(s["performers"] == [r % 2], f"17 {part}: rank {r} owns {s['performers']}")
+            mine = {n for n in names if performer_of(n) in (None, r % 2)}
+            check(set(s["grads"]) == mine, f"17 {part}: rank {r} has gradients "
+                  f"{sorted(names ^ set(s['grads']))[:4]}... apart from its own")
+            launches = s["launches"]
+            check(launches["fused_field"] == launches["fused_field_tc"] == 4
+                  and launches["field_bwd"] == launches["field_bwd_tc"] == 4,
+                  f"17 {part}: rank {r}'s step launched K1 {launches['fused_field']}, K2 "
+                  f"{launches['field_bwd']} times (2 fields x 2 stages: 4)")
+            check(all(launches[k] > 0 for k in ("cross_successor",
+                                                "cross_log_transmittance_fwd",
+                                                "cross_log_transmittance_bwd")),
+                  f"17 {part}: rank {r}'s step launched no K4/K5: {launches}")
+        return got, spawn_s
+
+    out = {}
+    if "1x2" in parts:
+        got, spawn_s = run("1x2", 2, "gloo")
+        step_same = [compare_named(g["step"]["grads"], unsharded["grads"]) for g in got]
+        param_same = [compare_named(g["step"]["params"], unsharded["params"]) for g in got]
+        check(all(s for s, _ in step_same + param_same),
+              f"17(a): the sharded step's gradients {step_same} and parameters {param_same} "
+              "are not bitwise the unsharded step's")
+        # the unsharded epoch, its checkpoints and the pose
+        work = os.path.join(root, "1x2")
+        ecfg = get_cfg()
+        ecfg.merge_from_file(cfg_file)
+        ecfg.OUTPUT_DIR = os.path.join(work, "plain")
+        ecfg.SOLVER.MAX_EPOCHS, ecfg.SOLVER.COARSE_STAGE = 2, 1
+        quiet = logging.getLogger("chip_smoke.model_axis")
+        quiet.propagate = False
+        hist = do_train(ecfg, entry_model(cfg, device, state), scene, pool, seed=SEED,
+                        logger=quiet, device=device)
+        for g in got:
+            check(np.array_equal(g["epoch"]["loss"], hist[0][1].loss),
+                  "17(a): the sharded epoch's losses are not bitwise the unsharded epoch's")
+        files = sorted(os.listdir(ecfg.OUTPUT_DIR))
+        check(files == sorted(os.listdir(os.path.join(work, "sharded"))) and len(files) == 2,
+              f"17(a): checkpoint files {files}")
+        for f in files:
+            a, b = (torch.load(os.path.join(work, d, f), map_location="cpu", weights_only=True)
+                    for d in ("plain", "sharded"))
+            sa, sb = a["optimizer"]["state"], b["optimizer"]["state"]
+            same = (a["model"].keys() == b["model"].keys()
+                    and all(torch.equal(a["model"][k], b["model"][k]) for k in a["model"])
+                    and sa.keys() == sb.keys()
+                    and all(sa[k].keys() == sb[k].keys()
+                            and all(torch.equal(sa[k][x], sb[k][x]) for x in sa[k])
+                            for k in sa)
+                    and a["scheduler"] == b["scheduler"] and a["step"] == b["step"])
+            check(same, f"17(a): checkpoint {f} is not the unsharded run's key for key")
+        K, c2w, fids, nf, h, w = pose
+        base = render_pose_host(entry_model(cfg, device, state), scene, K, c2w, fids, nf, edits,
+                                h, w, chunk=cfg.TPU.RENDER_CHUNK, tile_cols=cfg.TPU.TILE_COLS)
+        for g in got:
+            check(all(np.array_equal(a, b) for a, b in zip(g["pose"]["arrays"],
+                                                           pose_arrays(base))),
+                  "17(a): the sharded pose is not bitwise the unsharded pose")
+        steps = len(hist[0][1].loss)
+        for g in got:
+            e = g["epoch"]["launches"]
+            check(e["fused_field_tc"] == e["field_bwd_tc"] == steps * 2 * 2,
+                  f"17(a): the epoch's K1/K2 launches a rank {e['fused_field_tc']} / "
+                  f"{e['field_bwd_tc']}, {steps} steps x 2 stages x 2 fields")
+            check(g["pose"]["launches"]["fused_field_tc"] > 0, "17(a): the pose launched no K1")
+        launches = {k: sum(g[part]["launches"][k] for g in got for part in ("step", "epoch",
+                                                                           "pose"))
+                    for k in got[0]["step"]["launches"]}
+        row = {"mesh": "(1, 2)", "backend": "gloo", "processes_on_one_card": True,
+               "step_grads_bitwise": True, "step_params_bitwise": True,
+               "epoch_steps": steps, "epoch_losses_bitwise": True, "checkpoints_bitwise": files,
+               "pose_bitwise": True,
+               "k1_k2_launches_per_rank_step": [[g["step"]["launches"]["fused_field_tc"],
+                                                 g["step"]["launches"]["field_bwd_tc"]]
+                                                for g in got],
+               "k1_launches_unsharded_step": unsharded["launches"]["fused_field_tc"],
+               "k2_launches_unsharded_step": unsharded["launches"]["field_bwd_tc"],
+               "bytes_per_rank": [g["step"]["bytes"] for g in got],
+               "bytes_unsharded": unsharded["bytes"],
+               "gather_bytes_step": [g["step"]["gather_bytes"] for g in got],
+               "gather_bytes_pose": [sum(g["pose"]["gather_bytes"]) for g in got],
+               "gather_calls_pose": [len(g["pose"]["gather_bytes"]) for g in got],
+               "flat_reduction_bytes": 0, "launches": launches, "spawn_s": spawn_s,
+               "times_not_a_speed_figure_two_processes_share_one_card": {
+                   "step_s": [g["step"]["s"] for g in got],
+                   "epoch_s": [g["epoch"]["s"] for g in got],
+                   "pose_s": [g["pose"]["s"] for g in got]},
+               "card": card}
+        print("model_axis_1x2", json.dumps(row), flush=True)
+        out["1x2"] = row
+    for part, backend in (("2x2", "gloo"), ("2x2_nccl", "nccl")):
+        if part not in parts:
+            continue
+        if backend == "nccl" and torch.cuda.device_count() < 4:
+            row = {"ran": False, "why": f"{torch.cuda.device_count()} card(s): NCCL takes one "
+                   "card a rank and refuses two ranks on one card", "card": card}
+            print(f"model_axis_{part}", json.dumps(row), flush=True)
+            out[part] = row
+            continue
+        got, spawn_s = run(part, 4, backend)
+        same = [compare_named(g["step"]["grads"], halves_ref["grads"]) for g in got]
+        psame = [compare_named(g["step"]["params"], halves_ref["params"]) for g in got]
+        check(all(s for s, _ in same + psame),
+              f"17 {part}: the (2, 2) step's gradients {same} and parameters {psame} are not "
+              "bitwise the reconstruction's")
+        launches = {k: sum(g["step"]["launches"][k] for g in got)
+                    for k in got[0]["step"]["launches"]}
+        row = {"mesh": "(2, 2)", "backend": backend, "processes_on_one_card": backend == "gloo",
+               "devices": [g["device"] for g in got], "grads_bitwise": True,
+               "params_bitwise": True,
+               "k1_k2_launches_per_rank_step": [[g["step"]["launches"]["fused_field_tc"],
+                                                 g["step"]["launches"]["field_bwd_tc"]]
+                                                for g in got],
+               "bytes_per_rank": [g["step"]["bytes"] for g in got],
+               "gather_bytes_step": [g["step"]["gather_bytes"] for g in got],
+               "flat_reduction_bytes": [4 * (sum(t.numel() for t in g["step"]["grads"].values())
+                                             + 4) for g in got],
+               "loss": [g["step"]["loss"] for g in got], "launches": launches,
+               "spawn_s": spawn_s, "card": card,
+               ("times_not_a_speed_figure_four_processes_share_one_card" if backend == "gloo"
+                else "times_not_a_speed_figure_one_step_after_start_up"): {
+                   "step_s": [g["step"]["s"] for g in got]}}
+        print(f"model_axis_{part}", json.dumps(row), flush=True)
+        out[part] = row
+    for key in ("RANK", "LOCAL_RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        os.environ.pop(key, None)
+    return out
+
+
 def route_launches(launches: dict, name: str) -> int:
     """A kernel row's launches in a path's counts: a CUDA-core route counts
     what its wrapper launched off the tensor-core route."""
@@ -3145,10 +3516,28 @@ def route_launches(launches: dict, name: str) -> int:
     return n
 
 
+def model_axis_nccl_only(device, card: str) -> dict:
+    """Phase 17(c) alone, for a machine with four cards: phase 11's
+    synthetic scene and config written afresh, then the (2, 2) step over
+    NCCL against its in-process reconstruction."""
+    import shutil
+
+    from stnerf_tpu_torch.data import make_synthetic_scene
+
+    root = os.path.join(REPO, "build", "chip_smoke_synthetic")
+    shutil.rmtree(root, ignore_errors=True)
+    make_synthetic_scene(root, width=200, height=150, num_cams=12, num_frames=5,
+                         layer_num=2, seed=SEED)
+    cfg_file = entry_point_cfg_file(root, os.path.join(REPO, "build", "chip_smoke_entry"))
+    return phase_model_axis(device, cfg_file, card, parts=("2x2_nccl",))
+
+
 def main():
     script_t0 = time.perf_counter()
     import torch
 
+    if sys.argv[1:] not in ([], ["--model-axis-nccl"]):
+        raise SystemExit("usage: python3 chip_smoke.py [--model-axis-nccl]")
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke needs a CUDA device; torch.cuda.is_available() "
                            "is False")
@@ -3171,6 +3560,16 @@ def main():
         for line in log.read_text().splitlines():
             if "entry function" in line or "registers" in line or "spill" in line:
                 print("ptxas", line.strip(), flush=True)
+    if sys.argv[1:] == ["--model-axis-nccl"]:
+        row = model_axis_nccl_only(device, card)["2x2_nccl"]
+        check(row.get("ran", True), f"17(c) did not run: {row.get('why')}")
+        print(f"chip_smoke: {time.perf_counter() - script_t0:.1f} s in all, the kernels' "
+              "build included", flush=True)
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
 
     t0 = time.perf_counter()
     cases = phase_kernel_vs_plain(device, m=4096 * 120, reps=5)
@@ -3223,6 +3622,9 @@ def main():
     t0 = time.perf_counter()
     legacy = phase_legacy_renderer(device, entry_cfg, card)
     print(f"phase legacy_renderer: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    model_axis = phase_model_axis(device, entry_cfg, card)
+    print(f"phase model_axis: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # the performer field: the main paths' case. K1 and K2 in two routes
     # each: bf16 fields on the tensor-core kernels (every main path), float32
@@ -3358,12 +3760,15 @@ def main():
                         "plain_ms": cross[0][f"{key}_plain_ms"],
                         "bound_ms": cross[0][f"{key}_bound_ms"],
                         "bound_by": cross[0][f"{key}_bound_by"], "library_ms": None})
-    # the distributed paths (phase 15: the children's counts summed) and the
-    # legacy renderer (phase 16)
+    # the distributed paths (phase 15: the children's counts summed), the
+    # legacy renderer (phase 16) and the model axis (phase 17: every rank's
+    # counts summed)
     new_paths = {"distributed_nccl_world1": distributed["nccl"]["launches"],
                  "distributed_gloo_two_processes": distributed["gloo"]["launches"],
                  "legacy_renderer_fields": legacy["fields"]["launches"],
-                 "legacy_renderer_mesh_background": legacy["mesh_background"]["launches"]}
+                 "legacy_renderer_mesh_background": legacy["mesh_background"]["launches"],
+                 **{f"model_axis_{k}": r["launches"] for k, r in model_axis.items()
+                    if "launches" in r}}
     for row in kernels:
         for path, launches in new_paths.items():
             row["launches_by_path"][path] = route_launches(launches, row["name"])

@@ -44,13 +44,19 @@ FORMAT = "stnerf_tpu_torch.v1"
 
 
 def save_checkpoint(output_dir: str, model, optimizer=None, scheduler=None,
-                    epoch: int = 0, step: int | None = None) -> str:
+                    epoch: int = 0, step: int | None = None,
+                    optimizer_state: dict | None = None) -> str:
+    """``optimizer_state`` (default: ``optimizer.state_dict()``) is the
+    optimizer state to write: a layer-sharded run's made whole
+    (``parallel.gather_whole``)."""
     os.makedirs(output_dir, exist_ok=True)
     name = f"{_STEM}_{epoch}.pt" if step is None else f"{_STEM}_{epoch}_{step}.pt"
     path = os.path.join(output_dir, name)
+    if optimizer_state is None and optimizer is not None:
+        optimizer_state = optimizer.state_dict()
     blob = {"format": FORMAT, "epoch": epoch, "step": step or 0,
             "model": model.state_dict(),
-            "optimizer": None if optimizer is None else optimizer.state_dict(),
+            "optimizer": optimizer_state,
             "scheduler": None if scheduler is None else scheduler.state_dict()}
     tmp = path + ".tmp"
     torch.save(blob, tmp)

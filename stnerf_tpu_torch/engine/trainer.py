@@ -24,7 +24,12 @@ PARITY.md). The decoded camera ids drive the pose refinement and the
 view-deform net. Randomness comes from ``torch.Generator`` objects on the
 device keyed by position: an epoch's batch order by (seed, epoch), a
 step's sampling noise by (seed, epoch, step), so a run resumed at any step
-draws what the uninterrupted run drew. Multi-GPU training is not ported.
+draws what the uninterrupted run drew.
+
+On a mesh (``parallel.make_mesh``) the step averages the gradients over
+the data ranks, and with a layer-sharded model (``parallel.shard_params``)
+each model rank trains its own performers: epoch training takes a mesh of
+one data rank and M model ranks, as JAX's does.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from ..models.layered import (EditState, LayeredModel, LayeredSpec, RayInputs,
                               SceneBoxes, _gather_boxes, render_rays)
 from ..models.rays import unpack_rays
 from ..ops.sampling import ray_aabb_intersect
+from ..parallel import gather_whole, whole_model
 from .checkpoint import save_checkpoint
 from .loss import mask_alpha_loss, rgb_loss
 from .solver import make_optimizer
@@ -199,10 +205,11 @@ def sort_batch_by_hit(spec: LayeredSpec, scene: SceneBoxes,
 
 def _mean_over_ranks(mesh, params: list, raw: _RawMetrics) -> _RawMetrics:
     """JAX's ``pmean`` of the gradient tree and the raw metrics
-    (``trainer.py:363-365``) as one ``all_reduce`` of one flat buffer: the
-    gradients of ``params`` that have one (every rank's step builds the
-    same graph, so the same ones everywhere), then the four metrics. The
-    averaged gradients are left in ``.grad`` -> the averaged metrics."""
+    (``trainer.py:363-365``) as one ``all_reduce`` of one flat buffer over
+    the data ranks: the gradients of ``params`` that have one (the data
+    ranks of one model index build the same graph, so the same ones), then
+    the four metrics. The averaged gradients are left in ``.grad`` -> the
+    averaged metrics."""
     grads = [p.grad for p in params if p.grad is not None]
     flat = torch.cat([g.reshape(-1) for g in grads] + [torch.stack(tuple(raw))])
     mesh.all_reduce_mean_(flat)
@@ -224,8 +231,12 @@ def make_train_step(model: LayeredModel, optimizer, scheduler=None,
 
     With a ``mesh`` the batch is this rank's shard: the mask loss is scaled
     by the data size D, and the gradients and raw metrics are averaged over
-    the ranks (one flat ``all_reduce``) before the optimizer step, so every
-    rank takes the same step."""
+    the data ranks (one flat ``all_reduce``) before the optimizer step, so
+    every rank takes the same step. The mesh may have a model axis, as
+    JAX's step runs on any (data, model) mesh: with a layer-sharded model
+    (``parallel.shard_params``) each rank's buffer holds the gradients it
+    has, the background's and its own performers'; the model ranks of one
+    data row draw the same batch and compute the same loss."""
     device = resolve_device(device)
     _check_device(model, device)
     spec = training_spec(model.spec)
@@ -273,7 +284,8 @@ def make_train_epoch(model: LayeredModel, optimizer, scheduler=None,
     D), and each step draws batch/D rays from the shard and averages the
     gradients over the ranks (:func:`make_train_step`); the generators are
     this rank's own. A mesh with a model axis and a data axis both over 1
-    raises, as JAX's: epoch training replicates the parameters."""
+    raises, as JAX's; a mesh of one data rank and M model ranks trains a
+    layer-sharded model (``parallel.shard_params``)."""
     if mesh is not None and mesh.model > 1 and mesh.data > 1:
         raise ValueError("epoch training is data-parallel; use a mesh with "
                          "model axis 1 (params are replicated)")
@@ -416,16 +428,25 @@ def do_train(cfg, model: LayeredModel, scene: SceneBoxes, train_pool: dict,
     ``SOLVER.CHECKPOINT_PERIOD`` steps run (``_{epoch}_{step}``, none at an
     epoch's last step) and one per epoch; ``val_fn(model, epoch[, step])``
     runs every ``SOLVER.VAL_PERIOD`` steps (with the global step) and after
-    each epoch. Training stops after an epoch whose mean fine PSNR exceeds
-    ``psnr_thres``. Without an optimizer, ``make_optimizer`` builds one.
-    With pose refinement the model must hold a correction for every camera
-    of the pool: build it with ``LayeredSpec.from_cfg(cfg,
-    camera_num=pool_camera_num(train_pool, spec))``; a model with fewer
-    raises. -> [(epoch, StepMetrics of numpy arrays over the steps run)].
+    each epoch. On a mesh the main rank alone logs, saves and validates; a
+    layer-sharded model is first made whole on it (``parallel.gather_whole``,
+    every rank taking part), so that its checkpoint holds the whole model
+    and optimizer state as an unsharded run's does, and the main rank
+    validates alone on those whole weights (``parallel.whole_model``): the
+    main rank's ``val_fn`` decides for every rank. Training stops after an
+    epoch whose mean fine PSNR exceeds ``psnr_thres``. Without an
+    optimizer, ``make_optimizer`` builds one. With pose refinement the
+    model must hold a correction for every camera of the pool: build it
+    with ``LayeredSpec.from_cfg(cfg, camera_num=pool_camera_num(train_pool,
+    spec))``; a model with fewer raises. -> [(epoch, StepMetrics of numpy
+    arrays over the steps run)].
     """
     logger = logger or logging.getLogger("stnerf_tpu_torch.train")
     device = resolve_device(device)
     _check_device(model, device)
+    sharded = model.layer_shard is not None
+    if sharded and mesh is None:
+        raise ValueError("a layer-sharded model trains on its mesh: pass mesh=")
     s = cfg.SOLVER
     batch_size = s.IMS_PER_BATCH
     n_data = 1 if mesh is None else mesh.data
@@ -478,12 +499,26 @@ def do_train(cfg, model: LayeredModel, scene: SceneBoxes, train_pool: dict,
     # per-rank draws only over several ranks: one rank draws as no mesh
     rank_key = (mesh.rank,) if n_data > 1 else ()
 
+    has_val = (mesh.broadcast_object(val_fn is not None) if sharded
+               else val_fn is not None)
+
     def save(epoch, step=None):
         # rank 0 writes; every rank waits until the file is there
+        state = gather_whole(mesh, model, optimizer) if sharded else None
         if main:
-            save_checkpoint(cfg.OUTPUT_DIR, model, optimizer, scheduler, epoch, step=step)
+            save_checkpoint(cfg.OUTPUT_DIR, model, optimizer, scheduler, epoch, step=step,
+                            optimizer_state=state)
         if mesh is not None:
             mesh.barrier()
+
+    def validate(epoch, step=None):
+        # a sharded model renders through gathers: rank 0 validates alone
+        # on whole weights
+        if sharded:
+            gather_whole(mesh, model)
+        if main and val_fn is not None:
+            with whole_model(model):
+                _call_val(val_fn, model, epoch, step)
 
     history = []
     for epoch in range(1 + resume_epoch, s.MAX_EPOCHS):
@@ -513,9 +548,8 @@ def do_train(cfg, model: LayeredModel, scene: SceneBoxes, train_pool: dict,
             if ckpt_period and since["ckpt"] >= ckpt_period and cfg.OUTPUT_DIR:
                 save(epoch, done)
                 since["ckpt"] = 0
-            if val_period and since["val"] >= val_period and val_fn is not None:
-                if main:
-                    _call_val(val_fn, model, epoch, (epoch - 1) * steps + done)
+            if val_period and since["val"] >= val_period and has_val:
+                validate(epoch, (epoch - 1) * steps + done)
                 since["val"] = 0
 
         m = epoch_fn(scene, pool, gen, mask_on, batch_size, steps, only_coarse,
@@ -543,9 +577,9 @@ def do_train(cfg, model: LayeredModel, scene: SceneBoxes, train_pool: dict,
                                        global_step)
         if cfg.OUTPUT_DIR:
             save(epoch)
+        if has_val:
+            validate(epoch)
         if main:
-            if val_fn is not None:
-                _call_val(val_fn, model, epoch)
             logger.info("Epoch %d done. Time: %.3f[s] Speed: %.1f[rays/s]", epoch, elapsed,
                         rays_per_s)
         history.append((epoch, metrics))

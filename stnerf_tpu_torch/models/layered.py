@@ -49,6 +49,12 @@ trainable through K1 and K2 with the same per-tile flags. With the
 sort-free compositor that stage composites its carried coarse and new
 importance streams through ``ops.volume.composite_streams_nosort``, as the
 JAX trainer does; otherwise through the payload sort and the sorted merge.
+
+A layer-sharded model (``parallel.shard_params``, ``model.layer_shard``)
+evaluates the background and its own performers only, on either path, and
+gathers every field's rgb and sigma over the model group before the masks
+and the compositors (:func:`_own`, :func:`_whole`). Each field keeps its
+own tile flags, so its launches are the unsharded render's.
 """
 
 from __future__ import annotations
@@ -285,20 +291,30 @@ class LayeredModel(nn.Module):
                             if spec.use_deform_view else None)
         self.cam_pose = (CameraTransform(max(spec.camera_num, 1))
                          if spec.pose_refinement else None)
+        # the performers this model rank evaluates (parallel.shard_params);
+        # None: every field
+        self.layer_shard = None
         self._packed = {}
         self.to(device)
 
+    def performers(self) -> range:
+        """The performers this model evaluates: all L, or over a model axis
+        this rank's own (``parallel.shard_params``)."""
+        shard = self.layer_shard
+        return range(self.spec.layer_num) if shard is None else shard.layers
+
     def stage_fields(self, fine: bool) -> list:
-        """(SpaceNet, MotionNet or None, motion mode) per field at one
-        stage: the background deforms with "direct" motion
-        (BKGD_USE_DEFORM_TIME), performers with "lerp"."""
+        """(SpaceNet, MotionNet or None, motion mode) per field this model
+        evaluates at one stage (the background, then :meth:`performers`):
+        the background deforms with "direct" motion (BKGD_USE_DEFORM_TIME),
+        performers with "lerp"."""
         layers = (self.layers_fine if fine and self.layers_fine is not None
                   else self.layers_coarse)
         fields = [(self.bkgd_fine if fine else self.bkgd_coarse, self.bkgd_motion,
                    None if self.bkgd_motion is None else "direct")]
-        return fields + [(net, None if self.motion is None else self.motion[i],
+        return fields + [(layers[i], None if self.motion is None else self.motion[i],
                           None if self.motion is None else "lerp")
-                         for i, net in enumerate(layers)]
+                         for i in self.performers()]
 
     @torch.no_grad()
     def kernel_fields(self, fine: bool) -> list[PackedField]:
@@ -307,10 +323,10 @@ class LayeredModel(nn.Module):
         another device)."""
         dt = self.spec.dtype
         version = tuple((p.data_ptr(), p._version) for p in self.parameters())
-        key = (fine, version)
+        key = (fine, self.performers(), version)
         if key not in self._packed:
             self._packed = {k: v for k, v in self._packed.items()
-                            if k[1] == version}
+                            if k[2] == version}
             self._packed[key] = [
                 pack_field(prepare_kernel_params_planar(net, dt),
                            () if mode is None else prepare_motion_params_planar(motion, dt),
@@ -416,14 +432,37 @@ def _tile_flags(ray_hit: torch.Tensor, S: int) -> torch.Tensor:
     return hs.reshape(-1, TILE).any(-1).to(torch.int32)
 
 
+def _own(model: LayeredModel, x: torch.Tensor) -> torch.Tensor:
+    """Per field x (L+1, ...) -> the fields the model evaluates: the
+    background and :meth:`LayeredModel.performers`."""
+    shard = model.layer_shard
+    return x if shard is None else torch.cat([x[:1], shard.take(x[1:])])
+
+
+def _shared(model: LayeredModel, x: torch.Tensor) -> torch.Tensor:
+    """``x``, read by the model's performers and by the other model ranks'
+    too: over a model axis its gradient sums over the ranks."""
+    shard = model.layer_shard
+    return x if shard is None else shard.share(x)
+
+
+def _whole(model: LayeredModel, rgb: torch.Tensor, sig: torch.Tensor) -> tuple:
+    """The outputs of the fields the model evaluated -> every field's, (L+1,
+    ...): over a model axis gathered from its ranks in one collective."""
+    shard = model.layer_shard
+    return (rgb, sig) if shard is None else shard.gather(rgb, sig)
+
+
 def _eval_fields_fused(model: LayeredModel, xyz: torch.Tensor,
                        dirs_p: torch.Tensor, frame_ids: torch.Tensor,
                        fine: bool, ray_hit: torch.Tensor, plain: bool = False):
-    """One fused-field launch per field (``layered.py:389-487``).
+    """One fused-field launch per field the model evaluates
+    (``layered.py:389-487``).
 
     xyz (L+1, 3, N, S) pre-deformation canonical positions, dirs_p (3, N),
     frame_ids (N, L+1), ray_hit (L+1, N) — rays that may skip a field get
-    False. -> rgb (L+1, 3, N, S), sigma (L+1, N, S), raw.
+    False. -> rgb (L+1, 3, N, S), sigma (L+1, N, S), raw: over a model axis
+    this rank's fields and the other ranks' gathered (:func:`_whole`).
     """
     spec = model.spec
     lp1, _, N, S = xyz.shape
@@ -437,14 +476,14 @@ def _eval_fields_fused(model: LayeredModel, xyz: torch.Tensor,
         dir_b = torch.zeros((1, M), dtype=torch.float32, device=xyz.device)
     evaluate = fused_field_reference if plain else fused_field
     rgbs, sigs = [], []
-    for field, x, ids, hit_l in zip(model.kernel_fields(fine), xyz,
-                                    frame_ids.T, ray_hit):
+    for field, x, ids, hit_l in zip(model.kernel_fields(fine), _own(model, xyz),
+                                    _own(model, frame_ids.T), _own(model, ray_hit)):
         rgb, sig = evaluate(field, x.reshape(3, M),
                             ids[:, None].expand(N, S).reshape(1, M).contiguous(),
                             dir_b, _tile_flags(hit_l, S))
         rgbs.append(rgb.reshape(3, N, S))
         sigs.append(sig.reshape(N, S))
-    return torch.stack(rgbs), torch.stack(sigs)
+    return _whole(model, torch.stack(rgbs), torch.stack(sigs))
 
 
 def _eval_fields_trainable(model: LayeredModel, xyz: torch.Tensor,
@@ -464,17 +503,19 @@ def _eval_fields_trainable(model: LayeredModel, xyz: torch.Tensor,
         dir_b = dir_enc[:, :, None].expand(-1, N, S).reshape(-1, M).contiguous()
     else:
         dir_b = torch.zeros((1, M), dtype=torch.float32, device=xyz.device)
+    hits = _own(model, ray_hit)
+    dir_p = _shared(model, dir_b)
     rgbs, sigs = [], []
     for i, ((net, motion, mode), x, ids) in enumerate(zip(
-            model.stage_fields(fine), xyz, frame_ids.T)):
-        flags = None if i == 0 else _tile_flags(ray_hit[i], S)
+            model.stage_fields(fine), _own(model, xyz), _own(model, frame_ids.T))):
+        flags = None if i == 0 else _tile_flags(hits[i], S)
         rgb, sig = field_planar_trainable(
             net, motion, x.reshape(3, M),
-            ids[:, None].expand(N, S).reshape(1, M).contiguous(), dir_b, flags,
-            mode, spec.compute_dtype, plain)
+            ids[:, None].expand(N, S).reshape(1, M).contiguous(),
+            dir_b if i == 0 else dir_p, flags, mode, spec.compute_dtype, plain)
         rgbs.append(rgb.reshape(3, N, S))
         sigs.append(sig.reshape(N, S))
-    return torch.stack(rgbs), torch.stack(sigs)
+    return _whole(model, torch.stack(rgbs), torch.stack(sigs))
 
 
 def _deform(model: LayeredModel, xyz: torch.Tensor, frame_ids: torch.Tensor,
@@ -483,7 +524,8 @@ def _deform(model: LayeredModel, xyz: torch.Tensor, frame_ids: torch.Tensor,
     the JAX package's order: the view flow on every layer with the camera
     id, then each performer's time flow with its frame id, then the
     background's. Encodings by double-angle recursion, as JAX does whenever
-    the trainable kernel is on. xyz (L+1, 3, N, S) -> the same, deformed."""
+    the trainable kernel is on. xyz (L+1, 3, N, S) -> the fields the model
+    evaluates (:func:`_own`), deformed."""
     spec = model.spec
     lp1, _, N, S = xyz.shape
     dt = spec.dtype
@@ -491,9 +533,10 @@ def _deform(model: LayeredModel, xyz: torch.Tensor, frame_ids: torch.Tensor,
         ids = cam_ids[None, :, None].expand(lp1, N, S)
         flow = model.view_deform(xyz.transpose(0, 1), ids, dt, recursive=True)
         xyz = xyz + flow.transpose(0, 1)
+    xyz = _own(model, xyz)
     layers = [xyz[0]]
-    for i in range(spec.layer_num):
-        x = xyz[i + 1]
+    for j, i in enumerate(model.performers()):
+        x = xyz[j + 1]
         if model.motion is not None:
             x = x + model.motion[i](x, frame_ids[:, i + 1, None].expand(N, S), dt,
                                     recursive=True)
@@ -508,7 +551,8 @@ def _eval_fields_staged(model: LayeredModel, xyz: torch.Tensor,
                         dirs_p: torch.Tensor, frame_ids: torch.Tensor,
                         fine: bool, active: torch.Tensor, plain: bool = False):
     """The staged field path (JAX ``_eval_fields_trainable``,
-    ``layered.py:579-642``) on deformed positions xyz (L+1, 3, N, S):
+    ``layered.py:579-642``) on the deformed positions xyz (F, 3, N, S) of the
+    F fields the model evaluates (:func:`_deform`'s output):
     positions and frame ids encoded here by double-angle recursion (times
     directly, not the motion net's lerp blend), directions once per ray,
     then one differentiable SpaceNet call per field
@@ -516,7 +560,8 @@ def _eval_fields_staged(model: LayeredModel, xyz: torch.Tensor,
     skip flags: a performer runs every sample unless ``active`` ((L+1,)
     bool: any ray hits it and it is shown) is False, and then the kernels
     skip it on the device and it yields zeros, as JAX's ``lax.cond``. The
-    background always runs. Same outputs as :func:`_eval_fields_fused`."""
+    background always runs. ``active`` and ``frame_ids`` cover every field.
+    Same outputs as :func:`_eval_fields_fused`."""
     spec = model.spec
     _, _, N, S = xyz.shape
     M = N * S
@@ -527,10 +572,11 @@ def _eval_fields_staged(model: LayeredModel, xyz: torch.Tensor,
         dir_b = dir_enc[:, :, None].expand(-1, N, S).reshape(-1, M).contiguous()
     else:  # the packing's (1, head) zero dummy takes a zero row
         dir_b = torch.zeros((1, M), dtype=torch.float32, device=xyz.device)
-    flags = active.to(torch.int32)
+    flags = _own(model, active).to(torch.int32)
+    dir_p = _shared(model, dir_b)
     rgbs, sigs = [], []
     for i, ((net, _, _), x, ids) in enumerate(zip(model.stage_fields(fine), xyz,
-                                                  frame_ids.T)):
+                                                  _own(model, frame_ids.T))):
         sspec = net.spec
         pos = positional_encoding_planar(x.reshape(3, M), sspec.pos_freqs, inc,
                                          recursive=True)
@@ -539,12 +585,12 @@ def _eval_fields_staged(model: LayeredModel, xyz: torch.Tensor,
             t1 = positional_encoding_planar(ids[None], sspec.time_freqs, inc,
                                             recursive=True)          # (time_dim, N)
             t_enc = t1[:, :, None].expand(-1, N, S).reshape(-1, M).contiguous()
-        rgb, sig = spacenet_planar_trainable(net, pos.contiguous(), dir_b, t_enc,
-                                             spec.compute_dtype, plain,
+        rgb, sig = spacenet_planar_trainable(net, pos.contiguous(), dir_p if i else dir_b,
+                                             t_enc, spec.compute_dtype, plain,
                                              flags[i:i + 1] if i else None)
         rgbs.append(rgb.reshape(3, N, S))
         sigs.append(sig.reshape(N, S))
-    return torch.stack(rgbs), torch.stack(sigs)
+    return _whole(model, torch.stack(rgbs), torch.stack(sigs))
 
 
 def _mask_sigma_coarse(sigma, t, hit, edits: EditState):

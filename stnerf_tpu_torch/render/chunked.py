@@ -6,11 +6,15 @@ moved to the model's device once, and rendered chunk by chunk through
 ``render_rays``; the outputs come back as host numpy arrays with the padding
 cut off. Per-layer outputs keep their leading (L+1) axis.
 
-With a mesh (``parallel.make_mesh``) of D ranks each rank renders its
-contiguous 1/D of every chunk, and the ranks' outputs are gathered once
-at the end; every rank returns the whole. The chunk is rounded up to a
-multiple of D x 64, so that no 64-ray tile of the field kernel straddles
-two ranks and each rank's tiles are the unsharded render's.
+With a mesh (``parallel.make_mesh``) of D data ranks each rank renders
+its contiguous 1/D of every chunk, and the ranks' outputs are gathered
+once at the end over the data group; every rank returns the whole. The
+chunk is rounded up to a multiple of D x 64, so that no 64-ray tile of the
+field kernel straddles two ranks and each rank's tiles are the unsharded
+render's. A layer-sharded model (``parallel.shard_params``) shards the
+fields over the model axis besides: each rank evaluates the background and
+its own performers, and every chunk's field outputs are gathered over the
+model group inside ``render_rays``.
 """
 
 from __future__ import annotations

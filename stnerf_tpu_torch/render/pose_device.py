@@ -8,11 +8,14 @@ skip flags for the whole chunk — and rendered chunk by chunk. Outputs come
 back quantized as the JAX package's do (u8 color, f16 depth and alpha);
 the host unscrambles the tile order into row-major images.
 
-With a mesh (``parallel.make_mesh``) of D ranks each rank renders its
+With a mesh (``parallel.make_mesh``) of D data ranks each rank renders its
 contiguous 1/D of every chunk, and the pose is gathered once, after its
-last chunk, in one collective; every rank gets the whole frame. The chunk
-is rounded up to a multiple of D x 64 (``render.chunked.shard_chunk``), so
-each rank's 64-ray kernel tiles are those of the unsharded render.
+last chunk, in one collective over the data group; every rank gets the
+whole frame. The chunk is rounded up to a multiple of D x 64
+(``render.chunked.shard_chunk``), so each rank's 64-ray kernel tiles are
+those of the unsharded render. A layer-sharded model
+(``parallel.shard_params``) also splits the fields over the model axis, a
+gather over the model group per chunk and stage (``render_rays``).
 """
 
 from __future__ import annotations

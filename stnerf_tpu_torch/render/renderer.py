@@ -27,7 +27,8 @@ and renders every pose with its rays sharded across the ranks
 (``render_pose_host(mesh=)``). Rank 0 alone refines the occupancy boxes,
 runs the fidelity gate and writes frames; the other ranks take its boxes,
 its gate decision and its parameters, so that no two ranks render a pose
-on different paths.
+on different paths. The parameters stay replicated on any mesh, a model
+axis included, as the JAX renderer's do.
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ from ..data import RenderScene
 from ..device import resolve_device
 from ..engine.checkpoint import latest_checkpoint, load_params_any
 from ..models import EditState, LayeredModel, LayeredSpec, SceneBoxes, compute_scale_pivot
-from ..parallel import shard_params
+from ..parallel import replicate
 from .occupancy import refined_boxes_cached
 from .paths import lookat_path, lookat_path_centers, retime_frames, smooth_pose_path
 from .pose_device import render_pose_host, render_pose_on_device
@@ -96,7 +97,7 @@ class LayeredNeuralRenderer:
         self.model = params if params is not None else self._load_params(
             LayeredSpec.from_cfg(cfg, camera_num=self.dataset.camera_num))
         if mesh is not None:
-            shard_params(mesh, self.model)
+            replicate(mesh, self.model)
         # the spec every pose renders with: the model's, with the config's
         # approximations, and the sorted merge as the JAX renderer's spec
         self.spec = dataclasses.replace(

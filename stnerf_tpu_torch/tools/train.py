@@ -37,7 +37,8 @@ checkpoints, and with ``--resume`` every rank loads the same file.
 ``--auto-restart`` is refused under torchrun: a restart must take down
 every rank, which torchrun's own ``--max-restarts`` does.
 ``--model-parallel`` is accepted and ignored with a warning, as in the JAX
-entry point: training replicates the parameters.
+entry point: training replicates the parameters (the library shards the
+performer fields over a model axis: ``parallel.shard_params``).
 """
 
 from __future__ import annotations

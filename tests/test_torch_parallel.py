@@ -100,8 +100,8 @@ def test_mesh_helpers_and_one_rank_mesh(tmp_path):
     """``pad_for_mesh`` and ``shard_pool`` against JAX's on its 8-device
     mesh (``tests/test_parallel.py:29-33``, ``:149-163``): the eight ranks'
     slices, joined, are JAX's padded, sharded pool; ``shard_ray_batch``
-    cuts the same slices; a mesh without a process group is one rank; the
-    model axis is refused where the port does not shard it. Then a one-rank
+    cuts the same slices; a mesh without a process group is one rank; a
+    model axis without its process group is refused. Then a one-rank
     gloo group: ``do_train(mesh=)`` over two epochs (coarse only, then
     full; mid-epoch and per-epoch checkpoints) gives the unsharded run's
     losses and parameters bit for bit, and ``render_pose_host(mesh=)`` the
@@ -154,7 +154,7 @@ def test_mesh_helpers_and_one_rank_mesh(tmp_path):
         make_mesh(model_parallel=2, device="cpu")    # one process, no model axis
     cfg = _train_cfg()
     base = _models(cfg)[2]
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="process group"):
         shard_params(DeviceMesh(1, 2, 0, None, torch.device("cpu")), base)
     opt, sched = make_optimizer(cfg, base)
     with pytest.raises(ValueError):
