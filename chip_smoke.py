@@ -155,12 +155,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    hide-both pass, an ``s_alpha`` fade and ``render_path_walking``: every
    frame on disk (decoded through data/png.py to the rendered image,
    finite), hiding performers leaves the background stream alone, with
-   both hidden the mix is the background stream (one u8 step on the exact
-   path, >= 40 dB on the approximate one), acc in [0, 1], K1 against its
-   plain version on one pose of
-   the approximate path (>= 40 dB), the approximate path against the exact
-   one on the gate's pose at the frame's size (the gate's bar; on the path's
-   pose read, unbarred), K1's launches against the poses, the
+   both hidden the mix is the background stream (>= 40 dB on the
+   approximate path) and, on the exact path, the unedited mix of the same
+   model with zero-density performers (one u8 step), acc in [0, 1], K1
+   against its plain version on one pose of the approximate path (>= 40
+   dB), the approximate path against the exact one on the gate's pose at
+   the frame's size (the gate's bar; on the path's pose read, unbarred),
+   K1's launches against the poses, the
    segments, the fields and the gates' probes, and a second renderer on an
    exported reference ``.pt`` renders bitwise the same pose. Prints, each
    line with the card's name and power limit: the refine time and the
@@ -207,12 +208,47 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    parameters and Adam state beside the unsharded step's, the bytes of
    every gather and of the flat reduction; seconds under a key that says
    they are no speed figure.
+18. The convergence A/B's model on the card (after 17), against the
+   fixture that the JAX package trained on the CPU
+   (``tests/torch_fixtures/trained_synthetic``, written by
+   ``tools/torch_convergence_ab.py --write-fixture``; this machine has no
+   JAX). (a) ``do_train`` of the A/B's model (configs/config_synthetic.yml,
+   widths 64/32/32, 48+24 samples, 6 epochs of 60 steps at batch 1024 from
+   a 61,440-ray pool of phase 11's scene, the first coarse only) from the
+   fixture's initial weights, in bf16 through K1/K2, once with
+   TPU.COMPOSITOR_KERNEL on (K4/K5) and once on the sorted merge: after
+   every epoch the mean PSNR on the A/B's fixed views (cameras 0, 3, 6, 9,
+   frame indices 1 and 3) inside the band of the fixture's sound float32
+   runs (both packages, several seeds, inits nudged one ulp: their range at
+   that epoch widened on each side by max(0.5 dB, half the range)); K2
+   once per field and stage of every step, K4/K5 once per stage sort-free
+   and never sorted. (b) The fixture's JAX-trained checkpoint in
+   ``LayeredNeuralRenderer`` at 100x75 from camera 0, each of the six edit
+   cases through K1, on the exact path in bf16 and with the config's
+   approximations (fast fine stage, 3-segment march, occupancy on the 64^3
+   lattice; the gate off) in bf16 and in float32: each case's image (the
+   mixed colour) against JAX's renders of the same path >= 40 dB (the
+   approximations in bf16: >= 28 dB, as bf16 itself moves them), each
+   layer's >= 35 dB on the exact path, whether the refined boxes equal
+   JAX's printed; the same pose through the plain field in the same dtype,
+   K1 against it >= 40 dB on every image. (c) On
+   that checkpoint and one 1024-ray batch, a step through the kernels
+   (bf16) against the plain versions in bf16 (relative L2 <= 1e-2 per
+   leaf, phase 5's bar) and in float32 (printed per leaf: a trained
+   model's bf16 against float32 gradients). Prints the phase's seconds
+   and its K1/K2/K4/K5 launches, which the ``kernels`` line counts.
 Then the whole script's seconds, the kernels' build included.
 
-Weights are random from a seeded generator. It needs one CUDA card, and
+Weights are random from a seeded generator, but phase 18's, which come
+from the fixture. It needs one CUDA card, and
 fails where there is none or where the repository is not beside it.
 ``python3 chip_smoke.py --model-axis-nccl`` runs phase 17(c) alone (the
 build, phase 11's scene written afresh), for a machine with four cards.
+``python3 chip_smoke.py --trained-spread`` runs the readings behind 18(a)'s
+band and then phase 18 alone: the same training in both forms, in bf16
+and in float32, at seed 0, from the initial weights nudged one float32 ulp
+and at seeds 1 and 2, each curve inside the band, and per dtype the
+largest gap between the card's runs and their mean.
 """
 
 from __future__ import annotations
@@ -2168,6 +2204,7 @@ def phase_render_front_end(device, cfg_file: str, card: str,
     from stnerf_tpu_torch.config import get_cfg
     from stnerf_tpu_torch.engine import export_reference_checkpoint
     from stnerf_tpu_torch.kernels.fused_field import fused_field
+    from stnerf_tpu_torch.models import export_jax_params, load_jax_params
     from stnerf_tpu_torch.render import LayeredNeuralRenderer
     from stnerf_tpu_torch.render.occupancy import _occupancy_cube
     from stnerf_tpu_torch.render.pose_device import (render_pose_host,
@@ -2312,9 +2349,8 @@ def phase_render_front_end(device, cfg_file: str, card: str,
     # 3. hiding a performer does not touch the background's stream (to one
     # u8 step), and with every performer hidden the mix is the background
     # alone up to the quadrature of the hidden samples' interleaved depths,
-    # which cut the background's segments: one u8 step on the exact path
-    # (checked in 6), the gate's bar on the approximate one, whose carried
-    # coarse-net samples cut differently
+    # which cut the background's segments: the gate's bar here, on the
+    # approximate path (6 holds the exact path's mix to an oracle)
     _, origin, origin_bg = runs["origin"]
     _, hide_both, hide_both_bg = runs["hide_both"]
     hide_both_db = []
@@ -2429,14 +2465,36 @@ def phase_render_front_end(device, cfg_file: str, card: str,
     paths = {"approximate": [], "exact": []}
     for name, rr in (("approximate", r0), ("exact", re), ("exact", re), ("approximate", r0)):
         paths[name].append(render_path_times(rr, records))
+    # hiding both performers zeroes their densities in the merged composite
+    # (the reference's semantics: their samples stay in the merge, so the
+    # mix is not the background stream's own composite, by up to 13 u8
+    # steps on the JAX package's trained fixture at 100x75, PERF.md Findings).
+    # The oracle shares no edit code: the same renderer's model with each
+    # performer's density head set to output -1 (w = 0, b = -1), so that
+    # the fields themselves put zero-density samples into an unedited merge
+    zero = LayeredNeuralRenderer(exact_cfg(cfg), device=device)
+    zp = export_jax_params(zero.model)
+    for group in ("layers_coarse", "layers_fine"):
+        head = zp[group]["density"][-1]
+        head["w"], head["b"] = np.zeros_like(head["w"]), np.full_like(head["b"], -1.0)
+    load_jax_params(zero.model, zp)
+    zero.set_smooth_path_poses(steps, around=False)
+    zeroed = [zero.render_pose(zero.poses[i], zero.Ks[i], zero.layer_frame_pairs[i],
+                               frame_idx=i, download_layers=[0])
+              for i in range(len(zero.poses))]
     re.hide_layer(1)
     re.hide_layer(2)
+    hide_both_oracle = []  # per pose: max |mix - oracle|, max |mix - background|
     for i in range(len(re.poses)):
         c, _, cl, _ = re.render_pose(re.poses[i], re.Ks[i], re.layer_frame_pairs[i],
                                      frame_idx=i, download_layers=[0])
-        err = float(np.abs(c - cl[0]).max())
+        err = float(np.abs(c - zeroed[i][0]).max())
+        hide_both_oracle.append([err, float(np.abs(c - cl[0]).max())])
         check(err <= 1.0 / 255 + 1e-7,
-              f"exact hide_both pose {i}: the mix differs from the background stream by {err}")
+              f"exact hide_both pose {i}: the mix differs from the unedited mix of "
+              f"zero-density performers by {err}")
+        check(np.array_equal(cl[0], zeroed[i][2][0]),
+              f"exact hide_both pose {i}: hiding the performers changed the background stream")
     for name in paths:
         row = {"card": card, "path": name, "h": h, "w": w, "runs": paths[name],
                "k1_launches_per_pose": tiles[name]["launches"],
@@ -2487,6 +2545,7 @@ def phase_render_front_end(device, cfg_file: str, card: str,
                "fidelity_db": r.fidelity_db, "gate_pose_full_size_db": gate_pose_db,
                "path_pose_approximate_vs_exact_db": approx_db,
                "hide_both_mix_vs_background_db": hide_both_db,
+               "exact_hide_both_vs_zero_density_and_background_max": hide_both_oracle,
                "paths": paths, "tiles": tiles, "hd": hd, "occupancy": occupancy,
                "sliced": sliced}
     print("render_front_end", json.dumps(summary), flush=True)
@@ -3507,6 +3566,340 @@ def phase_model_axis(device, cfg_file: str, card: str,
     return out
 
 
+TRAINED = os.path.join(REPO, "tests", "torch_fixtures", "trained_synthetic")
+
+
+def trained_cfg(meta: dict, scene_root: str, dtype: str = "bfloat16"):
+    """The convergence A/B's config (its file and ``merge_from_list``
+    overrides, recorded in the fixture's curve.json) on ``scene_root``, in
+    ``dtype``."""
+    from stnerf_tpu_torch.config import get_cfg
+
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(REPO, meta["config"]))
+    cfg.merge_from_list(meta["opts"])
+    cfg.DATASETS.TRAIN = scene_root
+    cfg.TPU.COMPUTE_DTYPE = dtype
+    cfg.OUTPUT_DIR = ""
+    return cfg
+
+
+def trained_band(meta: dict) -> list:
+    """Phase 18(a)'s bar: per epoch, the range of the fixture's sound runs
+    (both packages' float32 CPU runs: three JAX seeds, the port's two
+    forms at two seeds, and each package from the initial weights nudged
+    one float32 ulp), widened on each side by max(0.5 dB, half the range):
+    a curve that a reordered sum moves stays inside, one that learns more
+    slowly or not at all leaves it where the runs agree (epochs 1-4)."""
+    out = []
+    for lo, hi in meta["sound_range"]:
+        m = max(meta["bar_db"], (hi - lo) / 2)
+        out.append([lo - m, hi + m])
+    return out
+
+
+def trained_setup(device) -> tuple:
+    """Phase 18's fixture, config, pool and views -> (meta, cfg, root,
+    pool, scene, views)."""
+    from stnerf_tpu_torch.data import ViewScene, make_synthetic_scene, make_train_data
+    from stnerf_tpu_torch.models import LayeredSpec
+
+    with open(os.path.join(TRAINED, "curve.json")) as f:
+        meta = json.load(f)
+    root = os.path.join(REPO, "build", "chip_smoke_synthetic")  # phase 11's scene
+    if not os.path.exists(os.path.join(root, "pose", "K.txt")):
+        make_synthetic_scene(root, width=200, height=150, num_cams=12, num_frames=5,
+                             layer_num=2, seed=SEED)
+    cfg = trained_cfg(meta, root)
+    # the A/B's pool: built serially (spawned workers draw another pool)
+    pool, scene = make_train_data(cfg, LayeredSpec.from_cfg(cfg), np.random.default_rng(0),
+                                  workers=1, device=device)
+    return meta, cfg, root, pool, scene, ViewScene(cfg)
+
+
+def train_trained(device, setup: tuple, kernel: bool, seed: int = SEED,
+                  nudged: bool = False, dtype: str = "bfloat16") -> tuple:
+    """``do_train`` of the A/B's model in ``dtype`` from the fixture's
+    initial weights (each nudged one float32 ulp up where ``nudged``),
+    sort-free where ``kernel`` -> (PSNR per epoch, history, seconds,
+    launches)."""
+    import torch
+
+    from stnerf_tpu_torch.engine import do_evaluate, do_train, load_params_any
+    from stnerf_tpu_torch.models import LayeredModel, LayeredSpec
+
+    meta, cfg, _, pool, scene, views = setup
+    cfg = cfg.clone()
+    cfg.TPU.COMPOSITOR_KERNEL = kernel
+    cfg.TPU.COMPUTE_DTYPE = dtype
+    spec = LayeredSpec.from_cfg(cfg)
+    model = load_params_any(os.path.join(TRAINED, meta["init"]),
+                            LayeredModel(spec, device=device))
+    if nudged:
+        with torch.no_grad():
+            for p in model.parameters():
+                p.copy_(torch.nextafter(p, torch.full_like(p, float("inf"))))
+    curve = []
+
+    def val_fn(m, epoch):
+        with torch.no_grad():
+            curve.append(do_evaluate(m, spec, scene, views, meta["views"], meta["frames"],
+                                     chunk=cfg.TPU.RENDER_CHUNK)["psnr"])
+
+    logger = logging.getLogger("chip_smoke.trained")
+    logger.setLevel(logging.WARNING)
+    zero_launches()
+    t0 = time.perf_counter()
+    history = do_train(cfg, model, scene, pool, val_fn=val_fn, seed=seed, logger=logger,
+                       device=device)
+    sync(device)
+    return curve, history, time.perf_counter() - t0, read_launches()
+
+
+def phase_trained_synthetic(device, card: str) -> dict:
+    """Phase 18: the convergence A/B's model on the card, against the
+    fixture that JAX trained on the CPU (tests/torch_fixtures/
+    trained_synthetic, written by tools/torch_convergence_ab.py). (a) The
+    port trains it from the fixture's initial parameters, under the A/B's
+    config and schedule, in bf16 through K1/K2, once sort-free (K4/K5) and
+    once on the sorted merge; after every epoch the mean PSNR on the A/B's
+    fixed views must lie in :func:`trained_band` (the float32 runs' range,
+    widened). (b) The fixture's JAX-trained checkpoint rendered in each
+    edit case at 100x75 through K1, on the exact path in bf16 and with the
+    config's approximations (gate off) in bf16 and float32: each case's
+    image against JAX's renders of the same path >= 40 dB (the
+    approximations in bf16: 28), each layer's >= 35 dB on the exact path,
+    and K1 >= 40 dB against its plain version on every image. (c) On that
+    checkpoint and one batch, a step through the kernels (bf16) against the
+    plain versions in bf16 (relative L2 <= 1e-2 per leaf, phase 5's bar)
+    and in float32 (printed: the trained model's bf16 finding)."""
+    import shutil
+
+    import torch
+
+    from stnerf_tpu_torch.engine import (load_params_any, make_optimizer,
+                                         make_train_step)
+    from stnerf_tpu_torch.models import LayeredModel, LayeredSpec, export_jax_params
+    from stnerf_tpu_torch.render import LayeredNeuralRenderer
+    from stnerf_tpu_torch.render.pose_device import render_pose_host
+
+    t_phase = time.perf_counter()
+    failed = []
+
+    def check(cond, msg: str):  # every part runs; the phase fails at its end
+        if not cond:
+            print(f"chip_smoke check failed: {msg}", flush=True)
+            failed.append(msg)
+    setup = trained_setup(device)
+    meta, cfg, root, pool, scene, _ = setup
+    with open(os.path.join(TRAINED, "renders.npz"), "rb") as f:
+        jax_renders = dict(np.load(f))
+    band = trained_band(meta)
+    out = {"card": card, "train": {}}
+
+    # (a) both training compositor forms from the fixture's initial weights
+    for form, kernel in (("nosort", True), ("sorted", False)):
+        curve, history, seconds, launches = train_trained(device, setup, kernel)
+        lp1 = LayeredSpec.from_cfg(cfg).layer_num + 1
+        steps = sum(len(m.loss) for _, m in history)
+        full = sum(len(m.loss) for e, m in history if e >= cfg.SOLVER.COARSE_STAGE)
+        row = {"psnr": curve, "band_db": band,
+               "jax_f32_psnr": meta["runs"]["a"]["psnr"],
+               "s": seconds, "steps": steps,
+               "losses_finite": all(bool(np.isfinite(m.loss).all()) for _, m in history),
+               "launches": {k: v for k, v in launches.items() if v}}
+        print(f"trained_synthetic_train_{form}", json.dumps(row), flush=True)
+        check(row["losses_finite"], f"18(a) {form}: a loss is not finite")
+        check(len(curve) == len(band) and all(lo <= c <= hi for c, (lo, hi) in zip(curve, band)),
+              f"18(a) {form}: PSNR per epoch {curve} outside the sound runs' band {band}")
+        # K1 and K2 once per field and stage of every step, on the
+        # tensor-core route, and K1 per field, stage and chunk of every
+        # evaluated view; K4/K5 once per stage of every step, sort-free only
+        stages = steps + full
+        w, h = cfg.INPUT.SIZE_TEST
+        evals = len(curve) * len(meta["views"]) * len(meta["frames"]) * 2 * lp1
+        k1 = stages * lp1 + evals * -(-w * h // cfg.TPU.RENDER_CHUNK)
+        check(launches["field_bwd_tc"] == launches["field_bwd"] == stages * lp1,
+              f"18(a) {form}: K2 launched {launches['field_bwd_tc']} "
+              f"({launches['field_bwd']}), {stages * lp1} implied")
+        check(launches["fused_field_tc"] == launches["fused_field"] == k1,
+              f"18(a) {form}: K1 launched {launches['fused_field']} "
+              f"({launches['fused_field_tc']} tensor-core), {k1} implied")
+        for name in ("cross_successor", "cross_log_transmittance_fwd",
+                     "cross_log_transmittance_bwd"):
+            want = stages if kernel else 0
+            check(launches[name] == want,
+                  f"18(a) {form}: {name} launched {launches[name]}, {want} implied")
+        out["train"][form] = row
+
+    # (b) the JAX-trained checkpoint, each edit case at 100x75: on the exact
+    # path in bf16, and with the config's approximations (gate off) in bf16
+    # and in float32 (K1's CUDA-core route). Bars (dB against JAX's float32
+    # renders of the same path; the mixed colour, then each layer's): the
+    # exact path 40 and 35 (bf16's rounding: the plain bf16 path reads 37.5-
+    # 40.8 dB on the second performer's layer); the approximations 28 in
+    # bf16 (the plain bf16 path reads 30.4-31.6 dB: on this checkpoint they
+    # are 16 dB from the exact path, and the gate refuses them) and 40 in
+    # float32 (the port reads 74.4 dB on the CPU); K1 against its plain
+    # version 40 on every image
+    bars = {("exact", "bfloat16"): (40.0, 35.0), ("defaults", "bfloat16"): (28.0, None),
+            ("defaults", "float32"): (40.0, None)}
+    renders, k1_vs_plain, plain_vs_jax, boxes_equal, launches = {}, {}, {}, {}, {}
+    render_s = 0.0
+    for (path, dtype), (bar, layer_bar) in bars.items():
+        tag = f"{path}_{'bf16' if dtype == 'bfloat16' else 'f32'}"
+        ckpt_dir = os.path.join(REPO, "build", f"chip_smoke_trained_{tag}")
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        os.makedirs(ckpt_dir)
+        shutil.copy(os.path.join(TRAINED, meta["checkpoint"]), ckpt_dir)
+        rcfg = trained_cfg(meta, root, dtype)
+        rcfg.INPUT.SIZE_TEST = meta["render_size"]
+        rcfg.OUTPUT_DIR = ckpt_dir
+        for k, v in meta["render_paths"][path].items():
+            rcfg.TPU[k] = v
+        counts = {}
+        for name, kwargs, hidden, frame in meta["render_cases"]:
+            r = LayeredNeuralRenderer(rcfg, device=device, **kwargs)
+            check(r._ckpt_path.endswith(meta["checkpoint"]), f"18(b): loaded {r._ckpt_path}")
+            check((r.scene is not r._exact_scene) == (path != "exact"),
+                  f"18(b) {tag}: the renderer's approximations are "
+                  f"{'off' if path != 'exact' else 'on'}")
+            if path != "exact":
+                boxes_equal[tag] = bool(np.array_equal(np.asarray(r.scene.boxes.cpu()),
+                                                       jax_renders[f"{path}_boxes"]))
+            if hidden is not None:
+                r.hide_layer(hidden)
+            pairs = [(0, 1.0)] + [(l, frame) for l in range(1, r.layer_num + 1)]
+            pose, K = np.asarray(r.gt_poses[0]), np.asarray(r.gt_Ks[0])
+            layers = list(range(r.layer_num + 1))
+            zero_launches()
+            t0 = time.perf_counter()
+            c, _, cl, _ = r.render_pose(pose, K, pairs, frame_idx=0, download_layers=layers)
+            sync(device)
+            render_s += time.perf_counter() - t0
+            for k, v in read_launches().items():
+                counts[k] = counts.get(k, 0) + v
+            # the same pose through the plain field in the same dtype: the
+            # kernel's share of any difference from JAX's float32 renders
+            fids = np.array([f for _, f in sorted(pairs)], np.float32)
+            pc, _, pcl, _ = render_pose_host(
+                r.model, r.scene, K, pose, fids, r.dataset.near_far, r._edits(0, 0, 0),
+                r.height, r.width, chunk=rcfg.TPU.RENDER_CHUNK,
+                tile_cols=rcfg.TPU.TILE_COLS, far_clip=r.far, download_layers=layers,
+                spec=r.spec, plain=True)
+            got, plain = np.concatenate([c, *cl], -1), np.concatenate([pc, *pcl], -1)
+            want = jax_renders[f"{path}_{name}"].astype(np.float32)  # exact: + layers
+
+            def dbs(x, y):
+                return [psnr(x[..., i:i + 3], y[..., i:i + 3])
+                        for i in range(0, x.shape[-1], 3)]
+
+            key, n = f"{tag}_{name}", want.shape[-1]
+            renders[key], k1_vs_plain[key] = dbs(got[..., :n], want), dbs(got, plain)
+            plain_vs_jax[key] = dbs(plain[..., :n], want)
+            check(renders[key][0] >= bar, f"18(b) {key}: the image renders "
+                                          f"{renders[key][0]:.2f} dB against JAX's (bar {bar})")
+            if layer_bar is not None:
+                check(min(renders[key][1:]) >= layer_bar,
+                      f"18(b) {key}: a layer renders {renders[key][1:]} dB against JAX's "
+                      f"(bar {layer_bar})")
+            check(min(k1_vs_plain[key]) >= 40.0,
+                  f"18(b) {key}: K1 against its plain version {k1_vs_plain[key]} dB (bar 40)")
+        tc = counts["fused_field"] if dtype == "bfloat16" else 0
+        check(counts["fused_field"] > 0 and counts["fused_field_tc"] == tc
+              and counts["field_bwd"] == 0,
+              f"18(b) {tag}: K1 launched {counts['fused_field']} "
+              f"({counts['fused_field_tc']} tensor-core), K2 {counts['field_bwd']}")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    out["render"] = {"db_mixed_then_layers": renders, "k1_vs_plain_db": k1_vs_plain,
+                     "plain_vs_jax_f32_db": plain_vs_jax, "bars_db": {
+                         f"{p}_{d}": b for (p, d), b in bars.items()},
+                     "boxes_equal_jax": boxes_equal, "s": render_s,
+                     "launches": {k: v for k, v in launches.items() if v}}
+    print("trained_synthetic_render", json.dumps(out["render"]), flush=True)
+
+    # (c) one step on the trained checkpoint: kernels (bf16) against plain
+    batch_spec, batch = train_batch(device, pool, scene, trained_cfg(meta, root))
+    grads, step_launches = {}, {}
+    for dtype, plain in (("bfloat16", False), ("bfloat16", True), ("float32", True)):
+        scfg = trained_cfg(meta, root, dtype)
+        scfg.TPU.COMPOSITOR_KERNEL = True
+        model = load_params_any(os.path.join(TRAINED, meta["checkpoint"]),
+                                LayeredModel(LayeredSpec.from_cfg(scfg), device=device))
+        opt, sched = make_optimizer(scfg, model)
+        step = make_train_step(model, opt, sched, remove_outliers=True, plain=plain,
+                               device=device)
+        zero_launches()
+        m = step(scene, batch, torch.Generator(device=device).manual_seed(SEED), 1.0)
+        check(bool(torch.isfinite(m.loss)), f"18(c) {dtype} plain={plain}: loss not finite")
+        grads[(dtype, plain)] = dict(_flat_leaves(export_jax_params(model, grad=True)))
+        if not plain:
+            step_launches = {k: v for k, v in read_launches().items() if v}
+    kern = grads[("bfloat16", False)]
+    vs_bf16 = {k: compare_leaf(kern[k], b)["rel"] for k, b in grads[("bfloat16", True)].items()}
+    vs_f32 = {k: compare_leaf(kern[k], b)["rel"] for k, b in grads[("float32", True)].items()}
+    plain_bf16_vs_f32 = {k: compare_leaf(grads[("bfloat16", True)][k], b)["rel"]
+                         for k, b in grads[("float32", True)].items()}
+    out["step"] = {
+        "kernel_bf16_vs_plain_bf16_worst": max(vs_bf16.items(), key=lambda kv: kv[1]),
+        "kernel_bf16_vs_plain_f32_worst": max(vs_f32.items(), key=lambda kv: kv[1]),
+        "plain_bf16_vs_plain_f32_worst": max(plain_bf16_vs_f32.items(),
+                                             key=lambda kv: kv[1]),
+        "kernel_bf16_vs_plain_f32_by_leaf": vs_f32, "launches": step_launches}
+    print("trained_synthetic_step", json.dumps(out["step"]), flush=True)
+    bad = {k: v for k, v in vs_bf16.items() if v > 1e-2}
+    check(not bad, f"18(c): kernel vs plain bf16 gradients above relative L2 1e-2: {bad}")
+    lp1 = batch_spec.layer_num + 1
+    check(step_launches.get("fused_field_tc") == step_launches.get("field_bwd_tc") == 2 * lp1,
+          f"18(c): the kernel step launched {step_launches}, {2 * lp1} of K1 and K2 implied")
+    out["s"] = time.perf_counter() - t_phase
+    out["launches"] = {form: r["launches"] for form, r in out["train"].items()}
+    out["launches"]["render"] = out["render"]["launches"]
+    out["launches"]["step"] = step_launches
+    print(f"phase trained_synthetic: {out['s']:.1f} s", flush=True)
+    if failed:
+        raise RuntimeError(f"chip_smoke check failed: phase 18: {failed}")
+    return out
+
+
+def trained_spread(device, card: str) -> dict:
+    """The readings behind phase 18(a)'s band: the port's training on the
+    card in both forms, in bf16 and in float32 (K1/K2's CUDA-core routes),
+    at seed 0 (in bf16 phase 18(a)'s runs), from the fixture's initial
+    weights nudged one float32 ulp, and at seeds 1 and 2 -> each curve, the
+    band, where each lies in it, and per dtype the largest gap between two
+    of its eight runs and their mean per epoch. Barred as phase 18(a)
+    bars."""
+    setup = trained_setup(device)
+    band = trained_band(setup[0])
+    curves, failed = {}, []  # every run goes; the check comes at the end
+    for dtype in ("bfloat16", "float32"):
+        for form, kernel in (("nosort", True), ("sorted", False)):
+            for seed, nudged in ((SEED, False), (SEED, True), (1, False), (2, False)):
+                curve, _, seconds, _ = train_trained(device, setup, kernel, seed, nudged,
+                                                     dtype)
+                name = f"{dtype}_{form}_seed{seed}{'_nudged' if nudged else ''}"
+                curves[name] = curve
+                inside = [lo <= c <= hi for c, (lo, hi) in zip(curve, band)]
+                inside += [False] * (len(band) - len(curve))
+                print("trained_spread", json.dumps({"run": name, "psnr": curve,
+                                                     "inside": inside, "s": seconds,
+                                                     "card": card}), flush=True)
+                if not all(inside):
+                    failed.append(name)
+    row = {"band_db": band, "outside": failed, "card": card}
+    for dtype in ("bfloat16", "float32"):
+        runs = [c for name, c in curves.items() if name.startswith(dtype)]
+        n = min(len(c) for c in runs)
+        row[f"{dtype}_largest_gap_db"] = [max(c[e] for c in runs) - min(c[e] for c in runs)
+                                          for e in range(n)]
+        row[f"{dtype}_mean_db"] = [float(np.mean([c[e] for c in runs])) for e in range(n)]
+    print("trained_spread_summary", json.dumps(row), flush=True)
+    check(not failed, f"trained spread: {failed} left the band")
+    return row
+
+
 def route_launches(launches: dict, name: str) -> int:
     """A kernel row's launches in a path's counts: a CUDA-core route counts
     what its wrapper launched off the tensor-core route."""
@@ -3536,8 +3929,8 @@ def main():
     script_t0 = time.perf_counter()
     import torch
 
-    if sys.argv[1:] not in ([], ["--model-axis-nccl"]):
-        raise SystemExit("usage: python3 chip_smoke.py [--model-axis-nccl]")
+    if sys.argv[1:] not in ([], ["--model-axis-nccl"], ["--trained-spread"]):
+        raise SystemExit("usage: python3 chip_smoke.py [--model-axis-nccl | --trained-spread]")
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke needs a CUDA device; torch.cuda.is_available() "
                            "is False")
@@ -3560,9 +3953,20 @@ def main():
         for line in log.read_text().splitlines():
             if "entry function" in line or "registers" in line or "spill" in line:
                 print("ptxas", line.strip(), flush=True)
-    if sys.argv[1:] == ["--model-axis-nccl"]:
-        row = model_axis_nccl_only(device, card)["2x2_nccl"]
-        check(row.get("ran", True), f"17(c) did not run: {row.get('why')}")
+    if sys.argv[1:] in (["--model-axis-nccl"], ["--trained-spread"]):
+        if sys.argv[1:] == ["--model-axis-nccl"]:
+            row = model_axis_nccl_only(device, card)["2x2_nccl"]
+            check(row.get("ran", True), f"17(c) did not run: {row.get('why')}")
+        else:
+            t0, errors = time.perf_counter(), []
+            for part in (trained_spread, phase_trained_synthetic):
+                try:  # both parts print their readings; the run fails after
+                    part(device, card)
+                except RuntimeError as e:
+                    errors.append(str(e))
+            print(f"phase trained_synthetic + spread: {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+            check(not errors, f"{errors}")
         print(f"chip_smoke: {time.perf_counter() - script_t0:.1f} s in all, the kernels' "
               "build included", flush=True)
         print(card)
@@ -3625,6 +4029,7 @@ def main():
     t0 = time.perf_counter()
     model_axis = phase_model_axis(device, entry_cfg, card)
     print(f"phase model_axis: {time.perf_counter() - t0:.1f} s", flush=True)
+    trained = phase_trained_synthetic(device, card)
 
     # the performer field: the main paths' case. K1 and K2 in two routes
     # each: bf16 fields on the tensor-core kernels (every main path), float32
@@ -3768,7 +4173,8 @@ def main():
                  "legacy_renderer_fields": legacy["fields"]["launches"],
                  "legacy_renderer_mesh_background": legacy["mesh_background"]["launches"],
                  **{f"model_axis_{k}": r["launches"] for k, r in model_axis.items()
-                    if "launches" in r}}
+                    if "launches" in r},
+                 **{f"trained_synthetic_{k}": r for k, r in trained["launches"].items()}}
     for row in kernels:
         for path, launches in new_paths.items():
             row["launches_by_path"][path] = route_launches(launches, row["name"])

@@ -219,6 +219,19 @@ def _mean_over_ranks(mesh, params: list, raw: _RawMetrics) -> _RawMetrics:
     return _RawMetrics(*parts[-1].unbind())
 
 
+def _zero_missing_grads(owned: list):
+    """A zero gradient for every parameter in ``owned`` that the step did
+    not reach (the fine nets in the coarse-only stage): JAX's gradient tree
+    holds every parameter, so optax's Adam counts every step in its bias
+    correction and decays every moment, and the weight decay moves every
+    parameter; torch's optimizers pass over a ``.grad`` of None, and a
+    fine net's first Adam update after the coarse stage would be about
+    twice JAX's."""
+    for p in owned:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+
+
 def make_train_step(model: LayeredModel, optimizer, scheduler=None,
                     remove_outliers: bool = False, plain: bool = False,
                     device=None, mesh=None):
@@ -243,6 +256,11 @@ def make_train_step(model: LayeredModel, optimizer, scheduler=None,
     edits = EditState.identity(spec.layer_num, device=device)
     mask_scale = 1.0 if mesh is None else float(mesh.data)
     params = [p for p in model.parameters() if p.requires_grad]
+    # a layer-sharded model's performers on other model ranks keep a .grad
+    # of None: this rank holds no optimizer state for them
+    foreign = ({id(p) for p in model.layer_shard.foreign(model)}
+               if model.layer_shard is not None else set())
+    owned = [p for p in params if id(p) not in foreign]
 
     def step(scene: SceneBoxes, batch: TrainBatch, generator, mask_on: float,
              only_coarse: bool = False) -> StepMetrics:
@@ -254,6 +272,7 @@ def make_train_step(model: LayeredModel, optimizer, scheduler=None,
         raw = _RawMetrics(*(x.detach() for x in raw))
         if mesh is not None:
             raw = _mean_over_ranks(mesh, params, raw)
+        _zero_missing_grads(owned)
         optimizer.step()
         if scheduler is not None:
             scheduler.step()

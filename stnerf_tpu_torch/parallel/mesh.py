@@ -226,6 +226,12 @@ class LayerShard:
     def layers(self) -> range:
         return range(self.lo, self.hi)
 
+    def foreign(self, model) -> list:
+        """The parameters of the performers that the other model ranks own:
+        this rank gives them no gradient and no optimizer state."""
+        return _performer_params(model, [layer for layer in range(model.spec.layer_num)
+                                         if layer not in self.layers])
+
     def take(self, x: torch.Tensor) -> torch.Tensor:
         """x (L, ...) per performer -> this rank's (L/M, ...). Its backward
         gathers the ranks' cotangents, so whatever feeds every performer

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 
 from test_torch_render import TARGET_DB, _cfg, _rays, _scene
+from test_torch_data import one_torch_thread  # noqa: F401  (autouse)
 
 pytestmark = pytest.mark.isolate
 

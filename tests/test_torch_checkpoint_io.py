@@ -13,7 +13,7 @@ import sys
 import numpy as np
 import pytest
 
-from test_torch_data import CAMS, _cfgs
+from test_torch_data import CAMS, _cfgs, one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.isolate
 

@@ -19,6 +19,7 @@ import pytest
 
 from test_torch_render import EDITS, TARGET_DB, _psnr, _rays
 from test_torch_train import _batch, _cfg, _leaves_close, _models, _scene
+from test_torch_data import one_torch_thread  # noqa: F401  (autouse)
 
 pytestmark = pytest.mark.isolate
 

@@ -12,6 +12,7 @@ import subprocess
 import sys
 
 import pytest
+from test_torch_data import one_torch_thread  # noqa: F401  (autouse)
 
 pytestmark = pytest.mark.isolate
 

@@ -16,10 +16,26 @@ import zlib
 
 import numpy as np
 import pytest
+from conftest import _ISOLATED_ENV
 
 pytestmark = pytest.mark.isolate
 
 W, H, CAMS, FRAMES = 24, 18, 4, 2
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One intra-op thread for torch in a test's own child process (every
+    port test is ``isolate``: tests/conftest.py). The suite runs six
+    workers on the host's cores, and at torch's default of a thread per
+    core every small op waits for threads that the other workers keep off
+    the cores (a (32, 63) x (63, 1536) product: 26 ms at 8 threads, 0.09 ms
+    at one, with one other training process on an 8-core host). The other
+    port test files import this fixture."""
+    if os.environ.get(_ISOLATED_ENV):
+        import torch
+
+        torch.set_num_threads(1)
 
 
 def _scene_pair(tmp_path):
@@ -150,6 +166,34 @@ def test_synthetic_scene_matches_jax(tmp_path):
             lab = [np.load(os.path.join(r, f"frame{frame}/labels/{cam:03d}.npy")) for r in roots]
             np.testing.assert_array_equal(lab[1], lab[0])
     assert (lab[0] > 0).any()
+
+    # the port's CLI with every flag off its default writes JAX's tree
+    from stnerf_tpu.data import make_synthetic_scene as jmake
+    from stnerf_tpu_torch.tools import make_synthetic
+
+    cli, ref = str(tmp_path / "cli"), str(tmp_path / "ref")
+    make_synthetic.main(["--root", cli, "--width", "20", "--height", "14", "--cams", "3",
+                         "--frames", "3", "--layers", "3", "--seed", "5", "--bbox-slack",
+                         "0.2", "--blobs", "3", "--blob-spread", "0.4", "--blob-axis", "1",
+                         "--label-noise", "0.1"])
+    jmake(ref, width=20, height=14, num_cams=3, num_frames=3, layer_num=3, seed=5,
+          bbox_slack=0.2, blobs=3, blob_spread=0.4, blob_axis=1, label_noise=0.1)
+    files = sorted(os.path.relpath(os.path.join(d, f), ref)
+                   for d, _, fs in os.walk(ref) for f in fs)
+    assert files == sorted(os.path.relpath(os.path.join(d, f), cli)
+                           for d, _, fs in os.walk(cli) for f in fs)
+    assert "frame3/pointclouds/3.ply" in files
+    for rel in files:
+        a, b = os.path.join(cli, rel), os.path.join(ref, rel)
+        if rel.endswith(".png"):
+            got, want = np.asarray(Image.open(a)), np.asarray(Image.open(b))
+        elif rel.endswith(".npy"):
+            got, want = np.load(a), np.load(b)
+        elif rel.endswith(".ply"):
+            got, want = read_ply_points(a), jread(b)
+        else:
+            got, want = np.loadtxt(a), np.loadtxt(b)
+        np.testing.assert_array_equal(got, want, err_msg=rel)
 
 
 def test_frame_layer_scene_and_transform_match_jax(tmp_path):

@@ -15,6 +15,7 @@ fresh child process (``isolate``).
 
 import numpy as np
 import pytest
+from test_torch_data import one_torch_thread  # noqa: F401  (autouse)
 
 pytestmark = pytest.mark.isolate
 

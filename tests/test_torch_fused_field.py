@@ -11,6 +11,7 @@ Every test runs in a fresh child process (``isolate``).
 
 import numpy as np
 import pytest
+from test_torch_data import one_torch_thread  # noqa: F401  (autouse)
 
 pytestmark = pytest.mark.isolate
 

@@ -10,6 +10,7 @@ import os
 
 import numpy as np
 import pytest
+from test_torch_data import one_torch_thread  # noqa: F401  (autouse)
 
 pytestmark = pytest.mark.isolate
 

@@ -26,6 +26,7 @@ from test_torch_parallel import (CHUNK, TARGET_DB, TILE_COLS, H, K, W, _c2w, _fl
                                  _free_port, _pose_args, _port_model, _psnr, _torch_scene,
                                  _train_cfg)
 from test_torch_train import _batch, _compact_pool, _leaves_close, _models, _scene
+from test_torch_data import one_torch_thread  # noqa: F401  (autouse)
 
 pytestmark = pytest.mark.isolate
 

@@ -9,6 +9,7 @@ jax are imported inside the test bodies only.
 
 import numpy as np
 import pytest
+from test_torch_data import one_torch_thread  # noqa: F401  (autouse)
 
 pytestmark = pytest.mark.isolate
 
@@ -139,6 +140,64 @@ def test_sample_pdf_with_generator(rng):
     # other bins hold ~1e-4 of the mass
     in_peak = (s1 >= bins[:, 7:8] - 1e-6) & (s1 <= bins[:, 8:9] + 1e-6)
     assert in_peak.float().mean() > 0.99
+
+
+def test_samplers_with_jax_draws_match_jax(rng, monkeypatch):
+    """Random mode with JAX's own draws, for each of the four samplers: the
+    JAX sampler runs with a key, the uniform draws it made
+    (``jax.random.uniform``, recorded in call order) are fed to the port's
+    sampler through its ``_uniform``, and the two agree at the bars of the
+    deterministic-mode tests above (the stratified pair 1e-6,
+    ``stratified_union`` and ``sample_pdf`` 1e-5)."""
+    import jax
+    import torch
+
+    from stnerf_tpu.ops import sampling as js
+    from stnerf_tpu_torch.ops import sampling as ts
+
+    n, num, K = 40, 16, 4
+    a = rng.uniform(0, 2, size=n).astype(np.float32)
+    b = a + rng.uniform(0.1, 5, size=n).astype(np.float32)
+    lo = rng.uniform(1.0, 8.0, (n, K)).astype(np.float32)
+    hi = (lo + rng.uniform(0.1, 3.0, (n, K))).astype(np.float32)
+    hit = rng.uniform(size=(n, K)) > 0.3
+    hit[0] = False                                        # a ray missing every slice
+    lo[1, 1], hi[1, 1] = lo[1, 0], hi[1, 0]               # a duplicate slice
+    hit[1, :2] = True
+    lo, hi = (np.where(hit, x, js.MISS_T).astype(np.float32) for x in (lo, hi))
+    z = np.sort(rng.uniform(1, 6, size=(n, 16)), axis=1).astype(np.float32)
+    # weights bounded away from 0, as the det test's (its comment)
+    w = rng.uniform(0.05, 1, size=(n, 14)).astype(np.float32) ** 2
+    w[:5] = 0.0
+    real = jax.random.uniform
+    for sampler, args, bar in (("stratified_between", (a, b), 1e-6),
+                               ("stratified_near_far", (a, b), 1e-6),
+                               ("stratified_union", (lo, hi, hit), 1e-5),
+                               ("sample_pdf", (z, w), 1e-5)):
+        draws = []
+
+        def record(*xs, **kw):
+            draws.append(np.asarray(real(*xs, **kw)))
+            return draws[-1]
+
+        monkeypatch.setattr(jax.random, "uniform", record)
+        ref = np.asarray(getattr(js, sampler)(*map(_j, args), num, jax.random.PRNGKey(7)))
+        monkeypatch.setattr(jax.random, "uniform", real)
+        assert len(draws) == 1 and draws[0].std() > 0.2, sampler
+        replay = iter(draws)
+
+        def uniform(shape, like, generator):
+            u = next(replay)
+            assert tuple(shape) == u.shape
+            return torch.tensor(u, dtype=like.dtype)
+
+        monkeypatch.setattr(ts, "_uniform", uniform)
+        out = getattr(ts, sampler)(*map(_t, args), num, torch.Generator()).numpy()
+        assert next(replay, None) is None, sampler
+        np.testing.assert_allclose(out, ref, rtol=bar, atol=bar, err_msg=sampler)
+        monkeypatch.undo()
+        det = getattr(ts, sampler)(*map(_t, args), num).numpy()
+        assert not np.allclose(out, det), sampler  # the draws moved the samples
 
 
 def test_volume_render_planar_matches_jax(rng):

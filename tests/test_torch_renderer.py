@@ -15,7 +15,8 @@ import sys
 import numpy as np
 import pytest
 
-from test_torch_data import CAMS, H, W, _cfgs, _scene_pair
+from test_torch_data import CAMS, H, W, _cfgs, _scene_pair, one_torch_thread  # noqa: F401
+from test_torch_train import _jax_draws, _replayed
 
 pytestmark = pytest.mark.isolate
 
@@ -74,11 +75,12 @@ def _setup(tmp_path):
     return cfgs
 
 
-def _author(r, hidden, smooth_time=False):
-    """A 3-pose smooth path, layer 1 retimed, ``hidden`` hidden."""
+def _author(r, hidden, smooth_time=False, poses=3):
+    """A smooth path of ``poses`` poses, layer 1 retimed, ``hidden``
+    hidden."""
     if hidden is not None:
         r.hide_layer(hidden)
-    r.set_smooth_path_poses(3, around=False, smooth_time=smooth_time)
+    r.set_smooth_path_poses(poses, around=False, smooth_time=smooth_time)
     if not smooth_time:
         r.retime_by_key_frames(1, [2], [1])
 
@@ -175,6 +177,131 @@ def test_renderer_matches_jax(tmp_path, caplog):
             for ref, what in ((b, "JAX"), (c, "the exact path")):
                 db = _psnr(a, ref)
                 assert db >= 60.0, f"approximate path image {k} vs {what}: {db:.1f} dB"
+
+
+_TRAINED = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_fixtures",
+                        "trained_synthetic")
+
+
+# the trained checkpoint's live CPU renders in both packages: 32x24 (the
+# fixture's 100x75, a pose of which costs 8-19 s a package on one CPU
+# thread, renders once, in the port alone), 256-ray chunks, a 16^3
+# occupancy lattice (64^3 costs the port ~40 s on one thread) and a
+# 16-pixel gate probe (160 is four times the image)
+_TRAINED_CPU = {"size": [32, 24], "TPU": {"RENDER_CHUNK": 256, "OCC_GRID": 16,
+                                          "FIDELITY_PROBE_RES": 16}}
+
+
+def _trained_meta() -> dict:
+    import json
+
+    with open(os.path.join(_TRAINED, "curve.json")) as f:
+        return json.load(f)
+
+
+def _trained_setup(tmp_path, approx: dict, full: bool = False):
+    """The convergence A/B's config (tools/torch_convergence_ab.py, recorded
+    in the fixture's curve.json) in each package, on the synthetic scene,
+    ``approx`` on the TPU node, at ``_TRAINED_CPU``'s size and settings (or,
+    ``full``, at the fixture's render size and the config's own), and the
+    fixture's JAX-trained checkpoint in each package's OUTPUT_DIR."""
+    from stnerf_tpu.config import get_cfg as jget
+    from stnerf_tpu.data import make_synthetic_scene
+    from stnerf_tpu_torch.config import get_cfg as tget
+
+    meta = _trained_meta()
+    root = str(tmp_path / "scene")
+    if not os.path.exists(root):
+        make_synthetic_scene(root)  # the A/B's scene: the generator's defaults
+    cfgs = []
+    for get, name in ((jget, "jax"), (tget, "torch")):
+        cfg = get()
+        cfg.merge_from_file(os.path.join(_TRAINED, "..", "..", "..", meta["config"]))
+        cfg.merge_from_list(meta["opts"])
+        cfg.DATASETS.TRAIN = root
+        cfg.INPUT.SIZE_TEST = meta["render_size"] if full else _TRAINED_CPU["size"]
+        for k, v in {**approx, **({} if full else _TRAINED_CPU["TPU"])}.items():
+            cfg.TPU[k] = v
+        cfg.OUTPUT_DIR = str(tmp_path / f"out_{name}_{len(approx)}{'_full' * full}")
+        os.makedirs(cfg.OUTPUT_DIR)
+        shutil.copy(os.path.join(_TRAINED, meta["checkpoint"]), cfg.OUTPUT_DIR)
+        cfgs.append(cfg)
+    return cfgs
+
+
+def test_trained_checkpoint_matches_jax(tmp_path, caplog):
+    """The fixture's JAX-trained checkpoint (tests/torch_fixtures/
+    trained_synthetic, written by tools/torch_convergence_ab.py
+    --write-fixture) in both renderers: each edit case of ``_CASES``,
+    authored by ``_author`` (one pose; three for ``smooth_time``, whose
+    frames are fractional only then), on the exact path and then with the
+    config's production defaults (the fast fine stage, the 3-segment
+    early-exit march, occupancy-refined boxes with an automatic tau) with
+    the fidelity gate off, so that the approximations render. Every image
+    >= 60 dB against JAX's, the layers' hit masks (depth > 0) equal, the
+    refined boxes equal. Then the defaults with the gate on: the probe's dB
+    as JAX's on JAX's replayed draws and the same decision (on this
+    checkpoint both fall back to the exact path: 17.0 dB). Last, the port
+    alone at the fixture's own size (100x75) with the config's own 64^3
+    lattice and chunk, the plain case with the defaults (the gate off):
+    the refined boxes equal JAX's and the image >= 60 dB against JAX's
+    (stored in float16, a ceiling near 77 dB). Trained densities are sharp
+    where random ones are flat, so a box decision or a near-tie can flip
+    here that never flips at random init."""
+    from stnerf_tpu.render import LayeredNeuralRenderer as JRenderer
+    from stnerf_tpu_torch.render import LayeredNeuralRenderer
+
+    for approx in (_APPROX_OFF, {"FIDELITY_GATE": False}):
+        jcfg, tcfg = _trained_setup(tmp_path, approx)
+        lp1 = tcfg.DATASETS.LAYER_NUM + 1
+        for name, kwargs, opts, hidden in _CASES:
+            caplog.clear()
+            with caplog.at_level(logging.INFO):
+                jr = JRenderer(jcfg, **kwargs)
+                tr = LayeredNeuralRenderer(tcfg, device="cpu", **kwargs)
+            assert not any("not ported" in r.getMessage() for r in caplog.records)
+            what = f"{name}, {'exact' if len(approx) > 1 else 'defaults'}"
+            assert tr._ckpt_path.endswith("layered_rfnr_checkpoint_6.ckpt"), what
+            np.testing.assert_array_equal(np.asarray(tr.scene.boxes),
+                                          np.asarray(jr.scene.boxes), err_msg=what)
+            approximate = len(approx) == 1
+            for r in (jr, tr):
+                assert (r.scene is not r._exact_scene) == approximate, what
+                assert r.spec.fast_fine == approximate, what
+                _author(r, hidden, **opts, poses=3 if opts else 1)
+            assert tr.layer_frame_pairs == jr.layer_frame_pairs, what
+            for idx, (g, e) in enumerate(zip(_frames(tr, lp1), _frames(jr, lp1))):
+                for k, (a, b) in enumerate(zip(g, e)):
+                    db = _psnr(a, b)
+                    assert db >= 60.0, f"{what} pose {idx} image {k}: {db:.1f} dB"
+                for l in range(lp1):
+                    np.testing.assert_array_equal(g[2 + lp1 + l] > 0, e[2 + lp1 + l] > 0,
+                                                  err_msg=f"{what} pose {idx} layer {l}")
+    # the gate's probes render in random mode (JAX's key 0, the port's
+    # generator seeded 0): JAX's draws are replayed into the port's probes
+    jcfg, tcfg = _trained_setup(tmp_path, {})
+    with _jax_draws() as draws:
+        jr = JRenderer(jcfg)
+    with _replayed(draws):
+        tr = LayeredNeuralRenderer(tcfg, device="cpu")
+    assert draws
+    print(f"fidelity gate: port {tr.fidelity_db:.6f} dB, JAX {jr.fidelity_db:.6f} dB")
+    np.testing.assert_allclose(tr.fidelity_db, jr.fidelity_db, rtol=1e-3)
+    assert tr.spec.fast_fine == jr.spec.fast_fine
+    np.testing.assert_array_equal(np.asarray(tr.scene.boxes), np.asarray(jr.scene.boxes))
+
+    meta = _trained_meta()
+    with open(os.path.join(_TRAINED, "renders.npz"), "rb") as f:
+        jax_renders = dict(np.load(f))
+    tr = LayeredNeuralRenderer(_trained_setup(tmp_path, meta["render_paths"]["defaults"],
+                                              full=True)[1], device="cpu")
+    assert tr.scene is not tr._exact_scene and tr.spec.fast_fine
+    np.testing.assert_array_equal(np.asarray(tr.scene.boxes), jax_renders["defaults_boxes"])
+    pairs = [(0, 1.0)] + [(l, 1.0) for l in range(1, tr.layer_num + 1)]
+    c, _, _, _ = tr.render_pose(np.asarray(tr.gt_poses[0]), np.asarray(tr.gt_Ks[0]), pairs,
+                                frame_idx=0)
+    db = _psnr(c, jax_renders["defaults_plain"].astype(np.float32))
+    assert db >= 60.0, f"the approximate path at 100x75: {db:.1f} dB"
 
 
 def _tree(root):

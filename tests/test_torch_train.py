@@ -9,10 +9,12 @@ samples, width 32, 48 rays. Every test runs in a fresh child process
 (``isolate``).
 """
 
+import contextlib
 import os
 
 import numpy as np
 import pytest
+from test_torch_data import one_torch_thread  # noqa: F401  (autouse)
 
 pytestmark = pytest.mark.isolate
 
@@ -285,6 +287,207 @@ def test_train_step_matches_jax(rng, only_coarse):
     if only_coarse:  # the fine nets get no gradient
         assert not any(np.any(x) for x in jax.tree.leaves(g_t["bkgd_fine"]))
     _leaves_close(g_t, g_j)
+
+
+@contextlib.contextmanager
+def _jax_draws():
+    """Every ``jax.random.uniform`` draw made inside, as numpy arrays in
+    call order: an ordered callback records each at run time, jitted or
+    not (the caches are cleared, so that programs are traced inside)."""
+    import jax
+
+    draws, real = [], jax.random.uniform
+
+    def record(*args, **kwargs):
+        u = real(*args, **kwargs)
+        jax.debug.callback(lambda v: draws.append(np.asarray(v)), u, ordered=True)
+        return u
+
+    jax.clear_caches()
+    jax.random.uniform = record
+    try:
+        yield draws
+        jax.effects_barrier()
+    finally:
+        jax.random.uniform = real
+
+
+@contextlib.contextmanager
+def _replayed(draws):
+    """The port's samplers draw ``draws`` in call order (through
+    ``ops.sampling._uniform``); every draw must be taken, at its shape."""
+    import torch
+
+    from stnerf_tpu_torch.ops import sampling
+
+    replay, real = iter(draws), sampling._uniform
+
+    def uniform(shape, like, generator):
+        u = next(replay)
+        assert tuple(shape) == u.shape, (tuple(shape), u.shape)
+        return torch.tensor(u, dtype=like.dtype, device=like.device)
+
+    sampling._uniform = uniform
+    try:
+        yield
+    finally:
+        sampling._uniform = real
+    assert next(replay, None) is None, "a JAX draw was not taken"
+
+
+def test_random_mode_train_step_matches_jax(rng):
+    """``test_train_step_matches_jax`` in random mode: the JAX ``_losses``
+    runs with a key, its uniform draws are recorded (``_jax_draws``) and
+    replayed into the port's ``_losses`` in call order (``_replayed``). Both packages draw in the
+    same order — the coarse stage's one (N, S1) draw per layer, background
+    first, then the fine stage's one ((L+1) N, S2) ``sample_pdf`` draw — so
+    the draws need no matching by stage. Loss and every gradient leaf at
+    that test's bars."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from stnerf_tpu import models as J
+    from stnerf_tpu.engine.trainer import TrainBatch as JBatch
+    from stnerf_tpu.engine.trainer import _losses as jlosses
+    from stnerf_tpu_torch import models as T
+    from stnerf_tpu_torch.engine.trainer import TrainBatch, _losses
+
+    jspec, params, model = _models(_cfg())
+    scene = _scene()
+    rays, rgb, labels = _batch(rng)
+    jbatch = JBatch(J.RayInputs(*map(jnp.asarray, rays)), jnp.asarray(rgb), jnp.asarray(labels))
+
+    def jloss(p, key):
+        return jlosses(jspec, J.EditState.identity(2), True, p,
+                       J.SceneBoxes(*map(jnp.asarray, scene)), jbatch, key, 1.0, False)
+
+    with _jax_draws() as draws:
+        (v_j, raw_j), g_j = jax.device_get(jax.jit(jax.value_and_grad(
+            jloss, has_aux=True))(params, jax.random.PRNGKey(3)))
+    n = len(labels)
+    assert [d.shape for d in draws] == [(n, 16)] * 3 + [(3 * n, 8)]
+    batch = TrainBatch(T.RayInputs(*map(torch.tensor, rays)), torch.tensor(rgb),
+                       torch.tensor(labels))
+    with _replayed(draws):
+        v_t, raw_t = _losses(model, T.EditState.identity(2), True,
+                             T.SceneBoxes(*map(torch.tensor, scene)), batch,
+                             torch.Generator(), 1.0, False)
+    v_t.backward()
+    assert float(raw_t.mask) > 0
+    np.testing.assert_allclose(float(v_t), float(v_j), rtol=2e-5)
+    np.testing.assert_allclose(float(raw_t.mask), float(raw_j.mask), rtol=2e-5)
+    _leaves_close(T.export_jax_params(model, grad=True), g_j)
+
+
+def _lockstep_batches(rng, steps, n=48):
+    """``steps`` seeded batches: rays from around (0, 0, -5) fanned over
+    both performers' boxes, frames 1-2, random colours and labels."""
+    out = []
+    for _ in range(steps):
+        o = np.array([0.0, 0.0, -5.0], np.float32) + rng.normal(size=(n, 3)).astype(
+            np.float32) * 0.05
+        d = np.stack([rng.uniform(-0.4, 0.4, n), rng.uniform(-0.2, 0.6, n),
+                      np.ones(n)], 1).astype(np.float32)
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        frames = np.repeat(rng.integers(1, 3, (n, 1)), 3, 1).astype(np.float32)
+        rays = (o, d, frames, np.zeros(n, np.float32),
+                np.tile([[0.5, 12.0]], (n, 1)).astype(np.float32))
+        out.append((rays, rng.uniform(size=(n, 3)).astype(np.float32),
+                    rng.integers(0, 3, n)))
+    return out
+
+
+@pytest.mark.parametrize("form", ["nosort", "sorted"])
+def test_twenty_step_lockstep_matches_jax(rng, form):
+    """20 training steps of JAX's ``make_train_step`` and the port's, from
+    the same init on the same batches with JAX's draws replayed: the first
+    10 coarse only (COARSE_STAGE), then full steps; REMOVE_OUTLIERS with
+    mask_on 1; Adam under the warmup-and-decay schedule. The port runs the
+    sort-free compositor (``TPU.COMPOSITOR_KERNEL``: the plain cube form on
+    the CPU) or the sorted merge; JAX always trains sort-free. Every step's
+    loss within rtol 1e-3 of JAX's, or where float32 round-off amplified by
+    Adam is larger, within twice the distance between JAX's run and JAX's
+    run from an init nudged one float32 ulp in every leaf. The final
+    parameters' per-leaf relative L2 against JAX's is printed."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from stnerf_tpu import models as J
+    from stnerf_tpu.engine.solver import make_optimizer as jopt
+    from stnerf_tpu.engine.trainer import TrainBatch as JBatch
+    from stnerf_tpu.engine.trainer import make_train_step as jmake_step
+    from stnerf_tpu_torch import models as T
+    from stnerf_tpu_torch.engine import make_optimizer, make_train_step
+    from stnerf_tpu_torch.engine.trainer import TrainBatch
+
+    steps, coarse = 20, 10
+    cfg = _cfg()
+    cfg.SOLVER.OPTIMIZER_NAME = "Adam"
+    cfg.SOLVER.BASE_LR = 1e-3
+    cfg.SOLVER.WEIGHT_DECAY = 0.0
+    cfg.SOLVER.WARMUP_ITERS, cfg.SOLVER.START_ITERS, cfg.SOLVER.END_ITERS = 5, 12, 20
+    cfg.MODEL.REMOVE_OUTLIERS = True
+    cfg.TPU.COMPOSITOR_KERNEL = form == "nosort"
+    jspec, params, model = _models(cfg)
+    assert model.spec.compositor_kernel == (form == "nosort")
+    scene = _scene()
+    jscene = J.SceneBoxes(*map(jnp.asarray, scene))
+    data = _lockstep_batches(rng, steps)
+    jbatches = [JBatch(J.RayInputs(*map(jnp.asarray, r)), jnp.asarray(c), jnp.asarray(l))
+                for r, c, l in data]
+    keys = [jax.random.fold_in(jax.random.PRNGKey(5), i) for i in range(steps)]
+    tx = jopt(cfg)
+
+    def jax_run(p, recorded=None):
+        """-> (final parameters, losses, each step's draws from ``recorded``)."""
+        step, state = jmake_step(jspec, tx, remove_outliers=True), tx.init(p)
+        losses, draws = [], []
+        for i in range(steps):
+            n = len(recorded or ())
+            p, state, m = step(p, state, jscene, jbatches[i], keys[i], jnp.asarray(1.0),
+                               only_coarse=i < coarse)
+            losses.append(float(m.loss))
+            if recorded is not None:
+                jax.effects_barrier()
+                draws.append(recorded[n:])
+        return jax.device_get(p), np.array(losses), draws
+
+    with _jax_draws() as recorded:
+        p_j, loss_j, draws = jax_run(params, recorded)
+    opt, sched = make_optimizer(cfg, model)
+    step = make_train_step(model, opt, sched, remove_outliers=True, device="cpu")
+    tscene = T.SceneBoxes(*map(torch.tensor, scene))
+    loss_t = []
+    for i, (r, c, l) in enumerate(data):
+        batch = TrainBatch(T.RayInputs(*map(torch.tensor, r)), torch.tensor(c),
+                           torch.tensor(l))
+        with _replayed(draws[i]):
+            loss_t.append(float(step(tscene, batch, torch.Generator(), 1.0,
+                                     only_coarse=i < coarse).loss))
+    loss_t = np.array(loss_t)
+    nudged = jax.tree.map(lambda x: np.nextafter(x, np.float32(np.inf)), params)
+    p_n, loss_n, _ = jax_run(nudged)
+    bar = np.maximum(1e-3 * np.abs(loss_j), 2 * np.abs(loss_n - loss_j))
+
+    def worst_rel_l2(a, b):
+        rel = {jax.tree_util.keystr(k): float(np.linalg.norm(np.asarray(x) - np.asarray(y))
+                                              / max(np.linalg.norm(np.asarray(y)), 1e-30))
+               for (k, x), y in zip(jax.tree_util.tree_flatten_with_path(a)[0],
+                                    jax.tree.leaves(b))}
+        return f"{max(rel.values()):.3e} at {max(rel, key=rel.get)}"
+
+    print(f"{form}: final parameters, worst relative L2 of a leaf against JAX's: port "
+          f"{worst_rel_l2(T.export_jax_params(model), p_j)}, JAX from the nudged init "
+          f"{worst_rel_l2(p_n, p_j)}; loss, worst step relative to JAX's: port "
+          f"{np.max(np.abs(loss_t - loss_j) / loss_j):.3e}, nudged JAX "
+          f"{np.max(np.abs(loss_n - loss_j) / loss_j):.3e}")
+    assert (np.abs(loss_t - loss_j) <= bar).all(), (
+        f"JAX {loss_j.tolist()}\nport {loss_t.tolist()}\nbar {bar.tolist()}")
+    # the coarse stage left the fine nets as they were; the full steps moved them
+    assert not np.array_equal(p_j["bkgd_fine"]["density"][0]["w"],
+                              params["bkgd_fine"]["density"][0]["w"])
 
 
 def test_do_train_on_cpu_and_checkpoint(rng, tmp_path):

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 
 from test_torch_train import _batch, _cfg, _compact_pool, _leaves_close, _models, _scene
+from test_torch_data import one_torch_thread  # noqa: F401  (autouse)
 
 pytestmark = pytest.mark.isolate
 
