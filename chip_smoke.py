@@ -38,10 +38,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    round-off of 0 masks differently under the two summation orders;
    ``f32_close``); bf16 (tensor cores, two passes) vs bf16 relative L2 <=
    1e-2 per leaf on the inputs of a real training step's backward (phase
-   5's model, pool and batch; ``real_bwd_inputs``), and bitwise the same
-   gradients when run twice (``check_field_bwd``). The same edges as phase
-   2 (bf16 on the real background inputs cut to the ragged M). Prints both
-   routes' times and bounds per case at the seeded shape.
+   5's model, pool and batch; ``real_bwd_inputs``); both routes bitwise the
+   same gradients when run twice (``check_field_bwd``; float32: three
+   passes, 3xTF32 products, a fixed-order sum). The same edges as phase 2
+   (bf16 on the real background inputs cut to the ragged M). Prints both
+   routes' times and bounds per case at the seeded shape, the float32
+   route's workspace, and its time beside the former design's.
 5. Training: ``do_train`` on the taekwondo model at batch 2000 (one
    coarse-only epoch, then one full epoch, 20 steps each) from a compact
    pool of 40,000 rays of 8 ring cameras at 1920x1080 around the scene of
@@ -58,10 +60,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    background, a 4-layer rgb head and a field without directions: forward
    float32 (CUDA cores) at rtol 2e-3, atol 2e-4 and bf16 (tensor cores) vs
    float32 >= 40 dB; backward float32 at phase 4's bar and bf16 relative L2
-   <= 1e-2 per leaf, the bf16 gradients bitwise the same when run twice;
+   <= 1e-2 per leaf, both routes' gradients bitwise the same when run twice;
    for the performer, the device-side ``active`` flag: 1 leaves the
-   forward and d_pos / d_dir (bf16: every gradient) bitwise unchanged, 0
-   gives zeros everywhere. The same checks on the edges: a narrow model
+   forward and every gradient bitwise unchanged, 0 gives zeros everywhere. The same checks on the edges: a narrow model
    (trunk 64, head 32) and a ragged M with the flag unset, 1 and 0. Then
    the three K6 entry points (``fused_spacenet*``, on K3's forward kernels)
    against their plain versions at one shape. Prints both routes' times,
@@ -248,7 +249,9 @@ build, phase 11's scene written afresh), for a machine with four cards.
 band and then phase 18 alone: the same training in both forms, in bf16
 and in float32, at seed 0, from the initial weights nudged one float32 ulp
 and at seeds 1 and 2, each curve inside the band, and per dtype the
-largest gap between the card's runs and their mean.
+largest gap between the card's runs and their mean. ``python3 chip_smoke.py
+--backward`` runs phases 4 and 6 alone (K2 and K3 against their plain
+versions, both routes; about a minute after the build).
 """
 
 from __future__ import annotations
@@ -265,9 +268,14 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
-# H100 SXM data sheet peaks (dense): bf16 tensor cores, FP32 CUDA cores, HBM3
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# H100 SXM data sheet peaks (dense): bf16 and tf32 tensor cores, FP32 CUDA
+# cores, HBM3
+PEAK_FLOPS = {"bfloat16": 989e12, "tf32": 495e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
+# The float32 backward kernels' times before their redesign (three passes,
+# 3xTF32 on the tensor cores), at M = 240,000 on the performer field:
+# chip_smoke.py's phases 4 and 6 on an NVIDIA H100 80GB HBM3, 700 W (PERF.md)
+F32_BWD_MS_BEFORE = {"field_bwd": 48.80, "spacenet_bwd": 52.02}
 
 
 def check(cond, msg: str):
@@ -341,6 +349,18 @@ def bound_ms(flops: float, nbytes: float, dtype: str) -> tuple:
     card's peak for the dtype and bytes over its memory rate."""
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def f32_bwd_bound_ms(macs: dict, samples: int, nbytes: float) -> tuple:
+    """The least time for the operations the float32 backward kernels do
+    (csrc/f32_bwd.cuh): the forward's recompute in float32 on CUDA cores,
+    dx and dW as 3xTF32 (three tf32 products each) on the tensor cores; the
+    two units run side by side, so the larger of the two times, and of the
+    bytes' time."""
+    t_f32 = 2 * macs["fwd"] * samples / PEAK_FLOPS["float32"] * 1e3
+    t_tf32 = 3 * 2 * (macs["bwd"] - macs["fwd"]) * samples / PEAK_FLOPS["tf32"] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return max((t_f32, "operations"), (t_tf32, "operations"), (t_bytes, "bytes"))
 
 
 def k6_entries() -> list:
@@ -524,9 +544,10 @@ def check_fused_field(name, fields, xyz, ids, dir_enc, flags, skipped) -> dict:
 
 def edge_cases(device, check_fn, label: str, seed: int) -> list:
     """The kernels' edges, both dtypes: a narrow model (trunk 64, head 32,
-    motion 32: every width the tiling pads) with seeded skip flags, and the
-    taekwondo performer at a ragged M (not a multiple of 64 or 128) with all
-    tiles flagged on, all flagged off and no flags. ``check_fn(name,
+    motion 32: every width the tiling pads) with seeded skip flags (25% of
+    the tiles off), and the taekwondo performer at a ragged M (not a
+    multiple of 64 or 128) with all tiles flagged on, the seeded flags, all
+    flagged off and no flags. ``check_fn(name,
     fields, xyz, ids, dir_enc, flags, skipped)`` is phase 2's or phase 4's
     check. -> its rows."""
     import torch
@@ -557,6 +578,7 @@ def edge_cases(device, check_fn, label: str, seed: int) -> list:
              ("narrow_background", narrow.bkgd_fine, None, None, seeded),
              ("ragged_all_on", wide.layers_fine[0], wide.motion[0], "lerp",
               np.ones(n_tiles, np.int32)),
+             ("ragged_quarter_off", wide.layers_fine[0], wide.motion[0], "lerp", seeded),
              ("ragged_all_off", wide.layers_fine[0], wide.motion[0], "lerp",
               np.zeros(n_tiles, np.int32)),
              ("ragged_no_flags", wide.layers_fine[0], wide.motion[0], "lerp", None)]
@@ -795,6 +817,7 @@ def phase_field_bwd_vs_plain(device, m: int, reps: int):
     route run twice gives the same gradients bit for bit (no atomics)."""
     import torch
 
+    from stnerf_tpu_torch.kernels import f32_bwd
     from stnerf_tpu_torch.kernels.field_vjp import field_bwd, field_bwd_reference
     from stnerf_tpu_torch.kernels.fused_field import TILE
     from stnerf_tpu_torch.models import LayeredSpec, MotionNet, SpaceNet
@@ -858,7 +881,18 @@ def phase_field_bwd_vs_plain(device, m: int, reps: int):
                       + 4 * (f.weights.numel() + f.biases.numel()))
             row[f"{dt}_bound_ms"], row[f"{dt}_bound_by"] = bound_ms(
                 2 * field_macs(f)["bwd"] * samples_run, nbytes, dt)
+            if dt == "float32":  # what the kernels do: CUDA cores and 3xTF32
+                row["float32_route_bound_ms"], _ = f32_bwd_bound_ms(field_macs(f), samples_run,
+                                                                    nbytes)
+                plan = f32_bwd.make_plan(f, m, f32_bwd.sm_count(device))
+                row["float32_workspace_bytes"] = plan.workspace_bytes
+                row["float32_slices_ranges"] = [plan.n_slices, plan.ranges]
         print("field_bwd_vs_plain", json.dumps(row), flush=True)
+        if name == "performer_lerp":
+            print("field_bwd_float32_new_vs_old", json.dumps(
+                {"ms": row["float32_ms"], "before_ms": F32_BWD_MS_BEFORE["field_bwd"],
+                 "plain_ms": row["float32_plain_ms"], "bound_ms": row["float32_bound_ms"],
+                 "share": row["float32_bound_ms"] / row["float32_ms"]}), flush=True)
         results.append(row)
     background = real["background"]
 
@@ -884,8 +918,10 @@ def check_field_bwd(name, f, args, skipped) -> dict:
     (xyz, ids, dir_enc, d_rgb, d_sigma, tile_flags): finite gradients, zero
     d_xyz and d_dir in skipped tiles (and all-zero weight gradients when
     every tile is skipped); float32 per leaf within rtol 2e-3, atol 2e-3
-    max|g| but for at most one entry or 0.1% of the leaf (``f32_close``);
-    bf16 per leaf within relative L2 1e-2. -> the errors."""
+    max|g| but for at most one entry or 0.1% of the leaf (``f32_close``),
+    and the same bits when run twice (no atomics: three passes, a
+    fixed-order sum); bf16 per leaf within relative L2 1e-2. -> the
+    errors."""
     import torch
 
     from stnerf_tpu_torch.kernels.field_vjp import field_bwd, field_bwd_reference
@@ -905,6 +941,9 @@ def check_field_bwd(name, f, args, skipped) -> dict:
     if dt == "float32":
         bad = {k: v for k, v in stats.items() if not f32_close(v)}
         check(not bad, f"{name}: f32 kernel vs plain beyond the float32 bar: {bad}")
+        again = field_bwd(f, *args)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"{name}: f32 gradients differ between two runs")
         return {"f32_max_abs_err": max(v["err"] for v in stats.values()),
                 "f32_max_rel_l2": max(v["rel"] for v in stats.values()),
                 "f32_entries_outside": {k: v["outside"] for k, v in stats.items()
@@ -940,13 +979,14 @@ def _encoded_inputs(device, m: int, seed: int):
 def check_spacenet(name, net, x, flags: bool) -> dict:
     """spacenet_fwd / spacenet_bwd (K3) against their plain versions for one
     SpaceNet on the encodings ``x`` (``_encoded_inputs``), both routes:
-    finite outputs; the float32 route (CUDA cores) at rtol 2e-3, atol 2e-4
-    in the forward and at phase 4's bar in the backward (``f32_close``); the
-    bf16 route (tensor cores) >= 40 dB from the float32 plain forward, its
+    finite outputs; the float32 route at rtol 2e-3, atol 2e-4 in the
+    forward (CUDA cores) and at phase 4's bar in the backward (three passes,
+    3xTF32; ``f32_close``) and bitwise the same when run twice; the bf16
+    route (tensor cores) >= 40 dB from the float32 plain forward, its
     backward within relative L2 1e-2 of the bf16 plain version per leaf and
     bitwise the same when run twice. With ``flags``, the device-side
-    ``active`` flag on both routes: 1 leaves the forward and d_pos / d_dir
-    (bf16: every gradient) bitwise unchanged, 0 gives zeros everywhere,
+    ``active`` flag on both routes: 1 leaves the forward and every
+    gradient bitwise unchanged, 0 gives zeros everywhere,
     weight gradients included. -> the errors; ``fields`` and the call
     arguments under "_args" for the timing."""
     import torch
@@ -977,9 +1017,8 @@ def check_spacenet(name, net, x, flags: bool) -> dict:
             on, off = (torch.full((1,), v, dtype=torch.int32, device=device) for v in (1, 0))
             fwd_on, got_on = spacenet_fwd(*fwd_args, on), spacenet_bwd(*bwd_args, on)
             fwd_off, got_off = spacenet_fwd(*fwd_args, off), spacenet_bwd(*bwd_args, off)
-            same = got_on if dt == "bfloat16" else got_on[2:]
             check(all(torch.equal(a, b) for a, b in zip(fwd_on, (rgb_k, sig_k)))
-                  and all(torch.equal(a, b) for a, b in zip(same, got[-len(same):])),
+                  and all(torch.equal(a, b) for a, b in zip(got_on, got)),
                   f"{name} {dt}: active 1 changed the forward or a gradient")
             check(not any(bool(a.any()) for a in (*fwd_off, *got_off)),
                   f"{name} {dt}: active 0 left a nonzero output or gradient")
@@ -1000,6 +1039,9 @@ def check_spacenet(name, net, x, flags: bool) -> dict:
             bad = {k: v for k, v in stats.items() if not f32_close(v)}
             check(not bad, f"{name}: f32 backward kernel vs plain beyond the float32 "
                            f"bar: {bad}")
+            again = spacenet_bwd(*bwd_args)
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"{name}: f32 gradients differ between two runs")
             plain_rgb = rgb_p
         else:
             db = psnr(torch.sigmoid(rgb_k).cpu(), torch.sigmoid(plain_rgb).cpu())
@@ -1029,6 +1071,7 @@ def phase_spacenet_vs_plain(device, m: int, reps: int):
     ragged M with ``active`` None, 1 and 0 -> per-case results."""
     import torch
 
+    from stnerf_tpu_torch.kernels import f32_bwd
     from stnerf_tpu_torch.kernels.spacenet_vjp import (spacenet_bwd, spacenet_bwd_reference,
                                                        spacenet_fwd, spacenet_fwd_reference,
                                                        tc_workspace_bytes)
@@ -1075,7 +1118,19 @@ def phase_spacenet_vs_plain(device, m: int, reps: int):
                 row[f"{dt}_{half}_plain_ms"] = cuda_ms(lambda: plain(*a), reps)
                 row[f"{dt}_{half}_bound_ms"], row[f"{dt}_{half}_bound_by"] = b_ms, b_by
                 row[f"{dt}_{half}_share"] = b_ms / row[f"{dt}_{half}_ms"]
+            if dt == "float32":  # what the backward kernels do: CUDA cores and 3xTF32
+                row["float32_bwd_route_bound_ms"], _ = f32_bwd_bound_ms(
+                    macs, m, 4 * m * (rows + 4 + pos.shape[0] + dir_enc.shape[0])
+                    + w_bytes + g_bytes)
+                plan = f32_bwd.make_plan(f, m, f32_bwd.sm_count(device))
+                row["float32_bwd_workspace_bytes"] = plan.workspace_bytes
         print("spacenet_vs_plain", json.dumps(row), flush=True)
+        if name == "performer_time":
+            print("spacenet_bwd_float32_new_vs_old", json.dumps(
+                {"ms": row["float32_bwd_ms"], "before_ms": F32_BWD_MS_BEFORE["spacenet_bwd"],
+                 "plain_ms": row["float32_bwd_plain_ms"],
+                 "bound_ms": row["float32_bwd_bound_ms"],
+                 "share": row["float32_bwd_share"]}), flush=True)
         results.append(row)
 
     # the edges: every width the tiling pads, and a ragged M (not a
@@ -1231,8 +1286,8 @@ def compare_train_step(device, bundle, scene, dtype: str, cfg_fn=None,
     """One training step through the kernels and one through their plain
     versions, from the same weights, batch and sampling noise: gradients
     per leaf, and the seconds of a second step of each path. ``cfg_fn``
-    (default taekwondo_cfg) gives the model's config. -> (row, the plain
-    step's gradients by leaf).
+    (default taekwondo_cfg) gives the model's config; the peak device memory
+    of each second step. -> (row, the plain step's gradients by leaf).
 
     The bars: float32 as phase 4 (``f32_close``); bf16 relative L2 <= 1e-2
     per leaf, but for the pose refinement's two leaves when the float32
@@ -1260,7 +1315,7 @@ def compare_train_step(device, bundle, scene, dtype: str, cfg_fn=None,
     from stnerf_tpu_torch.kernels.spacenet_vjp import spacenet_bwd, spacenet_fwd
 
     counted = (fused_field, field_bwd, spacenet_fwd, spacenet_bwd)
-    grads, seconds, launches = {}, {}, {}
+    grads, seconds, launches, peak = {}, {}, {}, {}
     for plain in (False, True):
         for k in counted:
             k.launches = k.launches_tc = 0
@@ -1272,10 +1327,12 @@ def compare_train_step(device, bundle, scene, dtype: str, cfg_fn=None,
         check(bool(torch.isfinite(m.loss)), f"{dtype} step (plain={plain}): loss not finite")
         grads[plain] = dict(_flat_leaves(export_jax_params(model, grad=True)))
         sync(device)
+        torch.cuda.reset_peak_memory_stats(device)
         t0 = time.perf_counter()
         step(scene, batch, torch.Generator(device=device).manual_seed(SEED + 1), 1.0)
         sync(device)
         seconds[plain] = time.perf_counter() - t0
+        peak[plain] = torch.cuda.max_memory_allocated(device)
         if not plain:  # two steps through the kernels, by route
             launches = {f"{k.__name__}{route}": n for k in counted
                         for route, n in (("_tc", k.launches_tc),
@@ -1299,6 +1356,7 @@ def compare_train_step(device, bundle, scene, dtype: str, cfg_fn=None,
            "entries_outside": {k: v["outside"] for k, v in stats.items() if v["outside"]},
            "kernel_s_per_step": seconds[False], "plain_s_per_step": seconds[True],
            "kernel_rays_per_s": n / seconds[False], "plain_rays_per_s": n / seconds[True],
+           "kernel_peak_bytes": peak[False], "plain_peak_bytes": peak[True],
            "launches": launches}
     # the fused path: every field through K1 and K2; the staged path
     # (view deformation): through K3's forward and backward
@@ -3929,8 +3987,9 @@ def main():
     script_t0 = time.perf_counter()
     import torch
 
-    if sys.argv[1:] not in ([], ["--model-axis-nccl"], ["--trained-spread"]):
-        raise SystemExit("usage: python3 chip_smoke.py [--model-axis-nccl | --trained-spread]")
+    if sys.argv[1:] not in ([], ["--model-axis-nccl"], ["--trained-spread"], ["--backward"]):
+        raise SystemExit("usage: python3 chip_smoke.py [--model-axis-nccl | --trained-spread | "
+                         "--backward]")
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke needs a CUDA device; torch.cuda.is_available() "
                            "is False")
@@ -3953,8 +4012,15 @@ def main():
         for line in log.read_text().splitlines():
             if "entry function" in line or "registers" in line or "spill" in line:
                 print("ptxas", line.strip(), flush=True)
-    if sys.argv[1:] in (["--model-axis-nccl"], ["--trained-spread"]):
-        if sys.argv[1:] == ["--model-axis-nccl"]:
+    if sys.argv[1:] in (["--model-axis-nccl"], ["--trained-spread"], ["--backward"]):
+        if sys.argv[1:] == ["--backward"]:  # phases 4 and 6 alone
+            m = taekwondo_cfg().SOLVER.IMS_PER_BATCH * 120
+            for name, phase in (("field_bwd_vs_plain", phase_field_bwd_vs_plain),
+                                ("spacenet_vs_plain", phase_spacenet_vs_plain)):
+                t0 = time.perf_counter()
+                phase(device, m=m, reps=3)
+                print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+        elif sys.argv[1:] == ["--model-axis-nccl"]:
             row = model_axis_nccl_only(device, card)["2x2_nccl"]
             check(row.get("ran", True), f"17(c) did not run: {row.get('why')}")
         else:
@@ -4076,7 +4142,8 @@ def main():
          "max_abs_err": max(c["f32_max_abs_err"] for c in bwd_cases),
          "ms": bwd["float32_ms"], "plain_ms": bwd["float32_plain_ms"],
          "bound_ms": bwd["float32_bound_ms"], "bound_by": bwd["float32_bound_by"],
-         "library_ms": None},
+         "route_bound_ms": bwd["float32_route_bound_ms"],
+         "workspace_bytes": bwd["float32_workspace_bytes"], "library_ms": None},
         {"name": "spacenet_fwd_tc", "route": "cuda",
          "source": "stnerf_tpu_torch/kernels/csrc/spacenet_tc.cu",
          "replaces": "stnerf_tpu/kernels/spacenet_vjp.py:210",
@@ -4113,7 +4180,8 @@ def main():
          "max_abs_err": max(c["f32_bwd_max_abs_err"] for c in k3_cases),
          "ms": k3["float32_bwd_ms"], "plain_ms": k3["float32_bwd_plain_ms"],
          "bound_ms": k3["float32_bwd_bound_ms"], "bound_by": k3["float32_bwd_bound_by"],
-         "library_ms": None}]
+         "route_bound_ms": k3["float32_bwd_route_bound_ms"],
+         "workspace_bytes": k3["float32_bwd_workspace_bytes"], "library_ms": None}]
     # what each launched in the entry point's run too (bf16: the CUDA-core
     # routes of K1, K2 and K3 count what the tensor-core ones did not take)
     entry_launches = dict(entry["launches"])

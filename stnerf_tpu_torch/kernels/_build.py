@@ -24,7 +24,7 @@ SOURCES = (CSRC / "fused_field.cu", CSRC / "fused_field_tc.cu", CSRC / "field_bw
            CSRC / "field_bwd_tc.cu", CSRC / "spacenet.cu", CSRC / "spacenet_tc.cu",
            CSRC / "cross_trans.cu")
 HEADERS = (CSRC / "field_common.cuh", CSRC / "mlp_blocks.cuh", CSRC / "tc_blocks.cuh",
-           CSRC / "tc_bwd.cuh")
+           CSRC / "tc_bwd.cuh", CSRC / "f32_bwd.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -38,10 +38,11 @@ SIGNATURES = {
     # bf16 fields (tensor cores): xyz, ids, dir, flags, weights, fragments,
     # biases, offsets (host), out, then the same 10 ints, and the stream
     "stnerf_fused_field_tc": [_P] * 9 + [_I] * 11 + [_P],
-    # float32: xyz, ids, dir, d_rgb, d_sigma, flags, weights, biases,
-    # offsets (host), gw, gb, d_xyz, d_dir, then the same 10 ints, and the
-    # stream
-    "stnerf_field_bwd": [_P] * 13 + [_I] * 10 + [_P],
+    # float32: xyz, ids, dir, d_rgb, d_sigma, flags, weights, dx fragments
+    # (PackedField.dx_frags), biases, offsets (host), plan (host,
+    # f32_bwd.Plan.array), gw, gb, d_xyz, d_dir, workspace, then the same 10
+    # ints, the packed weights' and biases' element counts, and the stream
+    "stnerf_field_bwd": [_P] * 16 + [_I] * 12 + [_P],
     # bf16 (tensor cores): the same with the fragments after the weights and
     # the workspace after d_dir, then the same 10 ints, the packed weights'
     # and biases' element counts, and the stream
@@ -53,10 +54,10 @@ SIGNATURES = {
     # active, out, then M, pos_rows, dir_rows, time_rows, width, head, n_rgb,
     # and the stream
     "stnerf_spacenet_fwd": [_P] * 8 + [_I] * 7 + [_P],
-    # float32: pos, dir, time, d_rgb, d_sigma, weights, biases, offsets
-    # (host), active, gw, gb, d_pos, d_dir, then the same 7 ints, and the
-    # stream
-    "stnerf_spacenet_bwd": [_P] * 13 + [_I] * 7 + [_P],
+    # float32: pos, dir, time, d_rgb, d_sigma, weights, dx fragments,
+    # biases, offsets (host), plan (host), active, gw, gb, d_pos, d_dir,
+    # workspace, then the same 7 ints, the two counts, and the stream
+    "stnerf_spacenet_bwd": [_P] * 16 + [_I] * 9 + [_P],
     # bf16 fields (tensor cores): pos, dir, time, weights, fragments, biases,
     # offsets (host), active, out, then the same 7 ints, and the stream
     "stnerf_spacenet_fwd_tc": [_P] * 9 + [_I] * 7 + [_P],

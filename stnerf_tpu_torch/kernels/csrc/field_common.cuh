@@ -1,6 +1,7 @@
-// Device helpers shared by the field kernels (fused_field*.cu, field_bwd*.cu):
-// the packed operand slots, bf16 storage and rounding, vector weight loads, and the TPU kernels'
-// positional encoding by double-angle recursion and its VJP.
+// Device helpers shared by the field kernels (fused_field*.cu, field_bwd*.cu,
+// spacenet*.cu): the packed operand slots, bf16 storage and rounding, vector
+// weight loads, the TPU kernels' positional encoding by double-angle
+// recursion and its VJP, and the backward's fixed-order sum of partials.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -121,5 +122,22 @@ __device__ float encode_vjp(float v, const float* dE, int ch, int C, int freqs, 
 }
 
 bool kernel_width(int w) { return w == 32 || w == 64 || w == 128 || w == 256; }
+
+// Pass 3 of the backward kernels' weight gradients (tc_bwd.cuh, f32_bwd.cuh):
+// out[i] = sum over ranges of partial[range][i], in range order: the weight
+// gradients, then the bias gradients. The same sum on every run.
+__global__ void field_dw_reduce(const float* __restrict__ partial, int ranges, int n_w, int n_b,
+                                float* __restrict__ gw, float* __restrict__ gb) {
+  const int n = n_w + n_b;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float s = 0.f;
+  for (int r = 0; r < ranges; ++r) s += partial[static_cast<size_t>(r) * n + i];
+  if (i < n_w) {
+    gw[i] = s;
+  } else {
+    gb[i - n_w] = s;
+  }
+}
 
 }  // namespace

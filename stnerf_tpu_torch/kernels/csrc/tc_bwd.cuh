@@ -8,8 +8,9 @@
 //      into the block's record in global memory (Ctx::save);
 //   2. field_dw_kernel: dW = x dy^T and db = sum dy for every layer from the
 //      records, one float32 partial per range of records;
-//   3. field_dw_reduce: each entry the sum of its ranges' partials in range
-//      order, so the weight gradients are the same on every run.
+//   3. field_dw_reduce (field_common.cuh): each entry the sum of its ranges'
+//      partials in range order, so the weight gradients are the same on
+//      every run.
 // The caller's pass 1 loads the encodings into act tiles and handles what
 // lies outside the SpaceNet (K2: the motion net and the encoding's VJP);
 // finish_layout and launch_dw set up and launch passes 2 and 3.
@@ -422,22 +423,6 @@ field_dw_kernel(const unsigned short* __restrict__ records, const int* __restric
     case 32: dw_tile<32>(records, flags, partial, p, jb, k0, n0, b_lo, b_hi); break;
     case 64: dw_tile<64>(records, flags, partial, p, jb, k0, n0, b_lo, b_hi); break;
     default: dw_tile<128>(records, flags, partial, p, jb, k0, n0, b_lo, b_hi); break;
-  }
-}
-
-// out[i] = sum over ranges of partial[range][i], in range order: the
-// weight gradients, then the bias gradients
-__global__ void field_dw_reduce(const float* __restrict__ partial, int ranges, int n_w, int n_b,
-                                float* __restrict__ gw, float* __restrict__ gb) {
-  const int n = n_w + n_b;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float s = 0.f;
-  for (int r = 0; r < ranges; ++r) s += partial[static_cast<size_t>(r) * n + i];
-  if (i < n_w) {
-    gw[i] = s;
-  } else {
-    gb[i - n_w] = s;
   }
 }
 

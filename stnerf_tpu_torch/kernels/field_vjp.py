@@ -7,8 +7,10 @@ Three pieces beside the forward kernel's:
 * :func:`field_bwd` — the wrapper of the backward. On a CUDA tensor it
   launches a hand-written kernel (built at first use by ``_build.py``) or
   raises: a bf16 field goes to the tensor-core kernel
-  ``csrc/field_bwd_tc.cu``, a float32 one to the CUDA-core kernel
-  ``csrc/field_bwd.cu``. On a CPU tensor it runs the plain version.
+  ``csrc/field_bwd_tc.cu``, a float32 one to ``csrc/field_bwd.cu`` (three
+  passes planned by ``f32_bwd.make_plan``).
+  Both routes sum the weight gradients in a fixed order: the same bits on
+  every run. On a CPU tensor it runs the plain version.
 * :func:`field_bwd_reference` — the plain PyTorch backward: the TPU kernel's
   ``_field_bwd_body`` written out (``_bwd_math``, shared with
   ``spacenet_vjp.py``; ``_motion_bwd``; ``_encode_vjp``), with every
@@ -33,6 +35,7 @@ from typing import TYPE_CHECKING
 import torch
 
 from ..ops.rounding import round_to
+from . import f32_bwd
 from .fused_field import (MOTION_MODES, TILE, PackedField, _check_inputs,
                           _check_kernel_support, _encode, _field_linears,
                           _linear_grads, fused_field, fused_field_reference,
@@ -66,13 +69,14 @@ def _encode_vjp(enc: torch.Tensor, d_enc: torch.Tensor, c: int, freqs: int,
 def field_bwd_reference(field: PackedField, xyz: torch.Tensor, ids: torch.Tensor,
                         dir_enc: torch.Tensor, d_rgb: torch.Tensor,
                         d_sigma: torch.Tensor,
-                        tile_flags: torch.Tensor | None = None):
+                        tile_flags: torch.Tensor | None = None, product=torch.matmul):
     """Plain PyTorch version of the backward kernel.
 
     -> (gw, gb, d_xyz (3, M), d_dir (dir_rows, M)): gw and gb float32 with
     the layout of ``field.weights`` and ``field.biases``. A skipped tile
     adds nothing and gets zero d_xyz and d_dir. Weight and bias gradients
-    are summed in float32.
+    are summed in float32. The backward's products go through ``product``
+    (``spacenet_vjp.spacenet_bwd_math``'s).
     """
     dt = field.dtype
     spec = field.spec
@@ -89,13 +93,13 @@ def field_bwd_reference(field: PackedField, xyz: torch.Tensor, ids: torch.Tensor
         return field.b(slot)[:, None]
 
     def dx(slot, dy):       # d(input) = W dy, float32 accumulation
-        return field.w(slot).float() @ dy
+        return product(field.w(slot).float(), dy)
 
     def pos(x, dy):         # dy where the activation x is positive
         return torch.where(x > 0, dy, 0.0)
 
     def grad(wslot, bslot, x, dy):
-        gws[wslot] = x @ dy.t()
+        gws[wslot] = product(x, dy.t())
         gbs[bslot] = dy.sum(1)
 
     keep = None
@@ -130,7 +134,7 @@ def field_bwd_reference(field: PackedField, xyz: torch.Tensor, ids: torch.Tensor
     p32 = _encode(x_d, spec)
     t_enc = r(_encode(ids, spec)) if spec.use_time else None
     gws, gbs, d_p, d_dir = spacenet_bwd_math(field, r(p32), r(dir_enc), t_enc,
-                                             d_rgb, d_sigma)
+                                             d_rgb, d_sigma, product)
     d_xyz = _encode_vjp(p32, d_p, 3, freqs, inc)
 
     # ---- motion net ----
@@ -162,8 +166,9 @@ def field_bwd(field: PackedField, xyz: torch.Tensor, ids: torch.Tensor,
     -> (gw, gb, d_xyz, d_dir) as :func:`field_bwd_reference`.
 
     CPU tensors run :func:`field_bwd_reference`. CUDA tensors launch the
-    tensor-core kernel for a bf16 field and the CUDA-core kernel for a
-    float32 one, and any failure to build or launch it raises.
+    bf16 kernels for a bf16 field and the float32 ones for a float32 field
+    (each three passes with a fixed-order sum: the same bits on every run),
+    and any failure to build or launch them raises.
     """
     _check_inputs(field, xyz, ids, dir_enc, tile_flags)
     m = xyz.shape[1]
@@ -182,8 +187,9 @@ def field_bwd(field: PackedField, xyz: torch.Tensor, ids: torch.Tensor,
 
     lib = load_library()
     dev = xyz.device
-    gw = torch.zeros(field.weights.shape, dtype=torch.float32, device=dev)
-    gb = torch.zeros(field.biases.shape, dtype=torch.float32, device=dev)
+    # both routes' last pass writes every entry
+    gw = torch.empty(field.weights.shape, dtype=torch.float32, device=dev)
+    gb = torch.empty(field.biases.shape, dtype=torch.float32, device=dev)
     d_xyz = torch.empty((3, m), dtype=torch.float32, device=dev)
     d_dir = torch.empty(tuple(dir_enc.shape), dtype=torch.float32, device=dev)
     spec = field.spec
@@ -194,6 +200,7 @@ def field_bwd(field: PackedField, xyz: torch.Tensor, ids: torch.Tensor,
             MOTION_MODES[field.motion_mode])
     outputs = (ptr(gw.data_ptr()), ptr(gb.data_ptr()), ptr(d_xyz.data_ptr()),
                ptr(d_dir.data_ptr()))
+    counts = (field.weights.numel(), field.biases.numel())
     with torch.cuda.device(dev):
         stream = ptr(torch.cuda.current_stream().cuda_stream)
         inputs = (ptr(xyz.data_ptr()), ptr(ids.data_ptr()), ptr(dir_enc.data_ptr()),
@@ -202,7 +209,6 @@ def field_bwd(field: PackedField, xyz: torch.Tensor, ids: torch.Tensor,
                   ptr(field.weights.data_ptr()))
         if tc:
             frags, offsets = field.tc
-            counts = (field.weights.numel(), field.biases.numel())
             nbytes = ctypes.c_int64()
             err = lib.stnerf_field_bwd_tc_workspace(*ints, *counts, ctypes.byref(nbytes))
             if err == 0:
@@ -213,9 +219,15 @@ def field_bwd(field: PackedField, xyz: torch.Tensor, ids: torch.Tensor,
                     offsets.ctypes.data_as(ptr), *outputs, ptr(work.data_ptr()), *ints,
                     *counts, stream)
         else:
+            plan = f32_bwd.make_plan(field, m, f32_bwd.sm_count(dev))
+            # one slice's records and every range's partial sums
+            work = torch.empty(plan.workspace_bytes, dtype=torch.uint8, device=dev)
+            plan_ints = plan.array()
             err = lib.stnerf_field_bwd(
-                *inputs, ptr(field.biases.data_ptr()), field.offsets.ctypes.data_as(ptr),
-                *outputs, *ints, stream)
+                *inputs, ptr(field.dx_frags.data_ptr()), ptr(field.biases.data_ptr()),
+                field.offsets.ctypes.data_as(ptr),
+                plan_ints.ctypes.data_as(ptr), *outputs, ptr(work.data_ptr()), *ints, *counts,
+                stream)
     if err != 0:
         raise RuntimeError(f"field_bwd kernel launch failed: CUDA error {err}")
     field_bwd.launches += 1

@@ -152,6 +152,14 @@ class PackedField:
         src = torch.cat([self.weights, self.weights.new_zeros(1)])
         return src[idx], np.concatenate([self.offsets, f_offs, g_offs]).astype(np.int32)
 
+    @functools.cached_property
+    def dx_frags(self) -> torch.Tensor:
+        """The float32 backward kernels' dx operands (``f32_bwd.dx_fragments``),
+        made once per packed field on the weights' device."""
+        from .f32_bwd import dx_fragments
+
+        return dx_fragments(self)
+
 
 def pack_field(space_ops: tuple, motion_ops: tuple, spec: SpaceNetSpec,
                motion_mode: str | None = None,

@@ -10,8 +10,9 @@ runs here. The pieces, as for every kernel of the port:
 * :func:`spacenet_fwd` and :func:`spacenet_bwd` — the wrappers. On CUDA
   tensors they launch a hand-written kernel (built at first use by
   ``_build.py``) or raise: a bf16 field goes to the tensor-core kernels of
-  ``csrc/spacenet_tc.cu``, a float32 one to the CUDA-core kernels of
-  ``csrc/spacenet.cu``. On CPU tensors they run the plain versions.
+  ``csrc/spacenet_tc.cu``, a float32 one to the kernels of
+  ``csrc/spacenet.cu`` (the backward's three passes planned by
+  ``f32_bwd.make_plan``). On CPU tensors they run the plain versions.
 * :func:`spacenet_fwd_reference` and :func:`spacenet_bwd_reference` — the
   plain PyTorch versions. The backward writes out the TPU kernel's
   ``_bwd_math`` (:func:`spacenet_bwd_math`, shared with the fused field's
@@ -47,6 +48,7 @@ from typing import TYPE_CHECKING
 import torch
 
 from ..ops.rounding import round_to
+from . import f32_bwd
 from .fused_field import (KERNEL_WIDTHS, PackedField, _field_linears,
                           _linear_grads, pack_field,
                           prepare_kernel_params_planar, spacenet_chain)
@@ -73,18 +75,21 @@ def spacenet_fwd_reference(field: PackedField, pos_enc: torch.Tensor,
 
 def spacenet_bwd_math(field: PackedField, p: torch.Tensor, d_in: torch.Tensor,
                       t_enc: torch.Tensor | None, d_rgb: torch.Tensor,
-                      d_sigma: torch.Tensor):
+                      d_sigma: torch.Tensor, product=torch.matmul):
     """The TPU kernels' ``_bwd_math`` on encodings rounded to the compute
     dtype: recompute the SpaceNet forward, backpropagate the cotangents
     d_rgb (3, M) and d_sigma (M,). -> ({weight slot: dW (in, out)}, {bias
-    slot: db}, d_p (pos_dim, M), d_dir (dir_rows, M)), all float32."""
+    slot: db}, d_p (pos_dim, M), d_dir (dir_rows, M)), all float32. The
+    backward's products (dx = W dy, dW = x dy^T) go through ``product``
+    (``ops.rounding.tf32x3_matmul``: the float32 kernels' tensor-core
+    arithmetic); the forward's stay float32 matmuls."""
     dt = field.dtype
 
     def r(x):
         return round_to(x, dt)
 
     def dx(slot, dy):       # d(input) = W dy, float32 accumulation
-        return field.w(slot).float() @ dy
+        return product(field.w(slot).float(), dy)
 
     def pos(x, dy):         # dy where the stored value x is positive
         return torch.where(x > 0, dy, 0.0)
@@ -92,7 +97,7 @@ def spacenet_bwd_math(field: PackedField, p: torch.Tensor, d_in: torch.Tensor,
     gws, gbs = {}, {}
 
     def grad(wslot, bslot, x, dy):
-        gws[wslot] = x @ dy.t()
+        gws[wslot] = product(x, dy.t())
         gbs[bslot] = dy.sum(1)
 
     relu = torch.relu
@@ -103,12 +108,12 @@ def spacenet_bwd_math(field: PackedField, p: torch.Tensor, d_in: torch.Tensor,
         grad(f"rgb{i + 1}", f"rgbb{i + 1}", hs[i], dy)
         dy = pos(hs[i], r(dx(f"rgb{i + 1}", dy)))
     gbs["rb1"] = dy.sum(1)
-    gws["r1a"] = relu(a[6]) @ dy.t()
-    gws["r1b"] = relu(d_in) @ dy.t()
+    gws["r1a"] = product(relu(a[6]), dy.t())
+    gws["r1b"] = product(relu(d_in), dy.t())
     # through the head's leading ReLU: the POSE_REFINEMENT signal
     d_dir = pos(d_in, dx("r1b", dy))
     if t_enc is not None:
-        gws["r1c"] = relu(t_enc) @ dy.t()
+        gws["r1c"] = product(relu(t_enc), dy.t())
     d_a6 = pos(a[6], r(dx("r1a", dy)))
     # ---- density head ----
     ds = r(d_sigma[None])
@@ -119,8 +124,8 @@ def spacenet_bwd_math(field: PackedField, p: torch.Tensor, d_in: torch.Tensor,
     dy = pos(a[5], r(dx("s2w3", dy)))
     grad("s2w2", "sb2", a[4], dy)
     dy = pos(a[4], r(dx("s2w2", dy)))
-    gws["s2a"] = a[3] @ dy.t()
-    gws["s2b"] = p @ dy.t()
+    gws["s2a"] = product(a[3], dy.t())
+    gws["s2b"] = product(p, dy.t())
     gbs["sb1"] = dy.sum(1)
     d_p = dx("s2b", dy)                      # the skip path into the encoding
     dy = pos(a[3], r(dx("s2a", dy)))
@@ -147,18 +152,19 @@ def pack_grads(field: PackedField, gws: dict, gbs: dict):
 def spacenet_bwd_reference(field: PackedField, pos_enc: torch.Tensor,
                            dir_enc: torch.Tensor, time_enc: torch.Tensor | None,
                            d_rgb: torch.Tensor, d_sigma: torch.Tensor,
-                           active: torch.Tensor | None = None):
+                           active: torch.Tensor | None = None, product=torch.matmul):
     """Plain PyTorch version of the backward kernel (``_bwd_kernel``).
     -> (gw, gb, d_pos (pos_dim, M), d_dir (dir_rows, M)): gw and gb float32
     in the layout of ``field.weights`` and ``field.biases``; all zeros where
-    ``active`` is 0 (the cotangents are masked)."""
+    ``active`` is 0 (the cotangents are masked). ``product``: as
+    :func:`spacenet_bwd_math`'s."""
     dt = field.dtype
     if active is not None:
         d_rgb, d_sigma = torch.where(active > 0, d_rgb, 0.0), torch.where(active > 0, d_sigma, 0.0)
     t_enc = round_to(time_enc, dt) if field.spec.use_time else None
     gws, gbs, d_p, d_dir = spacenet_bwd_math(field, round_to(pos_enc, dt),
                                              round_to(dir_enc, dt), t_enc,
-                                             d_rgb, d_sigma)
+                                             d_rgb, d_sigma, product)
     return (*pack_grads(field, gws, gbs), d_p, d_dir)
 
 
@@ -301,9 +307,9 @@ def spacenet_bwd(field: PackedField, pos_enc: torch.Tensor, dir_enc: torch.Tenso
     -> (gw, gb, d_pos, d_dir) as :func:`spacenet_bwd_reference`.
 
     CPU tensors run :func:`spacenet_bwd_reference`. CUDA tensors launch the
-    tensor-core kernels for a bf16 field (two passes and a fixed-order sum:
-    the weight gradients are the same bits on every run) and the CUDA-core
-    kernel for a float32 one, and any failure to build or launch them raises.
+    bf16 kernels for a bf16 field and the float32 ones for a float32 field
+    (each three passes with a fixed-order sum: the same bits on every run),
+    and any failure to build or launch them raises.
     """
     _check_inputs(field, pos_enc, dir_enc, time_enc, active, d_rgb=d_rgb, d_sigma=d_sigma)
     if not _on_cuda("spacenet_bwd", pos_enc):
@@ -314,8 +320,9 @@ def spacenet_bwd(field: PackedField, pos_enc: torch.Tensor, dir_enc: torch.Tenso
     lib = load_library()
     ints, time_ptr, active_ptr = _kernel_args(field, pos_enc, dir_enc, time_enc, active)
     dev = pos_enc.device
-    gw = torch.zeros(field.weights.shape, dtype=torch.float32, device=dev)
-    gb = torch.zeros(field.biases.shape, dtype=torch.float32, device=dev)
+    # both routes' last pass writes every entry
+    gw = torch.empty(field.weights.shape, dtype=torch.float32, device=dev)
+    gb = torch.empty(field.biases.shape, dtype=torch.float32, device=dev)
     d_pos = torch.empty(tuple(pos_enc.shape), dtype=torch.float32, device=dev)
     d_dir = torch.empty(tuple(dir_enc.shape), dtype=torch.float32, device=dev)
     ptr = ctypes.c_void_p
@@ -336,9 +343,15 @@ def spacenet_bwd(field: PackedField, pos_enc: torch.Tensor, dir_enc: torch.Tenso
                 offsets.ctypes.data_as(ptr), active_ptr, *outputs, ptr(work.data_ptr()),
                 *ints, field.weights.numel(), field.biases.numel(), stream)
         else:
+            plan = f32_bwd.make_plan(field, pos_enc.shape[1], f32_bwd.sm_count(dev))
+            # one slice's records and every range's partial sums
+            work = torch.empty(plan.workspace_bytes, dtype=torch.uint8, device=dev)
+            plan_ints = plan.array()
             err = lib.stnerf_spacenet_bwd(
-                *inputs, ptr(field.biases.data_ptr()), field.offsets.ctypes.data_as(ptr),
-                active_ptr, *outputs, *ints, stream)
+                *inputs, ptr(field.dx_frags.data_ptr()), ptr(field.biases.data_ptr()),
+                field.offsets.ctypes.data_as(ptr),
+                plan_ints.ctypes.data_as(ptr), active_ptr, *outputs, ptr(work.data_ptr()),
+                *ints, field.weights.numel(), field.biases.numel(), stream)
     if err != 0:
         raise RuntimeError(f"spacenet backward kernel launch failed: CUDA error {err}")
     spacenet_bwd.launches += 1

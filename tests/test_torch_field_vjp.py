@@ -217,3 +217,161 @@ def test_wrapper_on_cpu_and_bf16(rng):
     for bad in (c_rgb[:, :-1], c_rgb.double(), c_rgb.t().contiguous().t()):
         with pytest.raises(ValueError):
             field_bwd(field, xyz, ids, dir_enc, bad, c_sig)
+
+
+@pytest.mark.parametrize("k", [8, 256, 4096])
+def test_tf32_split_products_against_float64(k):
+    """ops.rounding's 3xTF32 helpers on seeded inputs: round_tf32 rounds to
+    nearest with ties away from zero and clears the low 13 bits; the split
+    leaves |x - hi - lo| <= 2^-21 |x|; tf32x3_matmul is within its stated
+    bound (2^-19 + K 2^-24) (|a| @ |b|) of the float64 product, and closer
+    to it than one TF32 product (hi_a hi_b) is."""
+    import torch
+
+    from stnerf_tpu_torch.ops.rounding import round_tf32, split_tf32, tf32x3_matmul
+
+    one = 1.0 + 2.0 ** -11  # halfway between two TF32 values: away from zero
+    x = torch.tensor([one, -one, 1.0 + 2.0 ** -10 + 2.0 ** -11, 0.0, 3.0], dtype=torch.float32)
+    assert round_tf32(x).tolist() == [1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10),
+                                      1.0 + 2.0 ** -9, 0.0, 3.0]
+    rng = np.random.default_rng(k)
+    a = torch.tensor((rng.normal(size=(48, k)) * np.exp(rng.normal(size=(48, k)))).astype(np.float32))
+    b = torch.tensor(rng.normal(size=(k, 40)).astype(np.float32))
+    for t in (a, b):
+        hi, lo = split_tf32(t)
+        assert not (hi.view(torch.int32) & 0x1FFF).any() and not (lo.view(torch.int32) & 0x1FFF).any()
+        err = (t.double() - hi.double() - lo.double()).abs()
+        assert bool((err <= 2.0 ** -21 * t.double().abs()).all())
+    ref = a.double() @ b.double()
+    bound = (2.0 ** -19 + k * 2.0 ** -24) * (a.double().abs() @ b.double().abs())
+    err3 = (tf32x3_matmul(a, b).double() - ref).abs()
+    assert bool((err3 <= bound).all())
+    err1 = (round_tf32(a).double() @ round_tf32(b).double() - ref).abs()
+    assert float(err3.max()) < 0.1 * float(err1.max())
+
+
+@pytest.mark.parametrize("mode,use_time,deep", [(None, False, False), ("lerp", True, True)])
+def test_tf32x3_backward_matches_jax(rng, monkeypatch, mode, use_time, deep):
+    """The float32 kernels' backward arithmetic on the CPU: the plain
+    backward with every backward product (dx and dW) as 3xTF32
+    (``ops.rounding.tf32x3_matmul``, a bound on the kernels: they keep the
+    1- and 3-wide layers in float32) against JAX's float32
+    ``field_planar_trainable`` (interpret mode) at the float32 bars."""
+    import functools
+
+    from stnerf_tpu_torch.kernels import field_vjp
+    from stnerf_tpu_torch.ops.rounding import tf32x3_matmul
+
+    monkeypatch.setattr(field_vjp, "field_bwd_reference",
+                        functools.partial(field_vjp.field_bwd_reference, product=tf32x3_matmul))
+    jsspec, sparams, mparams, net, mnet = _nets(mode, use_time, deep)
+    args = _inputs(rng, mode)
+    v_j, g_j, _ = _jax_grads(jsspec, sparams, mparams, mode, *args)
+    v_t, g_t, _ = _port_grads(net, mnet, mode, *args)
+    np.testing.assert_allclose(v_t, v_j, rtol=2e-4)
+    if not mode:
+        g_j, g_t = (g_j[0], g_j[2], g_j[3]), (g_t[0], g_t[2], g_t[3])
+    _assert_tree_close(g_t, g_j)
+
+
+@pytest.mark.parametrize("mode,use_time,deep", [("direct", False, False), ("lerp", True, True)])
+def test_f32_plan_layout_and_order(rng, monkeypatch, mode, use_time, deep):
+    """The float32 kernels' plan (kernels/f32_bwd.py) for K2's fields: the
+    record's tiles in REC_TILES order, packed; one pass-2 job per weight
+    that has a gradient, on the tiles of its input and output cotangent,
+    with its packed offsets and each bias once; the dx fragments in mma
+    order; the int array the C entry points read. Then the fixed order,
+    with slices of 8 blocks and two ranges or more each at a ragged M: the ranges
+    partition the blocks in order, and the plain backward summed range by
+    range in that order is the one-shot plain backward to float32
+    round-off, the same bits when run again."""
+    import torch
+
+    from stnerf_tpu_torch.kernels import f32_bwd
+    from stnerf_tpu_torch.kernels.field_vjp import field_bwd_reference
+    from stnerf_tpu_torch.kernels.fused_field import (B_SLOTS, TILE, W_SLOTS, pack_field,
+                                                      prepare_kernel_params_planar,
+                                                      prepare_motion_params_planar)
+
+    _, _, _, net, mnet = _nets(mode, use_time, deep)
+    field = pack_field(prepare_kernel_params_planar(net, torch.float32),
+                       prepare_motion_params_planar(mnet, torch.float32), net.spec, mode,
+                       "float32")
+    m, sms = 700, 8
+    rows = f32_bwd.record_rows(field)
+    one = f32_bwd.make_plan(field, m, sms)
+    monkeypatch.setattr(f32_bwd, "SLICE_BYTES", 4 * one.rec_floats * 8)
+    plan = f32_bwd.make_plan(field, m, sms)
+
+    # the record: the tiles present, packed in order
+    off = 0
+    for i, name in enumerate(f32_bwd.REC_TILES):
+        assert plan.tile[i] == (off if name in rows else -1), name
+        off += rows.get(name, 0) * TILE
+    assert plan.rec_floats == off
+    # pass 2: every weight with a gradient once, each bias once
+    n_w = field.weights.numel()
+    names = f32_bwd.job_list(field)
+    grads = {s for s, shape in field.shapes.items() if len(shape) == 2}
+    if not use_time:
+        grads.discard("r1c")
+    assert sorted(w for w, _, _, _ in names) == sorted(grads)
+    biases = [b for _, b, _, _ in names if b is not None]
+    assert sorted(biases) == sorted(s for s, shape in field.shapes.items() if len(shape) == 1)
+    for (w, b, x, y), job in zip(names, plan.jobs.tolist()):
+        k_in, o = field.shapes[w]
+        narrow = o <= f32_bwd.NARROW_O
+        assert job == [plan.tile[f32_bwd.REC_TILES.index(x)], k_in,
+                       plan.tile[f32_bwd.REC_TILES.index(y)], o,
+                       field.offsets[W_SLOTS.index(w)],
+                       -1 if b is None else n_w + field.offsets[len(W_SLOTS) + B_SLOTS.index(b)],
+                       -(-k_in // (256 if narrow else 128)), 1 if narrow else -(-o // 128)]
+        assert (rows[x], rows[y]) == (k_in, o)
+    # the dx operands: layers of >= 8 outputs, rows padded, mma A order
+    frags = field.dx_frags
+    for slot, f_off in zip(W_SLOTS, plan.frag.tolist()):
+        if f_off < 0:
+            continue
+        w = field.w(slot)
+        k, o = w.shape
+        kp = f32_bwd.padded_rows(k)
+        tile = frags[f_off:f_off + kp * o].view(kp // 16, o // 8, 8, 4, 2, 2)
+        t, s, g, q = (int(v) for v in rng.integers(0, [kp // 16, o // 8, 8, 4]))
+        got = tile[t, s, g, q].reshape(-1).tolist()  # a0, a1, a2, a3
+        want = [w[r, c] if r < k else 0.0 for c in (8 * s + q, 8 * s + q + 4)
+                for r in (16 * t + g, 16 * t + g + 8)]
+        assert got == [float(v) for v in want]
+    arr = plan.array()
+    assert arr.dtype == np.int32 and len(arr) == (4 + len(f32_bwd.REC_TILES) + len(W_SLOTS)
+                                                  + f32_bwd.JOB_INTS * len(names))
+    assert arr[:4].tolist() == [plan.rec_floats, plan.slice_blocks, plan.ranges, len(names)]
+    assert plan.workspace_bytes == 4 * (plan.slice_blocks * plan.rec_floats
+                                        + plan.n_slices * plan.ranges * (n_w + field.biases.numel()))
+
+    # the fixed order: slices [0, 8), [8, 11), two ranges or more each
+    assert (plan.n_blocks, plan.slice_blocks, plan.n_slices) == (11, 8, 2) and plan.ranges >= 2
+    spans = plan.record_ranges()
+    assert [(s, r) for s, r, _, _ in spans] == [(s, r) for s in range(2)
+                                                for r in range(plan.ranges)]
+    assert spans[0][2] == 0 and spans[-1][3] == plan.n_blocks
+    assert all(a[3] == b[2] for a, b in zip(spans, spans[1:]))
+    xyz, ids, dir_enc, c_rgb, c_sig = (torch.tensor(a) for a in _inputs(rng, mode, m))
+    flags = torch.tensor((rng.random(plan.n_blocks) > 0.25).astype(np.int32))
+
+    def in_order():
+        gw = gb = 0.0
+        for _, _, b_lo, b_hi in spans:
+            if b_lo == b_hi:  # an empty range: zero partials
+                continue
+            lo, hi = b_lo * TILE, min(b_hi * TILE, m)
+            part = field_bwd_reference(field, xyz[:, lo:hi], ids[:, lo:hi], dir_enc[:, lo:hi],
+                                       c_rgb[:, lo:hi], c_sig[lo:hi], flags[b_lo:b_hi])
+            gw, gb = gw + part[0], gb + part[1]
+        return gw, gb
+
+    first, second = in_order(), in_order()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    ref = field_bwd_reference(field, xyz, ids, dir_enc, c_rgb, c_sig, flags)
+    for a, b in zip(first, ref[:2]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
+                                   atol=1e-5 * float(b.abs().max()))

@@ -10,6 +10,7 @@ with a seed. Every test runs in a fresh child process (``isolate``).
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -302,3 +303,90 @@ def test_build_sources_and_cpu_routes(rng):
             assert all(torch.equal(a, b) for a, b in zip(bwd, ref))
     assert [spacenet_fwd.launches, spacenet_fwd.launches_tc,
             spacenet_bwd.launches, spacenet_bwd.launches_tc] == [0, 0, 0, 0]
+
+
+@pytest.mark.parametrize("deep,use_dir,use_time", [(False, True, True), (True, False, False)])
+def test_tf32x3_backward_matches_jax(rng, monkeypatch, deep, use_dir, use_time):
+    """The float32 kernels' backward arithmetic on the CPU: the plain
+    backward with every backward product (dx and dW) as 3xTF32
+    (``ops.rounding.tf32x3_matmul``, a bound on the kernels: they keep the
+    1- and 3-wide layers in float32) against JAX's float32
+    ``spacenet_planar_trainable`` (interpret mode) at the float32 bars."""
+    import functools
+
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from stnerf_tpu.kernels.spacenet_vjp import spacenet_planar_trainable as jtrain
+    from stnerf_tpu_torch.kernels import spacenet_vjp
+    from stnerf_tpu_torch.models import export_spacenet
+    from stnerf_tpu_torch.ops.rounding import tf32x3_matmul
+
+    monkeypatch.setattr(spacenet_vjp, "spacenet_bwd_reference",
+                        functools.partial(spacenet_vjp.spacenet_bwd_reference,
+                                          product=tf32x3_matmul))
+    jspec, params, net = _net(5, use_dir=use_dir, use_time=use_time, deep_rgb=deep)
+    pos, dirs, time = _encodings(rng, jspec)
+    c_rgb = rng.normal(size=(3, M)).astype(np.float32)
+    c_sig = rng.normal(size=(M,)).astype(np.float32)
+    t_j = None if time is None else jnp.asarray(time)
+
+    def loss(p, pe_, de_):
+        rgb, sig = jtrain(p, jspec, pe_, de_, t_j, "float32", True, JAX_TILE)
+        return jnp.sum(rgb * c_rgb) + jnp.sum(sig * c_sig)
+
+    v_j, (gp_j, gx_j, gd_j) = jax.device_get(jax.value_and_grad(loss, (0, 1, 2))(
+        params, jnp.asarray(pos), jnp.asarray(dirs)))
+    x = torch.tensor(pos, requires_grad=True)
+    d = torch.tensor(dirs, requires_grad=True)
+    rgb, sig = spacenet_vjp.spacenet_planar_trainable(
+        net, x, d, None if time is None else torch.tensor(time), "float32")
+    v_t = (rgb * torch.tensor(c_rgb)).sum() + (sig * torch.tensor(c_sig)).sum()
+    v_t.backward()
+    np.testing.assert_allclose(float(v_t), float(v_j), rtol=2e-4)
+    for got, ref in ((x.grad.numpy(), gx_j), (d.grad.numpy(), gd_j)):
+        np.testing.assert_allclose(got, ref, rtol=2e-3, atol=2e-3 * max(1e-3, np.abs(ref).max()))
+    _assert_tree_close(export_spacenet(net, grad=True), gp_j)
+
+
+def test_f32_plan_for_spacenet_fields():
+    """The float32 kernels' plan for K3's fields (kernels/f32_bwd.py): no
+    motion tiles or jobs; the time input's tile, job and no fragments only
+    with a time input (its weights get no dx); a dummy direction row a
+    one-row tile; at the taekwondo widths and M = 240,000 on 132
+    multiprocessors, slices whole waves of blocks within SLICE_BYTES of
+    records and the wide tiles of a slice at most six a multiprocessor."""
+    import torch
+
+    from stnerf_tpu_torch.config import get_cfg
+    from stnerf_tpu_torch.kernels import f32_bwd
+    from stnerf_tpu_torch.kernels.fused_field import TILE, W_SLOTS
+    from stnerf_tpu_torch.models import LayeredSpec, SpaceNet
+
+    for use_dir, use_time in ((True, True), (False, False)):
+        _, _, net = _net(6, use_dir=use_dir, use_time=use_time)
+        field = _pack(net)
+        plan = f32_bwd.make_plan(field, M, 4)
+        rows = f32_bwd.record_rows(field)
+        assert not any(t.startswith(("u", "du", "g3m")) for t in rows)
+        assert ("time" in rows) == use_time and rows["dir"] == (27 if use_dir else 1)
+        slots = [w for w, _, _, _ in f32_bwd.job_list(field)]
+        assert ("r1c" in slots) == use_time and not any(s.startswith("m") for s in slots)
+        assert len(plan.jobs) == len(slots)
+        assert plan.frag[W_SLOTS.index("r1c")] == -1 and plan.frag[W_SLOTS.index("r1b")] >= 0
+        assert field.dx_frags.numel() == sum(
+            f32_bwd.padded_rows(field.shapes[s][0]) * field.shapes[s][1]
+            for s, off in zip(W_SLOTS, plan.frag.tolist()) if off >= 0)
+
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(os.path.dirname(__file__), "..", "configs",
+                                     "config_taekwondo.yml"))
+    spec = LayeredSpec.from_cfg(cfg).spacenet_spec(bkgd=False)
+    field = _pack(SpaceNet(spec, torch.Generator().manual_seed(0)))
+    plan = f32_bwd.make_plan(field, 240_000, 132)
+    assert plan.n_blocks == 240_000 // TILE
+    assert plan.slice_blocks % 132 == 0 or plan.slice_blocks == plan.n_blocks
+    assert 4 * plan.slice_blocks * plan.rec_floats <= f32_bwd.SLICE_BYTES
+    wide = int((plan.jobs[:, 6] * plan.jobs[:, 7])[plan.jobs[:, 3] > f32_bwd.NARROW_O].sum())
+    assert wide * plan.ranges <= f32_bwd.RANGES_PER_SM * 132 < wide * (plan.ranges + 1)

@@ -25,7 +25,13 @@ run. Compare checkouts only within one invocation.
   full epoch of 20 steps at batch 2000 on the ring pool): K1's and K2's
   bf16 and float32 ms on the performer field (and K2's bf16 ms on the
   background), seconds per pose by request,
-  seconds per step by epoch, the launches.
+  seconds per step by epoch, the launches. Then the float32 backward
+  kernels alike in every checkout: K2 on phase 4's seeded inputs and K3's
+  backward on phase 6's performer encodings (M = 2000 x 120), float32 ms
+  and a digest of the bf16 route's outputs (sha256 of their bytes: equal
+  digests, bitwise equal gradients); a float32 full training step of the
+  taekwondo model (seconds of a second step, peak device memory); and one
+  float32 run of phase 18(a)'s training (sort-free, seed 0, seconds).
 * ``kernels``: K1's bf16 ms on phase 2's performer inputs (M = 4096 x 120,
   25% of tiles off), also with ``checked`` (the training forward) where the
   checkout's ``fused_field`` takes it, and K3's bf16 forward ms on phase
@@ -101,6 +107,59 @@ print("AB " + json.dumps({"k3_bf16_ms": [k3["bfloat16_fwd_ms"], k3["bfloat16_bwd
                           "s_per_step": train["s_per_step"],
                           "train_launches": [train["launches_fwd"], train["launches_bwd"]]}))
 """, "field": PRELUDE + """
+import hashlib, time
+import numpy as np
+from stnerf_tpu_torch.engine import make_optimizer, make_train_step
+from stnerf_tpu_torch.kernels.field_vjp import field_bwd
+from stnerf_tpu_torch.kernels.spacenet_vjp import spacenet_bwd
+from stnerf_tpu_torch.models import LayeredSpec
+from stnerf_tpu_torch.ops.encoding import positional_encoding_planar
+def digest(ts):
+    h = hashlib.sha256()
+    for x in ts:
+        h.update(x.detach().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+m = cfg.SOLVER.IMS_PER_BATCH * 120
+model = cs.make_model(LayeredSpec.from_cfg(cfg), device)
+rng = np.random.default_rng(cs.SEED + 2)
+t = lambda a: torch.tensor(a, dtype=torch.float32, device=device).contiguous()
+d = rng.normal(size=(3, m))
+d /= np.linalg.norm(d, axis=0, keepdims=True)
+seeded = (t(rng.uniform(-3.0, 3.0, (3, m))),
+          t(rng.integers(1, 101, (1, m)) + rng.choice([0.0, 0.25, 0.5], (1, m))),
+          positional_encoding_planar(t(d), 4, True, recursive=True).contiguous(),
+          t(rng.normal(size=(3, m))), t(rng.normal(size=m)),
+          torch.tensor((rng.random(-(-m // 64)) > 0.25).astype(np.int32), device=device))
+vp = cs.make_model(LayeredSpec.from_cfg(cs.view_pose_cfg(), camera_num=8), device)
+x = cs._encoded_inputs(device, m, cs.SEED + 5)
+k3_args = (x["pos"], x["dir"], x["time"], x["d_rgb"], x["d_sigma"])
+bwd = {}
+for dt in ("float32", "bfloat16"):
+    f2 = cs.pack_dtype(model.layers_fine[0], model.motion[0], "lerp", dt)
+    f3 = cs.pack_dtype(vp.layers_fine[0], None, None, dt)
+    for name, fn in (("k2", lambda: field_bwd(f2, *seeded)), ("k3_bwd", lambda: spacenet_bwd(f3, *k3_args))):
+        bwd[f"{name}_{dt}_ms"] = cs.cuda_ms(fn, 5)
+        if dt == "bfloat16":
+            bwd[f"{name}_bf16_digest"] = digest(fn())
+scene, _ = cs.scene_and_requests(device)
+bundle = cs.ring_bundle(scene)
+cfg32 = cs.taekwondo_cfg()
+cfg32.TPU.COMPUTE_DTYPE = "float32"
+cfg32.SOLVER.WARMUP_ITERS = 1
+spec32, batch = cs.train_batch(device, bundle, scene, cfg32)
+net = cs.make_model(spec32, device)
+opt, sched = make_optimizer(cfg32, net)
+step = make_train_step(net, opt, sched, remove_outliers=True, plain=False, device=device)
+step(scene, batch, torch.Generator(device=device).manual_seed(cs.SEED), 1.0)
+torch.cuda.synchronize()
+torch.cuda.reset_peak_memory_stats(device)
+t0 = time.perf_counter()
+step(scene, batch, torch.Generator(device=device).manual_seed(cs.SEED + 1), 1.0)
+torch.cuda.synchronize()
+f32_step = {"s": time.perf_counter() - t0, "peak_bytes": torch.cuda.max_memory_allocated(device)}
+del net, opt, step
+_, _, trained_s, _ = cs.train_trained(device, cs.trained_setup(device), True, cs.SEED, False,
+                                      "float32")
 k1 = cs.phase_kernel_vs_plain(device, m=4096 * 120, reps=5)[0]
 render = cs.phase_slice(device, h=270, w=480, chunk=cfg.TPU.RENDER_CHUNK,
                         tile_cols=cfg.TPU.TILE_COLS)
@@ -114,7 +173,11 @@ print("AB " + json.dumps({"k1_ms": {k: k1[k] for k in ("bfloat16_ms", "float32_m
                           "s_per_pose": render["kernel_s_per_pose"],
                           "render_launches": render["launches"],
                           "s_per_step": train["s_per_step"],
-                          "train_launches": [train["launches_fused_field"], train["launches"]]}))
+                          "train_launches": [train["launches_fused_field"], train["launches"]],
+                          "f32_step_kernel_vs_plain_s": [train["steps"][1]["kernel_s_per_step"],
+                                                         train["steps"][1]["plain_s_per_step"]],
+                          "bwd": bwd, "f32_step": f32_step,
+                          "trained_f32_nosort_s": trained_s}))
 """}
 CHILD["kernels"] = PRELUDE + """
 import importlib.util, inspect
