@@ -14,14 +14,19 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    samples, for a performer ("lerp" motion, time input), the background (no
    motion, no time), "direct" motion and a 4-layer rgb head, with skip
    flags that zero some tiles: float32 kernel (CUDA cores) vs float32 plain
-   (TF32 off) within rtol 2e-3, atol 2e-4; bf16 kernel (tensor cores) vs
+   (TF32 off) within rtol 2e-3, atol 2e-4 and bitwise the same when run
+   twice; bf16 kernel (tensor cores) vs
    bf16 plain within relative L2 1e-2 on rgb and on sigma, and vs float32
    plain >= 40 dB on sigmoid(rgb); the training forward (``checked``: the
    near-tie outputs recomputed in float32) within relative L2 1e-2 too,
    and the share of outputs not bitwise the plain version's printed for
    both. Then the edges: a narrow model (trunk
-   64, head 32, motion 32) and a ragged M with all tiles on, all off and no
-   flags. Prints both routes' times and bounds per case.
+   64, head 32, motion 32), a performer at widths no kernel tiles (96/48/48,
+   packed at 128/64/64 with zeros in the padded units) and a ragged M with
+   all tiles on, all off and no flags. Prints both routes' times and bounds
+   per case, and ``fused_field_float32_ring`` for the performer: the float32
+   kernel's weight ring (stages, a stage's bytes, the block's dynamic shared
+   memory) beside its ms, its ms before the ring, its bound and share.
 3. The slice: five edit requests of the taekwondo model (L=2, 90+30
    samples, space-time and deform-time on, bf16, exact settings) rendered at
    480x270 through ``render_pose_host``, chunk 4096, 64-pixel tiles. Checks
@@ -276,6 +281,12 @@ PEAK_BYTES = 3.35e12
 # 3xTF32 on the tensor cores), at M = 240,000 on the performer field:
 # chip_smoke.py's phases 4 and 6 on an NVIDIA H100 80GB HBM3, 700 W (PERF.md)
 F32_BWD_MS_BEFORE = {"field_bwd": 48.80, "spacenet_bwd": 52.02}
+# K1's float32 kernel before the weight ring (CUDA cores, weights from L2),
+# phase 2's performer at M = 491,520 on the same card (PERF.md)
+K1_F32_MS_BEFORE = 13.15
+# a field at widths no kernel tiles (trunk, head, motion): packed at the
+# next kernel widths, 128/64/64
+F8_WIDTHS = (96, 48, 48)
 
 
 def check(cond, msg: str):
@@ -429,7 +440,8 @@ def phase_kernel_vs_plain(device, m: int, reps: int):
     results (the plain version is the oracle)."""
     import torch
 
-    from stnerf_tpu_torch.kernels.fused_field import TILE, fused_field, fused_field_reference
+    from stnerf_tpu_torch.kernels.fused_field import (TILE, float32_ring, fused_field,
+                                                      fused_field_reference)
     from stnerf_tpu_torch.models import LayeredSpec, MotionNet, SpaceNet
     from stnerf_tpu_torch.ops.encoding import positional_encoding_planar
 
@@ -479,6 +491,13 @@ def phase_kernel_vs_plain(device, m: int, reps: int):
             row[f"{dt}_plain_ms"] = cuda_ms(
                 lambda: fused_field_reference(f, xyz, ids, dir_enc, flags), reps)
         print("kernel_vs_plain", json.dumps(row), flush=True)
+        if name == "performer_lerp":  # K1's float32 route on its weight ring
+            f = fields["float32"]
+            print("fused_field_float32_ring", json.dumps(
+                {**float32_ring(f, m, dir_enc.shape[0]), "ms": row["float32_ms"],
+                 "before_ms": K1_F32_MS_BEFORE, "plain_ms": row["float32_plain_ms"],
+                 "bound_ms": row["float32_bound_ms"],
+                 "share": row["float32_bound_ms"] / row["float32_ms"]}), flush=True)
         results.append(row)
     results += edge_cases(device, check_fused_field, "kernel_vs_plain_edge", seed=SEED + 5)
     return results
@@ -499,7 +518,8 @@ def pack_dtype(net, mnet, mode, dt: str):
 def check_fused_field(name, fields, xyz, ids, dir_enc, flags, skipped) -> dict:
     """fused_field against fused_field_reference for one field in both
     dtypes: finite outputs, exact zeros in skipped tiles, float32 within
-    rtol 2e-3, atol 2e-4 (CUDA-core route), bf16 (tensor-core route) within
+    rtol 2e-3, atol 2e-4 (CUDA-core route) and bitwise the same when run
+    twice, bf16 (tensor-core route) within
     relative L2 1e-2 of the bf16 plain version on rgb and on sigma, and bf16
     >= 40 dB from the float32 plain version on sigmoid(rgb). -> the errors."""
     import torch
@@ -512,6 +532,10 @@ def check_fused_field(name, fields, xyz, ids, dir_enc, flags, skipped) -> dict:
         sync(xyz.device)
         ref = fused_field_reference(f, xyz, ids, dir_enc, flags)
         check(all(bool(torch.isfinite(g).all()) for g in got), f"{name} {dt}: non-finite")
+        if dt == "float32":
+            again = fused_field(f, xyz, ids, dir_enc, flags)
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"{name}: float32 outputs differ between two runs")
         check(bool((got[0][:, skipped] == 0).all() and (got[1][skipped] == 0).all()),
               f"{name} {dt}: skipped tiles are not exactly 0")
         out[dt] = got, ref
@@ -544,7 +568,9 @@ def check_fused_field(name, fields, xyz, ids, dir_enc, flags, skipped) -> dict:
 
 def edge_cases(device, check_fn, label: str, seed: int) -> list:
     """The kernels' edges, both dtypes: a narrow model (trunk 64, head 32,
-    motion 32: every width the tiling pads) with seeded skip flags (25% of
+    motion 32: every width the tiling pads) and a performer at widths no
+    kernel tiles (F8_WIDTHS, "lerp" motion with time: packed at the next
+    kernel widths, zeros in the padded units) with seeded skip flags (25% of
     the tiles off), and the taekwondo performer at a ragged M (not a
     multiple of 64 or 128) with all tiles flagged on, the seeded flags, all
     flagged off and no flags. ``check_fn(name,
@@ -572,10 +598,15 @@ def edge_cases(device, check_fn, label: str, seed: int) -> list:
     narrow_cfg.merge_from_list(["MODEL.BACKBONE_DIM", 64, "MODEL.HEAD_DIM", 32,
                                 "MODEL.MOTION_DIM", 32])
     narrow = make_model(LayeredSpec.from_cfg(narrow_cfg), device)
+    f8_cfg = taekwondo_cfg()
+    f8_cfg.merge_from_list(["MODEL.BACKBONE_DIM", F8_WIDTHS[0], "MODEL.HEAD_DIM", F8_WIDTHS[1],
+                            "MODEL.MOTION_DIM", F8_WIDTHS[2]])
+    f8 = make_model(LayeredSpec.from_cfg(f8_cfg), device)
     wide = make_model(LayeredSpec.from_cfg(taekwondo_cfg()), device)
     seeded = (rng.random(n_tiles) > 0.25).astype(np.int32)
     cases = [("narrow_performer", narrow.layers_fine[0], narrow.motion[0], "lerp", seeded),
              ("narrow_background", narrow.bkgd_fine, None, None, seeded),
+             ("f8_performer", f8.layers_fine[0], f8.motion[0], "lerp", seeded),
              ("ragged_all_on", wide.layers_fine[0], wide.motion[0], "lerp",
               np.ones(n_tiles, np.int32)),
              ("ragged_quarter_off", wide.layers_fine[0], wide.motion[0], "lerp", seeded),
@@ -725,11 +756,15 @@ def f32_close(stat: dict) -> bool:
 
 
 def _leaf_stats(field, got, ref, x_name: str = "d_xyz") -> dict:
-    """compare_leaf for every weight and bias slot, the input gradient
-    (``x_name``: d_xyz or d_pos) and d_dir."""
+    """compare_leaf for every weight and bias slot in the model's own shape
+    (a padded field's padded rows and columns are dropped with the
+    gradients), the input gradient (``x_name``: d_xyz or d_pos) and d_dir."""
     (gw, gb, gx, gd), (rw, rb, rx, rd) = got, ref
-    pairs = {s: (field.w(s, gw), field.w(s, rw)) if len(shape) == 2 else
-             (field.b(s, gb), field.b(s, rb)) for s, shape in field.shapes.items()}
+
+    def leaf(s, w, b):
+        return field.cut(s, field.w(s, w) if len(field.shapes[s]) == 2 else field.b(s, b))
+
+    pairs = {s: (leaf(s, gw, gb), leaf(s, rw, rb)) for s in field.shapes}
     pairs.update({x_name: (gx, rx), "d_dir": (gd, rd)})
     return {name: compare_leaf(a, b) for name, (a, b) in pairs.items()}
 

@@ -24,7 +24,7 @@ SOURCES = (CSRC / "fused_field.cu", CSRC / "fused_field_tc.cu", CSRC / "field_bw
            CSRC / "field_bwd_tc.cu", CSRC / "spacenet.cu", CSRC / "spacenet_tc.cu",
            CSRC / "cross_trans.cu")
 HEADERS = (CSRC / "field_common.cuh", CSRC / "mlp_blocks.cuh", CSRC / "tc_blocks.cuh",
-           CSRC / "tc_bwd.cuh", CSRC / "f32_bwd.cuh")
+           CSRC / "tc_bwd.cuh", CSRC / "f32_bwd.cuh", CSRC / "w_ring.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -35,6 +35,9 @@ SIGNATURES = {
     # out, then M, dir_rows, width, head, motion_width, freqs,
     # include_input, use_time, n_rgb, motion_mode, and the stream
     "stnerf_fused_field": [_P] * 8 + [_I] * 10 + [_P],
+    # its weight ring for the same 10 ints: a host int[3] of the stages, a
+    # stage's bytes and the block's dynamic shared memory
+    "stnerf_fused_field_ring": [_I] * 10 + [_P],
     # bf16 fields (tensor cores): xyz, ids, dir, flags, weights, fragments,
     # biases, offsets (host), out, then the same 10 ints, and the stream
     "stnerf_fused_field_tc": [_P] * 9 + [_I] * 11 + [_P],

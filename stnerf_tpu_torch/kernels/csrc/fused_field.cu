@@ -2,9 +2,8 @@
 //
 // Replaces stnerf_tpu/kernels/fused_field.py::fused_field (the Pallas TPU
 // kernel: _kernel, _kernel_body, _encode) for float32 fields; bf16 fields go
-// to the tensor-core kernel of fused_field_tc.cu (TF32 products would miss
-// the float32 bar). Per block of BM = 64 samples,
-// with every intermediate in shared memory:
+// to the tensor-core kernel of fused_field_tc.cu. Per block of BM = 64
+// samples, with every intermediate in shared memory:
 //   1. optional MotionNet: encode (xyz, id) — for "lerp" the floor/ceil
 //      blend of the id's encoding — run the 6-layer flow MLP, add the flow
 //      to xyz;
@@ -16,34 +15,52 @@
 // A block whose skip flag is 0 writes zeros and computes nothing.
 //
 // Bound: about 1 MFLOP per sample against ~40 bytes of sample input and
-// output (fused_field.py:184-188), so arithmetic, not memory, bounds it.
-// The weights (~2.2 MB in float32 per field) are read from global memory by
-// every block and stay resident in the 50 MB L2.
+// output (fused_field.py:184-188), so arithmetic bounds it: the CUDA cores'
+// float32 FMA rate.
 //
-// The simple design, and what it gives up:
-//   * CUDA-core FMA loops: each of 256 threads keeps a TO x 8 register tile
-//     of one layer's outputs (TO = width / 32) and walks the reduction
-//     axis, reading a vector of TO weights from global memory (L2) and 8
-//     activations from shared memory per step. No tensor cores (no wmma or
-//     wgmma), no TMA, no staging of weights in shared memory, no overlap of
-//     loads with math: the FMA pipes' peak is the ceiling, far below the
-//     tensor cores'.
-//   * Activations are float32 in shared memory (two ping-pong buffers of
-//     width x 64, ~160 KB in all at width 256), so one block fits per SM:
-//     8 warps to hide the latency of L2 weight reads.
-//   * The 1- and 3-wide output layers use one thread per output, with idle
-//     threads beside them.
+// The design. 8 consumer warps each keep a TO x 8 register tile of a
+// layer's outputs (TO = width / 32) and walk the reduction axis: per k step
+// a thread reads TO weights and 8 activations from shared memory and issues
+// TO x 8 FMAs. The weights (~2.2 MB in float32 per field at the taekwondo
+// widths, read by every block) reach shared memory through the weight ring
+// of w_ring.cuh: a ninth, producer warp streams every layer's weights, the
+// 1- and 3-wide output layers' too, in slabs of up to 32 KB by bulk copies
+// on mbarriers, running ahead across layer boundaries, so
+// that the FMA loops read weights with broadcast shared-memory loads and
+// never wait on L2. The activations are float32 in shared memory (two
+// ping-pong tiles of width x 64, the encodings and the rgb/sigma rows:
+// 161,536 bytes at the taekwondo widths 256/128/128); the ring takes what
+// is left of the block's 227 KB: 2 stages of 32 KB at those widths, 4-5 at
+// 64/32/32.
+//
+// Why the arithmetic keeps its order, and no tensor cores: K2's and K3's
+// float32 backward recompute this forward with the same chain of FMAs
+// (mlp_blocks.cuh fwd_seg, called from f32_bwd.cuh) and take its ReLU masks
+// as bits, so each output (o, m) must stay acc = fmaf(W[k, o], x[k, m], acc)
+// from 0 over k in order, segment by segment, then + bias, then ReLU. A
+// reordered sum or a TF32 product would flip masks the backward recomputes
+// in this order, and would change the output bits, which stay those of the
+// first CUDA-core kernel.
+//
+// What it still gives up: the tensor cores (above); one block per SM (the
+// activations), so 8 warps of FMA issue; every block still reads every
+// weight from L2, 12.7 GB a call at M = 491,520 with 75% of tiles run, now
+// off the FMA loops' path; a wait and a release per slab; the 1- and 3-wide
+// output layers take one thread per output, with idle threads beside them.
 // Numerics: products accumulate in float32, as the plain version's. The
 // encodings use IEEE sinf/cosf and explicitly rounded products (no FMA
 // contraction), matching the plain PyTorch version's elementwise ops.
 
 #include "field_common.cuh"
+#include "w_ring.cuh"
 
 namespace {
 
 constexpr int BM = 64;        // samples per block: the tile of the skip flags
-constexpr int THREADS = 256;  // 4 * BM: one thread per (channel, sample) when
-                              // encoding (xyz, id)
+constexpr int THREADS = 256;  // consumers: 4 * BM, one thread per (channel,
+                              // sample) when encoding (xyz, id)
+constexpr int WARPS = THREADS / 32;
+constexpr int BLOCK = THREADS + 32;  // and the ring's producer warp
 static_assert(THREADS == 4 * BM, "encoding assigns one thread per (channel, sample)");
 
 struct Params {
@@ -52,21 +69,33 @@ struct Params {
   int M, dir_rows, width, head, motion_width, freqs, inc, use_time, n_rgb,
       motion_mode;
   int rows_a, pos_rows, time_rows, menc_rows;
+  int ring_off, stages;  // the ring's first float in dynamic shared memory
 };
 
-// acc[i][j] += sum_k W[k, to*TO + i] * in[k, col(j)], W (K, O) row-major in
-// global memory, in (K, BM) in shared memory. A thread's 8 columns are
-// tm*4 + {0..3} and 32 + tm*4 + {0..3}: each quarter-warp's float4 loads
-// then cover 128 contiguous bytes (no bank conflicts).
-template <typename WS, int TO>
-__device__ __forceinline__ void mm_seg(float (&acc)[TO][8], const WS* __restrict__ w,
-                                       int O, int K, const float* in, int to, int tm) {
-  const WS* wp = w + to * TO;
-  const float* ip = in + tm * 4;
+// the consumers' barrier (the producer warp never joins it)
+__device__ __forceinline__ void sync_consumers() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(THREADS) : "memory");
+}
+
+__device__ __forceinline__ float* smem_floats() {
+  extern __shared__ __align__(128) float4 smem4[];
+  return reinterpret_cast<float*>(smem4);
+}
+
+// acc[i][j] += sum_k W[k, to*TO + i] * in[k, col(j)] over `rows` rows of a
+// slab: W (rows, O) in a ring stage, in (rows, BM) in shared memory. A
+// thread's 8 columns are tm*4 + {0..3} and 32 + tm*4 + {0..3}: each
+// quarter-warp's float4 loads then cover 128 contiguous bytes (no bank
+// conflicts); a warp reads 4 distinct weight vectors, each broadcast.
+template <int TO>
+__device__ __forceinline__ void mm_slab(float (&acc)[TO][8], const float* ws, int rows,
+                                        const float* ip, int to) {
+  constexpr int O = 32 * TO;
+  const float* wp = ws + to * TO;
 #pragma unroll 4
-  for (int k = 0; k < K; ++k) {
+  for (int k = 0; k < rows; ++k) {
     float wv[TO];
-    load_w<WS, TO>(wp + static_cast<size_t>(k) * O, wv);
+    load_w<float, TO>(wp + k * O, wv);
     const float4 a0 = *reinterpret_cast<const float4*>(ip + k * BM);
     const float4 a1 = *reinterpret_cast<const float4*>(ip + k * BM + 32);
     const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
@@ -78,14 +107,15 @@ __device__ __forceinline__ void mm_seg(float (&acc)[TO][8], const WS* __restrict
   }
 }
 
-// out = round(relu(W0 in0 + W1 in1 + W2 in2 + bias)), O = 32 * TO rows;
-// a segment with K = 0 is absent (the split products of a concat input).
-template <typename WS, bool RND, int TO>
-__device__ void dense_t(const WS* w0, const float* in0, int k0,
-                        const WS* w1, const float* in1, int k1,
-                        const WS* w2, const float* in2, int k2,
-                        const float* __restrict__ bias, float* out) {
-  constexpr int O = 32 * TO;
+// out = relu(W0 in0 + W1 in1 + W2 in2 + bias), O = 32 * TO rows, over the
+// ring's next n_in segments (the split products of a concat input, in
+// order); activations as float offsets into dynamic shared memory.
+template <int TO>
+__device__ void dense_t(wring::Ctl& ring, wring::RingPos& pos, int ring_off, int n_in,
+                        int in0, int in1, int in2, const float* __restrict__ bias, int out) {
+  constexpr int SLAB = wring::slab_rows(32 * TO);
+  float* sm = smem_floats();
+  const float* stages = sm + ring_off;
   const int to = threadIdx.x / 8, tm = threadIdx.x % 8;
   float acc[TO][8];
 #pragma unroll
@@ -93,89 +123,153 @@ __device__ void dense_t(const WS* w0, const float* in0, int k0,
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
   }
-  mm_seg<WS, TO>(acc, w0, O, k0, in0, to, tm);
-  if (k1) mm_seg<WS, TO>(acc, w1, O, k1, in1, to, tm);
-  if (k2) mm_seg<WS, TO>(acc, w2, O, k2, in2, to, tm);
+  const int ins[3] = {in0, in1, in2};
+#pragma unroll
+  for (int n = 0; n < 3; ++n) {
+    if (n == n_in) break;
+    const int K = ring.seg[pos.seg++].K;
+    const float* ip = sm + ins[n] + tm * 4;
+    for (int k0 = 0; k0 < K; k0 += SLAB, ++pos.q) {
+      const float* ws = stages + wring::acquire(ring, pos.q) * wring::STAGE_FLOATS;
+      if (K - k0 >= SLAB) {
+        mm_slab<TO>(acc, ws, SLAB, ip + k0 * BM, to);
+      } else {
+        mm_slab<TO>(acc, ws, K - k0, ip + k0 * BM, to);
+      }
+      wring::release(ring, pos.q);
+    }
+  }
+  float* o_sm = sm + out;
 #pragma unroll
   for (int i = 0; i < TO; ++i) {
     const int o = to * TO + i;
     const float b = bias[o];
     float v[8];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) v[j] = rnd<RND>(fmaxf(acc[i][j] + b, 0.f));
-    *reinterpret_cast<float4*>(out + o * BM + tm * 4) = make_float4(v[0], v[1], v[2], v[3]);
-    *reinterpret_cast<float4*>(out + o * BM + 32 + tm * 4) = make_float4(v[4], v[5], v[6], v[7]);
+    for (int j = 0; j < 8; ++j) v[j] = fmaxf(acc[i][j] + b, 0.f);
+    *reinterpret_cast<float4*>(o_sm + o * BM + tm * 4) = make_float4(v[0], v[1], v[2], v[3]);
+    *reinterpret_cast<float4*>(o_sm + o * BM + 32 + tm * 4) = make_float4(v[4], v[5], v[6], v[7]);
   }
 }
 
-template <typename WS, bool RND>
-__device__ void dense(const WS* w0, const float* in0, int k0,
-                      const WS* w1, const float* in1, int k1,
-                      const WS* w2, const float* in2, int k2,
-                      const float* bias, int O, float* out) {
+__device__ void dense(wring::Ctl& ring, wring::RingPos& pos, int ring_off, int n_in, int in0,
+                      int in1, int in2, const float* bias, int O, int out) {
   switch (O) {
-    case 256: dense_t<WS, RND, 8>(w0, in0, k0, w1, in1, k1, w2, in2, k2, bias, out); break;
-    case 128: dense_t<WS, RND, 4>(w0, in0, k0, w1, in1, k1, w2, in2, k2, bias, out); break;
-    case 64: dense_t<WS, RND, 2>(w0, in0, k0, w1, in1, k1, w2, in2, k2, bias, out); break;
-    case 32: dense_t<WS, RND, 1>(w0, in0, k0, w1, in1, k1, w2, in2, k2, bias, out); break;
+    case 256: dense_t<8>(ring, pos, ring_off, n_in, in0, in1, in2, bias, out); break;
+    case 128: dense_t<4>(ring, pos, ring_off, n_in, in0, in1, in2, bias, out); break;
+    case 64: dense_t<2>(ring, pos, ring_off, n_in, in0, in1, in2, bias, out); break;
+    case 32: dense_t<1>(ring, pos, ring_off, n_in, in0, in1, in2, bias, out); break;
   }
 }
 
-template <typename WS, bool RND>
-__device__ __forceinline__ void dense1(const WS* w, const float* in, int k,
-                                       const float* bias, int O, float* out) {
-  dense<WS, RND>(w, in, k, w, in, 0, w, in, 0, bias, O, out);
-}
-
-// out = W in + bias for an O <= 4 wide output layer (no activation): one
-// thread per (output, sample).
-template <typename WS>
-__device__ void dense_small(const WS* __restrict__ w, const float* in, int K,
-                            const float* __restrict__ bias, int O, float* out) {
+// out = W in + bias for a 1- or 3-wide output layer (no activation), the
+// ring's next segment, one slab: one thread per (output, sample), each a
+// chain of FMAs over k in order, the weights broadcast from the stage.
+__device__ void dense_small(wring::Ctl& ring, wring::RingPos& pos, int ring_off, int in,
+                            const float* __restrict__ bias, int out) {
+  const int K = ring.seg[pos.seg].K, O = ring.seg[pos.seg++].O;
+  float* sm = smem_floats();
+  const float* w = sm + ring_off + wring::acquire(ring, pos.q) * wring::STAGE_FLOATS;
   const int t = threadIdx.x;
   if (t < O * BM) {
     const int o = t / BM, m = t % BM;
+    const float* x = sm + in + m;
     float acc = 0.f;
-#pragma unroll 4
-    for (int k = 0; k < K; ++k) acc = fmaf(to_f(w[k * O + o]), in[k * BM + m], acc);
-    out[o * BM + m] = acc + bias[o];
+#pragma unroll 8
+    for (int k = 0; k < K; ++k) acc = fmaf(w[k * O + o], x[k * BM], acc);
+    sm[out + o * BM + m] = acc + bias[o];
   }
+  wring::release(ring, pos.q++);
 }
 
-template <typename WS, bool RND>
-__global__ void __launch_bounds__(THREADS, 1)
+// The ring's segments in the order the layers below read them: the motion
+// net's six layers, the trunk (the skip layer as [trunk | pos_enc]), the
+// density head, the rgb head's first layer over [features | dir_enc |
+// time_enc], and the rest of the rgb head. A 1- or 3-wide layer is one slab
+// (K * O * 4 bytes, a multiple of 16: K is a kernel width).
+__device__ __forceinline__ void ring_segments(wring::Ctl& c, const float* wts, const Params& p) {
+  int n = 0;
+  const auto add = [&](int slot, int K, int O) { c.seg[n++] = {wts + p.w_off[slot], K, O}; };
+  if (p.motion_mode) {
+    add(W_M0, p.menc_rows, p.motion_width);
+    for (int k = 1; k < 5; ++k) add(W_M0 + k, p.motion_width, p.motion_width);
+    add(W_M0 + 5, p.motion_width, 3);
+  }
+  add(W_1, p.pos_rows, p.width);
+  for (int k = 1; k < 4; ++k) add(W_1 + k, p.width, p.width);
+  add(W_S2A, p.width, p.width);
+  add(W_S2B, p.pos_rows, p.width);
+  add(W_S2W2, p.width, p.width);
+  add(W_S2W3, p.width, p.width);
+  add(W_DW, p.width, 1);
+  add(W_R1A, p.width, p.head);
+  add(W_R1B, p.dir_rows, p.head);
+  if (p.use_time) add(W_R1C, p.time_rows, p.head);
+  if (p.n_rgb == 4) {
+    add(W_RGB1, p.head, p.head);
+    add(W_RGB2, p.head, p.head);
+    add(W_RGB3, p.head, 3);
+  } else {
+    add(W_RGB1, p.head, 3);
+  }
+  c.n_seg = n;
+}
+
+__global__ void __launch_bounds__(BLOCK, 1)
 fused_field_kernel(const float* __restrict__ xyz, const float* __restrict__ ids,
                    const float* __restrict__ dir, const int* __restrict__ flags,
-                   const WS* __restrict__ wts, const float* __restrict__ bias,
+                   const float* __restrict__ wts, const float* __restrict__ bias,
                    float* __restrict__ out, const Params p) {
-  extern __shared__ float4 smem4[];
+  __shared__ wring::Ctl ring;
   const int t = threadIdx.x;
   const int m0 = blockIdx.x * BM;
   const int M = p.M;
   if (flags != nullptr && flags[blockIdx.x] == 0) {
     // a skipped tile must still be finite downstream (0 * NaN = NaN)
-    for (int i = t; i < 4 * BM; i += THREADS) {
+    for (int i = t; i < 4 * BM; i += BLOCK) {
       const int gm = m0 + i % BM;
       if (gm < M) out[static_cast<size_t>(i / BM) * M + gm] = 0.f;
     }
     return;
   }
-  float* X = reinterpret_cast<float*>(smem4);  // 4 x BM: xyz rows, id row
-  float* A = X + 4 * BM;                       // rows_a x BM
-  float* B = A + p.rows_a * BM;                // rows_a x BM
-  float* P = B + p.rows_a * BM;                // pos_rows x BM
-  float* D = P + p.pos_rows * BM;              // dir_rows x BM
-  float* T = D + p.dir_rows * BM;              // time_rows x BM
-  float* R = T + p.time_rows * BM;             // 4 x BM: flow or rgb, sigma
+  float* sm = smem_floats();
+  // activation tiles as float offsets into dynamic shared memory
+  const int oX = 0;                         // 4 x BM: xyz rows, id row
+  const int oA = oX + 4 * BM;               // rows_a x BM
+  const int oB = oA + p.rows_a * BM;        // rows_a x BM
+  const int oP = oB + p.rows_a * BM;        // pos_rows x BM
+  const int oD = oP + p.pos_rows * BM;      // dir_rows x BM
+  const int oT = oD + p.dir_rows * BM;      // time_rows x BM
+  const int oR = oT + p.time_rows * BM;     // 4 x BM: flow or rgb, sigma
+  float* X = sm + oX;
+  float* A = sm + oA;
+  float* P = sm + oP;
+  float* D = sm + oD;
+  float* T = sm + oT;
+  float* R = sm + oR;
+
+  if (t == 0) {
+    ring_segments(ring, wts, p);
+    wring::init(ring, p.stages, WARPS);
+  }
+  __syncthreads();
+  if (t >= THREADS) {  // the producer warp
+    if (t == THREADS) wring::produce(ring, sm + p.ring_off);
+    return;
+  }
+  wring::RingPos pos{0, 0};
 
   for (int i = t; i < 4 * BM; i += THREADS) {
     const int r = i / BM, gm = m0 + i % BM;
     X[i] = gm < M ? (r < 3 ? xyz[static_cast<size_t>(r) * M + gm] : ids[gm]) : 0.f;
   }
-  __syncthreads();
+  sync_consumers();
 
-  const auto W = [&](int slot) { return wts + p.w_off[slot]; };
   const auto Bi = [&](int slot) { return bias + p.b_off[slot]; };
+  const auto dense1 = [&](int in, int bslot, int O, int dst) {
+    dense(ring, pos, p.ring_off, 1, in, 0, 0, Bi(bslot), O, dst);
+    sync_consumers();
+  };
   const int ch = t / BM, m = t % BM;
 
   if (p.motion_mode) {
@@ -184,115 +278,75 @@ fused_field_kernel(const float* __restrict__ xyz, const float* __restrict__ ids,
       const float id = X[3 * BM + m];
       const float lo = floorf(id);
       const float wt = __fsub_rn(id, lo);
-      encode<RND>(ch == 3 ? lo : v, ch == 3 ? __fadd_rn(lo, 1.f) : v, wt, ch, 4,
-                  p.freqs, p.inc, false, A, BM, m);
+      encode<false>(ch == 3 ? lo : v, ch == 3 ? __fadd_rn(lo, 1.f) : v, wt, ch, 4, p.freqs,
+                    p.inc, false, A, BM, m);
     } else {
-      encode<RND>(v, v, 0.f, ch, 4, p.freqs, p.inc, false, A, BM, m);
+      encode<false>(v, v, 0.f, ch, 4, p.freqs, p.inc, false, A, BM, m);
     }
-    __syncthreads();
+    sync_consumers();
     const int mw = p.motion_width;
-    dense1<WS, RND>(W(W_M0), A, p.menc_rows, Bi(B_M0), mw, B);
-    __syncthreads();
-    dense1<WS, RND>(W(W_M0 + 1), B, mw, Bi(B_M0 + 1), mw, A);
-    __syncthreads();
-    dense1<WS, RND>(W(W_M0 + 2), A, mw, Bi(B_M0 + 2), mw, B);
-    __syncthreads();
-    dense1<WS, RND>(W(W_M0 + 3), B, mw, Bi(B_M0 + 3), mw, A);
-    __syncthreads();
-    dense1<WS, RND>(W(W_M0 + 4), A, mw, Bi(B_M0 + 4), mw, B);
-    __syncthreads();
-    dense_small<WS>(W(W_M0 + 5), B, mw, Bi(B_M0 + 5), 3, R);
-    __syncthreads();
+    dense1(oA, B_M0, mw, oB);
+    dense1(oB, B_M0 + 1, mw, oA);
+    dense1(oA, B_M0 + 2, mw, oB);
+    dense1(oB, B_M0 + 3, mw, oA);
+    dense1(oA, B_M0 + 4, mw, oB);
+    dense_small(ring, pos, p.ring_off, oB, Bi(B_M0 + 5), oR);
+    sync_consumers();
     if (t < 3 * BM) X[t] = __fadd_rn(X[t], R[t]);  // displaced positions
-    __syncthreads();
+    sync_consumers();
   }
 
   // encodings: threads of channels 0-2 encode xyz, those of channel 3 the time
   if (ch < 3) {
     const float v = X[ch * BM + m];
-    encode<RND>(v, v, 0.f, ch, 3, p.freqs, p.inc, false, P, BM, m);
+    encode<false>(v, v, 0.f, ch, 3, p.freqs, p.inc, false, P, BM, m);
   } else if (p.use_time) {
     const float v = X[3 * BM + m];
-    encode<RND>(v, v, 0.f, 0, 1, p.freqs, p.inc, true, T, BM, m);
+    encode<false>(v, v, 0.f, 0, 1, p.freqs, p.inc, true, T, BM, m);
   }
   for (int i = t; i < p.dir_rows * BM; i += THREADS) {
     const int gm = m0 + i % BM;
     const float v = gm < M ? dir[static_cast<size_t>(i / BM) * M + gm] : 0.f;
-    D[i] = fmaxf(rnd<RND>(v), 0.f);
+    D[i] = fmaxf(v, 0.f);
   }
-  __syncthreads();
+  sync_consumers();
 
-  const int wd = p.width, kp = p.pos_rows;
-  dense1<WS, RND>(W(W_1), P, kp, Bi(B_1), wd, A);
-  __syncthreads();
-  dense1<WS, RND>(W(W_1 + 1), A, wd, Bi(B_1 + 1), wd, B);
-  __syncthreads();
-  dense1<WS, RND>(W(W_1 + 2), B, wd, Bi(B_1 + 2), wd, A);
-  __syncthreads();
-  dense1<WS, RND>(W(W_1 + 3), A, wd, Bi(B_1 + 3), wd, B);
-  __syncthreads();
-  dense<WS, RND>(W(W_S2A), B, wd, W(W_S2B), P, kp, W(W_S2B), P, 0, Bi(B_SB1), wd, A);
-  __syncthreads();
-  dense1<WS, RND>(W(W_S2W2), A, wd, Bi(B_SB2), wd, B);
-  __syncthreads();
-  dense1<WS, RND>(W(W_S2W3), B, wd, Bi(B_SB3), wd, A);
-  __syncthreads();
-  dense_small<WS>(W(W_DW), A, wd, Bi(B_DB), 1, R + 3 * BM);  // sigma
+  const int wd = p.width;
+  dense1(oP, B_1, wd, oA);
+  dense1(oA, B_1 + 1, wd, oB);
+  dense1(oB, B_1 + 2, wd, oA);
+  dense1(oA, B_1 + 3, wd, oB);
+  dense(ring, pos, p.ring_off, 2, oB, oP, 0, Bi(B_SB1), wd, oA);  // [trunk | pos_enc]
+  sync_consumers();
+  dense1(oA, B_SB2, wd, oB);
+  dense1(oB, B_SB3, wd, oA);
+  dense_small(ring, pos, p.ring_off, oA, Bi(B_DB), oR + 3 * BM);  // sigma
   // rgb head: relu([x | dir | time]); x >= 0 already, D and T hold relu'd values
-  dense<WS, RND>(W(W_R1A), A, wd, W(W_R1B), D, p.dir_rows, W(W_R1C), T,
-                 p.use_time ? p.time_rows : 0, Bi(B_RB1), p.head, B);
-  __syncthreads();
+  dense(ring, pos, p.ring_off, p.use_time ? 3 : 2, oA, oD, oT, Bi(B_RB1), p.head, oB);
+  sync_consumers();
   if (p.n_rgb == 2) {
-    dense_small<WS>(W(W_RGB1), B, p.head, Bi(B_RGB1), 3, R);
+    dense_small(ring, pos, p.ring_off, oB, Bi(B_RGB1), oR);
   } else {
-    dense1<WS, RND>(W(W_RGB1), B, p.head, Bi(B_RGB1), p.head, A);
-    __syncthreads();
-    dense1<WS, RND>(W(W_RGB2), A, p.head, Bi(B_RGB2), p.head, B);
-    __syncthreads();
-    dense_small<WS>(W(W_RGB3), B, p.head, Bi(B_RGB3), 3, R);
+    dense1(oB, B_RGB1, p.head, oA);
+    dense1(oA, B_RGB2, p.head, oB);
+    dense_small(ring, pos, p.ring_off, oB, Bi(B_RGB3), oR);
   }
-  __syncthreads();
+  sync_consumers();
   for (int i = t; i < 4 * BM; i += THREADS) {
     const int gm = m0 + i % BM;
     if (gm < M) out[static_cast<size_t>(i / BM) * M + gm] = R[i];
   }
 }
 
-template <typename WS, bool RND>
-cudaError_t launch(const Params& p, const float* xyz, const float* ids,
-                   const float* dir, const int* flags, const void* weights,
-                   const float* biases, float* out, size_t smem,
-                   cudaStream_t stream) {
-  auto kern = fused_field_kernel<WS, RND>;
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(smem));
-  if (e != cudaSuccess) return e;
-  const dim3 grid((p.M + BM - 1) / BM);
-  kern<<<grid, THREADS, smem, stream>>>(xyz, ids, dir, flags,
-                                        static_cast<const WS*>(weights), biases, out, p);
-  return cudaGetLastError();
-}
-
-}  // namespace
-
-// C entry point. Pointers are device pointers except `offsets`, a host array
-// of N_W weight then N_B bias element offsets (-1 = absent operand).
-// Returns the CUDA error of the launch (0 = launched).
-extern "C" int stnerf_fused_field(const void* xyz, const void* ids, const void* dir,
-                                  const void* flags, const void* weights,
-                                  const void* biases, const void* offsets, void* out,
-                                  int M, int dir_rows, int width, int head,
-                                  int motion_width, int freqs, int include_input,
-                                  int use_time, int n_rgb, int motion_mode, void* stream) {
+// Dynamic shared memory and ring stages of a launch with these ints (the
+// entry point's); 0 if the widths are refused or no two stages fit.
+int configure(Params& p, int M, int dir_rows, int width, int head, int motion_width, int freqs,
+              int include_input, int use_time, int n_rgb, int motion_mode, size_t* smem) {
   if (M <= 0 || dir_rows <= 0 || !kernel_width(width) || !kernel_width(head) ||
       (motion_mode != 0 && !kernel_width(motion_width)) || (n_rgb != 2 && n_rgb != 4) ||
       motion_mode < 0 || motion_mode > 2) {
-    return static_cast<int>(cudaErrorInvalidValue);
+    return 0;
   }
-  Params p;
-  const int* off = static_cast<const int*>(offsets);
-  for (int i = 0; i < N_W; ++i) p.w_off[i] = off[i];
-  for (int i = 0; i < N_B; ++i) p.b_off[i] = off[N_W + i];
   const int per = (include_input ? 1 : 0) + 2 * freqs;
   p.M = M;
   p.dir_rows = dir_rows;
@@ -313,14 +367,71 @@ extern "C" int stnerf_fused_field(const void* xyz, const void* ids, const void* 
     rows_a = rows_a > p.menc_rows ? rows_a : p.menc_rows;
   }
   p.rows_a = rows_a;
-  const size_t smem = static_cast<size_t>(4 + 2 * rows_a + p.pos_rows + dir_rows +
-                                          p.time_rows + 4) * BM * sizeof(float);
-  const auto s = static_cast<cudaStream_t>(stream);
-  const auto* fx = static_cast<const float*>(xyz);
-  const auto* fi = static_cast<const float*>(ids);
-  const auto* fd = static_cast<const float*>(dir);
-  const auto* fl = static_cast<const int*>(flags);
-  const auto* fb = static_cast<const float*>(biases);
-  auto* fo = static_cast<float*>(out);
-  return static_cast<int>(launch<float, false>(p, fx, fi, fd, fl, weights, fb, fo, smem, s));
+  // the activations, then the ring at a 128-byte boundary (BM floats are 256)
+  p.ring_off = (4 + 2 * rows_a + p.pos_rows + dir_rows + p.time_rows + 4) * BM;
+  int dev = 0, optin = 0;
+  cudaFuncAttributes attr;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
+          cudaSuccess ||
+      cudaFuncGetAttributes(&attr, fused_field_kernel) != cudaSuccess) {
+    return 0;
+  }
+  const size_t act = static_cast<size_t>(p.ring_off) * sizeof(float);
+  p.stages = wring::stages_for(act, static_cast<size_t>(optin) - attr.sharedSizeBytes);
+  *smem = act + static_cast<size_t>(p.stages) * wring::STAGE_FLOATS * sizeof(float);
+  return p.stages >= 2;
+}
+
+}  // namespace
+
+// C entry point. Pointers are device pointers except `offsets`, a host array
+// of N_W weight then N_B bias element offsets (-1 = absent operand).
+// Returns the CUDA error of the launch (0 = launched).
+extern "C" int stnerf_fused_field(const void* xyz, const void* ids, const void* dir,
+                                  const void* flags, const void* weights,
+                                  const void* biases, const void* offsets, void* out,
+                                  int M, int dir_rows, int width, int head,
+                                  int motion_width, int freqs, int include_input,
+                                  int use_time, int n_rgb, int motion_mode, void* stream) {
+  Params p;
+  size_t smem = 0;
+  if (!configure(p, M, dir_rows, width, head, motion_width, freqs, include_input, use_time,
+                 n_rgb, motion_mode, &smem) ||
+      reinterpret_cast<uintptr_t>(weights) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int* off = static_cast<const int*>(offsets);
+  for (int i = 0; i < N_W; ++i) p.w_off[i] = off[i];
+  for (int i = 0; i < N_B; ++i) p.b_off[i] = off[N_W + i];
+  cudaError_t e = cudaFuncSetAttribute(fused_field_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((M + BM - 1) / BM);
+  fused_field_kernel<<<grid, BLOCK, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(xyz), static_cast<const float*>(ids),
+      static_cast<const float*>(dir), static_cast<const int*>(flags),
+      static_cast<const float*>(weights), static_cast<const float*>(biases),
+      static_cast<float*>(out), p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The weight ring of a launch with the same ints as stnerf_fused_field:
+// out[0] its stages, out[1] a stage's bytes, out[2] the block's dynamic
+// shared memory. Returns a CUDA error (0 = the launch would be configured).
+extern "C" int stnerf_fused_field_ring(int M, int dir_rows, int width, int head,
+                                       int motion_width, int freqs, int include_input,
+                                       int use_time, int n_rgb, int motion_mode, void* out) {
+  Params p;
+  size_t smem = 0;
+  if (!configure(p, M, dir_rows, width, head, motion_width, freqs, include_input, use_time,
+                 n_rgb, motion_mode, &smem)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int* o = static_cast<int*>(out);
+  o[0] = p.stages;
+  o[1] = wring::STAGE_FLOATS * static_cast<int>(sizeof(float));
+  o[2] = static_cast<int>(smem);
+  return 0;
 }

@@ -36,11 +36,10 @@ import torch
 
 from ..ops.rounding import round_to
 from . import f32_bwd
-from .fused_field import (MOTION_MODES, TILE, PackedField, _check_inputs,
-                          _check_kernel_support, _encode, _field_linears,
-                          _linear_grads, fused_field, fused_field_reference,
-                          pack_field, prepare_kernel_params_planar,
-                          prepare_motion_params_planar)
+from .fused_field import (TILE, PackedField, _check_inputs, _check_kernel_support,
+                          _encode, _field_linears, _linear_grads, fused_field,
+                          fused_field_reference, kernel_ints, pack_field,
+                          prepare_kernel_params_planar, prepare_motion_params_planar)
 from .spacenet_vjp import pack_grads, spacenet_bwd_math
 
 if TYPE_CHECKING:  # models imports this module
@@ -192,12 +191,9 @@ def field_bwd(field: PackedField, xyz: torch.Tensor, ids: torch.Tensor,
     gb = torch.empty(field.biases.shape, dtype=torch.float32, device=dev)
     d_xyz = torch.empty((3, m), dtype=torch.float32, device=dev)
     d_dir = torch.empty(tuple(dir_enc.shape), dtype=torch.float32, device=dev)
-    spec = field.spec
     ptr = ctypes.c_void_p
     tc = field.compute_dtype == "bfloat16"
-    ints = (m, dir_enc.shape[0], spec.backbone_dim, spec.head_dim, field.motion_width,
-            spec.pos_freqs, int(spec.include_input), int(spec.use_time), field.n_rgb,
-            MOTION_MODES[field.motion_mode])
+    ints = kernel_ints(field, m, dir_enc.shape[0])
     outputs = (ptr(gw.data_ptr()), ptr(gb.data_ptr()), ptr(d_xyz.data_ptr()),
                ptr(d_dir.data_ptr()))
     counts = (field.weights.numel(), field.biases.numel())

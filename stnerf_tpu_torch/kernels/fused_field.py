@@ -26,6 +26,14 @@ handful of pointers.
 
 A skip flag covers :data:`TILE` consecutive samples (one CUDA block); a
 tile whose flag is 0 comes out as exact zeros.
+
+The kernels tile layers of :data:`KERNEL_WIDTHS` units. :func:`pack_field`
+lays a field of any other trunk, head or motion width out at the next
+kernel width (:func:`kernel_width`): the padded units have zero weights and
+biases and so do the rows that feed them from the layer below, so each is
+ReLU(0) = 0 and feeds nothing. Outputs and the real gradients stay the
+model's; :func:`_linear_grads` cuts the padded ones away. Widths above 256
+pack unpadded, and the kernels refuse them.
 """
 
 from __future__ import annotations
@@ -60,6 +68,15 @@ _SPACE_ORDER = ("w1", "b1", "w2", "b2", "w3", "b3", "w4", "b4",
                 "s2a", "s2b", "sb1", "s2w2", "sb2", "s2w3", "sb3",
                 "dw", "db", "r1a", "r1b", "r1c", "rb1")
 _ALIGN = 16  # elements: every operand starts 32-byte aligned in bf16
+# weights fed by an encoding (their rows are not a layer width), and the
+# 1- and 3-wide output layers (their columns are not one)
+_INPUT_ROWS = ("w1", "s2b", "r1b", "r1c", "m0")
+_THIN = ("dw", "db", "m5", "mb5")
+
+
+def kernel_width(n: int) -> int:
+    """The least of :data:`KERNEL_WIDTHS` >= n; n itself above the widest."""
+    return next((w for w in KERNEL_WIDTHS if w >= n), n)
 
 
 def _wt(layer, dtype):
@@ -107,15 +124,27 @@ def prepare_motion_params_planar(net: MotionNet, dtype=torch.bfloat16) -> tuple:
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class PackedField:
-    """One field's kernel operands in two flat buffers."""
+    """One field's kernel operands in two flat buffers, at the kernel
+    widths (``shapes``); ``model_shapes`` and ``spec`` are the model's own."""
     weights: torch.Tensor        # 1-D, compute dtype
     biases: torch.Tensor         # 1-D float32
     offsets: np.ndarray          # int32 [len(W_SLOTS) + len(B_SLOTS)], -1 = absent
-    shapes: dict                 # slot -> (in, out) or (out,)
+    shapes: dict                 # slot -> (in, out) or (out,), as packed
+    model_shapes: dict           # slot -> the model's (in, out) or (out,)
     spec: SpaceNetSpec
     motion_mode: str | None
-    motion_width: int
+    motion_width: int            # as packed
     compute_dtype: str
+
+    @property
+    def width(self) -> int:
+        """The trunk's width as packed."""
+        return self.shapes["w1"][1]
+
+    @property
+    def head(self) -> int:
+        """The rgb head's width as packed."""
+        return self.shapes["r1a"][1]
 
     @property
     def dtype(self):
@@ -138,6 +167,11 @@ class PackedField:
         off = int(self.offsets[len(W_SLOTS) + B_SLOTS.index(slot)])
         buf = self.biases if buf is None else buf
         return buf[off:off + n]
+
+    def cut(self, slot: str, t: torch.Tensor) -> torch.Tensor:
+        """A packed operand of ``slot`` (or its gradient) cut to the model's
+        own shape: the padded rows and columns dropped."""
+        return t[tuple(slice(0, n) for n in self.model_shapes[slot])]
 
     @functools.cached_property
     def tc(self) -> tuple:
@@ -165,7 +199,8 @@ def pack_field(space_ops: tuple, motion_ops: tuple, spec: SpaceNetSpec,
                motion_mode: str | None = None,
                compute_dtype: str = "bfloat16") -> PackedField:
     """Pack the operand tuples of :func:`prepare_kernel_params_planar` and
-    :func:`prepare_motion_params_planar` once per field."""
+    :func:`prepare_motion_params_planar` once per field, every trunk, head
+    and motion width at :func:`kernel_width` (zeros in the padded units)."""
     if motion_mode not in MOTION_MODES:
         raise ValueError(f"motion_mode must be one of {list(MOTION_MODES)}")
     named = dict(zip(_SPACE_ORDER, space_ops))
@@ -176,13 +211,23 @@ def pack_field(space_ops: tuple, motion_ops: tuple, spec: SpaceNetSpec,
         for k in range(6):
             named[f"m{k}"], named[f"mb{k}"] = motion_ops[2 * k], motion_ops[2 * k + 1]
     dtype = torch.bfloat16 if compute_dtype == "bfloat16" else torch.float32
+    thin = (*_THIN, f"rgb{len(rest) // 2}", f"rgbb{len(rest) // 2}")
+    model_shapes = {s: tuple(t.shape) if s in W_SLOTS else (t.shape[0],)
+                    for s, t in named.items()}
+    packed = {}
+    for s, (k, *o) in model_shapes.items():
+        if s in W_SLOTS:
+            packed[s] = (k if s in _INPUT_ROWS else kernel_width(k),
+                         o[0] if s in thin else kernel_width(o[0]))
+        else:
+            packed[s] = (k if s in thin else kernel_width(k),)
 
     def layout(slots):
         offs, total = [], 0
         for s in slots:
-            if s in named:
+            if s in packed:
                 offs.append(total)
-                total += -(-named[s].numel() // _ALIGN) * _ALIGN
+                total += -(-int(np.prod(packed[s])) // _ALIGN) * _ALIGN
             else:
                 offs.append(-1)
         return offs, total
@@ -192,19 +237,18 @@ def pack_field(space_ops: tuple, motion_ops: tuple, spec: SpaceNetSpec,
     device = named["w1"].device
     weights = torch.zeros(w_total, dtype=dtype, device=device)
     biases = torch.zeros(b_total, dtype=torch.float32, device=device)
-    shapes = {}
     for slots, offs, buf in ((W_SLOTS, w_offs, weights), (B_SLOTS, b_offs, biases)):
         for s, off in zip(slots, offs):
             if off < 0:
                 continue
-            t = named[s]
-            if buf is biases:
-                t = t.reshape(-1)
-            shapes[s] = tuple(t.shape)
-            buf[off:off + t.numel()] = t.reshape(-1).to(buf.dtype)
-    motion_width = named["m0"].shape[1] if motion_mode else 0
+            t = named[s].reshape(model_shapes[s]).to(buf.dtype)
+            if packed[s] != model_shapes[s]:
+                t, real = torch.zeros(packed[s], dtype=buf.dtype, device=device), t
+                t[tuple(slice(0, n) for n in real.shape)] = real
+            buf[off:off + t.numel()] = t.reshape(-1)
+    motion_width = packed["m0"][1] if motion_mode else 0
     return PackedField(weights, biases,
-                       np.asarray(w_offs + b_offs, np.int32), shapes, spec,
+                       np.asarray(w_offs + b_offs, np.int32), packed, model_shapes, spec,
                        motion_mode, motion_width, compute_dtype)
 
 
@@ -363,15 +407,34 @@ def _check_inputs(field: PackedField, xyz, ids, dir_enc, tile_flags):
             raise ValueError("tile_flags must be contiguous, on the inputs' device")
 
 
+def check_kernel_widths(widths: list):
+    """The CUDA kernels take layer widths up to 256, packed at
+    :data:`KERNEL_WIDTHS`: the float32 kernels hold two activation tiles of
+    width x 64 floats in shared memory, 256 KB at 512, more than the 227 KB
+    a block can have."""
+    if any(w not in KERNEL_WIDTHS for w in widths):
+        raise ValueError(f"the CUDA kernels take layer widths of at most {KERNEL_WIDTHS[-1]} "
+                         f"(packed at {KERNEL_WIDTHS}), got {widths}: two float32 activation "
+                         "tiles of width x 64 samples must fit a block's 227 KB of shared "
+                         "memory")
+
+
 def _check_kernel_support(field: PackedField):
     spec = field.spec
-    widths = [spec.backbone_dim, spec.head_dim] + (
-        [field.motion_width] if field.motion_mode else [])
-    if any(w not in KERNEL_WIDTHS for w in widths):
-        raise ValueError(f"the CUDA kernel takes layer widths {KERNEL_WIDTHS}, "
-                         f"got {widths}")
+    check_kernel_widths([field.width, field.head]
+                        + ([field.motion_width] if field.motion_mode else []))
     if spec.use_time and spec.time_freqs != spec.pos_freqs:
         raise ValueError("the kernel encodes time with pos_freqs octaves")
+
+
+def kernel_ints(field: PackedField, m: int, dir_rows: int) -> tuple:
+    """The ints K1's and K2's entry points take: the sample count, the
+    direction rows, the packed widths, then the encoding, the rgb head and
+    the motion mode."""
+    spec = field.spec
+    return (m, dir_rows, field.width, field.head, field.motion_width, spec.pos_freqs,
+            int(spec.include_input), int(spec.use_time), field.n_rgb,
+            MOTION_MODES[field.motion_mode])
 
 
 def fused_field(field: PackedField, xyz: torch.Tensor, ids: torch.Tensor,
@@ -402,12 +465,9 @@ def fused_field(field: PackedField, xyz: torch.Tensor, ids: torch.Tensor,
     lib = load_library()
     m = xyz.shape[1]
     out = torch.empty((4, m), dtype=torch.float32, device=xyz.device)
-    spec = field.spec
     ptr = ctypes.c_void_p
     tc = field.compute_dtype == "bfloat16"
-    ints = (m, dir_enc.shape[0], spec.backbone_dim, spec.head_dim, field.motion_width,
-            spec.pos_freqs, int(spec.include_input), int(spec.use_time), field.n_rgb,
-            MOTION_MODES[field.motion_mode])
+    ints = kernel_ints(field, m, dir_enc.shape[0])
     with torch.cuda.device(xyz.device):
         stream = ptr(torch.cuda.current_stream().cuda_stream)
         inputs = (ptr(xyz.data_ptr()), ptr(ids.data_ptr()), ptr(dir_enc.data_ptr()),
@@ -434,6 +494,21 @@ fused_field.launches = 0
 fused_field.launches_tc = 0
 
 
+def float32_ring(field: PackedField, m: int, dir_rows: int) -> dict:
+    """The weight ring of the float32 kernel's launch for this field at
+    ``m`` samples (``csrc/w_ring.cuh``): its stages, a stage's bytes and the
+    block's dynamic shared memory. Needs the card."""
+    from ._build import load_library
+
+    _check_kernel_support(field)
+    out = np.zeros(3, np.int32)
+    err = load_library().stnerf_fused_field_ring(*kernel_ints(field, m, dir_rows),
+                                                 out.ctypes.data_as(ctypes.c_void_p))
+    if err != 0:
+        raise RuntimeError(f"fused_field ring query failed: CUDA error {err}")
+    return {"stages": int(out[0]), "stage_bytes": int(out[1]), "smem_bytes": int(out[2])}
+
+
 # ---------------------------------------------------------------------------
 # packed gradients <-> the nn.Linear parameters
 # ---------------------------------------------------------------------------
@@ -447,26 +522,23 @@ def _field_linears(net: SpaceNet, motion: MotionNet | None) -> list:
 
 def _linear_grads(field: PackedField, gw: torch.Tensor, gb: torch.Tensor) -> list:
     """Packed gradients -> [(d weight (out, in), d bias)] per linear of
-    :func:`_field_linears`. The split first layers of stage 2 and of the rgb
-    head are joined again; gradients of the (1, head) zero dummies that
-    stand in for a missing direction or time input are dropped."""
+    :func:`_field_linears`, each of the linear's own shape: the padded units'
+    rows and columns cut away (:meth:`PackedField.cut`), the split first
+    layers of stage 2 and of the rgb head joined again, and the gradients of
+    the (1, head) zero dummies that stand in for a missing direction or time
+    input dropped."""
     spec = field.spec
 
-    def w(*parts):
-        return torch.cat([field.w(s, gw) if isinstance(s, str) else s for s in parts],
-                         0).t().contiguous()
+    def w(*slots):
+        return torch.cat([field.cut(s, field.w(s, gw)) for s in slots], 0).t().contiguous()
 
     def b(slot):
-        return field.b(slot, gb).clone()
+        return field.cut(slot, field.b(slot, gb)).clone()
 
     out = [(w(f"w{k}"), b(f"b{k}")) for k in (1, 2, 3, 4)]
     out += [(w("s2a", "s2b"), b("sb1")), (w("s2w2"), b("sb2")),
             (w("s2w3"), b("sb3")), (w("dw"), b("db"))]
-    r1 = ["r1a"]
-    if spec.dir_dim:
-        r1.append(field.w("r1b", gw)[:spec.dir_dim])
-    if spec.time_dim:
-        r1.append(field.w("r1c", gw)[:spec.time_dim])
+    r1 = ["r1a"] + ["r1b"] * bool(spec.dir_dim) + ["r1c"] * bool(spec.time_dim)
     out.append((w(*r1), b("rb1")))
     out += [(w(f"rgb{i}"), b(f"rgbb{i}")) for i in range(1, field.n_rgb)]
     if field.motion_mode:

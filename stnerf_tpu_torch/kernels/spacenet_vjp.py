@@ -49,7 +49,7 @@ import torch
 
 from ..ops.rounding import round_to
 from . import f32_bwd
-from .fused_field import (KERNEL_WIDTHS, PackedField, _field_linears,
+from .fused_field import (PackedField, _field_linears, check_kernel_widths,
                           _linear_grads, pack_field,
                           prepare_kernel_params_planar, spacenet_chain)
 
@@ -204,14 +204,10 @@ def _check_inputs(field: PackedField, pos_enc, dir_enc, time_enc, active=None,
 def _kernel_args(field: PackedField, pos_enc, dir_enc, time_enc, active) -> tuple:
     """The ints the entry points take after the pointers, the time pointer
     (null without a time input) and the active pointer (null without one)."""
-    spec = field.spec
-    widths = [spec.backbone_dim, spec.head_dim]
-    if any(w not in KERNEL_WIDTHS for w in widths):
-        raise ValueError(f"the CUDA kernel takes layer widths {KERNEL_WIDTHS}, "
-                         f"got {widths}")
-    time_rows = time_enc.shape[0] if spec.use_time else 0
+    check_kernel_widths([field.width, field.head])
+    time_rows = time_enc.shape[0] if field.spec.use_time else 0
     ints = (pos_enc.shape[1], pos_enc.shape[0], dir_enc.shape[0], time_rows,
-            spec.backbone_dim, spec.head_dim, field.n_rgb)
+            field.width, field.head, field.n_rgb)
     return (ints, ctypes.c_void_p(time_enc.data_ptr() if time_rows else None),
             ctypes.c_void_p(None if active is None else active.data_ptr()))
 

@@ -20,11 +20,13 @@ pytestmark = pytest.mark.isolate
 M = 200          # samples: not a multiple of either package's tile
 JAX_TILE = 128
 W, HEAD, MOTION_W = 32, 16, 16
+F8_WIDTHS = (96, 48, 48)  # none a kernel width: packed at 128, 64, 64
 
 
-def _nets(mode, use_time, deep):
+def _nets(mode, use_time, deep, widths=(W, HEAD, MOTION_W)):
     """-> (jax SpaceNet spec, params, MotionNet params or None; the port's
-    SpaceNet and MotionNet with the same weights)."""
+    SpaceNet and MotionNet with the same weights) at ``widths`` (trunk,
+    head, motion)."""
     import jax
 
     from stnerf_tpu.models.motionnet import MotionNetSpec as JMSpec
@@ -34,14 +36,14 @@ def _nets(mode, use_time, deep):
     from stnerf_tpu_torch.models import (MotionNet, MotionNetSpec, SpaceNet,
                                          SpaceNetSpec, load_linears, load_spacenet)
 
-    kw = dict(use_dir=True, use_time=use_time, deep_rgb=deep, backbone_dim=W,
-              head_dim=HEAD)
+    kw = dict(use_dir=True, use_time=use_time, deep_rgb=deep, backbone_dim=widths[0],
+              head_dim=widths[1])
     jsspec = JSSpec(**kw)
     sparams = jax.device_get(init_spacenet(jax.random.PRNGKey(3), jsspec))
     net = load_spacenet(SpaceNet(SpaceNetSpec(**kw)), sparams)
     mparams, mnet = None, None
     if mode:
-        mkw = dict(width=MOTION_W, input_time=mode == "lerp")
+        mkw = dict(width=widths[2], input_time=mode == "lerp")
         mparams = jax.device_get(init_motionnet(jax.random.PRNGKey(4), JMSpec(**mkw)))
         mnet = MotionNet(MotionNetSpec(**mkw))
         load_linears(mnet.net, mparams["net"])
@@ -114,11 +116,19 @@ def _assert_tree_close(got, ref):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=2e-3, atol=2e-3 * scale)
 
 
-@pytest.mark.parametrize("mode,use_time,deep", [
-    (None, False, False), ("direct", False, False), ("lerp", True, False),
-    ("lerp", True, True)])
-def test_trainable_field_matches_jax(rng, mode, use_time, deep):
-    jsspec, sparams, mparams, net, mnet = _nets(mode, use_time, deep)
+@pytest.mark.parametrize("mode,use_time,deep,widths", [
+    pytest.param(None, False, False, None, id="None-False-False"),
+    pytest.param("direct", False, False, None, id="direct-False-False"),
+    pytest.param("lerp", True, False, None, id="lerp-True-False"),
+    pytest.param("lerp", True, True, None, id="lerp-True-True"),
+    pytest.param("lerp", True, False, F8_WIDTHS, id="lerp-True-False-f8")])
+def test_trainable_field_matches_jax(rng, mode, use_time, deep, widths):
+    """Value and every gradient through the port's autograd Function
+    (plain forward and backward on the CPU) against JAX's VJP over the
+    interpret-mode kernels; also at widths the CUDA kernels take only
+    padded (F8), whose padded gradients are cut away."""
+    jsspec, sparams, mparams, net, mnet = _nets(mode, use_time, deep,
+                                                widths or (W, HEAD, MOTION_W))
     args = _inputs(rng, mode)
     v_j, g_j, _ = _jax_grads(jsspec, sparams, mparams, mode, *args)
     v_t, g_t, _ = _port_grads(net, mnet, mode, *args)

@@ -17,12 +17,14 @@ pytestmark = pytest.mark.isolate
 
 M = 200        # samples: not a multiple of either package's tile
 JAX_TILE = 128
+WIDTHS = (32, 16, 32)     # trunk, head, motion: the head packs at 32
+F8_WIDTHS = (96, 48, 48)  # none a kernel width: packed at 128, 64, 64
 
 
-def _pair(motion_mode, deep_rgb=False, compute_dtype="float32"):
+def _pair(motion_mode, deep_rgb=False, compute_dtype="float32", widths=WIDTHS):
     """-> (jax fused_field args, port PackedField) for one field of a tiny
-    layered model: the background (motion None or "direct") or performer
-    1 ("lerp", with a time input)."""
+    layered model of ``widths`` (trunk, head, motion): the background
+    (motion None or "direct") or performer 1 ("lerp", with a time input)."""
     import jax
 
     from stnerf_tpu.kernels import prepare_kernel_params_planar as jprep
@@ -34,7 +36,7 @@ def _pair(motion_mode, deep_rgb=False, compute_dtype="float32"):
     kw = dict(layer_num=2, coarse_samples=8, fine_samples=4,
               use_space_time=True, use_deform_time=True,
               bkgd_use_deform_time=motion_mode == "direct", deep_rgb=deep_rgb,
-              backbone_dim=32, head_dim=16, motion_dim=32)
+              backbone_dim=widths[0], head_dim=widths[1], motion_dim=widths[2])
     jspec = JSpec(compute_dtype="float32", **kw)
     params = jax.device_get(init_layered_params(jax.random.PRNGKey(3), jspec))
     model = load_jax_params(LayeredModel(LayeredSpec(compute_dtype=compute_dtype, **kw), device="cpu"),
@@ -95,9 +97,16 @@ def _port_field(field, xyz, ids, dir_enc, flags=None):
 RTOL, ATOL = 1e-4, 1e-5
 
 
-@pytest.mark.parametrize("motion_mode", [None, "direct", "lerp"])
-def test_reference_matches_jax_kernel(rng, motion_mode):
-    jargs, field = _pair(motion_mode)
+@pytest.mark.parametrize("motion_mode,widths", [
+    pytest.param(None, WIDTHS, id="None"), pytest.param("direct", WIDTHS, id="direct"),
+    pytest.param("lerp", WIDTHS, id="lerp"), pytest.param("lerp", F8_WIDTHS, id="lerp-f8")])
+def test_reference_matches_jax_kernel(rng, motion_mode, widths):
+    """The port's plain version on the packed field against JAX's kernel,
+    also at widths the CUDA kernels take only padded (F8: 96/48/48)."""
+    from stnerf_tpu_torch.kernels.fused_field import kernel_width
+
+    jargs, field = _pair(motion_mode, widths=widths)
+    assert (field.width, field.head) == tuple(kernel_width(w) for w in widths[:2])
     xyz, ids, dir_enc = _inputs(rng, motion_mode)
     rgb_j, sig_j = _jax_field(jargs, motion_mode, xyz, ids, dir_enc)
     rgb_t, sig_t = _port_field(field, xyz, ids, dir_enc)
@@ -196,7 +205,9 @@ def test_wrapper_rejects_bad_inputs(rng, bad):
 def test_packing_matches_jax_operands():
     """pack_field keeps every operand of the JAX kernel's list (weights
     (in, out), biases (out, 1), the split concat layers, the (1, head) zero
-    dummy of a field without time), each 16-element aligned."""
+    dummy of a field without time), each 16-element aligned, in the model's
+    own shape within its operand at the kernel widths (the 16-wide head
+    packed at 32, zeros beyond)."""
     import jax
 
     from stnerf_tpu_torch.kernels.fused_field import B_SLOTS, W_SLOTS
@@ -210,12 +221,81 @@ def test_packing_matches_jax_operands():
     assert len(ops) == len(order)
     for slot, op in zip(order, ops):
         op = np.asarray(op)
-        got = (field.w(slot) if slot in W_SLOTS else field.b(slot)[:, None]).numpy()
-        np.testing.assert_array_equal(got, op, err_msg=slot)
-    assert not field.w("r1c").any() and field.w("r1c").shape == (1, 16)
+        packed = field.w(slot) if slot in W_SLOTS else field.b(slot)
+        got = field.cut(slot, packed)
+        np.testing.assert_array_equal(got.reshape(op.shape).numpy(), op, err_msg=slot)
+        rest = packed.clone()
+        field.cut(slot, rest).zero_()
+        assert not rest.any(), slot  # zeros beyond the model's shape
+    assert not field.w("r1c").any() and field.w("r1c").shape == (1, 32)
+    assert field.model_shapes["r1c"] == (1, 16) and field.shapes["r1a"] == (32, 32)
     offs = field.offsets
     assert offs[W_SLOTS.index("rgb2")] == -1 and offs[len(W_SLOTS) + B_SLOTS.index("rgbb3")] == -1
     assert all(o % 16 == 0 for o in offs if o >= 0)
+
+
+def test_padded_pack_and_gradient_map():
+    """F8: a field of widths outside KERNEL_WIDTHS (96/48/48) packs at the
+    next kernel widths, every padded entry zero and every real one its
+    operand's; ``_linear_grads`` hands each nn.Linear a gradient of its own
+    shape, cut from the packed one; a field already at kernel widths packs
+    as the unpadded layout (each operand in slot order, 16-element aligned,
+    nothing else); the kernels' width check passes every padded width and
+    refuses one above 256."""
+    import torch
+
+    from stnerf_tpu_torch.kernels.fused_field import (B_SLOTS, W_SLOTS, _field_linears,
+                                                      _linear_grads, check_kernel_widths,
+                                                      pack_field, prepare_kernel_params_planar,
+                                                      prepare_motion_params_planar)
+    from stnerf_tpu_torch.models import MotionNet, MotionNetSpec, SpaceNet, SpaceNetSpec
+
+    order = ["w1", "b1", "w2", "b2", "w3", "b3", "w4", "b4", "s2a", "s2b", "sb1", "s2w2",
+             "sb2", "s2w3", "sb3", "dw", "db", "r1a", "r1b", "r1c", "rb1", "rgb1", "rgbb1"]
+    order += [f"{p}{k}" for k in range(6) for p in ("m", "mb")]
+
+    def build(w, h, mw):
+        gen = torch.Generator().manual_seed(w)
+        net = SpaceNet(SpaceNetSpec(use_dir=True, use_time=True, backbone_dim=w, head_dim=h),
+                       gen)
+        motion = MotionNet(MotionNetSpec(width=mw, input_time=True), gen)
+        ops = (*prepare_kernel_params_planar(net, torch.float32),
+               *prepare_motion_params_planar(motion, torch.float32))
+        field = pack_field(ops[:-12], ops[-12:], net.spec, "lerp", "float32")
+        return net, motion, dict(zip(order, ops)), field
+
+    net, motion, ops, field = build(*F8_WIDTHS)
+    assert (field.width, field.head, field.motion_width) == (128, 64, 64)
+    check_kernel_widths([field.width, field.head, field.motion_width])
+    for slot, op in ops.items():
+        packed = field.w(slot) if slot in W_SLOTS else field.b(slot)
+        assert tuple(packed.shape) == field.shapes[slot], slot
+        assert torch.equal(field.cut(slot, packed), op.reshape(field.model_shapes[slot])), slot
+        rest = packed.clone()
+        field.cut(slot, rest).zero_()
+        assert not rest.any(), slot
+    gw = torch.randn(field.weights.shape, generator=torch.Generator().manual_seed(1))
+    gb = torch.randn(field.biases.shape, generator=torch.Generator().manual_seed(2))
+    grads = _linear_grads(field, gw, gb)
+    layers = _field_linears(net, motion)
+    assert len(grads) == len(layers)
+    for (d_w, d_b), layer in zip(grads, layers):
+        assert d_w.shape == layer.weight.shape and d_b.shape == layer.bias.shape
+    assert torch.equal(grads[1][0], gw[field.offsets[W_SLOTS.index("w2")]:][:128 * 128]
+                       .view(128, 128)[:96, :96].t())
+
+    for widths in ((32, 32, 32), (64, 32, 128)):  # kernel widths: the unpadded layout
+        _, _, ops, field = build(*widths)
+        assert field.shapes == field.model_shapes
+        for slots, buf in ((W_SLOTS, field.weights), (B_SLOTS, field.biases)):
+            parts = [ops[s].reshape(-1) for s in slots if s in ops]
+            want = torch.cat([torch.cat([t, t.new_zeros(-t.numel() % 16)]) for t in parts])
+            assert torch.equal(buf, want)
+    for w in (1, 5, 33, 200, 256):
+        field = build(w, w, w)[3]
+        check_kernel_widths([field.width, field.head, field.motion_width])
+    with pytest.raises(ValueError, match="at most 256"):
+        check_kernel_widths([build(512, 48, 48)[3].width])
 
 
 def test_tensor_core_fragments_hold_the_weights():
@@ -257,5 +337,6 @@ def test_tensor_core_fragments_hold_the_weights():
                     want = padded[64 * mt + rows, 16 * ks + cols]
                     np.testing.assert_array_equal(got[mt, ks], want, err_msg=slot)
             checked += 1
-    # motion 0-4, trunk 1-4, s2a/b, s2w2/3 (the head is 16 wide here: thin)
-    assert checked == 2 * 13
+    # motion 0-4, trunk 1-4, s2a/b, s2w2/3, and the head's r1a/b/c and
+    # rgb1/2 (16 wide in the model, packed at 32)
+    assert checked == 2 * 18

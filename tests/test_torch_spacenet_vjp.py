@@ -21,17 +21,19 @@ pytestmark = pytest.mark.isolate
 M = 200          # samples: not a multiple of the JAX tile
 JAX_TILE = 128
 W, HEAD = 32, 16
+F8_WIDTHS = (96, 48)  # neither a kernel width: packed at 128, 64
 
 
-def _net(seed, **kw):
-    """-> (JAX SpaceNet spec, params; the port's SpaceNet with the same weights)."""
+def _net(seed, widths=(W, HEAD), **kw):
+    """-> (JAX SpaceNet spec, params; the port's SpaceNet with the same
+    weights) at ``widths`` (trunk, head)."""
     import jax
 
     from stnerf_tpu.models.spacenet import SpaceNetSpec as JSpec
     from stnerf_tpu.models.spacenet import init_spacenet
     from stnerf_tpu_torch.models import SpaceNet, SpaceNetSpec, load_spacenet
 
-    kw = dict(backbone_dim=W, head_dim=HEAD, **kw)
+    kw = dict(backbone_dim=widths[0], head_dim=widths[1], **kw)
     jspec = JSpec(**kw)
     params = jax.device_get(init_spacenet(jax.random.PRNGKey(seed), jspec))
     return jspec, params, load_spacenet(SpaceNet(SpaceNetSpec(**kw)), params)
@@ -73,12 +75,17 @@ def _assert_tree_close(got, ref):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=2e-3, atol=2e-3 * scale)
 
 
-@pytest.mark.parametrize("deep,use_dir,use_time", [
-    (False, True, True), (True, True, False), (False, False, False)])
-def test_trainable_spacenet_matches_jax(rng, deep, use_dir, use_time):
+@pytest.mark.parametrize("deep,use_dir,use_time,widths", [
+    pytest.param(False, True, True, None, id="False-True-True"),
+    pytest.param(True, True, False, None, id="True-True-False"),
+    pytest.param(False, False, False, None, id="False-False-False"),
+    pytest.param(False, True, True, F8_WIDTHS, id="False-True-True-f8")])
+def test_trainable_spacenet_matches_jax(rng, deep, use_dir, use_time, widths):
     """Value and every gradient of a random linear loss: the port's
     autograd Function (plain forward and backward on the CPU) against JAX's
-    custom_vjp over the interpret-mode Pallas kernels."""
+    custom_vjp over the interpret-mode Pallas kernels; also at widths the
+    CUDA kernels take only padded (F8), whose padded gradients are cut
+    away."""
     import jax
     import jax.numpy as jnp
     import torch
@@ -87,7 +94,8 @@ def test_trainable_spacenet_matches_jax(rng, deep, use_dir, use_time):
     from stnerf_tpu_torch.kernels.spacenet_vjp import spacenet_planar_trainable
     from stnerf_tpu_torch.models import export_spacenet
 
-    jspec, params, net = _net(3, use_dir=use_dir, use_time=use_time, deep_rgb=deep)
+    jspec, params, net = _net(3, widths or (W, HEAD), use_dir=use_dir, use_time=use_time,
+                              deep_rgb=deep)
     pos, dirs, time = _encodings(rng, jspec)
     c_rgb = rng.normal(size=(3, M)).astype(np.float32)
     c_sig = rng.normal(size=(M,)).astype(np.float32)

@@ -2,7 +2,7 @@
 """Compare phases of two checkouts of the PyTorch port on one CUDA card.
 
     python3 tools/torch_ab_phases.py OTHER_CHECKOUT [OTHER_CHECKOUT ...]
-        [--set view_pose|field|kernels|cross] [--rounds 1]
+        [--set view_pose|field|kernels|k1_f32|cross] [--rounds 1]
 
 Runs ``chip_smoke.py``'s phases from each OTHER_CHECKOUT and from this one,
 each in a fresh process from its own root (so each builds and loads its own
@@ -39,6 +39,18 @@ run. Compare checkouts only within one invocation.
   checkout's ``chip_smoke.cuda_ms``; and ptxas's registers, stack and
   spills for the tensor-core K1 and K3 forward kernels of the checkout's
   build.
+* ``k1_f32``: K1's float32 route. A digest of its outputs (sha256 of
+  their bytes: equal digests, the same bits) in every case of phase 2 on
+  phase 2's inputs: the four fields at M = 4096 x 120 with 25% of the
+  tiles off, then the edges at M = 122,045 (the narrow 64/32/32 fields, a
+  96/48/48 performer, which a checkout that pads no widths refuses, and
+  the ragged M with all tiles on, a quarter off, all off and no flags),
+  each run twice ("differs run to run" if the two differ); its ms on the
+  performer and the background at phase 2's shape; the bf16 routes' K1 ms
+  and output digest there and K2's on phase 4's seeded inputs (K2's ms
+  also first of all, before any float32 call); a digest of
+  every gradient of phase 5's float32 step through the kernels (two fresh
+  runs) and the seconds of a second step.
 * ``cross``: K4 and K5 (forward and backward) at (3, 2000, 120) and (3,
   2000, 90) on ``chip_smoke.cross_inputs`` (sorted streams), each timed
   alike in every checkout by this checkout's ``chip_smoke``: the device
@@ -220,6 +232,111 @@ for line in "".join(p.read_text() for p in sorted(BUILD_DIR.glob("*.log"))).spli
         ptxas.setdefault(name, []).append(line.strip())
 out["ptxas"] = ptxas
 print("AB " + json.dumps(out))
+"""
+CHILD["k1_f32"] = PRELUDE + """
+import dataclasses, hashlib, time
+import numpy as np
+from stnerf_tpu_torch.engine import make_optimizer, make_train_step
+from stnerf_tpu_torch.kernels.field_vjp import field_bwd
+from stnerf_tpu_torch.kernels.fused_field import fused_field
+from stnerf_tpu_torch.models import LayeredSpec, MotionNet, SpaceNet, export_jax_params
+from stnerf_tpu_torch.ops.encoding import positional_encoding_planar
+def digest(ts):
+    h = hashlib.sha256()
+    for x in ts:
+        h.update(x.detach().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+t = lambda a: torch.tensor(a, dtype=torch.float32, device=device).contiguous()
+def inputs(m, seed, recursive):
+    rng = np.random.default_rng(seed)
+    xyz = t(rng.uniform(-3.0, 3.0, (3, m)))
+    ids = t(rng.integers(1, 101, (1, m)) + rng.choice([0.0, 0.25, 0.5], (1, m)))
+    d = rng.normal(size=(3, m))
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    dir_enc = positional_encoding_planar(t(d), 4, True, recursive=recursive).contiguous()
+    return rng, xyz, ids, dir_enc
+def widths(w, h, mw):
+    c = cs.taekwondo_cfg()
+    c.merge_from_list(["MODEL.BACKBONE_DIM", w, "MODEL.HEAD_DIM", h, "MODEL.MOTION_DIM", mw])
+    return cs.make_model(LayeredSpec.from_cfg(c), device)
+spec = LayeredSpec.from_cfg(cfg)
+model = cs.make_model(spec, device)
+# K2's bf16 route on phase 4's seeded inputs, first of all
+m4 = cfg.SOLVER.IMS_PER_BATCH * 120
+rng, x4, i4, d4 = inputs(m4, cs.SEED + 2, True)
+seeded4 = (x4, i4, d4, t(rng.normal(size=(3, m4))), t(rng.normal(size=m4)),
+           torch.tensor((rng.random(-(-m4 // 64)) > 0.25).astype(np.int32), device=device))
+f2 = cs.pack_dtype(model.layers_fine[0], model.motion[0], "lerp", "bfloat16")
+k2_first_ms = cs.cuda_ms(lambda: field_bwd(f2, *seeded4), 5)
+# phase 2's four cases on its inputs, then its edges on theirs
+gen = torch.Generator().manual_seed(cs.SEED + 1)
+direct_net = MotionNet(spec.motion_spec(input_time=False), gen).to(device)
+deep_net = SpaceNet(dataclasses.replace(spec.spacenet_spec(bkgd=False), deep_rgb=True),
+                    gen).to(device)
+m = 4096 * 120
+rng, xyz, ids, dir_enc = inputs(m, cs.SEED, False)
+flags = torch.tensor((rng.random(-(-m // 64)) > 0.25).astype(np.int32), device=device)
+main_in = (xyz, ids, dir_enc, flags)
+cases = [("performer_lerp", model.layers_coarse[0], model.motion[0], "lerp", main_in),
+         ("background", model.bkgd_coarse, None, None, main_in),
+         ("background_direct", model.bkgd_coarse, direct_net, "direct", main_in),
+         ("performer_deep_rgb", deep_net, model.motion[0], "lerp", main_in)]
+m_e = 2000 * 61 + 45
+rng, xyz_e, ids_e, dir_e = inputs(m_e, cs.SEED + 5, True)
+n_tiles = -(-m_e // 64)
+narrow, f8, wide = widths(64, 32, 32), widths(96, 48, 48), cs.make_model(spec, device)
+seeded = torch.tensor((rng.random(n_tiles) > 0.25).astype(np.int32), device=device)
+edge = lambda fl: (xyz_e, ids_e, dir_e, fl)
+cases += [("narrow_performer", narrow.layers_fine[0], narrow.motion[0], "lerp", edge(seeded)),
+          ("narrow_background", narrow.bkgd_fine, None, None, edge(seeded)),
+          ("ragged_all_on", wide.layers_fine[0], wide.motion[0], "lerp",
+           edge(torch.ones(n_tiles, dtype=torch.int32, device=device))),
+          ("ragged_quarter_off", wide.layers_fine[0], wide.motion[0], "lerp", edge(seeded)),
+          ("ragged_all_off", wide.layers_fine[0], wide.motion[0], "lerp",
+           edge(torch.zeros(n_tiles, dtype=torch.int32, device=device))),
+          ("ragged_no_flags", wide.layers_fine[0], wide.motion[0], "lerp", edge(None)),
+          ("f8_performer", f8.layers_fine[0], f8.motion[0], "lerp", edge(seeded))]
+k1_digests, k1_ms = {}, {}
+for name, net, mnet, mode, args in cases:
+    f = cs.pack_dtype(net, mnet, mode, "float32")
+    try:
+        first, again = fused_field(f, *args), fused_field(f, *args)
+    except ValueError as e:  # a checkout that refuses the widths
+        k1_digests[name] = "refused"
+        continue
+    k1_digests[name] = digest(first) if digest(again) == digest(first) else "differs run to run"
+    if name in ("performer_lerp", "background"):
+        k1_ms[name] = cs.cuda_ms(lambda: fused_field(f, *args), 10)
+perf = (model.layers_coarse[0], model.motion[0], "lerp")
+fb = cs.pack_dtype(*perf, "bfloat16")
+bf16 = {"k1_ms": cs.cuda_ms(lambda: fused_field(fb, *main_in), 10),
+        "k1_digest": digest(fused_field(fb, *main_in))}
+# K2's bf16 route again, after K1's float32 runs
+bf16["k2_ms"] = cs.cuda_ms(lambda: field_bwd(f2, *seeded4), 5)
+bf16["k2_digest"] = digest(field_bwd(f2, *seeded4))
+# phase 5's float32 step through the kernels: gradient digests of two fresh
+# runs, and the seconds of a second step
+scene, _ = cs.scene_and_requests(device)
+cfg32 = cs.taekwondo_cfg()
+cfg32.TPU.COMPUTE_DTYPE = "float32"
+cfg32.SOLVER.WARMUP_ITERS = 1
+spec32, batch = cs.train_batch(device, cs.ring_bundle(scene), scene, cfg32)
+step_digests = []
+for _ in range(2):
+    net = cs.make_model(spec32, device)
+    opt, sched = make_optimizer(cfg32, net)
+    step = make_train_step(net, opt, sched, remove_outliers=True, plain=False, device=device)
+    step(scene, batch, torch.Generator(device=device).manual_seed(cs.SEED), 1.0)
+    leaves = [torch.as_tensor(v) for _, v in cs._flat_leaves(export_jax_params(net, grad=True))]
+    step_digests.append(digest(leaves))
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+step(scene, batch, torch.Generator(device=device).manual_seed(cs.SEED + 1), 1.0)
+torch.cuda.synchronize()
+bf16["k2_first_ms"] = k2_first_ms
+print("AB " + json.dumps({"k1_f32_ms": k1_ms, "k1_f32_digests": k1_digests, "bf16": bf16,
+                          "f32_step_grad_digests": step_digests,
+                          "f32_step_s": time.perf_counter() - t0}))
 """
 CHILD["cross"] = PRELUDE + """
 import importlib.util, logging, os, shutil

@@ -2,7 +2,7 @@
 """Where a training step of the PyTorch port spends its time on a CUDA card.
 
     python3 tools/torch_profile_train.py [--steps 3] [--view-pose]
-        [--compositor-kernel] [--synthetic]
+        [--compositor-kernel] [--synthetic] [--float32]
 
 Builds the taekwondo model of ``chip_smoke.py`` (random weights from its
 seed) and its 40,000-ray ring pool, runs warm-up steps, then profiles full
@@ -13,7 +13,9 @@ not sorted by hit pattern). ``--compositor-kernel`` turns
 TPU.COMPOSITOR_KERNEL on (the sort-free compositor through K4/K5).
 ``--synthetic`` draws the batches from the pool of chip_smoke.py's entry
 point instead (its synthetic scene, written under build/, 40,000 rays,
-ordered by hit pattern and drawn in blocks as the trainer does). Prints the
+ordered by hit pattern and drawn in blocks as the trainer does).
+``--float32`` trains the model in float32 (TPU.COMPUTE_DTYPE: the fused
+field's float32 forward and backward kernels). Prints the
 card's ``name, power.limit``, seconds per step on the host clock, the
 device's busy and idle share, and the device time by kernel, largest first
 (kernels only, so nothing counts twice).
@@ -43,6 +45,8 @@ def main():
                         help="TPU.COMPOSITOR_KERNEL on: the sort-free compositor")
     parser.add_argument("--synthetic", action="store_true",
                         help="the entry point's synthetic-scene pool")
+    parser.add_argument("--float32", action="store_true",
+                        help="train in float32 (the float32 kernel routes)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA device")
@@ -59,6 +63,8 @@ def main():
     cfg = cs.view_pose_cfg() if args.view_pose else cs.taekwondo_cfg()
     cfg.SOLVER.WARMUP_ITERS = 1
     cfg.TPU.COMPOSITOR_KERNEL = args.compositor_kernel
+    if args.float32:
+        cfg.TPU.COMPUTE_DTYPE = "float32"
     if args.synthetic:
         import numpy as np
 
@@ -116,6 +122,7 @@ def main():
     print(json.dumps({"model": "view_pose" if args.view_pose else "taekwondo",
                       "pool": "synthetic" if args.synthetic else "ring",
                       "compositor_kernel": args.compositor_kernel,
+                      "dtype": cfg.TPU.COMPUTE_DTYPE,
                       "s_per_step": wall, "rays_per_s": n / wall,
                       "device_busy_ms_per_step": busy,
                       "device_idle_share": max(0.0, 1.0 - busy / (wall * 1e3))}))
