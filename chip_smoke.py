@@ -66,12 +66,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    float32 (CUDA cores) at rtol 2e-3, atol 2e-4 and bf16 (tensor cores) vs
    float32 >= 40 dB; backward float32 at phase 4's bar and bf16 relative L2
    <= 1e-2 per leaf, both routes' gradients bitwise the same when run twice;
-   for the performer, the device-side ``active`` flag: 1 leaves the
-   forward and every gradient bitwise unchanged, 0 gives zeros everywhere. The same checks on the edges: a narrow model
-   (trunk 64, head 32) and a ragged M with the flag unset, 1 and 0. Then
-   the three K6 entry points (``fused_spacenet*``, on K3's forward kernels)
-   against their plain versions at one shape. Prints both routes' times,
-   bounds and shares of bound.
+   the float32 forward bitwise the same when run twice too; for the
+   performer, the device-side ``active`` flag: 1 leaves the forward and
+   every gradient bitwise unchanged, 0 gives zeros everywhere. The same
+   checks on the edges: a narrow model (trunk 64, head 32), a performer at
+   F8_WIDTHS' trunk and head (96/48, packed at 128/64) and a ragged M with
+   the flag unset, 1 and 0. Then the three K6 entry points
+   (``fused_spacenet*``, on K3's forward kernels) against their plain
+   versions at one shape. Prints both routes' times, bounds and shares of
+   bound, and ``spacenet_fwd_float32_ring`` for the performer: the float32
+   forward's weight ring (stages, a stage's bytes, the block's dynamic
+   shared memory) beside its ms, its ms before the ring, its bound and
+   share.
 7. The view-deform + pose-refinement model (phase 3's model with
    USE_DEFORM_VIEW and POSE_REFINEMENT on, 8 cameras, camera 0's correction
    off the identity): three of phase 3's requests at 480x270 through
@@ -284,6 +290,9 @@ F32_BWD_MS_BEFORE = {"field_bwd": 48.80, "spacenet_bwd": 52.02}
 # K1's float32 kernel before the weight ring (CUDA cores, weights from L2),
 # phase 2's performer at M = 491,520 on the same card (PERF.md)
 K1_F32_MS_BEFORE = 13.15
+# K3's float32 forward before the weight ring (CUDA cores, weights from L2),
+# phase 6's performer with time at M = 240,000 on the same card (PERF.md)
+K3_F32_FWD_MS_BEFORE = 6.802
 # a field at widths no kernel tiles (trunk, head, motion): packed at the
 # next kernel widths, 128/64/64
 F8_WIDTHS = (96, 48, 48)
@@ -1016,7 +1025,7 @@ def check_spacenet(name, net, x, flags: bool) -> dict:
     SpaceNet on the encodings ``x`` (``_encoded_inputs``), both routes:
     finite outputs; the float32 route at rtol 2e-3, atol 2e-4 in the
     forward (CUDA cores) and at phase 4's bar in the backward (three passes,
-    3xTF32; ``f32_close``) and bitwise the same when run twice; the bf16
+    3xTF32; ``f32_close``), both bitwise the same when run twice; the bf16
     route (tensor cores) >= 40 dB from the float32 plain forward, its
     backward within relative L2 1e-2 of the bf16 plain version per leaf and
     bitwise the same when run twice. With ``flags``, the device-side
@@ -1067,6 +1076,9 @@ def check_spacenet(name, net, x, flags: bool) -> dict:
             check(close, f"{name}: f32 forward kernel vs plain max |err| {fwd_err:.3g} "
                          "outside rtol 2e-3, atol 2e-4")
             row["f32_fwd_max_abs_err"] = fwd_err
+            check(all(torch.equal(a, b) for a, b in zip(spacenet_fwd(*fwd_args),
+                                                        (rgb_k, sig_k))),
+                  f"{name}: f32 forward differs between two runs")
             row["f32_bwd_max_abs_err"] = max(v["err"] for v in stats.values())
             row["f32_bwd_max_rel_l2"] = max(v["rel"] for v in stats.values())
             row["f32_entries_outside"] = {k: v["outside"] for k, v in stats.items()
@@ -1102,13 +1114,16 @@ def phase_spacenet_vs_plain(device, m: int, reps: int):
     """spacenet_fwd / spacenet_bwd (K3) against their plain versions on
     seeded encodings at the taekwondo widths (``check_spacenet``; the
     performer with the ``active`` flag), both routes' times, bounds and
-    shares; then the edges: a narrow model (trunk 64, head 32) and a
-    ragged M with ``active`` None, 1 and 0 -> per-case results."""
+    shares, and the float32 forward's weight ring; then the edges: a narrow
+    model (trunk 64, head 32), a performer at F8_WIDTHS' trunk and head
+    (packed at 128/64) and a ragged M with ``active`` None, 1 and 0 ->
+    per-case results."""
     import torch
 
     from stnerf_tpu_torch.kernels import f32_bwd
-    from stnerf_tpu_torch.kernels.spacenet_vjp import (spacenet_bwd, spacenet_bwd_reference,
-                                                       spacenet_fwd, spacenet_fwd_reference,
+    from stnerf_tpu_torch.kernels.spacenet_vjp import (float32_ring, spacenet_bwd,
+                                                       spacenet_bwd_reference, spacenet_fwd,
+                                                       spacenet_fwd_reference,
                                                        tc_workspace_bytes)
     from stnerf_tpu_torch.models import LayeredSpec, SpaceNet
 
@@ -1161,6 +1176,11 @@ def phase_spacenet_vs_plain(device, m: int, reps: int):
                 row["float32_bwd_workspace_bytes"] = plan.workspace_bytes
         print("spacenet_vs_plain", json.dumps(row), flush=True)
         if name == "performer_time":
+            print("spacenet_fwd_float32_ring", json.dumps(
+                {**float32_ring(*args["float32"][0]), "ms": row["float32_fwd_ms"],
+                 "before_ms": K3_F32_FWD_MS_BEFORE, "plain_ms": row["float32_fwd_plain_ms"],
+                 "bound_ms": row["float32_fwd_bound_ms"],
+                 "share": row["float32_fwd_share"]}), flush=True)
             print("spacenet_bwd_float32_new_vs_old", json.dumps(
                 {"ms": row["float32_bwd_ms"], "before_ms": F32_BWD_MS_BEFORE["spacenet_bwd"],
                  "plain_ms": row["float32_bwd_plain_ms"],
@@ -1174,9 +1194,14 @@ def phase_spacenet_vs_plain(device, m: int, reps: int):
     narrow_cfg.merge_from_list(["MODEL.BACKBONE_DIM", 64, "MODEL.HEAD_DIM", 32,
                                 "MODEL.MOTION_DIM", 32])
     narrow = make_model(LayeredSpec.from_cfg(narrow_cfg, camera_num=8), device)
+    f8_cfg = view_pose_cfg()
+    f8_cfg.merge_from_list(["MODEL.BACKBONE_DIM", F8_WIDTHS[0], "MODEL.HEAD_DIM", F8_WIDTHS[1],
+                            "MODEL.MOTION_DIM", F8_WIDTHS[2]])
+    f8 = make_model(LayeredSpec.from_cfg(f8_cfg, camera_num=8), device)
     xe = _encoded_inputs(device, 2000 * 61 + 45, SEED + 7)
     for name, net, flags in (("narrow_performer", narrow.layers_fine[0], False),
                              ("narrow_background", narrow.bkgd_fine, False),
+                             ("f8_performer", f8.layers_fine[0], False),
                              ("ragged_performer", model.layers_fine[0], True)):
         row = check_spacenet(name, net, xe, flags)
         row.pop("_args")
@@ -1189,8 +1214,8 @@ def phase_fused_spacenet_vs_plain(device, m: int, reps: int):
     """The three K6 entry points against their plain versions at one shape
     (L = 2 weight sets for the stacked one), float32 (K3's CUDA-core
     forward) at K1's bar and bf16 (K3's tensor-core forward) at phase 2's
-    relative L2 1e-2 on rgb and sigma, and their bf16 times -> {entry:
-    result}."""
+    relative L2 1e-2 on rgb and sigma, and both routes' times and bounds
+    -> {entry: result}."""
     import torch
 
     from stnerf_tpu_torch.kernels.fused_field import pack_field, prepare_kernel_params_planar
@@ -1235,6 +1260,12 @@ def phase_fused_spacenet_vs_plain(device, m: int, reps: int):
                       f"{name}: f32 kernel vs plain max |err| {err:.3g} outside rtol 2e-3, "
                       "atol 2e-4")
                 row["f32_max_abs_err"] = err
+                # the encodings in, rgb and sigma out, each weight set once
+                n_rows = sum(a.shape[0] for a in planar)
+                row["float32_bound_ms"], _ = bound_ms(
+                    2 * field_macs(fields[0])["fwd"] * samples,
+                    4 * samples * (n_rows + 4) + 4 * fields[0].weights.numel() * n_sets,
+                    "float32")
             else:
                 (rgb_k, sig_k), (rgb_p, sig_p) = kernel(*args), plain(*args)
                 sync(device)
@@ -1253,6 +1284,7 @@ def phase_fused_spacenet_vs_plain(device, m: int, reps: int):
             row[f"{dt}_ms"] = cuda_ms(lambda: kernel(*args), reps)
             row[f"{dt}_plain_ms"] = cuda_ms(lambda: plain(*args), reps)
     for row in results.values():
+        row["float32_share"] = row["float32_bound_ms"] / row["float32_ms"]
         print("fused_spacenet_vs_plain", json.dumps(row), flush=True)
     return results
 
@@ -4249,7 +4281,9 @@ def main():
                         "max_abs_err": row["bf16_max_abs_err"],
                         "ms": row["bfloat16_ms"], "plain_ms": row["bfloat16_plain_ms"],
                         "bound_ms": row["bf16_bound_ms"], "bound_by": row["bound_by"],
-                        "library_ms": None})
+                        "float32_ms": row["float32_ms"],
+                        "float32_plain_ms": row["float32_plain_ms"],
+                        "float32_bound_ms": row["float32_bound_ms"], "library_ms": None})
     # K4 and K5 at the training shape (3, 2000, 120), float32: ms the
     # device's time, call_ms a call's from the host; launches in the entry
     # point's run (the paths above composite with the sorted merge)

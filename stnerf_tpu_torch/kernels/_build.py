@@ -24,7 +24,8 @@ SOURCES = (CSRC / "fused_field.cu", CSRC / "fused_field_tc.cu", CSRC / "field_bw
            CSRC / "field_bwd_tc.cu", CSRC / "spacenet.cu", CSRC / "spacenet_tc.cu",
            CSRC / "cross_trans.cu")
 HEADERS = (CSRC / "field_common.cuh", CSRC / "mlp_blocks.cuh", CSRC / "tc_blocks.cuh",
-           CSRC / "tc_bwd.cuh", CSRC / "f32_bwd.cuh", CSRC / "w_ring.cuh")
+           CSRC / "tc_bwd.cuh", CSRC / "f32_bwd.cuh", CSRC / "w_ring.cuh",
+           CSRC / "ring_dense.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -57,6 +58,9 @@ SIGNATURES = {
     # active, out, then M, pos_rows, dir_rows, time_rows, width, head, n_rgb,
     # and the stream
     "stnerf_spacenet_fwd": [_P] * 8 + [_I] * 7 + [_P],
+    # its weight ring for the same 7 ints: a host int[3] of the stages, a
+    # stage's bytes and the block's dynamic shared memory
+    "stnerf_spacenet_ring": [_I] * 7 + [_P],
     # float32: pos, dir, time, d_rgb, d_sigma, weights, dx fragments,
     # biases, offsets (host), plan (host), active, gw, gb, d_pos, d_dir,
     # workspace, then the same 7 ints, the two counts, and the stream

@@ -23,10 +23,11 @@
 // a thread reads TO weights and 8 activations from shared memory and issues
 // TO x 8 FMAs. The weights (~2.2 MB in float32 per field at the taekwondo
 // widths, read by every block) reach shared memory through the weight ring
-// of w_ring.cuh: a ninth, producer warp streams every layer's weights, the
-// 1- and 3-wide output layers' too, in slabs of up to 32 KB by bulk copies
-// on mbarriers, running ahead across layer boundaries, so
-// that the FMA loops read weights with broadcast shared-memory loads and
+// of w_ring.cuh, read by ring_dense.cuh's layers (the SpaceNet's shared with
+// K3's float32 forward, spacenet.cu): a ninth, producer warp streams every
+// layer's weights, the 1- and 3-wide output layers' too, in slabs of up to
+// 32 KB by bulk copies on mbarriers, running ahead across layer boundaries,
+// so that the FMA loops read weights with broadcast shared-memory loads and
 // never wait on L2. The activations are float32 in shared memory (two
 // ping-pong tiles of width x 64, the encodings and the rgb/sigma rows:
 // 161,536 bytes at the taekwondo widths 256/128/128); the ring takes what
@@ -51,16 +52,15 @@
 // encodings use IEEE sinf/cosf and explicitly rounded products (no FMA
 // contraction), matching the plain PyTorch version's elementwise ops.
 
-#include "field_common.cuh"
-#include "w_ring.cuh"
+#include "ring_dense.cuh"
 
 namespace {
 
-constexpr int BM = 64;        // samples per block: the tile of the skip flags
-constexpr int THREADS = 256;  // consumers: 4 * BM, one thread per (channel,
-                              // sample) when encoding (xyz, id)
-constexpr int WARPS = THREADS / 32;
-constexpr int BLOCK = THREADS + 32;  // and the ring's producer warp
+using wring::BLOCK;
+using wring::BM;
+// the consumers: 4 * BM, one thread per (channel, sample) when encoding
+// (xyz, id)
+constexpr int THREADS = wring::CONSUMERS;
 static_assert(THREADS == 4 * BM, "encoding assigns one thread per (channel, sample)");
 
 struct Params {
@@ -72,147 +72,19 @@ struct Params {
   int ring_off, stages;  // the ring's first float in dynamic shared memory
 };
 
-// the consumers' barrier (the producer warp never joins it)
-__device__ __forceinline__ void sync_consumers() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(THREADS) : "memory");
-}
-
-__device__ __forceinline__ float* smem_floats() {
-  extern __shared__ __align__(128) float4 smem4[];
-  return reinterpret_cast<float*>(smem4);
-}
-
-// acc[i][j] += sum_k W[k, to*TO + i] * in[k, col(j)] over `rows` rows of a
-// slab: W (rows, O) in a ring stage, in (rows, BM) in shared memory. A
-// thread's 8 columns are tm*4 + {0..3} and 32 + tm*4 + {0..3}: each
-// quarter-warp's float4 loads then cover 128 contiguous bytes (no bank
-// conflicts); a warp reads 4 distinct weight vectors, each broadcast.
-template <int TO>
-__device__ __forceinline__ void mm_slab(float (&acc)[TO][8], const float* ws, int rows,
-                                        const float* ip, int to) {
-  constexpr int O = 32 * TO;
-  const float* wp = ws + to * TO;
-#pragma unroll 4
-  for (int k = 0; k < rows; ++k) {
-    float wv[TO];
-    load_w<float, TO>(wp + k * O, wv);
-    const float4 a0 = *reinterpret_cast<const float4*>(ip + k * BM);
-    const float4 a1 = *reinterpret_cast<const float4*>(ip + k * BM + 32);
-    const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-#pragma unroll
-    for (int i = 0; i < TO; ++i) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(wv[i], a[j], acc[i][j]);
-    }
-  }
-}
-
-// out = relu(W0 in0 + W1 in1 + W2 in2 + bias), O = 32 * TO rows, over the
-// ring's next n_in segments (the split products of a concat input, in
-// order); activations as float offsets into dynamic shared memory.
-template <int TO>
-__device__ void dense_t(wring::Ctl& ring, wring::RingPos& pos, int ring_off, int n_in,
-                        int in0, int in1, int in2, const float* __restrict__ bias, int out) {
-  constexpr int SLAB = wring::slab_rows(32 * TO);
-  float* sm = smem_floats();
-  const float* stages = sm + ring_off;
-  const int to = threadIdx.x / 8, tm = threadIdx.x % 8;
-  float acc[TO][8];
-#pragma unroll
-  for (int i = 0; i < TO; ++i) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  }
-  const int ins[3] = {in0, in1, in2};
-#pragma unroll
-  for (int n = 0; n < 3; ++n) {
-    if (n == n_in) break;
-    const int K = ring.seg[pos.seg++].K;
-    const float* ip = sm + ins[n] + tm * 4;
-    for (int k0 = 0; k0 < K; k0 += SLAB, ++pos.q) {
-      const float* ws = stages + wring::acquire(ring, pos.q) * wring::STAGE_FLOATS;
-      if (K - k0 >= SLAB) {
-        mm_slab<TO>(acc, ws, SLAB, ip + k0 * BM, to);
-      } else {
-        mm_slab<TO>(acc, ws, K - k0, ip + k0 * BM, to);
-      }
-      wring::release(ring, pos.q);
-    }
-  }
-  float* o_sm = sm + out;
-#pragma unroll
-  for (int i = 0; i < TO; ++i) {
-    const int o = to * TO + i;
-    const float b = bias[o];
-    float v[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) v[j] = fmaxf(acc[i][j] + b, 0.f);
-    *reinterpret_cast<float4*>(o_sm + o * BM + tm * 4) = make_float4(v[0], v[1], v[2], v[3]);
-    *reinterpret_cast<float4*>(o_sm + o * BM + 32 + tm * 4) = make_float4(v[4], v[5], v[6], v[7]);
-  }
-}
-
-__device__ void dense(wring::Ctl& ring, wring::RingPos& pos, int ring_off, int n_in, int in0,
-                      int in1, int in2, const float* bias, int O, int out) {
-  switch (O) {
-    case 256: dense_t<8>(ring, pos, ring_off, n_in, in0, in1, in2, bias, out); break;
-    case 128: dense_t<4>(ring, pos, ring_off, n_in, in0, in1, in2, bias, out); break;
-    case 64: dense_t<2>(ring, pos, ring_off, n_in, in0, in1, in2, bias, out); break;
-    case 32: dense_t<1>(ring, pos, ring_off, n_in, in0, in1, in2, bias, out); break;
-  }
-}
-
-// out = W in + bias for a 1- or 3-wide output layer (no activation), the
-// ring's next segment, one slab: one thread per (output, sample), each a
-// chain of FMAs over k in order, the weights broadcast from the stage.
-__device__ void dense_small(wring::Ctl& ring, wring::RingPos& pos, int ring_off, int in,
-                            const float* __restrict__ bias, int out) {
-  const int K = ring.seg[pos.seg].K, O = ring.seg[pos.seg++].O;
-  float* sm = smem_floats();
-  const float* w = sm + ring_off + wring::acquire(ring, pos.q) * wring::STAGE_FLOATS;
-  const int t = threadIdx.x;
-  if (t < O * BM) {
-    const int o = t / BM, m = t % BM;
-    const float* x = sm + in + m;
-    float acc = 0.f;
-#pragma unroll 8
-    for (int k = 0; k < K; ++k) acc = fmaf(w[k * O + o], x[k * BM], acc);
-    sm[out + o * BM + m] = acc + bias[o];
-  }
-  wring::release(ring, pos.q++);
-}
-
 // The ring's segments in the order the layers below read them: the motion
-// net's six layers, the trunk (the skip layer as [trunk | pos_enc]), the
-// density head, the rgb head's first layer over [features | dir_enc |
-// time_enc], and the rest of the rgb head. A 1- or 3-wide layer is one slab
-// (K * O * 4 bytes, a multiple of 16: K is a kernel width).
+// net's six layers (its 3-wide output one slab), then the SpaceNet's
+// (ring_dense.cuh).
 __device__ __forceinline__ void ring_segments(wring::Ctl& c, const float* wts, const Params& p) {
-  int n = 0;
-  const auto add = [&](int slot, int K, int O) { c.seg[n++] = {wts + p.w_off[slot], K, O}; };
+  c.n_seg = 0;
   if (p.motion_mode) {
-    add(W_M0, p.menc_rows, p.motion_width);
-    for (int k = 1; k < 5; ++k) add(W_M0 + k, p.motion_width, p.motion_width);
-    add(W_M0 + 5, p.motion_width, 3);
+    wring::add_seg(c, wts + p.w_off[W_M0], p.menc_rows, p.motion_width);
+    for (int k = 1; k < 5; ++k) {
+      wring::add_seg(c, wts + p.w_off[W_M0 + k], p.motion_width, p.motion_width);
+    }
+    wring::add_seg(c, wts + p.w_off[W_M0 + 5], p.motion_width, 3);
   }
-  add(W_1, p.pos_rows, p.width);
-  for (int k = 1; k < 4; ++k) add(W_1 + k, p.width, p.width);
-  add(W_S2A, p.width, p.width);
-  add(W_S2B, p.pos_rows, p.width);
-  add(W_S2W2, p.width, p.width);
-  add(W_S2W3, p.width, p.width);
-  add(W_DW, p.width, 1);
-  add(W_R1A, p.width, p.head);
-  add(W_R1B, p.dir_rows, p.head);
-  if (p.use_time) add(W_R1C, p.time_rows, p.head);
-  if (p.n_rgb == 4) {
-    add(W_RGB1, p.head, p.head);
-    add(W_RGB2, p.head, p.head);
-    add(W_RGB3, p.head, 3);
-  } else {
-    add(W_RGB1, p.head, 3);
-  }
-  c.n_seg = n;
+  wring::spacenet_segments(c, wts, p);
 }
 
 __global__ void __launch_bounds__(BLOCK, 1)
@@ -232,7 +104,7 @@ fused_field_kernel(const float* __restrict__ xyz, const float* __restrict__ ids,
     }
     return;
   }
-  float* sm = smem_floats();
+  float* sm = wring::smem_floats();
   // activation tiles as float offsets into dynamic shared memory
   const int oX = 0;                         // 4 x BM: xyz rows, id row
   const int oA = oX + 4 * BM;               // rows_a x BM
@@ -250,7 +122,7 @@ fused_field_kernel(const float* __restrict__ xyz, const float* __restrict__ ids,
 
   if (t == 0) {
     ring_segments(ring, wts, p);
-    wring::init(ring, p.stages, WARPS);
+    wring::init(ring, p.stages, wring::CONSUMER_WARPS);
   }
   __syncthreads();
   if (t >= THREADS) {  // the producer warp
@@ -263,13 +135,7 @@ fused_field_kernel(const float* __restrict__ xyz, const float* __restrict__ ids,
     const int r = i / BM, gm = m0 + i % BM;
     X[i] = gm < M ? (r < 3 ? xyz[static_cast<size_t>(r) * M + gm] : ids[gm]) : 0.f;
   }
-  sync_consumers();
-
-  const auto Bi = [&](int slot) { return bias + p.b_off[slot]; };
-  const auto dense1 = [&](int in, int bslot, int O, int dst) {
-    dense(ring, pos, p.ring_off, 1, in, 0, 0, Bi(bslot), O, dst);
-    sync_consumers();
-  };
+  wring::sync_consumers();
   const int ch = t / BM, m = t % BM;
 
   if (p.motion_mode) {
@@ -283,17 +149,21 @@ fused_field_kernel(const float* __restrict__ xyz, const float* __restrict__ ids,
     } else {
       encode<false>(v, v, 0.f, ch, 4, p.freqs, p.inc, false, A, BM, m);
     }
-    sync_consumers();
+    wring::sync_consumers();
     const int mw = p.motion_width;
-    dense1(oA, B_M0, mw, oB);
-    dense1(oB, B_M0 + 1, mw, oA);
-    dense1(oA, B_M0 + 2, mw, oB);
-    dense1(oB, B_M0 + 3, mw, oA);
-    dense1(oA, B_M0 + 4, mw, oB);
-    dense_small(ring, pos, p.ring_off, oB, Bi(B_M0 + 5), oR);
-    sync_consumers();
+    const auto dense1 = [&](int in, int bslot, int dst) {
+      wring::dense(ring, pos, p.ring_off, 1, in, 0, 0, bias + p.b_off[bslot], mw, dst);
+      wring::sync_consumers();
+    };
+    dense1(oA, B_M0, oB);
+    dense1(oB, B_M0 + 1, oA);
+    dense1(oA, B_M0 + 2, oB);
+    dense1(oB, B_M0 + 3, oA);
+    dense1(oA, B_M0 + 4, oB);
+    wring::dense_small(ring, pos, p.ring_off, oB, bias + p.b_off[B_M0 + 5], oR);
+    wring::sync_consumers();
     if (t < 3 * BM) X[t] = __fadd_rn(X[t], R[t]);  // displaced positions
-    sync_consumers();
+    wring::sync_consumers();
   }
 
   // encodings: threads of channels 0-2 encode xyz, those of channel 3 the time
@@ -309,29 +179,8 @@ fused_field_kernel(const float* __restrict__ xyz, const float* __restrict__ ids,
     const float v = gm < M ? dir[static_cast<size_t>(i / BM) * M + gm] : 0.f;
     D[i] = fmaxf(v, 0.f);
   }
-  sync_consumers();
-
-  const int wd = p.width;
-  dense1(oP, B_1, wd, oA);
-  dense1(oA, B_1 + 1, wd, oB);
-  dense1(oB, B_1 + 2, wd, oA);
-  dense1(oA, B_1 + 3, wd, oB);
-  dense(ring, pos, p.ring_off, 2, oB, oP, 0, Bi(B_SB1), wd, oA);  // [trunk | pos_enc]
-  sync_consumers();
-  dense1(oA, B_SB2, wd, oB);
-  dense1(oB, B_SB3, wd, oA);
-  dense_small(ring, pos, p.ring_off, oA, Bi(B_DB), oR + 3 * BM);  // sigma
-  // rgb head: relu([x | dir | time]); x >= 0 already, D and T hold relu'd values
-  dense(ring, pos, p.ring_off, p.use_time ? 3 : 2, oA, oD, oT, Bi(B_RB1), p.head, oB);
-  sync_consumers();
-  if (p.n_rgb == 2) {
-    dense_small(ring, pos, p.ring_off, oB, Bi(B_RGB1), oR);
-  } else {
-    dense1(oB, B_RGB1, p.head, oA);
-    dense1(oA, B_RGB2, p.head, oB);
-    dense_small(ring, pos, p.ring_off, oB, Bi(B_RGB3), oR);
-  }
-  sync_consumers();
+  wring::sync_consumers();
+  wring::spacenet_layers(ring, pos, bias, p, {oP, oD, oT, oA, oB, oR});
   for (int i = t; i < 4 * BM; i += THREADS) {
     const int gm = m0 + i % BM;
     if (gm < M) out[static_cast<size_t>(i / BM) * M + gm] = R[i];

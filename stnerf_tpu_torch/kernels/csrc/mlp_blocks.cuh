@@ -1,15 +1,17 @@
-// Block-level matrix products of the SpaceNet-style MLP kernels on CUDA
-// cores, shared by the float32 kernels: the SpaceNet forward on encoded
-// inputs (spacenet.cu) and pass 1 of K2's and K3's backward (f32_bwd.cuh,
-// field_bwd.cu).
+// Block-level products of the float32 backward kernels on CUDA cores: pass
+// 1 of K2's and K3's backward (f32_bwd.cuh, field_bwd.cu) recomputes the
+// forward with them.
 //
 // A block of THREADS threads works on BM samples whose activations sit in
-// shared memory as (rows, BM), float or bf16 bits; weights are (in, out)
-// row-major in global memory (read through L2), float or bf16 bits:
-//   * fwd_seg / fwd_dense / fwd_dense1 / fwd_small: y = W^T x + b (+ ReLU
-//     and rounding to the compute dtype), the concat inputs as split
-//     products.
-// The backward's products (dx = W dy, dW = x dy^T) are f32_bwd.cuh's.
+// shared memory as float32 (rows, BM); weights are (in, out) row-major in
+// global memory (read through L2):
+//   * fwd_seg: acc += W^T x over one segment of a split product, each output
+//     a chain of FMAs over k in order: the chain of the float32 forwards
+//     (ring_dense.cuh), so the recompute gives their bits and ReLU masks;
+//   * fwd_small: y = W^T x + b for a 1- or 3-wide output layer.
+// The forwards themselves run on the weight ring (w_ring.cuh,
+// ring_dense.cuh); the backward's products (dx = W dy, dW = x dy^T) are
+// f32_bwd.cuh's.
 #pragma once
 
 #include "field_common.cuh"
@@ -18,7 +20,7 @@ namespace {
 
 constexpr int THREADS = 256;
 
-// N values of one row from shared memory (float or bf16 bits)
+// N values of one row of floats from shared memory
 template <int N>
 __device__ __forceinline__ void ld_vec(const float* p, float (&a)[N]) {
   if constexpr (N == 4) {
@@ -36,30 +38,6 @@ __device__ __forceinline__ void ld_vec(const float* p, float (&a)[N]) {
     for (int i = 0; i < N; ++i) a[i] = p[i];
   }
 }
-
-template <int N>
-__device__ __forceinline__ void ld_vec(const unsigned short* p, float (&a)[N]) {
-  if constexpr (N == 4) {
-    const uint2 v = *reinterpret_cast<const uint2*>(p);
-    a[0] = __uint_as_float(v.x << 16), a[1] = __uint_as_float(v.x & 0xffff0000u);
-    a[2] = __uint_as_float(v.y << 16), a[3] = __uint_as_float(v.y & 0xffff0000u);
-  } else if constexpr (N == 2) {
-    const unsigned v = *reinterpret_cast<const unsigned*>(p);
-    a[0] = __uint_as_float(v << 16), a[1] = __uint_as_float(v & 0xffff0000u);
-  } else if constexpr (N == 8) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
-    const unsigned w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      a[2 * i] = __uint_as_float(w[i] << 16), a[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < N; ++i) a[i] = to_f(p[i]);
-  }
-}
-
-// ---------------------------------------------------------------- forward
 
 // acc[i][j] += sum_k W[k, to*TO + i] * in[k, tm*CPT + j]; W (K, O) row-major
 // in global memory, in (K, BM) in shared memory. UNROLL k steps are
@@ -81,52 +59,6 @@ __device__ __forceinline__ void fwd_seg(float (&acc)[TO][BM / 8], const WS* __re
       for (int j = 0; j < CPT; ++j) acc[i][j] = fmaf(wv[i], a[j], acc[i][j]);
     }
   }
-}
-
-// out = round(relu(W0^T in0 + W1^T in1 + W2^T in2 + bias)), O = 32 * TO rows;
-// a segment with K = 0 is absent (the split products of a concat input).
-template <typename WS, typename AS, bool RND, int BM, int TO>
-__device__ void fwd_dense_t(const WS* w0, const AS* in0, int k0, const WS* w1, const AS* in1,
-                            int k1, const WS* w2, const AS* in2, int k2,
-                            const float* __restrict__ bias, AS* out) {
-  constexpr int O = 32 * TO, CPT = BM / 8;
-  const int to = threadIdx.x / 8, tm = threadIdx.x % 8;
-  float acc[TO][CPT];
-#pragma unroll
-  for (int i = 0; i < TO; ++i) {
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) acc[i][j] = 0.f;
-  }
-  fwd_seg<WS, AS, BM, TO>(acc, w0, O, k0, in0, to, tm);
-  if (k1) fwd_seg<WS, AS, BM, TO>(acc, w1, O, k1, in1, to, tm);
-  if (k2) fwd_seg<WS, AS, BM, TO>(acc, w2, O, k2, in2, to, tm);
-#pragma unroll
-  for (int i = 0; i < TO; ++i) {
-    const int o = to * TO + i;
-    const float b = bias[o];
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      put(out + o * BM + tm * CPT + j, rnd<RND>(fmaxf(acc[i][j] + b, 0.f)));
-    }
-  }
-}
-
-template <typename WS, typename AS, bool RND, int BM>
-__device__ void fwd_dense(const WS* w0, const AS* in0, int k0, const WS* w1, const AS* in1,
-                          int k1, const WS* w2, const AS* in2, int k2, const float* bias,
-                          int O, AS* out) {
-  switch (O) {
-    case 256: fwd_dense_t<WS, AS, RND, BM, 8>(w0, in0, k0, w1, in1, k1, w2, in2, k2, bias, out); break;
-    case 128: fwd_dense_t<WS, AS, RND, BM, 4>(w0, in0, k0, w1, in1, k1, w2, in2, k2, bias, out); break;
-    case 64: fwd_dense_t<WS, AS, RND, BM, 2>(w0, in0, k0, w1, in1, k1, w2, in2, k2, bias, out); break;
-    case 32: fwd_dense_t<WS, AS, RND, BM, 1>(w0, in0, k0, w1, in1, k1, w2, in2, k2, bias, out); break;
-  }
-}
-
-template <typename WS, typename AS, bool RND, int BM>
-__device__ __forceinline__ void fwd_dense1(const WS* w, const AS* in, int k, const float* bias,
-                                           int O, AS* out) {
-  fwd_dense<WS, AS, RND, BM>(w, in, k, w, in, 0, w, in, 0, bias, O, out);
 }
 
 // out = W^T in + bias for an O <= 4 wide output (no activation), float32

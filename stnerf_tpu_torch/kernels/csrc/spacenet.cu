@@ -34,10 +34,21 @@
 // three times that in the backward, against ~450 bytes of sample input
 // (the encodings in float32), so arithmetic bounds both, as K1 and K2.
 //
-// The forward: the fused field's kernel without the motion net and without
-// the in-kernel encoding, on the same block products (mlp_blocks.cuh):
-// CUDA-core FMA loops, no tensor cores, one block of 8 warps per SM, 64
-// samples a block, weights streamed from L2, activations in shared memory.
+// The forward: K1's float32 kernel (fused_field.cu) without the motion net
+// and without the in-kernel encoding, on the same weight ring (w_ring.cuh)
+// and the same SpaceNet layers (ring_dense.cuh): 64 samples a block, 8
+// consumer warps of CUDA-core FMA loops and a producer warp that
+// bulk-copies every layer's weights in 32 KB slabs into the stages the
+// activations leave (2 at the taekwondo widths 256/128 with time: 160,512
+// bytes of activations; up to MAX_STAGES at narrow widths), one block per
+// SM. Each output keeps the chain acc = fmaf(W[k, o], x[k, m], acc) from 0
+// over k in order, segment by segment, + bias, ReLU on hidden layers (the
+// 1- and 3-wide outputs one thread per (output, sample)), which the
+// backward's recompute (f32_bwd.cuh, fwd_seg) repeats and whose ReLU masks
+// it keeps as bits: no tensor cores, no reordering. The ragged tail of M
+// reads zeros and is not written; a block whose `active` flag reads 0
+// writes zeros and exits before the ring is set up, so no bulk copy is in
+// flight when it exits.
 // The backward is f32_bwd.cuh's three passes, shared with K2's float32
 // backward (field_bwd.cu): spacenet_bwd_kernel is pass 1 (the encodings'
 // load, then spacenet_block), writing each layer's x and dy to the block's
@@ -56,101 +67,84 @@
 #include "f32_bwd.cuh"
 #include "field_common.cuh"
 #include "mlp_blocks.cuh"
+#include "ring_dense.cuh"
 
 namespace {
 
-constexpr int FWD_BM = 64;
+static_assert(THREADS == wring::CONSUMERS, "the forward's consumers are the backward's block");
 
 struct Params {
   int w_off[N_W];
   int b_off[N_B];
   int M, pos_rows, dir_rows, time_rows, width, head, n_rgb;
   int rows_a;
+  int ring_off, stages;  // the forward's ring: its first float in dynamic shared memory
 };
 
-// rows x BM values of a planar (rows, M) float32 input from sample m0 on,
-// rounded to the compute dtype (and clipped at 0 with `relu`); zeros past M
-template <typename WS, bool RND, int BM>
+// rows x BM values of a planar (rows, M) float32 input from sample m0 on
+// (clipped at 0 with `relu`) by THREADS threads; zeros past M
+template <int BM>
 __device__ void load_rows(const float* __restrict__ src, int rows, int M, int m0, bool relu,
-                          WS* dst) {
+                          float* dst) {
   for (int i = threadIdx.x; i < rows * BM; i += THREADS) {
     const int gm = m0 + i % BM;
-    const float v = gm < M ? rnd<RND>(src[static_cast<size_t>(i / BM) * M + gm]) : 0.f;
-    put(dst + i, relu ? fmaxf(v, 0.f) : v);
+    const float v = gm < M ? src[static_cast<size_t>(i / BM) * M + gm] : 0.f;
+    dst[i] = relu ? fmaxf(v, 0.f) : v;
   }
 }
 
 // zeros into rows x BM values of a planar (rows, M) float32 output from
-// sample m0 on (a skipped field's block)
+// sample m0 on (a skipped field's block), by `threads` threads
 template <int BM>
-__device__ void zero_rows(float* __restrict__ dst, int rows, int M, int m0) {
-  for (int i = threadIdx.x; i < rows * BM; i += THREADS) {
+__device__ void zero_rows(float* __restrict__ dst, int rows, int M, int m0, int threads) {
+  for (int i = threadIdx.x; i < rows * BM; i += threads) {
     const int gm = m0 + i % BM;
     if (gm < M) dst[static_cast<size_t>(i / BM) * M + gm] = 0.f;
   }
 }
 
-template <typename WS, bool RND>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(wring::BLOCK, 1)
 spacenet_fwd_kernel(const float* __restrict__ pos, const float* __restrict__ dir,
-                    const float* __restrict__ time, const WS* __restrict__ wts,
+                    const float* __restrict__ time, const float* __restrict__ wts,
                     const float* __restrict__ bias, const int* __restrict__ active,
                     float* __restrict__ out, const Params p) {
-  constexpr int BM = FWD_BM;
-  extern __shared__ float4 smem4[];
+  constexpr int BM = wring::BM;
+  __shared__ wring::Ctl ring;
   const int t = threadIdx.x;
   const int m0 = blockIdx.x * BM;
-  if (active != nullptr && *active == 0) {
-    zero_rows<BM>(out, 4, p.M, m0);
+  if (active != nullptr && *active == 0) {  // before the ring: no copy in flight
+    zero_rows<BM>(out, 4, p.M, m0, wring::BLOCK);
     return;
   }
-  const int W = p.width, H = p.head, kp = p.pos_rows;
-  float* R = reinterpret_cast<float*>(smem4);  // 4: rgb, sigma
-  WS* P = reinterpret_cast<WS*>(R + 4 * BM);  // pos_rows: position encoding
-  WS* D = P + kp * BM;                        // dir_rows: relu(direction encoding)
-  WS* T = D + p.dir_rows * BM;                // time_rows: relu(time encoding)
-  WS* A = T + p.time_rows * BM;               // rows_a: ping
-  WS* B = A + p.rows_a * BM;                  // rows_a: pong
-  const auto Wt = [&](int slot) { return wts + p.w_off[slot]; };
-  const auto Bi = [&](int slot) { return bias + p.b_off[slot]; };
+  float* sm = wring::smem_floats();
+  // activation tiles as float offsets into dynamic shared memory
+  wring::Tiles s;
+  s.out = 0;                             // 4 x BM: rgb, sigma
+  s.pos = s.out + 4 * BM;                // pos_rows x BM: position encoding
+  s.dir = s.pos + p.pos_rows * BM;       // dir_rows x BM: relu(direction encoding)
+  s.time = s.dir + p.dir_rows * BM;      // time_rows x BM: relu(time encoding)
+  s.a = s.time + p.time_rows * BM;       // rows_a x BM: ping
+  s.b = s.a + p.rows_a * BM;             // rows_a x BM: pong
 
-  load_rows<WS, RND, BM>(pos, kp, p.M, m0, false, P);
-  load_rows<WS, RND, BM>(dir, p.dir_rows, p.M, m0, true, D);
-  if (p.time_rows) load_rows<WS, RND, BM>(time, p.time_rows, p.M, m0, true, T);
-  __syncthreads();
-  fwd_dense1<WS, WS, RND, BM>(Wt(W_1), P, kp, Bi(B_1), W, A);
-  __syncthreads();
-  fwd_dense1<WS, WS, RND, BM>(Wt(W_1 + 1), A, W, Bi(B_1 + 1), W, B);
-  __syncthreads();
-  fwd_dense1<WS, WS, RND, BM>(Wt(W_1 + 2), B, W, Bi(B_1 + 2), W, A);
-  __syncthreads();
-  fwd_dense1<WS, WS, RND, BM>(Wt(W_1 + 3), A, W, Bi(B_1 + 3), W, B);
-  __syncthreads();
-  fwd_dense<WS, WS, RND, BM>(Wt(W_S2A), B, W, Wt(W_S2B), P, kp, Wt(W_S2B), P, 0, Bi(B_SB1), W,
-                             A);
-  __syncthreads();
-  fwd_dense1<WS, WS, RND, BM>(Wt(W_S2W2), A, W, Bi(B_SB2), W, B);
-  __syncthreads();
-  fwd_dense1<WS, WS, RND, BM>(Wt(W_S2W3), B, W, Bi(B_SB3), W, A);
-  __syncthreads();
-  fwd_small<WS, WS, BM>(Wt(W_DW), A, W, Bi(B_DB), 1, R + 3 * BM);  // sigma
-  // rgb head: relu([a6 | dir | time]); a6 >= 0, D and T hold relu'd values
-  fwd_dense<WS, WS, RND, BM>(Wt(W_R1A), A, W, Wt(W_R1B), D, p.dir_rows, Wt(W_R1C), T,
-                             p.time_rows, Bi(B_RB1), H, B);
-  __syncthreads();
-  if (p.n_rgb == 2) {
-    fwd_small<WS, WS, BM>(Wt(W_RGB1), B, H, Bi(B_RGB1), 3, R);
-  } else {
-    fwd_dense1<WS, WS, RND, BM>(Wt(W_RGB1), B, H, Bi(B_RGB1), H, A);
-    __syncthreads();
-    fwd_dense1<WS, WS, RND, BM>(Wt(W_RGB2), A, H, Bi(B_RGB2), H, B);
-    __syncthreads();
-    fwd_small<WS, WS, BM>(Wt(W_RGB3), B, H, Bi(B_RGB3), 3, R);
+  if (t == 0) {
+    ring.n_seg = 0;
+    wring::spacenet_segments(ring, wts, p);
+    wring::init(ring, p.stages, wring::CONSUMER_WARPS);
   }
   __syncthreads();
+  if (t >= THREADS) {  // the producer warp
+    if (t == THREADS) wring::produce(ring, sm + p.ring_off);
+    return;
+  }
+  wring::RingPos rp{0, 0};
+  load_rows<BM>(pos, p.pos_rows, p.M, m0, false, sm + s.pos);
+  load_rows<BM>(dir, p.dir_rows, p.M, m0, true, sm + s.dir);
+  if (p.time_rows) load_rows<BM>(time, p.time_rows, p.M, m0, true, sm + s.time);
+  wring::sync_consumers();
+  wring::spacenet_layers(ring, rp, bias, p, s);
   for (int i = t; i < 4 * BM; i += THREADS) {
     const int gm = m0 + i % BM;
-    if (gm < p.M) out[static_cast<size_t>(i / BM) * p.M + gm] = R[i];
+    if (gm < p.M) out[static_cast<size_t>(i / BM) * p.M + gm] = sm[s.out + i];
   }
 }
 
@@ -168,16 +162,16 @@ spacenet_bwd_kernel(const float* __restrict__ pos, const float* __restrict__ dir
   const int m0 = (b0 + blockIdx.x) * RBM;
   const int M = p.M, kp = p.pos_rows;
   if (active != nullptr && *active == 0) {
-    zero_rows<RBM>(dpos, kp, M, m0);
-    zero_rows<RBM>(ddir, p.dir_rows, M, m0);
+    zero_rows<RBM>(dpos, kp, M, m0, THREADS);
+    zero_rows<RBM>(ddir, p.dir_rows, M, m0, THREADS);
     return;
   }
   const Smem s = carve(p, smem4);
   const Blk c{p, wts, frags, bias, records + static_cast<size_t>(blockIdx.x) * p.rec_floats,
               s.MK};
-  load_rows<float, false, RBM>(pos, kp, M, m0, false, s.P);
-  load_rows<float, false, RBM>(dir, p.dir_rows, M, m0, true, s.D);
-  if (p.time_rows) load_rows<float, false, RBM>(time, p.time_rows, M, m0, true, s.T);
+  load_rows<RBM>(pos, kp, M, m0, false, s.P);
+  load_rows<RBM>(dir, p.dir_rows, M, m0, true, s.D);
+  if (p.time_rows) load_rows<RBM>(time, p.time_rows, M, m0, true, s.T);
   sync_async();
   c.save(T_POS, s.P, kp);
   c.save(T_DIR, s.D, p.dir_rows);
@@ -191,24 +185,6 @@ spacenet_bwd_kernel(const float* __restrict__ pos, const float* __restrict__ dir
   c.done();
 }
 
-template <typename WS, bool RND>
-cudaError_t launch_fwd(const Params& p, const float* pos, const float* dir, const float* time,
-                       const void* weights, const float* biases, const int* active, float* out,
-                       cudaStream_t stream) {
-  const size_t smem =
-      static_cast<size_t>(4) * FWD_BM * sizeof(float) +
-      static_cast<size_t>(p.pos_rows + p.dir_rows + p.time_rows + 2 * p.rows_a) * FWD_BM *
-          sizeof(WS);
-  auto kern = spacenet_fwd_kernel<WS, RND>;
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(smem));
-  if (e != cudaSuccess) return e;
-  const dim3 grid((p.M + FWD_BM - 1) / FWD_BM);
-  kern<<<grid, THREADS, smem, stream>>>(pos, dir, time, static_cast<const WS*>(weights), biases,
-                                        active, out, p);
-  return cudaGetLastError();
-}
-
 int imax(int a, int b) { return a > b ? a : b; }
 
 // -> false for shapes the kernels do not take
@@ -218,9 +194,11 @@ bool fill_params(Params& p, const void* offsets, int M, int pos_rows, int dir_ro
       !kernel_width(head) || (n_rgb != 2 && n_rgb != 4)) {
     return false;
   }
-  const int* off = static_cast<const int*>(offsets);
-  for (int i = 0; i < N_W; ++i) p.w_off[i] = off[i];
-  for (int i = 0; i < N_B; ++i) p.b_off[i] = off[N_W + i];
+  if (offsets != nullptr) {
+    const int* off = static_cast<const int*>(offsets);
+    for (int i = 0; i < N_W; ++i) p.w_off[i] = off[i];
+    for (int i = 0; i < N_B; ++i) p.b_off[i] = off[N_W + i];
+  }
   p.M = M;
   p.pos_rows = pos_rows;
   p.dir_rows = dir_rows;
@@ -230,6 +208,25 @@ bool fill_params(Params& p, const void* offsets, int M, int pos_rows, int dir_ro
   p.n_rgb = n_rgb;
   p.rows_a = imax(width, head);
   return true;
+}
+
+// The forward's ring for filled Params: its stages and the block's dynamic
+// shared memory; false if no two stages fit beside the activations.
+bool configure_fwd(Params& p, size_t* smem) {
+  // the activations, then the ring at a 128-byte boundary (BM floats are 256)
+  p.ring_off = (4 + p.pos_rows + p.dir_rows + p.time_rows + 2 * p.rows_a) * wring::BM;
+  int dev = 0, optin = 0;
+  cudaFuncAttributes attr;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
+          cudaSuccess ||
+      cudaFuncGetAttributes(&attr, spacenet_fwd_kernel) != cudaSuccess) {
+    return false;
+  }
+  const size_t act = static_cast<size_t>(p.ring_off) * sizeof(float);
+  p.stages = wring::stages_for(act, static_cast<size_t>(optin) - attr.sharedSizeBytes);
+  *smem = act + static_cast<size_t>(p.stages) * wring::STAGE_FLOATS * sizeof(float);
+  return p.stages >= 2;
 }
 
 }  // namespace
@@ -244,14 +241,40 @@ extern "C" int stnerf_spacenet_fwd(const void* pos, const void* dir, const void*
                                    int pos_rows, int dir_rows, int time_rows, int width,
                                    int head, int n_rgb, void* stream) {
   Params p;
-  if (!fill_params(p, offsets, M, pos_rows, dir_rows, time_rows, width, head, n_rgb)) {
+  size_t smem = 0;
+  if (!fill_params(p, offsets, M, pos_rows, dir_rows, time_rows, width, head, n_rgb) ||
+      !configure_fwd(p, &smem) || reinterpret_cast<uintptr_t>(weights) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(launch_fwd<float, false>(
-      p, static_cast<const float*>(pos), static_cast<const float*>(dir),
-      static_cast<const float*>(time), weights, static_cast<const float*>(biases),
-      static_cast<const int*>(active), static_cast<float*>(out),
-      static_cast<cudaStream_t>(stream)));
+  cudaError_t e = cudaFuncSetAttribute(spacenet_fwd_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((M + wring::BM - 1) / wring::BM);
+  spacenet_fwd_kernel<<<grid, wring::BLOCK, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(pos), static_cast<const float*>(dir),
+      static_cast<const float*>(time), static_cast<const float*>(weights),
+      static_cast<const float*>(biases), static_cast<const int*>(active),
+      static_cast<float*>(out), p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The forward's weight ring for the same ints as stnerf_spacenet_fwd: out[0]
+// its stages, out[1] a stage's bytes, out[2] the block's dynamic shared
+// memory. Returns a CUDA error (0 = the launch would be configured).
+extern "C" int stnerf_spacenet_ring(int M, int pos_rows, int dir_rows, int time_rows, int width,
+                                    int head, int n_rgb, void* out) {
+  Params p;
+  size_t smem = 0;
+  if (!fill_params(p, nullptr, M, pos_rows, dir_rows, time_rows, width, head, n_rgb) ||
+      !configure_fwd(p, &smem)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int* o = static_cast<int*>(out);
+  o[0] = p.stages;
+  o[1] = wring::STAGE_FLOATS * static_cast<int>(sizeof(float));
+  o[2] = static_cast<int>(smem);
+  return 0;
 }
 
 // `plan` is the host int array of kernels/f32_bwd.py::make_plan for these

@@ -1,7 +1,7 @@
 // A ring of weight slabs in shared memory for the float32 MLP kernels on
-// CUDA cores: K1's float32 forward (fused_field.cu), written so that K3's
-// float32 forward (spacenet.cu) and the float32 backward's recompute
-// (f32_bwd.cuh) can take it too.
+// CUDA cores: K1's float32 forward (fused_field.cu) and K3's (spacenet.cu),
+// whose consumers are ring_dense.cuh's layers. The float32 backward's
+// recompute (f32_bwd.cuh) still reads its weights from L2.
 //
 // A kernel's products read a fixed sequence of weight segments: one per
 // split product of a layer (W, or the parts of a concatenated input), each

@@ -24,7 +24,9 @@ runs here. The pieces, as for every kernel of the port:
   each wrapper launched a kernel, and ``launches_tc`` how many of those went
   to the tensor-core one.
 * :func:`tc_workspace_bytes` — the device workspace the tensor-core
-  backward allocates per call (its records and partial sums).
+  backward allocates per call (its records and partial sums); and
+  :func:`float32_ring` — the float32 forward's weight ring (stages and
+  shared memory) for a launch.
 * ``active``: an optional (1,) int32 tensor on the inputs' device. Where it
   holds 0 the field is skipped, as the JAX path's chunk-level ``lax.cond``
   skips a hidden or missed performer: rgb and sigma are zeros, and so is
@@ -255,6 +257,22 @@ def tc_workspace_bytes(field: PackedField, pos_enc: torch.Tensor, dir_enc: torch
     if err != 0:
         raise RuntimeError(f"spacenet backward workspace query failed: CUDA error {err}")
     return nbytes.value
+
+
+def float32_ring(field: PackedField, pos_enc: torch.Tensor, dir_enc: torch.Tensor,
+                 time_enc: torch.Tensor | None) -> dict:
+    """The weight ring of the float32 forward kernel's launch for this field
+    on these inputs (``csrc/w_ring.cuh``, as K1's float32 route): its
+    stages, a stage's bytes and the block's dynamic shared memory. Needs
+    the card."""
+    from ._build import load_library
+
+    out = (ctypes.c_int * 3)()
+    ints = _kernel_args(field, pos_enc, dir_enc, time_enc, None)[0]
+    err = load_library().stnerf_spacenet_ring(*ints, ctypes.cast(out, ctypes.c_void_p))
+    if err != 0:
+        raise RuntimeError(f"spacenet ring query failed: CUDA error {err}")
+    return {"stages": out[0], "stage_bytes": out[1], "smem_bytes": out[2]}
 
 
 def _on_cuda(name: str, t: torch.Tensor) -> bool:

@@ -277,6 +277,39 @@ def test_fused_spacenet_matches_jax(rng, entry):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=2e-3, atol=2e-4)
 
 
+def test_plain_forward_at_full_width_matches_jax(rng):
+    """The plain forward the float32 kernel is held to on the card
+    (``spacenet_fwd_reference`` on ``pack_field``'s operands) against the
+    JAX package's forward Pallas kernel (``_call_fwd``, interpret mode,
+    float32, tile 128) at the taekwondo widths 256/128 with the 63/27/21
+    encodings: a 2-layer rgb head with time, and the 4-layer head without
+    time."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from stnerf_tpu.kernels.fused_spacenet import prepare_kernel_params_planar
+    from stnerf_tpu.kernels.spacenet_vjp import _call_fwd
+    from stnerf_tpu_torch.kernels.spacenet_vjp import spacenet_fwd_reference
+
+    for seed, deep, use_time in ((11, False, True), (12, True, False)):
+        jspec, params, net = _net(seed, (256, 128), use_dir=True, use_time=use_time,
+                                  deep_rgb=deep)
+        assert (jspec.pos_dim, jspec.dir_dim, jspec.time_dim) == (63, 27, 21 if use_time else 0)
+        pos, dirs, time = _encodings(rng, jspec)
+        ref = jax.device_get(_call_fwd(
+            prepare_kernel_params_planar(params, jspec, jnp.float32), jspec, jnp.asarray(pos),
+            jnp.asarray(dirs), None if time is None else jnp.asarray(time), "float32", True,
+            JAX_TILE))
+        field = _pack(net)
+        assert (field.width, field.head, field.n_rgb) == (256, 128, 4 if deep else 2)
+        got = spacenet_fwd_reference(field, torch.tensor(pos), torch.tensor(dirs),
+                                     None if time is None else torch.tensor(time))
+        for a, b in zip(got, ref):
+            assert tuple(a.shape) == b.shape
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4, atol=1e-5)
+
+
 def test_build_sources_and_cpu_routes(rng):
     """The build hash covers every kernel source: ``_build.SOURCES`` and
     ``HEADERS`` are exactly the ``.cu`` and ``.cuh`` files under

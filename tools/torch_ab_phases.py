@@ -2,7 +2,7 @@
 """Compare phases of two checkouts of the PyTorch port on one CUDA card.
 
     python3 tools/torch_ab_phases.py OTHER_CHECKOUT [OTHER_CHECKOUT ...]
-        [--set view_pose|field|kernels|k1_f32|cross] [--rounds 1]
+        [--set view_pose|field|kernels|k1_f32|k3_f32|cross] [--rounds 1]
 
 Runs ``chip_smoke.py``'s phases from each OTHER_CHECKOUT and from this one,
 each in a fresh process from its own root (so each builds and loads its own
@@ -51,6 +51,19 @@ run. Compare checkouts only within one invocation.
   also first of all, before any float32 call); a digest of
   every gradient of phase 5's float32 step through the kernels (two fresh
   runs) and the seconds of a second step.
+* ``k3_f32``: K3's float32 forward. Digests (as ``k1_f32``'s, each run
+  twice) of its outputs and of the three K6 entries' float32 outputs
+  (planar, row-major, stacked with one weight set) in every case of phase
+  6 on phase 6's encodings: the performer with time, the background, the
+  4-layer rgb head and no directions at M = 2000 x 120, then the narrow
+  64/32 fields, a 96/48 performer and the ragged M = 122,045 with the
+  ``active`` flag unset, 1 and 0 (0: "zeros" when every output is exactly
+  zero); K3's float32 ms on four of them; the K6 entries' float32 ms and
+  digests at phase 6's K6 shape (M = 65,536, two weight sets); K1's
+  float32 digests and ms as ``k1_f32``; the bf16 routes' digests (K1, K2,
+  K3's forward and backward); a digest of every gradient of phase 8's
+  float32 staged step through the kernels (two fresh runs) and the seconds
+  of a second step.
 * ``cross``: K4 and K5 (forward and backward) at (3, 2000, 120) and (3,
   2000, 90) on ``chip_smoke.cross_inputs`` (sorted streams), each timed
   alike in every checkout by this checkout's ``chip_smoke``: the device
@@ -233,7 +246,7 @@ for line in "".join(p.read_text() for p in sorted(BUILD_DIR.glob("*.log"))).spli
 out["ptxas"] = ptxas
 print("AB " + json.dumps(out))
 """
-CHILD["k1_f32"] = PRELUDE + """
+K1_CASES = """
 import dataclasses, hashlib, time
 import numpy as np
 from stnerf_tpu_torch.engine import make_optimizer, make_train_step
@@ -296,6 +309,9 @@ cases += [("narrow_performer", narrow.layers_fine[0], narrow.motion[0], "lerp", 
            edge(torch.zeros(n_tiles, dtype=torch.int32, device=device))),
           ("ragged_no_flags", wide.layers_fine[0], wide.motion[0], "lerp", edge(None)),
           ("f8_performer", f8.layers_fine[0], f8.motion[0], "lerp", edge(seeded))]
+"""
+# K1's float32 route on every case: digests, and ms on the main two
+K1_F32 = """
 k1_digests, k1_ms = {}, {}
 for name, net, mnet, mode, args in cases:
     f = cs.pack_dtype(net, mnet, mode, "float32")
@@ -307,6 +323,8 @@ for name, net, mnet, mode, args in cases:
     k1_digests[name] = digest(first) if digest(again) == digest(first) else "differs run to run"
     if name in ("performer_lerp", "background"):
         k1_ms[name] = cs.cuda_ms(lambda: fused_field(f, *args), 10)
+"""
+CHILD["k1_f32"] = PRELUDE + K1_CASES + K1_F32 + """
 perf = (model.layers_coarse[0], model.motion[0], "lerp")
 fb = cs.pack_dtype(*perf, "bfloat16")
 bf16 = {"k1_ms": cs.cuda_ms(lambda: fused_field(fb, *main_in), 10),
@@ -337,6 +355,108 @@ bf16["k2_first_ms"] = k2_first_ms
 print("AB " + json.dumps({"k1_f32_ms": k1_ms, "k1_f32_digests": k1_digests, "bf16": bf16,
                           "f32_step_grad_digests": step_digests,
                           "f32_step_s": time.perf_counter() - t0}))
+"""
+CHILD["k3_f32"] = PRELUDE + K1_CASES + K1_F32 + """
+from stnerf_tpu_torch.kernels.fused_field import pack_field, prepare_kernel_params_planar
+from stnerf_tpu_torch.kernels.fused_spacenet import (fused_spacenet, fused_spacenet_planar,
+                                                     fused_spacenet_stacked)
+from stnerf_tpu_torch.kernels.spacenet_vjp import spacenet_bwd, spacenet_fwd
+def pack32(net):
+    return pack_field(prepare_kernel_params_planar(net, torch.float32), (), net.spec, None,
+                      "float32")
+def twice(fn):
+    first, again = digest(fn()), digest(fn())
+    return first if again == first else "differs run to run"
+# phase 6's fields and encodings: its four cases, then its edges
+vp_spec = LayeredSpec.from_cfg(cs.view_pose_cfg(), camera_num=8)
+vp = cs.make_model(vp_spec, device)
+gen = torch.Generator().manual_seed(cs.SEED + 4)
+sspec = vp_spec.spacenet_spec(bkgd=False)
+k3_deep = SpaceNet(dataclasses.replace(sspec, deep_rgb=True), gen).to(device)
+k3_no_dir = SpaceNet(dataclasses.replace(sspec, use_dir=False), gen).to(device)
+def vp_widths(w, h):
+    c = cs.view_pose_cfg()
+    c.merge_from_list(["MODEL.BACKBONE_DIM", w, "MODEL.HEAD_DIM", h, "MODEL.MOTION_DIM", h])
+    return cs.make_model(LayeredSpec.from_cfg(c, camera_num=8), device)
+k3_narrow, k3_f8 = vp_widths(64, 32), vp_widths(96, 48)
+x = cs._encoded_inputs(device, 2000 * 120, cs.SEED + 5)
+xe = cs._encoded_inputs(device, 2000 * 61 + 45, cs.SEED + 7)
+k3_cases = [("performer_time", vp.layers_fine[0], x), ("background", vp.bkgd_fine, x),
+            ("performer_deep_rgb", k3_deep, x), ("performer_no_dir", k3_no_dir, x),
+            ("narrow_performer", k3_narrow.layers_fine[0], xe),
+            ("narrow_background", k3_narrow.bkgd_fine, xe),
+            ("f8_performer", k3_f8.layers_fine[0], xe),
+            ("ragged_performer", vp.layers_fine[0], xe)]
+k3_digests, k6_digests, k3_ms = {}, {}, {}
+on, off = (torch.full((1,), v, dtype=torch.int32, device=device) for v in (1, 0))
+for name, net, enc in k3_cases:
+    f = pack32(net)
+    m = enc["pos"].shape[1]
+    pos = enc["pos"]
+    dir_enc = enc["dir"] if net.spec.use_dir else torch.zeros((1, m), device=device)
+    time_enc = enc["time"] if net.spec.use_time else None
+    a = (f, pos, dir_enc, time_enc)
+    k3_digests[name] = twice(lambda: spacenet_fwd(*a))
+    if name == "ragged_performer":  # the device-side flag, 1 and 0
+        k3_digests[name + "_active_1"] = twice(lambda: spacenet_fwd(*a, on))
+        zeros = spacenet_fwd(*a, off)
+        k3_digests[name + "_active_0"] = ("zeros" if not any(bool(z.any()) for z in zeros)
+                                          else digest(zeros))
+    rows = tuple(None if e is None else e.t().contiguous() for e in (pos, dir_enc, time_enc))
+    stack = tuple(None if e is None else e[None] for e in rows)
+    k6_digests[name] = [twice(lambda: fused_spacenet_planar(*a)),
+                        twice(lambda: fused_spacenet(f, *rows)),
+                        twice(lambda: fused_spacenet_stacked([f], *stack))]
+    if name in ("performer_time", "background", "performer_deep_rgb", "narrow_performer"):
+        k3_ms[name] = cs.cuda_ms(lambda: spacenet_fwd(*a), 10)
+# K6's float32 entries at phase 6's K6 shape (M = 65,536; two weight sets)
+m6 = 65536
+x6 = cs._encoded_inputs(device, 2 * m6, cs.SEED + 6)
+f6 = [pack32(vp.layers_coarse[0]), pack32(vp.layers_fine[1])]
+planar = tuple(x6[k][:, :m6].contiguous() for k in ("pos", "dir", "time"))
+rows6 = tuple(a.t().contiguous() for a in planar)
+stacked = tuple(torch.stack([x6[k][:, :m6].t(), x6[k][:, m6:].t()]).contiguous()
+                for k in ("pos", "dir", "time"))
+k6_calls = {"fused_spacenet_planar": lambda: fused_spacenet_planar(f6[0], *planar),
+            "fused_spacenet": lambda: fused_spacenet(f6[0], *rows6),
+            "fused_spacenet_stacked": lambda: fused_spacenet_stacked(f6, *stacked)}
+k6_ms = {k: cs.cuda_ms(fn, 10) for k, fn in k6_calls.items()}
+k6_digests["phase6_shape"] = [twice(fn) for fn in k6_calls.values()]
+# the bf16 routes: K1, K2 and K3's forward and backward
+perf = (model.layers_coarse[0], model.motion[0], "lerp")
+fb = cs.pack_dtype(*perf, "bfloat16")
+g = pack_field(prepare_kernel_params_planar(vp.layers_fine[0], torch.bfloat16), (),
+               vp.layers_fine[0].spec, None, "bfloat16")
+k3_args = (x["pos"], x["dir"], x["time"])
+bf16 = {"k1_digest": twice(lambda: fused_field(fb, *main_in)),
+        "k2_digest": twice(lambda: field_bwd(f2, *seeded4)),
+        "k3_fwd_digest": twice(lambda: spacenet_fwd(g, *k3_args)),
+        "k3_bwd_digest": twice(lambda: spacenet_bwd(g, *k3_args, x["d_rgb"], x["d_sigma"])),
+        "k2_first_ms": k2_first_ms}
+# phase 8's float32 staged step through the kernels: gradient digests of
+# two fresh runs, and the seconds of a second step
+scene, _ = cs.scene_and_requests(device)
+cfg32 = cs.view_pose_cfg()
+cfg32.TPU.COMPUTE_DTYPE = "float32"
+cfg32.SOLVER.WARMUP_ITERS = 1
+spec32, batch = cs.train_batch(device, cs.ring_bundle(scene), scene, cfg32)
+step_digests = []
+for _ in range(2):
+    net = cs.make_model(spec32, device)
+    opt, sched = make_optimizer(cfg32, net)
+    step = make_train_step(net, opt, sched, remove_outliers=True, plain=False, device=device)
+    step(scene, batch, torch.Generator(device=device).manual_seed(cs.SEED), 1.0)
+    leaves = [torch.as_tensor(v) for _, v in cs._flat_leaves(export_jax_params(net, grad=True))]
+    step_digests.append(digest(leaves))
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+step(scene, batch, torch.Generator(device=device).manual_seed(cs.SEED + 1), 1.0)
+torch.cuda.synchronize()
+print("AB " + json.dumps({"k3_f32_fwd_ms": k3_ms, "k6_f32_ms": k6_ms,
+                          "k3_f32_digests": k3_digests, "k6_f32_digests": k6_digests,
+                          "k1_f32_ms": k1_ms, "k1_f32_digests": k1_digests, "bf16": bf16,
+                          "staged_f32_step_grad_digests": step_digests,
+                          "staged_f32_step_s": time.perf_counter() - t0}))
 """
 CHILD["cross"] = PRELUDE + """
 import importlib.util, logging, os, shutil

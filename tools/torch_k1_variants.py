@@ -38,8 +38,8 @@ VARIANTS = {
     "stages_22k": [("w_ring.cuh", STAGE, "constexpr int STAGE_FLOATS = 5632;")],
     "stages_8k": [("w_ring.cuh", STAGE, "constexpr int STAGE_FLOATS = 2048;")],
     # k steps of the FMA loop unrolled (their loads in flight together)
-    "unroll2": [("fused_field.cu", LOOP, LOOP.replace("unroll 4", "unroll 2"))],
-    "unroll8": [("fused_field.cu", LOOP, LOOP.replace("unroll 4", "unroll 8"))],
+    "unroll2": [("ring_dense.cuh", LOOP, LOOP.replace("unroll 4", "unroll 2"))],
+    "unroll8": [("ring_dense.cuh", LOOP, LOOP.replace("unroll 4", "unroll 8"))],
     # the weights' bulk copies with an L2 evict-last hint
     "evict_last": [("w_ring.cuh",
                     '"cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "\n'
@@ -48,8 +48,8 @@ VARIANTS = {
                     '"cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes'
                     '.L2::cache_hint "\n          "[%0], [%1], %2, [%3], pol;\\n}\\n" ::')],
     # no barrier between layers (wrong outputs): what the barriers cost
-    "no_layer_sync": [("fused_field.cu", 'asm volatile("bar.sync 1, %0;\\n" ::"n"(THREADS) : "memory");',
-                       "")],
+    "no_layer_sync": [("ring_dense.cuh",
+                       'asm volatile("bar.sync 1, %0;\\n" ::"n"(CONSUMERS) : "memory");', "")],
 }
 
 
