@@ -22,8 +22,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    and the share of outputs not bitwise the plain version's printed for
    both. Then the edges: a narrow model (trunk
    64, head 32, motion 32), a performer at widths no kernel tiles (96/48/48,
-   packed at 128/64/64 with zeros in the padded units) and a ragged M with
-   all tiles on, all off and no flags. Prints both routes' times and bounds
+   packed at 128/64/64 with zeros in the padded units), a ragged M with
+   all tiles on, all off and no flags, and three fields wider than the
+   backward kernels take, which the forward kernels run with a smaller
+   sample block: ``wide_performer`` (512/256/256), ``wide_padded``
+   (384/192/160, packed at 512/256/256) and ``xwide_background``
+   (1024/512), each with every route's sample block (the widths up to 256
+   must keep 64 in float32 and 128 in bf16); a 1040-wide field refused
+   before any launch. Prints both routes' times and bounds
    per case, and ``fused_field_float32_ring`` for the performer: the float32
    kernel's weight ring (stages, a stage's bytes, the block's dynamic shared
    memory) beside its ms, its ms before the ring, its bound and share.
@@ -46,7 +52,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    5's model, pool and batch; ``real_bwd_inputs``); both routes bitwise the
    same gradients when run twice (``check_field_bwd``; float32: three
    passes, 3xTF32 products, a fixed-order sum). The same edges as phase 2
-   (bf16 on the real background inputs cut to the ragged M). Prints both
+   (bf16 on the real background inputs cut to the ragged M); the wide ones
+   and a training forward of the 512/256/256 performer
+   (``field_planar_trainable``) refused before any launch. Prints both
    routes' times and bounds per case at the seeded shape, the float32
    route's workspace, and its time beside the former design's.
 5. Training: ``do_train`` on the taekwondo model at batch 2000 (one
@@ -70,10 +78,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    performer, the device-side ``active`` flag: 1 leaves the forward and
    every gradient bitwise unchanged, 0 gives zeros everywhere. The same
    checks on the edges: a narrow model (trunk 64, head 32), a performer at
-   F8_WIDTHS' trunk and head (96/48, packed at 128/64) and a ragged M with
-   the flag unset, 1 and 0. Then the three K6 entry points
+   F8_WIDTHS' trunk and head (96/48, packed at 128/64), a ragged M with
+   the flag unset, 1 and 0, and phase 2's three wide fields (the forward's
+   checks and sample blocks; the backward and a training forward refused
+   before any launch). Then the three K6 entry points
    (``fused_spacenet*``, on K3's forward kernels) against their plain
-   versions at one shape. Prints both routes' times, bounds and shares of
+   versions at one shape, and at 512/256 (``fused_spacenet_vs_plain_wide``).
+   Prints both routes' times, bounds and shares of
    bound, and ``spacenet_fwd_float32_ring`` for the performer: the float32
    forward's weight ring (stages, a stage's bytes, the block's dynamic
    shared memory) beside its ms, its ms before the ring, its bound and
@@ -87,6 +98,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    images, exact zero acc for a hidden layer, >= 40 dB between the kernel
    and plain paths, and K3's forward launches against what the renders
    imply, every one on the tensor-core route. Prints seconds per pose.
+7b. The wide slice (``phase_wide_slice``): the taekwondo model at trunk
+   512, head 256, motion 256 (``merge_from_list`` on
+   configs/config_taekwondo.yml), wider than the backward kernels take:
+   phase 3's five requests in bf16 (K1's tensor-core kernel, blocks of 64),
+   the first in float32 (K1's CUDA-core kernel, blocks of 32) and phase
+   7's three requests of its view-deform variant (K3's forward, blocks of
+   64), at 480x270 through ``render_pose_host``. Checks finite images, the
+   edits, the launches the renders imply, each route >= 40 dB from its
+   plain path on the first request at 240x135; prints each field's sample
+   block per route, then
+   ``wide_kernels``: every forward route on the 512/256/256 performer at M
+   = 240,000 (ms, plain ms, block, bound, share) and the phase's seconds.
 8. Training that model on phase 5's pool as phase 5 does: finite losses, a
    falling loss over the full epoch, K3's forward and backward each once
    per field and stage of every step, all on the tensor-core route,
@@ -134,7 +157,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    flag on and one with it off from the same weights and batch, every
    gradient leaf at phase 4's bar.
 12. The ``{"kernels": [...]}`` line (launches on the main paths, errors, times
-   and bounds), the card line again, and the result line
+   and bounds; the forward routes' rows also the wide slice's launches and
+   their ``wide`` times), the card line again, and the result line
    ``{"ok": true, "device": {...}}`` last.
 14. (runs after phase 13, before phase 12's lines) Training with the fast
    fine stage (TPU.FAST_FINE_TRAIN) and pose refinement on: ``do_train`` of
@@ -296,11 +320,39 @@ K3_F32_FWD_MS_BEFORE = 6.802
 # a field at widths no kernel tiles (trunk, head, motion): packed at the
 # next kernel widths, 128/64/64
 F8_WIDTHS = (96, 48, 48)
+# fields wider than the backward kernels take (trunk, head, motion), which
+# the forward kernels run with a smaller sample block: the wide slice's
+# widths, a padded one (packed at 512/256/256) and the widest (1024/512)
+WIDE_WIDTHS = (512, 256, 256)
+WIDE_PADDED_WIDTHS = (384, 192, 160)
+XWIDE_WIDTHS = (1024, 512, 512)
 
 
 def check(cond, msg: str):
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+def check_refused(call, wrappers: list, what: str, limit: int) -> str:
+    """``call()`` raises the kernels' ValueError for widths above ``limit``
+    before any kernel launch: every wrapper of ``wrappers`` keeps its launch
+    count. -> the message."""
+    before = [w.launches for w in wrappers]
+    try:
+        call()
+    except ValueError as e:
+        check(f"at most {limit}" in str(e), f"{what}: refused for another reason: {e}")
+        check([w.launches for w in wrappers] == before, f"{what}: a kernel launched before "
+                                                         "the refusal")
+        return str(e)
+    raise RuntimeError(f"chip_smoke check failed: {what}: not refused")
+
+
+def wider_than_backward(field) -> bool:
+    """Whether a packed field is wider than the backward kernels take."""
+    from stnerf_tpu_torch.kernels.fused_field import BACKWARD_MAX_WIDTH, field_widths
+
+    return max(field_widths(field)) > BACKWARD_MAX_WIDTH
 
 
 def psnr(a, b) -> float:
@@ -450,7 +502,7 @@ def phase_kernel_vs_plain(device, m: int, reps: int):
     import torch
 
     from stnerf_tpu_torch.kernels.fused_field import (TILE, float32_ring, fused_field,
-                                                      fused_field_reference)
+                                                      fused_field_reference, tc_launch)
     from stnerf_tpu_torch.models import LayeredSpec, MotionNet, SpaceNet
     from stnerf_tpu_torch.ops.encoding import positional_encoding_planar
 
@@ -508,7 +560,31 @@ def phase_kernel_vs_plain(device, m: int, reps: int):
                  "bound_ms": row["float32_bound_ms"],
                  "share": row["float32_bound_ms"] / row["float32_ms"]}), flush=True)
         results.append(row)
-    results += edge_cases(device, check_fused_field, "kernel_vs_plain_edge", seed=SEED + 5)
+    def check_edge(name, fields, xyz, ids, dir_enc, flags, skipped):
+        """check_fused_field, and each route's sample block: the widths up
+        to 256 keep 64 (float32) and 128 (bf16, render and checked)."""
+        row = check_fused_field(name, fields, xyz, ids, dir_enc, flags, skipped)
+        m, rows = xyz.shape[1], dir_enc.shape[0]
+        row["block_samples"] = {
+            "float32": float32_ring(fields["float32"], m, rows)["block_samples"],
+            "bfloat16": tc_launch(fields["bfloat16"], m, rows)["block_samples"],
+            "bfloat16_checked": tc_launch(fields["bfloat16"], m, rows, True)["block_samples"]}
+        if not wider_than_backward(fields["float32"]):
+            check(row["block_samples"] == {"float32": 64, "bfloat16": 128,
+                                           "bfloat16_checked": 128},
+                  f"{name}: a width up to 256 took another block: {row['block_samples']}")
+        return row
+
+    results += edge_cases(device, check_edge, "kernel_vs_plain_edge", seed=SEED + 5)
+    # above the widest kernel width: refused before any launch, both routes
+    over = SpaceNet(dataclasses.replace(spec.spacenet_spec(bkgd=True), backbone_dim=1040),
+                    gen).to(device)
+    for dt in ("float32", "bfloat16"):
+        f = pack_dtype(over, None, None, dt)
+        msg = check_refused(lambda: fused_field(f, xyz, ids, dir_enc), [fused_field],
+                            f"a 1040-wide {dt} field", 1024)
+        print("kernel_vs_plain_refused", json.dumps({"width": 1040, "dtype": dt,
+                                                     "message": msg}), flush=True)
     return results
 
 
@@ -575,6 +651,15 @@ def check_fused_field(name, fields, xyz, ids, dir_enc, flags, skipped) -> dict:
             "bf16_checked_share_not_plain_bits": differ[1]}
 
 
+def widths_model(cfg, widths, device, camera_num=None):
+    """make_model of ``cfg`` at ``widths`` (trunk, head, motion)."""
+    from stnerf_tpu_torch.models import LayeredSpec
+
+    cfg.merge_from_list(["MODEL.BACKBONE_DIM", widths[0], "MODEL.HEAD_DIM", widths[1],
+                         "MODEL.MOTION_DIM", widths[2]])
+    return make_model(LayeredSpec.from_cfg(cfg, camera_num=camera_num), device)
+
+
 def edge_cases(device, check_fn, label: str, seed: int) -> list:
     """The kernels' edges, both dtypes: a narrow model (trunk 64, head 32,
     motion 32: every width the tiling pads) and a performer at widths no
@@ -582,7 +667,10 @@ def edge_cases(device, check_fn, label: str, seed: int) -> list:
     kernel widths, zeros in the padded units) with seeded skip flags (25% of
     the tiles off), and the taekwondo performer at a ragged M (not a
     multiple of 64 or 128) with all tiles flagged on, the seeded flags, all
-    flagged off and no flags. ``check_fn(name,
+    flagged off and no flags; then fields wider than the backward kernels
+    take, with the seeded flags: ``wide_performer`` (WIDE_WIDTHS, "lerp"
+    with time), ``wide_padded`` (WIDE_PADDED_WIDTHS) and
+    ``xwide_background`` (XWIDE_WIDTHS' trunk and head). ``check_fn(name,
     fields, xyz, ids, dir_enc, flags, skipped)`` is phase 2's or phase 4's
     check. -> its rows."""
     import torch
@@ -603,25 +691,26 @@ def edge_cases(device, check_fn, label: str, seed: int) -> list:
     d /= np.linalg.norm(d, axis=0, keepdims=True)
     dir_enc = positional_encoding_planar(t(d), 4, True, recursive=True).contiguous()
     n_tiles = -(-m // TILE)
-    narrow_cfg = taekwondo_cfg()
-    narrow_cfg.merge_from_list(["MODEL.BACKBONE_DIM", 64, "MODEL.HEAD_DIM", 32,
-                                "MODEL.MOTION_DIM", 32])
-    narrow = make_model(LayeredSpec.from_cfg(narrow_cfg), device)
-    f8_cfg = taekwondo_cfg()
-    f8_cfg.merge_from_list(["MODEL.BACKBONE_DIM", F8_WIDTHS[0], "MODEL.HEAD_DIM", F8_WIDTHS[1],
-                            "MODEL.MOTION_DIM", F8_WIDTHS[2]])
-    f8 = make_model(LayeredSpec.from_cfg(f8_cfg), device)
-    wide = make_model(LayeredSpec.from_cfg(taekwondo_cfg()), device)
+    narrow = widths_model(taekwondo_cfg(), (64, 32, 32), device)
+    f8 = widths_model(taekwondo_cfg(), F8_WIDTHS, device)
+    taekwondo = make_model(LayeredSpec.from_cfg(taekwondo_cfg()), device)
     seeded = (rng.random(n_tiles) > 0.25).astype(np.int32)
+    wide = widths_model(taekwondo_cfg(), WIDE_WIDTHS, device)
+    padded = widths_model(taekwondo_cfg(), WIDE_PADDED_WIDTHS, device)
+    xwide = widths_model(taekwondo_cfg(), XWIDE_WIDTHS, device)
     cases = [("narrow_performer", narrow.layers_fine[0], narrow.motion[0], "lerp", seeded),
              ("narrow_background", narrow.bkgd_fine, None, None, seeded),
              ("f8_performer", f8.layers_fine[0], f8.motion[0], "lerp", seeded),
-             ("ragged_all_on", wide.layers_fine[0], wide.motion[0], "lerp",
+             ("ragged_all_on", taekwondo.layers_fine[0], taekwondo.motion[0], "lerp",
               np.ones(n_tiles, np.int32)),
-             ("ragged_quarter_off", wide.layers_fine[0], wide.motion[0], "lerp", seeded),
-             ("ragged_all_off", wide.layers_fine[0], wide.motion[0], "lerp",
+             ("ragged_quarter_off", taekwondo.layers_fine[0], taekwondo.motion[0], "lerp",
+              seeded),
+             ("ragged_all_off", taekwondo.layers_fine[0], taekwondo.motion[0], "lerp",
               np.zeros(n_tiles, np.int32)),
-             ("ragged_no_flags", wide.layers_fine[0], wide.motion[0], "lerp", None)]
+             ("ragged_no_flags", taekwondo.layers_fine[0], taekwondo.motion[0], "lerp", None),
+             ("wide_performer", wide.layers_fine[0], wide.motion[0], "lerp", seeded),
+             ("wide_padded", padded.layers_fine[0], padded.motion[0], "lerp", seeded),
+             ("xwide_background", xwide.bkgd_fine, None, None, seeded)]
     rows = []
     for name, net, mnet, mode, flags_np in cases:
         fields = {dt: pack_dtype(net, mnet, mode, dt) for dt in ("float32", "bfloat16")}
@@ -862,8 +951,9 @@ def phase_field_bwd_vs_plain(device, m: int, reps: int):
     import torch
 
     from stnerf_tpu_torch.kernels import f32_bwd
-    from stnerf_tpu_torch.kernels.field_vjp import field_bwd, field_bwd_reference
-    from stnerf_tpu_torch.kernels.fused_field import TILE
+    from stnerf_tpu_torch.kernels.field_vjp import (field_bwd, field_bwd_reference,
+                                                    field_planar_trainable)
+    from stnerf_tpu_torch.kernels.fused_field import TILE, fused_field
     from stnerf_tpu_torch.models import LayeredSpec, MotionNet, SpaceNet
     from stnerf_tpu_torch.ops.encoding import positional_encoding_planar
 
@@ -942,11 +1032,19 @@ def phase_field_bwd_vs_plain(device, m: int, reps: int):
 
     def check_edge(name, fields, xyz, ids, dir_enc, flags, skipped):
         """float32 on the edge case's seeded inputs, bf16 on the real
-        background inputs cut to its M, both with its flags."""
+        background inputs cut to its M, both with its flags; a field wider
+        than the backward kernels take refused in both dtypes before any
+        launch."""
         n = xyz.shape[1]
         rng = np.random.default_rng(n)
         cot = (t(rng.normal(size=(3, n))), t(rng.normal(size=n)))
         row = {"case": name, "m": n}
+        if wider_than_backward(fields["float32"]):
+            for dt, f in fields.items():
+                row[f"{dt}_refused"] = check_refused(
+                    lambda: field_bwd(f, xyz, ids, dir_enc, *cot, flags), [field_bwd],
+                    f"{name} {dt} backward", 256)
+            return row
         row.update(check_field_bwd(name, fields["float32"], (xyz, ids, dir_enc, *cot, flags),
                                    skipped))
         cut = tuple(a[..., :n].contiguous() for a in background[:5])
@@ -954,6 +1052,18 @@ def phase_field_bwd_vs_plain(device, m: int, reps: int):
         return row
 
     results += edge_cases(device, check_edge, "field_bwd_vs_plain_edge", seed=SEED + 6)
+    # a training forward of a wide field: refused before its forward launches
+    net = widths_model(taekwondo_cfg(), WIDE_WIDTHS, device)
+    n = 4096
+    for dt in ("float32", "bfloat16"):
+        msg = check_refused(
+            lambda: field_planar_trainable(net.layers_fine[0], net.motion[0],
+                                           *(a[:, :n].contiguous() for a in (xyz, ids, dir_enc)),
+                                           flags[:n // TILE], "lerp", dt),
+            [fused_field, field_bwd], f"a {WIDE_WIDTHS} {dt} training forward", 256)
+        print("field_bwd_vs_plain_refused", json.dumps(
+            {"widths": WIDE_WIDTHS, "dtype": dt, "path": "field_planar_trainable",
+             "message": msg}), flush=True)
     return results
 
 
@@ -1031,13 +1141,16 @@ def check_spacenet(name, net, x, flags: bool) -> dict:
     bitwise the same when run twice. With ``flags``, the device-side
     ``active`` flag on both routes: 1 leaves the forward and every
     gradient bitwise unchanged, 0 gives zeros everywhere,
-    weight gradients included. -> the errors; ``fields`` and the call
+    weight gradients included. A field wider than the backward kernels
+    take: the forward's checks, each route's sample block, and the backward
+    refused before any launch. -> the errors; ``fields`` and the call
     arguments under "_args" for the timing."""
     import torch
 
     from stnerf_tpu_torch.kernels.fused_field import pack_field, prepare_kernel_params_planar
-    from stnerf_tpu_torch.kernels.spacenet_vjp import (spacenet_bwd, spacenet_bwd_reference,
-                                                       spacenet_fwd, spacenet_fwd_reference)
+    from stnerf_tpu_torch.kernels.spacenet_vjp import (float32_ring, spacenet_bwd,
+                                                       spacenet_bwd_reference, spacenet_fwd,
+                                                       spacenet_fwd_reference, tc_launch)
 
     pos = x["pos"]
     m, device = pos.shape[1], pos.device
@@ -1050,8 +1163,20 @@ def check_spacenet(name, net, x, flags: bool) -> dict:
         fwd_args = (f, pos, dir_enc, time_enc)
         bwd_args = fwd_args + (x["d_rgb"], x["d_sigma"])
         args[dt] = fwd_args, bwd_args
+        launch = float32_ring if dt == "float32" else tc_launch
+        row[f"{dt}_block_samples"] = launch(*fwd_args)["block_samples"]
+        if not wider_than_backward(f):
+            check(row[f"{dt}_block_samples"] == (64 if dt == "float32" else 128),
+                  f"{name} {dt}: a width up to 256 took a block of "
+                  f"{row[f'{dt}_block_samples']}")
         rgb_k, sig_k = spacenet_fwd(*fwd_args)
-        got = spacenet_bwd(*bwd_args)
+        if wider_than_backward(f):
+            row[f"{dt}_bwd_refused"] = check_refused(lambda: spacenet_bwd(*bwd_args),
+                                                     [spacenet_bwd], f"{name} {dt} backward",
+                                                     256)
+            got = ()
+        else:
+            got = spacenet_bwd(*bwd_args)
         sync(device)
         check(bool(torch.isfinite(rgb_k).all() and torch.isfinite(sig_k).all()),
               f"{name} {dt}: non-finite forward")
@@ -1067,9 +1192,8 @@ def check_spacenet(name, net, x, flags: bool) -> dict:
             check(not any(bool(a.any()) for a in (*fwd_off, *got_off)),
                   f"{name} {dt}: active 0 left a nonzero output or gradient")
         rgb_p, sig_p = spacenet_fwd_reference(*fwd_args)
-        ref = spacenet_bwd_reference(*bwd_args)
-        stats = _leaf_stats(f, got, ref, "d_pos")
         fwd_err = max(float((rgb_k - rgb_p).abs().max()), float((sig_k - sig_p).abs().max()))
+        stats = _leaf_stats(f, got, spacenet_bwd_reference(*bwd_args), "d_pos") if got else {}
         if dt == "float32":
             close = (torch.allclose(rgb_k, rgb_p, rtol=2e-3, atol=2e-4)
                      and torch.allclose(sig_k, sig_p, rtol=2e-3, atol=2e-4))
@@ -1079,6 +1203,9 @@ def check_spacenet(name, net, x, flags: bool) -> dict:
             check(all(torch.equal(a, b) for a, b in zip(spacenet_fwd(*fwd_args),
                                                         (rgb_k, sig_k))),
                   f"{name}: f32 forward differs between two runs")
+            plain_rgb = rgb_p
+            if not got:
+                continue
             row["f32_bwd_max_abs_err"] = max(v["err"] for v in stats.values())
             row["f32_bwd_max_rel_l2"] = max(v["rel"] for v in stats.values())
             row["f32_entries_outside"] = {k: v["outside"] for k, v in stats.items()
@@ -1089,7 +1216,6 @@ def check_spacenet(name, net, x, flags: bool) -> dict:
             again = spacenet_bwd(*bwd_args)
             check(all(torch.equal(a, b) for a, b in zip(got, again)),
                   f"{name}: f32 gradients differ between two runs")
-            plain_rgb = rgb_p
         else:
             db = psnr(torch.sigmoid(rgb_k).cpu(), torch.sigmoid(plain_rgb).cpu())
             check(db >= 40.0, f"{name}: bf16 forward kernel vs f32 plain {db:.1f} dB < 40")
@@ -1097,6 +1223,8 @@ def check_spacenet(name, net, x, flags: bool) -> dict:
             row["bf16_fwd_max_abs_err"] = fwd_err
             row["bf16_fwd_rel_l2"] = [compare_leaf(rgb_k, rgb_p)["rel"],
                                       compare_leaf(sig_k, sig_p)["rel"]]
+            if not got:
+                continue
             worst = max(stats, key=lambda k: stats[k]["rel"])
             row["bf16_bwd_worst_rel_l2"] = [worst, stats[worst]["rel"]]
             row["bf16_bwd_max_abs_err"] = max(v["err"] for v in stats.values())
@@ -1116,14 +1244,16 @@ def phase_spacenet_vs_plain(device, m: int, reps: int):
     performer with the ``active`` flag), both routes' times, bounds and
     shares, and the float32 forward's weight ring; then the edges: a narrow
     model (trunk 64, head 32), a performer at F8_WIDTHS' trunk and head
-    (packed at 128/64) and a ragged M with ``active`` None, 1 and 0 ->
-    per-case results."""
+    (packed at 128/64), a ragged M with ``active`` None, 1 and 0, and the
+    wide fields of ``edge_cases`` (their forward; their backward and a
+    training forward refused) -> per-case results."""
     import torch
 
     from stnerf_tpu_torch.kernels import f32_bwd
     from stnerf_tpu_torch.kernels.spacenet_vjp import (float32_ring, spacenet_bwd,
                                                        spacenet_bwd_reference, spacenet_fwd,
                                                        spacenet_fwd_reference,
+                                                       spacenet_planar_trainable,
                                                        tc_workspace_bytes)
     from stnerf_tpu_torch.models import LayeredSpec, SpaceNet
 
@@ -1188,25 +1318,35 @@ def phase_spacenet_vs_plain(device, m: int, reps: int):
                  "share": row["float32_bwd_share"]}), flush=True)
         results.append(row)
 
-    # the edges: every width the tiling pads, and a ragged M (not a
-    # multiple of 64 or 128) with the flag unset, 1 and 0
-    narrow_cfg = view_pose_cfg()
-    narrow_cfg.merge_from_list(["MODEL.BACKBONE_DIM", 64, "MODEL.HEAD_DIM", 32,
-                                "MODEL.MOTION_DIM", 32])
-    narrow = make_model(LayeredSpec.from_cfg(narrow_cfg, camera_num=8), device)
-    f8_cfg = view_pose_cfg()
-    f8_cfg.merge_from_list(["MODEL.BACKBONE_DIM", F8_WIDTHS[0], "MODEL.HEAD_DIM", F8_WIDTHS[1],
-                            "MODEL.MOTION_DIM", F8_WIDTHS[2]])
-    f8 = make_model(LayeredSpec.from_cfg(f8_cfg, camera_num=8), device)
+    # the edges: every width the tiling pads, a ragged M (not a multiple of
+    # 64 or 128) with the flag unset, 1 and 0, and fields wider than the
+    # backward kernels take (their forward alone)
+    narrow = widths_model(view_pose_cfg(), (64, 32, 32), device, camera_num=8)
+    f8 = widths_model(view_pose_cfg(), F8_WIDTHS, device, camera_num=8)
+    wide = {w: widths_model(view_pose_cfg(), w, device, camera_num=8)
+            for w in (WIDE_WIDTHS, WIDE_PADDED_WIDTHS, XWIDE_WIDTHS)}
     xe = _encoded_inputs(device, 2000 * 61 + 45, SEED + 7)
     for name, net, flags in (("narrow_performer", narrow.layers_fine[0], False),
                              ("narrow_background", narrow.bkgd_fine, False),
                              ("f8_performer", f8.layers_fine[0], False),
-                             ("ragged_performer", model.layers_fine[0], True)):
+                             ("ragged_performer", model.layers_fine[0], True),
+                             ("wide_performer", wide[WIDE_WIDTHS].layers_fine[0], False),
+                             ("wide_padded", wide[WIDE_PADDED_WIDTHS].layers_fine[0], False),
+                             ("xwide_background", wide[XWIDE_WIDTHS].bkgd_fine, False)):
         row = check_spacenet(name, net, xe, flags)
         row.pop("_args")
         print("spacenet_vs_plain_edge", json.dumps(row), flush=True)
         results.append(row)
+    # a training forward of a wide field: refused before its forward launches
+    net, n = wide[WIDE_WIDTHS].layers_fine[0], 4096
+    for dt in ("float32", "bfloat16"):
+        msg = check_refused(
+            lambda: spacenet_planar_trainable(
+                net, *(xe[k][:, :n].contiguous() for k in ("pos", "dir", "time")), dt),
+            [spacenet_fwd, spacenet_bwd], f"a {WIDE_WIDTHS} {dt} K3 training forward", 256)
+        print("spacenet_vs_plain_refused", json.dumps(
+            {"widths": WIDE_WIDTHS[:2], "dtype": dt, "path": "spacenet_planar_trainable",
+             "message": msg}), flush=True)
     return results
 
 
@@ -1214,19 +1354,33 @@ def phase_fused_spacenet_vs_plain(device, m: int, reps: int):
     """The three K6 entry points against their plain versions at one shape
     (L = 2 weight sets for the stacked one), float32 (K3's CUDA-core
     forward) at K1's bar and bf16 (K3's tensor-core forward) at phase 2's
-    relative L2 1e-2 on rgb and sigma, and both routes' times and bounds
-    -> {entry: result}."""
+    relative L2 1e-2 on rgb and sigma, and both routes' times and bounds;
+    then the same at the wide slice's widths (WIDE_WIDTHS, M / 4) ->
+    {entry: result} at the taekwondo widths."""
+    from stnerf_tpu_torch.models import LayeredSpec
+
+    spec = LayeredSpec.from_cfg(view_pose_cfg(), camera_num=8)
+    model = make_model(spec, device)
+    results = entries_vs_plain(device, [model.layers_coarse[0], model.layers_fine[1]], m, reps,
+                               "fused_spacenet_vs_plain")
+    # the wide slice's fields: the forward kernels' smaller sample block
+    wide = widths_model(view_pose_cfg(), WIDE_WIDTHS, device, camera_num=8)
+    entries_vs_plain(device, [wide.layers_coarse[0], wide.layers_fine[1]], m // 4, reps,
+                     "fused_spacenet_vs_plain_wide")
+    return results
+
+
+def entries_vs_plain(device, nets: list, m: int, reps: int, label: str) -> dict:
+    """phase_fused_spacenet_vs_plain's checks and times on two SpaceNets
+    (the stacked entry takes both) at ``m`` samples a weight set; each row
+    printed under ``label``. -> {entry: result}."""
     import torch
 
     from stnerf_tpu_torch.kernels.fused_field import pack_field, prepare_kernel_params_planar
     from stnerf_tpu_torch.kernels.fused_spacenet import (
         fused_spacenet, fused_spacenet_planar, fused_spacenet_planar_reference,
         fused_spacenet_reference, fused_spacenet_stacked, fused_spacenet_stacked_reference)
-    from stnerf_tpu_torch.models import LayeredSpec
 
-    spec = LayeredSpec.from_cfg(view_pose_cfg(), camera_num=8)
-    model = make_model(spec, device)
-    nets = [model.layers_coarse[0], model.layers_fine[1]]
     x = _encoded_inputs(device, 2 * m, SEED + 6)
     planar = (x["pos"][:, :m].contiguous(), x["dir"][:, :m].contiguous(),
               x["time"][:, :m].contiguous())
@@ -1285,7 +1439,8 @@ def phase_fused_spacenet_vs_plain(device, m: int, reps: int):
             row[f"{dt}_plain_ms"] = cuda_ms(lambda: plain(*args), reps)
     for row in results.values():
         row["float32_share"] = row["float32_bound_ms"] / row["float32_ms"]
-        print("fused_spacenet_vs_plain", json.dumps(row), flush=True)
+        row["widths"] = [fields[0].width, fields[0].head]
+        print(label, json.dumps(row), flush=True)
     return results
 
 
@@ -1583,6 +1738,186 @@ def phase_view_pose_render(device, h: int, w: int, chunk: int, tile_cols: int):
                "launches_tc": launches_tc, "launches_k6": k6}
     print("view_pose_render", json.dumps(summary), flush=True)
     return summary
+
+
+def wide_kernel_times(device, m: int, reps: int) -> dict:
+    """The wide slice's performer (WIDE_WIDTHS) through each forward route
+    at ``m`` samples, every sample run: K1 (bf16 render and ``checked``,
+    float32) on seeded positions, frame ids and directions, K3's forward
+    (bf16, float32) on seeded encodings of the view-deform variant's
+    performer; each route's sample block, ms, plain ms, bound (operations
+    at the dtype's peak, or bytes) and share. -> {route: row}."""
+    import torch
+
+    from stnerf_tpu_torch.kernels import spacenet_vjp
+    from stnerf_tpu_torch.kernels.fused_field import (float32_ring, fused_field,
+                                                      fused_field_reference, tc_launch)
+    from stnerf_tpu_torch.ops.encoding import positional_encoding_planar
+
+    rng = np.random.default_rng(SEED + 8)
+
+    def t(a):
+        return torch.tensor(a, dtype=torch.float32, device=device).contiguous()
+
+    xyz = t(rng.uniform(-3.0, 3.0, (3, m)))
+    ids = t(rng.integers(1, 101, (1, m)) + rng.choice([0.0, 0.25, 0.5], (1, m)))
+    d = rng.normal(size=(3, m))
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    dir_enc = positional_encoding_planar(t(d), 4, True, recursive=True).contiguous()
+    net = widths_model(taekwondo_cfg(), WIDE_WIDTHS, device)
+    vp_net = widths_model(view_pose_cfg(), WIDE_WIDTHS, device, camera_num=8).layers_fine[0]
+    x = _encoded_inputs(device, m, SEED + 9)
+    enc = (x["pos"], x["dir"], x["time"])
+    out = {}
+    for dt in ("float32", "bfloat16"):
+        f = pack_dtype(net.layers_fine[0], net.motion[0], "lerp", dt)
+        g = pack_dtype(vp_net, None, None, dt)
+        w_bytes = f.weights.element_size() * f.weights.numel()
+        k1 = {"ms": lambda: fused_field(f, xyz, ids, dir_enc),
+              "plain": lambda: fused_field_reference(f, xyz, ids, dir_enc),
+              "block": (float32_ring(f, m, dir_enc.shape[0]) if dt == "float32"
+                        else tc_launch(f, m, dir_enc.shape[0]))["block_samples"],
+              "macs": field_macs(f)["fwd"],
+              "bytes": 4 * m * (4 + dir_enc.shape[0] + 4) + w_bytes}
+        k3 = {"ms": lambda: spacenet_vjp.spacenet_fwd(g, *enc),
+              "plain": lambda: spacenet_vjp.spacenet_fwd_reference(g, *enc),
+              "block": (spacenet_vjp.float32_ring if dt == "float32"
+                        else spacenet_vjp.tc_launch)(g, *enc)["block_samples"],
+              "macs": field_macs(g)["fwd"],
+              "bytes": 4 * m * (sum(e.shape[0] for e in enc) + 4)
+              + g.weights.element_size() * g.weights.numel()}
+        routes = {f"fused_field_{dt}": k1, f"spacenet_fwd_{dt}": k3}
+        if dt == "bfloat16":
+            routes["fused_field_bfloat16_checked"] = {
+                **k1, "ms": lambda: fused_field(f, xyz, ids, dir_enc, checked=True),
+                "block": tc_launch(f, m, dir_enc.shape[0], True)["block_samples"]}
+        for name, r in routes.items():
+            b_ms, b_by = bound_ms(2 * r["macs"] * m, r["bytes"], dt)
+            ms = cuda_ms(r["ms"], reps)
+            out[name] = {"m": m, "widths": list(WIDE_WIDTHS), "block_samples": r["block"],
+                         "ms": ms, "plain_ms": cuda_ms(r["plain"], reps), "bound_ms": b_ms,
+                         "bound_by": b_by, "share": b_ms / ms}
+    return out
+
+
+def phase_wide_slice(device, h: int, w: int, chunk: int, tile_cols: int, card: str) -> dict:
+    """The taekwondo model at trunk 512, head 256, motion 256 (WIDE_WIDTHS,
+    set on configs/config_taekwondo.yml through merge_from_list), wider
+    than the backward kernels take, rendered at h x w through
+    render_pose_host: phase 3's five edit requests in bf16 (every field on
+    K1's tensor-core kernel), the first in float32 (K1's CUDA-core kernel),
+    and phase 7's three requests of its view-deform + pose-refinement
+    variant (every field on K3's forward, bf16). Checks: finite images, the
+    edits change them, the hidden layer's image zero, launches as the
+    renders imply, each route's kernel path >= 40 dB from the plain path on
+    the first request at (h / 2) x (w / 2); prints each field's sample block
+    per route. Then the
+    wide kernels' times at M = 240,000 on the performer (``wide_kernel_times``).
+    -> summary."""
+    import torch
+
+    from stnerf_tpu_torch.kernels import spacenet_vjp
+    from stnerf_tpu_torch.kernels.fused_field import float32_ring, fused_field, tc_launch
+    from stnerf_tpu_torch.render.pose_device import render_pose_host, tile_grid
+
+    t_phase = time.perf_counter()
+    scene, requests = scene_and_requests(device)
+    K = np.array([[w, 0, w / 2], [0, h, h / 2], [0, 0, 1]], np.float32)
+    K_half = np.diag([0.5, 0.5, 1.0]).astype(np.float32) @ K
+    c2w = np.eye(4, dtype=np.float32)
+    c2w[:3, 3] = [0.0, 0.0, -5.0]
+    near_far = np.array([0.5, 12.0], np.float32)
+    chunks = tile_grid(h, w, chunk, tile_cols)[4] // chunk
+    cfg32 = taekwondo_cfg()
+    cfg32.TPU.COMPUTE_DTYPE = "float32"
+    vp_cfg = view_pose_cfg()
+    models = {"bfloat16": widths_model(taekwondo_cfg(), WIDE_WIDTHS, device),
+              "float32": widths_model(cfg32, WIDE_WIDTHS, device),
+              "view_pose": widths_model(vp_cfg, WIDE_WIDTHS, device, camera_num=8)}
+    with torch.no_grad():  # novel views take camera 0's correction, as phase 7's
+        models["view_pose"].cam_pose.rvec[0] = torch.tensor([0.01, -0.02, 0.015, 1.0])
+        models["view_pose"].cam_pose.tvec[0] = torch.tensor([0.02, -0.01, 0.03])
+    runs = {"bfloat16": requests, "float32": requests[:1], "view_pose": requests[:3]}
+    out = {"widths": list(WIDE_WIDTHS), "h": h, "w": w, "chunk": chunk, "card": card}
+
+    # each field's sample block per route (every launch of the field takes it)
+    m = chunk * 8
+    zeros = {k: torch.zeros((r, m), device=device) for k, r in (("pos", 63), ("dir", 27),
+                                                                 ("time", 21), ("xyz", 3),
+                                                                 ("ids", 1))}
+    blocks = {}
+    for key, model in models.items():
+        for name, net, mnet, mode in (("performer", model.layers_fine[0], model.motion[0],
+                                       "lerp"), ("background", model.bkgd_fine, None, None)):
+            if key == "view_pose":
+                f = pack_dtype(net, None, None, "bfloat16")
+                blocks[f"{key}_{name}"] = spacenet_vjp.tc_launch(
+                    f, zeros["pos"], zeros["dir"],
+                    zeros["time"] if net.spec.use_time else None)["block_samples"]
+            else:
+                f = pack_dtype(net, mnet, mode, key)
+                launch = float32_ring(f, m, 27) if key == "float32" else tc_launch(f, m, 27)
+                blocks[f"{key}_{name}"] = launch["block_samples"]
+    out["block_samples"] = blocks
+    check(blocks == {"bfloat16_performer": 64, "bfloat16_background": 64,
+                     "float32_performer": 32, "float32_background": 32,
+                     "view_pose_performer": 64, "view_pose_background": 64},
+          f"wide slice: unexpected sample blocks {blocks}")
+
+    for key, model in models.items():
+        spec = model.spec
+        lp1 = spec.layer_num + 1
+        fused_field.launches = fused_field.launches_tc = 0
+        spacenet_vjp.spacenet_fwd.launches = spacenet_vjp.spacenet_fwd.launches_tc = 0
+        zero_k6()
+        images, seconds = {}, {}
+        for name, fids, edits in runs[key]:
+            t0 = time.perf_counter()
+            color, depth, c_layers, _ = render_pose_host(model, scene, K, c2w, fids, near_far,
+                                                         edits, h, w, chunk=chunk,
+                                                         tile_cols=tile_cols)
+            seconds[name] = time.perf_counter() - t0
+            check(color.shape == (h, w, 3) and np.isfinite(color).all()
+                  and np.isfinite(depth).all(), f"wide {key} {name}: shape or non-finite")
+            if name == "hide_layer1":
+                check(not c_layers[1].any(), f"wide {key}: hidden layer 1 has a nonzero image")
+            images[name] = color
+        expected = len(runs[key]) * chunks * 2 * lp1
+        counts = {"fused_field": fused_field.launches, "fused_field_tc": fused_field.launches_tc,
+                  "spacenet_fwd": spacenet_vjp.spacenet_fwd.launches,
+                  "spacenet_fwd_tc": spacenet_vjp.spacenet_fwd.launches_tc, **read_k6()}
+        want = {"bfloat16": (expected, expected, 0, 0), "float32": (expected, 0, 0, 0),
+                "view_pose": (0, 0, expected, expected)}[key]
+        check(tuple(counts[k] for k in ("fused_field", "fused_field_tc", "spacenet_fwd",
+                                        "spacenet_fwd_tc")) == want,
+              f"wide {key}: launches {counts}, the renders imply {want}")
+        for name in images:
+            check(name == "plain" or not np.array_equal(images[name], images["plain"]),
+                  f"wide {key} {name}: the edit left the image unchanged")
+        # kernel vs plain on the first request at half the size in each
+        # direction (the plain path at these widths takes 12-18 s a pose)
+        colors, half_s = [], []
+        for plain in (False, True):
+            t0 = time.perf_counter()
+            colors.append(render_pose_host(model, scene, K_half, c2w, [1.0, 1.0, 1.0],
+                                           near_far, requests[0][2], h // 2, w // 2,
+                                           chunk=chunk, tile_cols=tile_cols,
+                                           plain=plain)[0])
+            half_s.append(time.perf_counter() - t0)
+        db = psnr(*colors)
+        check(db >= 40.0, f"wide {key}: kernel pose vs plain pose {db:.1f} dB < 40")
+        out[key] = {"kernel_s_per_pose": seconds, "half_size_kernel_plain_s": half_s,
+                    "kernel_vs_plain_db": db, "launches": counts}
+        print("wide_slice_render", json.dumps({"route": key, **out[key]}), flush=True)
+    out["render_s"] = time.perf_counter() - t_phase
+    out["kernels"] = wide_kernel_times(device, 240_000, 3)
+    for name, row in out["kernels"].items():
+        print("wide_kernels", json.dumps({"route": name, **row, "card": card}), flush=True)
+    out["s"] = time.perf_counter() - t_phase
+    print("wide_slice", json.dumps({k: v for k, v in out.items()
+                                    if k not in ("bfloat16", "float32", "view_pose",
+                                                 "kernels")}), flush=True)
+    return out
 
 
 def phase_view_pose_train(device, bundle, scene) -> dict:
@@ -4136,6 +4471,10 @@ def main():
                                        tile_cols=cfg.TPU.TILE_COLS)
     print(f"phase view_pose_render: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
+    wide_slice = phase_wide_slice(device, h=270, w=480, chunk=cfg.TPU.RENDER_CHUNK,
+                                  tile_cols=cfg.TPU.TILE_COLS, card=card)
+    print(f"phase wide_slice: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
     vp_train = phase_view_pose_train(device, bundle, scene)
     print(f"phase view_pose_train: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
@@ -4166,7 +4505,9 @@ def main():
 
     # the performer field: the main paths' case. K1 and K2 in two routes
     # each: bf16 fields on the tensor-core kernels (every main path), float32
-    # fields on the CUDA-core kernels (phase 5's float32 training step)
+    # fields on the CUDA-core kernels (phase 5's float32 training step). The
+    # backward rows' errors leave out the wide edges, which the backward
+    # refuses
     perf, bwd, k3 = cases[0], bwd_cases[0], k3_cases[0]
     f32_step = train["steps"][1]["launches"]
     vp_f32_step = vp_train["steps"][1]["launches"]  # K3's float32 route
@@ -4197,7 +4538,7 @@ def main():
          "replaces": "stnerf_tpu/kernels/field_vjp.py:192",
          "launches": train["launches"],
          "launches_by_path": {"train": train["launches"]},
-         "max_abs_err": max(c["bf16_max_abs_err"] for c in bwd_cases),
+         "max_abs_err": max(c["bf16_max_abs_err"] for c in bwd_cases if "bf16_max_abs_err" in c),
          "ms": bwd["bfloat16_ms"], "plain_ms": bwd["bfloat16_plain_ms"],
          "bound_ms": bwd["bfloat16_bound_ms"], "bound_by": bwd["bfloat16_bound_by"],
          "library_ms": None},
@@ -4206,7 +4547,7 @@ def main():
          "replaces": "stnerf_tpu/kernels/field_vjp.py:192",
          "launches": f32_step["field_bwd"],
          "launches_by_path": {"train_step_float32": f32_step["field_bwd"]},
-         "max_abs_err": max(c["f32_max_abs_err"] for c in bwd_cases),
+         "max_abs_err": max(c["f32_max_abs_err"] for c in bwd_cases if "f32_max_abs_err" in c),
          "ms": bwd["float32_ms"], "plain_ms": bwd["float32_plain_ms"],
          "bound_ms": bwd["float32_bound_ms"], "bound_by": bwd["float32_bound_by"],
          "route_bound_ms": bwd["float32_route_bound_ms"],
@@ -4235,7 +4576,7 @@ def main():
          "replaces": "stnerf_tpu/kernels/spacenet_vjp.py:238",
          "launches": vp_train["launches_bwd_tc"],
          "launches_by_path": {"train": vp_train["launches_bwd_tc"]},
-         "max_abs_err": max(c["bf16_bwd_max_abs_err"] for c in k3_cases),
+         "max_abs_err": max(c["bf16_bwd_max_abs_err"] for c in k3_cases if "bf16_bwd_max_abs_err" in c),
          "ms": k3["bfloat16_bwd_ms"], "plain_ms": k3["bfloat16_bwd_plain_ms"],
          "bound_ms": k3["bfloat16_bwd_bound_ms"], "bound_by": k3["bfloat16_bwd_bound_by"],
          "library_ms": None},
@@ -4244,7 +4585,7 @@ def main():
          "replaces": "stnerf_tpu/kernels/spacenet_vjp.py:238",
          "launches": vp_f32_step["spacenet_bwd"],
          "launches_by_path": {"train_step_float32": vp_f32_step["spacenet_bwd"]},
-         "max_abs_err": max(c["f32_bwd_max_abs_err"] for c in k3_cases),
+         "max_abs_err": max(c["f32_bwd_max_abs_err"] for c in k3_cases if "f32_bwd_max_abs_err" in c),
          "ms": k3["float32_bwd_ms"], "plain_ms": k3["float32_bwd_plain_ms"],
          "bound_ms": k3["float32_bwd_bound_ms"], "bound_by": k3["float32_bwd_bound_by"],
          "route_bound_ms": k3["float32_bwd_route_bound_ms"],
@@ -4311,7 +4652,19 @@ def main():
                  "legacy_renderer_mesh_background": legacy["mesh_background"]["launches"],
                  **{f"model_axis_{k}": r["launches"] for k, r in model_axis.items()
                     if "launches" in r},
-                 **{f"trained_synthetic_{k}": r for k, r in trained["launches"].items()}}
+                 **{f"trained_synthetic_{k}": r for k, r in trained["launches"].items()},
+                 **{f"wide_slice_{k}": wide_slice[k]["launches"]
+                    for k in ("bfloat16", "float32", "view_pose")}}
+    # the forward routes at the wide slice's widths (M = 240,000, every
+    # sample run): their sample block, times, bound and share
+    for name, route in (("fused_field_tc", "fused_field_bfloat16"),
+                        ("fused_field", "fused_field_float32"),
+                        ("spacenet_fwd_tc", "spacenet_fwd_bfloat16"),
+                        ("spacenet_fwd", "spacenet_fwd_float32")):
+        row = next(r for r in kernels if r["name"] == name)
+        row["wide"] = wide_slice["kernels"][route]
+        if name == "fused_field_tc":
+            row["wide_checked"] = wide_slice["kernels"]["fused_field_bfloat16_checked"]
     for row in kernels:
         for path, launches in new_paths.items():
             row["launches_by_path"][path] = route_launches(launches, row["name"])

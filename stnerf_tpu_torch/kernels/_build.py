@@ -36,12 +36,16 @@ SIGNATURES = {
     # out, then M, dir_rows, width, head, motion_width, freqs,
     # include_input, use_time, n_rgb, motion_mode, and the stream
     "stnerf_fused_field": [_P] * 8 + [_I] * 10 + [_P],
-    # its weight ring for the same 10 ints: a host int[3] of the stages, a
-    # stage's bytes and the block's dynamic shared memory
+    # its launch for the same 10 ints: a host int[4] of the ring's stages, a
+    # stage's bytes, the block's dynamic shared memory and its samples
     "stnerf_fused_field_ring": [_I] * 10 + [_P],
     # bf16 fields (tensor cores): xyz, ids, dir, flags, weights, fragments,
-    # biases, offsets (host), out, then the same 10 ints, and the stream
+    # biases, offsets (host), out, then the same 10 ints, checked, and the
+    # stream
     "stnerf_fused_field_tc": [_P] * 9 + [_I] * 11 + [_P],
+    # its launch for the same 10 ints and checked: a host int[2] of the
+    # block's samples and its dynamic shared memory
+    "stnerf_fused_field_tc_block": [_I] * 11 + [_P],
     # float32: xyz, ids, dir, d_rgb, d_sigma, flags, weights, dx fragments
     # (PackedField.dx_frags), biases, offsets (host), plan (host,
     # f32_bwd.Plan.array), gw, gb, d_xyz, d_dir, workspace, then the same 10
@@ -58,8 +62,8 @@ SIGNATURES = {
     # active, out, then M, pos_rows, dir_rows, time_rows, width, head, n_rgb,
     # and the stream
     "stnerf_spacenet_fwd": [_P] * 8 + [_I] * 7 + [_P],
-    # its weight ring for the same 7 ints: a host int[3] of the stages, a
-    # stage's bytes and the block's dynamic shared memory
+    # its launch for the same 7 ints: a host int[4] of the ring's stages, a
+    # stage's bytes, the block's dynamic shared memory and its samples
     "stnerf_spacenet_ring": [_I] * 7 + [_P],
     # float32: pos, dir, time, d_rgb, d_sigma, weights, dx fragments,
     # biases, offsets (host), plan (host), active, gw, gb, d_pos, d_dir,
@@ -68,6 +72,9 @@ SIGNATURES = {
     # bf16 fields (tensor cores): pos, dir, time, weights, fragments, biases,
     # offsets (host), active, out, then the same 7 ints, and the stream
     "stnerf_spacenet_fwd_tc": [_P] * 9 + [_I] * 7 + [_P],
+    # its launch for the same 7 ints: a host int[2] of the block's samples
+    # and its dynamic shared memory
+    "stnerf_spacenet_fwd_tc_block": [_I] * 7 + [_P],
     # the same 7 ints, the packed weights' and biases' element counts, then
     # a host int64 for the workspace's bytes
     "stnerf_spacenet_bwd_tc_workspace": [_I] * 9 + [_P],

@@ -428,7 +428,8 @@ struct Blk {
       case 256: dense_t<8>(W(s0), in0, k0, W(s1), in1, k1, W(s2), in2, k2, Bi(bslot), out, m); break;
       case 128: dense_t<4>(W(s0), in0, k0, W(s1), in1, k1, W(s2), in2, k2, Bi(bslot), out, m); break;
       case 64: dense_t<2>(W(s0), in0, k0, W(s1), in1, k1, W(s2), in2, k2, Bi(bslot), out, m); break;
-      default: dense_t<1>(W(s0), in0, k0, W(s1), in1, k1, W(s2), in2, k2, Bi(bslot), out, m); break;
+      case 32: dense_t<1>(W(s0), in0, k0, W(s1), in1, k1, W(s2), in2, k2, Bi(bslot), out, m); break;
+      default: __trap();  // no backward width (bwd_width): the launchers refuse it
     }
     sync_async();
     save(r, out, O);
@@ -460,7 +461,8 @@ struct Blk {
         case 256: dx_small_t<8>(W(slot), O, dy, epi); break;
         case 128: dx_small_t<4>(W(slot), O, dy, epi); break;
         case 64: dx_small_t<2>(W(slot), O, dy, epi); break;
-        default: dx_small_t<1>(W(slot), O, dy, epi); break;
+        case 32: dx_small_t<1>(W(slot), O, dy, epi); break;
+        default: __trap();  // no backward width (bwd_width): the launchers refuse it
       }
     }
     sync_async();

@@ -208,8 +208,8 @@ extern "C" int stnerf_field_bwd(const void* xyz, const void* ids, const void* di
                                 int motion_width, int freqs, int include_input, int use_time,
                                 int n_rgb, int motion_mode, int n_w, int n_b, void* stream) {
   Plan P;
-  if (M <= 0 || dir_rows <= 0 || !kernel_width(width) || !kernel_width(head) ||
-      (motion_mode != 0 && !kernel_width(motion_width)) || (n_rgb != 2 && n_rgb != 4) ||
+  if (M <= 0 || dir_rows <= 0 || !bwd_width(width) || !bwd_width(head) ||
+      (motion_mode != 0 && !bwd_width(motion_width)) || (n_rgb != 2 && n_rgb != 4) ||
       motion_mode < 0 || motion_mode > 2 || n_w <= 0 || n_b <= 0 ||
       !read_plan(static_cast<const int*>(plan), P)) {
     return static_cast<int>(cudaErrorInvalidValue);

@@ -220,8 +220,8 @@ field_bwd_tc_kernel(const float* __restrict__ xyz, const float* __restrict__ ids
 bool make_layout(Layout& L, const int* off, int M, int dir_rows, int width, int head,
                  int motion_width, int freqs, int include_input, int use_time, int n_rgb,
                  int motion_mode, int n_w, int n_b, int sms) {
-  if (M <= 0 || dir_rows <= 0 || !kernel_width(width) || !kernel_width(head) ||
-      (motion_mode != 0 && !kernel_width(motion_width)) || (n_rgb != 2 && n_rgb != 4) ||
+  if (M <= 0 || dir_rows <= 0 || !bwd_width(width) || !bwd_width(head) ||
+      (motion_mode != 0 && !bwd_width(motion_width)) || (n_rgb != 2 && n_rgb != 4) ||
       motion_mode < 0 || motion_mode > 2 || n_w <= 0 || n_b <= 0) {
     return false;
   }

@@ -14,15 +14,19 @@
 //
 // The design (tc_blocks.cuh has the building blocks):
 //   * A block covers BM = 128 samples, two tiles of the skip flags, with two
-//     warpgroups. Each weight byte fetched from L2 serves 128 samples.
+//     warpgroups. Each weight byte fetched from L2 serves 128 samples. A
+//     layer wider than 256 takes a smaller block, chosen per launch: the
+//     largest of 128, 64 and 32 samples whose tiles fit shared memory (64
+//     at 512, 32 at 1024); such a block covers one flag tile or half of
+//     one, the flag of sample m staying flags[m / 64].
 //   * Every layer of width >= 32 is a wgmma product: the weights are the A
 //     operand, loaded from L2 straight into registers in fragment order
 //     (gathered on the host by fused_field.py PackedField.tc, zero-padded to 64
 //     output rows and 16 inputs), the activations are the B operand, bf16
 //     in shared memory (two ping-pong tiles of up to 256 x 128, 64 KB
-//     each). The epilogue adds the bias, applies the ReLU, rounds to bf16
-//     and writes the next tile; fence.proxy.async and a barrier separate
-//     the layers.
+//     each; 512 x 64 and 1024 x 32 at the wider widths). The epilogue
+//     adds the bias, applies the ReLU, rounds to bf16 and writes the next
+//     tile; fence.proxy.async and a barrier separate the layers.
 //   * The encodings are padded with zero rows to a multiple of 16 (pos
 //     63 -> 64, dir 27 -> 32, time 21 -> 32, motion 84 -> 96), as their
 //     weights are, so no unset value reaches a product.
@@ -47,7 +51,6 @@
 
 namespace {
 
-constexpr int BM = 128;        // samples per block
 constexpr int FLAG_TILE = 64;  // samples per skip flag (fused_field.py TILE)
 
 struct Params {
@@ -58,7 +61,9 @@ struct Params {
   int rows_a, pos_rows, time_rows, menc_rows, pos_pad, dir_pad, time_pad, menc_pad;
 };
 
-template <bool CHECKED>
+// One block of BM samples: 128 (two skip-flag tiles), or 64 or 32 (one
+// tile or half of one) for layers wider than 256.
+template <int BM, bool CHECKED>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 fused_field_tc_kernel(const float* __restrict__ xyz, const float* __restrict__ ids,
                       const float* __restrict__ dir, const int* __restrict__ flags,
@@ -68,10 +73,11 @@ fused_field_tc_kernel(const float* __restrict__ xyz, const float* __restrict__ i
   const int t = threadIdx.x;
   const int m0 = blockIdx.x * BM;
   const int M = p.M;
-  int on0 = 1, on1 = m0 + FLAG_TILE < M;
+  constexpr bool TWO = BM > FLAG_TILE;  // the block covers two flag tiles
+  int on0 = 1, on1 = TWO && m0 + FLAG_TILE < M;
   if (flags != nullptr) {
     on0 = flags[m0 / FLAG_TILE];
-    on1 = on1 && flags[m0 / FLAG_TILE + 1];
+    if (TWO) on1 = on1 && flags[m0 / FLAG_TILE + 1];
   }
   if (!on0 && !on1) {
     for (int i = t; i < 4 * BM; i += TC_THREADS) {
@@ -82,7 +88,7 @@ fused_field_tc_kernel(const float* __restrict__ xyz, const float* __restrict__ i
   }
   // the computed columns: both tiles, or the one whose flag is set
   const int n_lo = on0 ? 0 : FLAG_TILE;
-  const int n_cnt = on0 && on1 ? BM : FLAG_TILE;
+  const int n_cnt = !TWO ? BM : on0 && on1 ? BM : FLAG_TILE;
 
   unsigned short* A = reinterpret_cast<unsigned short*>(smem);  // rows_a x BM
   unsigned short* B = A + p.rows_a * BM;                         // rows_a x BM
@@ -205,30 +211,35 @@ fused_field_tc_kernel(const float* __restrict__ xyz, const float* __restrict__ i
 
 int round16(int v) { return (v + 15) / 16 * 16; }
 
-}  // namespace
+using Kernel = decltype(&fused_field_tc_kernel<128, false>);
 
-// C entry point. Pointers are device pointers except `offsets`, a host array
-// of N_W weight, N_B bias and N_W forward-fragment offsets (-1 = absent
-// operand): weights are the packed bf16 buffer (fused_field.py pack_field),
-// frags its PackedField.tc fragments. `checked` != 0 recomputes the near-tie
-// outputs (the training forward). Returns the CUDA error of the launch (0 =
-// launched).
-extern "C" int stnerf_fused_field_tc(const void* xyz, const void* ids, const void* dir,
-                                     const void* flags, const void* weights, const void* frags,
-                                     const void* biases, const void* offsets, void* out, int M,
-                                     int dir_rows, int width, int head, int motion_width,
-                                     int freqs, int include_input, int use_time, int n_rgb,
-                                     int motion_mode, int checked, void* stream) {
-  if (M <= 0 || dir_rows <= 0 || !kernel_width(width) || !kernel_width(head) ||
-      (motion_mode != 0 && !kernel_width(motion_width)) || (n_rgb != 2 && n_rgb != 4) ||
-      motion_mode < 0 || motion_mode > 2) {
-    return static_cast<int>(cudaErrorInvalidValue);
+Kernel kernel_for(int bm, bool checked) {
+  if (bm == 128) {
+    return checked ? fused_field_tc_kernel<128, true> : fused_field_tc_kernel<128, false>;
   }
-  Params p;
-  const int* off = static_cast<const int*>(offsets);
-  for (int i = 0; i < N_W; ++i) p.w_off[i] = off[i];
-  for (int i = 0; i < N_B; ++i) p.b_off[i] = off[N_W + i];
-  for (int i = 0; i < N_W; ++i) p.f_off[i] = off[N_W + N_B + i];
+  if (bm == 64) {
+    return checked ? fused_field_tc_kernel<64, true> : fused_field_tc_kernel<64, false>;
+  }
+  return checked ? fused_field_tc_kernel<32, true> : fused_field_tc_kernel<32, false>;
+}
+
+// Params of a launch with the C entry point's ints, its block and the
+// block's dynamic shared memory: the largest block of 128, 64 or 32 samples
+// whose tiles fit the card's shared memory (128 at every width up to 256);
+// false for shapes the kernel does not take.
+bool configure(Params& p, const int* off, int M, int dir_rows, int width, int head,
+               int motion_width, int freqs, int include_input, int use_time, int n_rgb,
+               int motion_mode, int checked, int* bm, size_t* smem) {
+  if (M <= 0 || dir_rows <= 0 || !fwd_width(width) || !fwd_width(head) ||
+      (motion_mode != 0 && !fwd_width(motion_width)) || (n_rgb != 2 && n_rgb != 4) ||
+      motion_mode < 0 || motion_mode > 2) {
+    return false;
+  }
+  if (off != nullptr) {
+    for (int i = 0; i < N_W; ++i) p.w_off[i] = off[i];
+    for (int i = 0; i < N_B; ++i) p.b_off[i] = off[N_W + i];
+    for (int i = 0; i < N_W; ++i) p.f_off[i] = off[N_W + N_B + i];
+  }
   const int per = (include_input ? 1 : 0) + 2 * freqs;
   p.M = M;
   p.dir_rows = dir_rows;
@@ -253,18 +264,75 @@ extern "C" int stnerf_fused_field_tc(const void* xyz, const void* ids, const voi
     rows_a = rows_a > p.menc_pad ? rows_a : p.menc_pad;
   }
   p.rows_a = rows_a;
-  // the act tiles, the encodings, the float32 rows; checked: the mask and lists
-  size_t smem = static_cast<size_t>(2 * rows_a + p.pos_pad + p.dir_pad + p.time_pad) * BM * 2 +
-                static_cast<size_t>(8) * BM * sizeof(float);
-  if (checked) smem += static_cast<size_t>(rows_a) * BM / 8 + (TC_THREADS / 32) * LIST * 2;
-  const auto kernel = checked ? &fused_field_tc_kernel<true> : &fused_field_tc_kernel<false>;
+  int dev = 0, optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
+          cudaSuccess) {
+    return false;
+  }
+  for (const int b : {128, 64, 32}) {
+    // the act tiles, the encodings, the float32 rows; checked: the mask and lists
+    size_t bytes = static_cast<size_t>(2 * rows_a + p.pos_pad + p.dir_pad + p.time_pad) * b * 2 +
+                   static_cast<size_t>(8) * b * sizeof(float);
+    if (checked) bytes += static_cast<size_t>(rows_a) * b / 8 + (TC_THREADS / 32) * LIST * 2;
+    if (bytes <= static_cast<size_t>(optin)) {
+      *bm = b;
+      *smem = bytes;
+      return true;
+    }
+  }
+  return false;
+}
+
+}  // namespace
+
+// C entry point. Pointers are device pointers except `offsets`, a host array
+// of N_W weight, N_B bias and N_W forward-fragment offsets (-1 = absent
+// operand): weights are the packed bf16 buffer (fused_field.py pack_field),
+// frags its PackedField.tc fragments. `checked` != 0 recomputes the near-tie
+// outputs (the training forward). Returns the CUDA error of the launch (0 =
+// launched).
+extern "C" int stnerf_fused_field_tc(const void* xyz, const void* ids, const void* dir,
+                                     const void* flags, const void* weights, const void* frags,
+                                     const void* biases, const void* offsets, void* out, int M,
+                                     int dir_rows, int width, int head, int motion_width,
+                                     int freqs, int include_input, int use_time, int n_rgb,
+                                     int motion_mode, int checked, void* stream) {
+  Params p;
+  int bm = 0;
+  size_t smem = 0;
+  if (!configure(p, static_cast<const int*>(offsets), M, dir_rows, width, head, motion_width,
+                 freqs, include_input, use_time, n_rgb, motion_mode, checked, &bm, &smem)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Kernel kernel = kernel_for(bm, checked != 0);
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<(M + BM - 1) / BM, TC_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<(M + bm - 1) / bm, TC_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(xyz), static_cast<const float*>(ids),
       static_cast<const float*>(dir), static_cast<const int*>(flags),
       static_cast<const unsigned short*>(weights), static_cast<const uint4*>(frags),
       static_cast<const float*>(biases), static_cast<float*>(out), p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The launch of stnerf_fused_field_tc with the same ints: out[0] the
+// block's samples, out[1] its dynamic shared memory. Returns a CUDA error
+// (0 = the launch would be configured).
+extern "C" int stnerf_fused_field_tc_block(int M, int dir_rows, int width, int head,
+                                           int motion_width, int freqs, int include_input,
+                                           int use_time, int n_rgb, int motion_mode, int checked,
+                                           void* out) {
+  Params p;
+  int bm = 0;
+  size_t smem = 0;
+  if (!configure(p, nullptr, M, dir_rows, width, head, motion_width, freqs, include_input,
+                 use_time, n_rgb, motion_mode, checked, &bm, &smem)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int* o = static_cast<int*>(out);
+  o[0] = bm;
+  o[1] = static_cast<int>(smem);
+  return 0;
 }

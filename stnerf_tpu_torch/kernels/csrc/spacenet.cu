@@ -36,19 +36,20 @@
 //
 // The forward: K1's float32 kernel (fused_field.cu) without the motion net
 // and without the in-kernel encoding, on the same weight ring (w_ring.cuh)
-// and the same SpaceNet layers (ring_dense.cuh): 64 samples a block, 8
-// consumer warps of CUDA-core FMA loops and a producer warp that
-// bulk-copies every layer's weights in 32 KB slabs into the stages the
-// activations leave (2 at the taekwondo widths 256/128 with time: 160,512
-// bytes of activations; up to MAX_STAGES at narrow widths), one block per
-// SM. Each output keeps the chain acc = fmaf(W[k, o], x[k, m], acc) from 0
-// over k in order, segment by segment, + bias, ReLU on hidden layers (the
-// 1- and 3-wide outputs one thread per (output, sample)), which the
-// backward's recompute (f32_bwd.cuh, fwd_seg) repeats and whose ReLU masks
-// it keeps as bits: no tensor cores, no reordering. The ragged tail of M
-// reads zeros and is not written; a block whose `active` flag reads 0
-// writes zeros and exits before the ring is set up, so no bulk copy is in
-// flight when it exits.
+// and the same SpaceNet layers (ring_dense.cuh): 64 samples a block (32 at
+// widths up to 512, 16 up to 1024: the largest block whose activations
+// leave two ring stages, chosen per launch), 8 consumer warps of CUDA-core
+// FMA loops and a producer warp that bulk-copies every layer's weights in
+// 32 KB slabs into the stages the activations leave (2 at the taekwondo
+// widths 256/128 with time: 160,512 bytes of activations; up to MAX_STAGES
+// at narrow widths), one block per SM. Each output keeps the chain acc =
+// fmaf(W[k, o], x[k, m], acc) from 0 over k in order, segment by segment,
+// + bias, ReLU on hidden layers (the 1- and 3-wide outputs one thread per
+// (output, sample)), which the backward's recompute (f32_bwd.cuh, fwd_seg)
+// repeats and whose ReLU masks it keeps as bits: no tensor cores, no
+// reordering. The ragged tail of M reads zeros and is not written; a block
+// whose `active` flag reads 0 writes zeros and exits before the ring is set
+// up, so no bulk copy is in flight when it exits.
 // The backward is f32_bwd.cuh's three passes, shared with K2's float32
 // backward (field_bwd.cu): spacenet_bwd_kernel is pass 1 (the encodings'
 // load, then spacenet_block), writing each layer's x and dy to the block's
@@ -79,6 +80,7 @@ struct Params {
   int M, pos_rows, dir_rows, time_rows, width, head, n_rgb;
   int rows_a;
   int ring_off, stages;  // the forward's ring: its first float in dynamic shared memory
+  int bm;                // the forward's samples per block
 };
 
 // rows x BM values of a planar (rows, M) float32 input from sample m0 on
@@ -103,12 +105,13 @@ __device__ void zero_rows(float* __restrict__ dst, int rows, int M, int m0, int 
   }
 }
 
+// One block of BM samples (64, 32 or 16: Params.bm)
+template <int BM>
 __global__ void __launch_bounds__(wring::BLOCK, 1)
 spacenet_fwd_kernel(const float* __restrict__ pos, const float* __restrict__ dir,
                     const float* __restrict__ time, const float* __restrict__ wts,
                     const float* __restrict__ bias, const int* __restrict__ active,
                     float* __restrict__ out, const Params p) {
-  constexpr int BM = wring::BM;
   __shared__ wring::Ctl ring;
   const int t = threadIdx.x;
   const int m0 = blockIdx.x * BM;
@@ -141,11 +144,18 @@ spacenet_fwd_kernel(const float* __restrict__ pos, const float* __restrict__ dir
   load_rows<BM>(dir, p.dir_rows, p.M, m0, true, sm + s.dir);
   if (p.time_rows) load_rows<BM>(time, p.time_rows, p.M, m0, true, sm + s.time);
   wring::sync_consumers();
-  wring::spacenet_layers(ring, rp, bias, p, s);
+  wring::spacenet_layers<BM, false>(ring, rp, bias, p, s);
   for (int i = t; i < 4 * BM; i += THREADS) {
     const int gm = m0 + i % BM;
     if (gm < p.M) out[static_cast<size_t>(i / BM) * p.M + gm] = sm[s.out + i];
   }
+}
+
+using FwdKernel = decltype(&spacenet_fwd_kernel<64>);
+
+FwdKernel fwd_kernel_for(int bm) {
+  return bm == 64 ? spacenet_fwd_kernel<64> : bm == 32 ? spacenet_fwd_kernel<32>
+                                                       : spacenet_fwd_kernel<16>;
 }
 
 // Pass 1 of the backward for the blocks b0 + blockIdx.x (f32_bwd.cuh)
@@ -187,11 +197,12 @@ spacenet_bwd_kernel(const float* __restrict__ pos, const float* __restrict__ dir
 
 int imax(int a, int b) { return a > b ? a : b; }
 
-// -> false for shapes the kernels do not take
+// -> false for shapes the forward kernel does not take (the backward also
+// checks bwd_width)
 bool fill_params(Params& p, const void* offsets, int M, int pos_rows, int dir_rows,
                  int time_rows, int width, int head, int n_rgb) {
-  if (M <= 0 || pos_rows <= 0 || dir_rows <= 0 || time_rows < 0 || !kernel_width(width) ||
-      !kernel_width(head) || (n_rgb != 2 && n_rgb != 4)) {
+  if (M <= 0 || pos_rows <= 0 || dir_rows <= 0 || time_rows < 0 || !fwd_width(width) ||
+      !fwd_width(head) || (n_rgb != 2 && n_rgb != 4)) {
     return false;
   }
   if (offsets != nullptr) {
@@ -210,23 +221,35 @@ bool fill_params(Params& p, const void* offsets, int M, int pos_rows, int dir_ro
   return true;
 }
 
-// The forward's ring for filled Params: its stages and the block's dynamic
-// shared memory; false if no two stages fit beside the activations.
+// The forward's block and ring for filled Params: the largest block of 64,
+// 32 or 16 samples whose activations leave room for two ring stages (64 at
+// every width up to 256), its stages and the block's dynamic shared
+// memory; false if no block fits.
 bool configure_fwd(Params& p, size_t* smem) {
-  // the activations, then the ring at a 128-byte boundary (BM floats are 256)
-  p.ring_off = (4 + p.pos_rows + p.dir_rows + p.time_rows + 2 * p.rows_a) * wring::BM;
   int dev = 0, optin = 0;
-  cudaFuncAttributes attr;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
-          cudaSuccess ||
-      cudaFuncGetAttributes(&attr, spacenet_fwd_kernel) != cudaSuccess) {
+          cudaSuccess) {
     return false;
   }
-  const size_t act = static_cast<size_t>(p.ring_off) * sizeof(float);
-  p.stages = wring::stages_for(act, static_cast<size_t>(optin) - attr.sharedSizeBytes);
-  *smem = act + static_cast<size_t>(p.stages) * wring::STAGE_FLOATS * sizeof(float);
-  return p.stages >= 2;
+  for (const int bm : {64, 32, 16}) {
+    cudaFuncAttributes attr;
+    if (p.rows_a > wring::max_width(bm) ||
+        cudaFuncGetAttributes(&attr, fwd_kernel_for(bm)) != cudaSuccess) {
+      continue;
+    }
+    // the activations, then the ring at a 128-byte boundary
+    const int rows = 4 + p.pos_rows + p.dir_rows + p.time_rows + 2 * p.rows_a;
+    p.ring_off = (rows * bm + 31) / 32 * 32;
+    const size_t act = static_cast<size_t>(p.ring_off) * sizeof(float);
+    p.stages = wring::stages_for(act, static_cast<size_t>(optin) - attr.sharedSizeBytes);
+    if (p.stages >= 2) {
+      p.bm = bm;
+      *smem = act + static_cast<size_t>(p.stages) * wring::STAGE_FLOATS * sizeof(float);
+      return true;
+    }
+  }
+  return false;
 }
 
 }  // namespace
@@ -246,12 +269,12 @@ extern "C" int stnerf_spacenet_fwd(const void* pos, const void* dir, const void*
       !configure_fwd(p, &smem) || reinterpret_cast<uintptr_t>(weights) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t e = cudaFuncSetAttribute(spacenet_fwd_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const FwdKernel kernel = fwd_kernel_for(p.bm);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((M + wring::BM - 1) / wring::BM);
-  spacenet_fwd_kernel<<<grid, wring::BLOCK, smem, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((M + p.bm - 1) / p.bm);
+  kernel<<<grid, wring::BLOCK, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(pos), static_cast<const float*>(dir),
       static_cast<const float*>(time), static_cast<const float*>(weights),
       static_cast<const float*>(biases), static_cast<const int*>(active),
@@ -259,9 +282,10 @@ extern "C" int stnerf_spacenet_fwd(const void* pos, const void* dir, const void*
   return static_cast<int>(cudaGetLastError());
 }
 
-// The forward's weight ring for the same ints as stnerf_spacenet_fwd: out[0]
-// its stages, out[1] a stage's bytes, out[2] the block's dynamic shared
-// memory. Returns a CUDA error (0 = the launch would be configured).
+// The forward's launch for the same ints as stnerf_spacenet_fwd: out[0] the
+// ring's stages, out[1] a stage's bytes, out[2] the block's dynamic shared
+// memory, out[3] its samples. Returns a CUDA error (0 = the launch would be
+// configured).
 extern "C" int stnerf_spacenet_ring(int M, int pos_rows, int dir_rows, int time_rows, int width,
                                     int head, int n_rgb, void* out) {
   Params p;
@@ -274,6 +298,7 @@ extern "C" int stnerf_spacenet_ring(int M, int pos_rows, int dir_rows, int time_
   o[0] = p.stages;
   o[1] = wring::STAGE_FLOATS * static_cast<int>(sizeof(float));
   o[2] = static_cast<int>(smem);
+  o[3] = p.bm;
   return 0;
 }
 
@@ -292,7 +317,8 @@ extern "C" int stnerf_spacenet_bwd(const void* pos, const void* dir, const void*
   Params fp;
   Plan P;
   if (!fill_params(fp, offsets, M, pos_rows, dir_rows, time_rows, width, head, n_rgb) ||
-      n_w <= 0 || n_b <= 0 || !read_plan(static_cast<const int*>(plan), P)) {
+      !bwd_width(width) || !bwd_width(head) || n_w <= 0 || n_b <= 0 ||
+      !read_plan(static_cast<const int*>(plan), P)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   BwdParams p;

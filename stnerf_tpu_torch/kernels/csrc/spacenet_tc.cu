@@ -38,8 +38,10 @@
 // The design is K1's and K2's (fused_field_tc.cu, field_bwd_tc.cu) without
 // the motion net and the in-kernel encoding; tc_blocks.cuh has the products
 // and tc_bwd.cuh the backward parts shared with K2:
-//   * forward, a block of two warpgroups per FWD_BM = 128 samples: every
-//     layer of width >= 32 a wgmma product, the weights as register A
+//   * forward, a block of two warpgroups per 128 samples (64 at widths up
+//     to 512, 32 up to 1024: the largest block whose tiles fit shared
+//     memory, chosen per launch by fwd_block): every layer of width >= 32
+//     a wgmma product, the weights as register A
 //     fragments from L2 (PackedField.tc), the activations the B operand in
 //     shared memory, bias, ReLU and the rounding to bf16 in the epilogue;
 //     the outputs whose sum lies near a bf16 rounding tie recomputed in
@@ -75,8 +77,6 @@
 
 namespace {
 
-constexpr int FWD_BM = 128;  // samples per forward block
-
 // ------------------------------------------------------------------ forward
 
 // rows [0, rows) of a planar (rows, M) float32 input from sample m0 on,
@@ -103,12 +103,14 @@ __device__ void zero_out(float* __restrict__ dst, int rows, int M, int m0) {
   }
 }
 
+// One forward block of TB samples: 128, or 64 or 32 for layers wider than
+// 256 (fwd_block)
+template <int TB>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 spacenet_fwd_tc_kernel(const float* __restrict__ pos, const float* __restrict__ dir,
                        const float* __restrict__ time, const unsigned short* __restrict__ wts,
                        const uint4* __restrict__ frags, const float* __restrict__ bias,
                        const int* __restrict__ active, float* __restrict__ out, const Params p) {
-  constexpr int TB = FWD_BM;
   extern __shared__ __align__(128) unsigned char smem[];
   const int m0 = blockIdx.x * TB;
   const int M = p.M;
@@ -213,12 +215,13 @@ spacenet_bwd_tc_kernel(const float* __restrict__ pos, const float* __restrict__ 
 }
 
 // The shapes into p (both kernels' parameters but the record layout);
-// -> false for shapes the kernels do not take. `off` as the C entry points'
-// (null: only the sizes are wanted).
+// -> false for shapes the forward kernel does not take (the backward's
+// make_layout also checks bwd_width). `off` as the C entry points' (null:
+// only the sizes are wanted).
 bool fill_params(Params& p, const int* off, int M, int pos_rows, int dir_rows, int time_rows,
                  int width, int head, int n_rgb) {
-  if (M <= 0 || pos_rows <= 0 || dir_rows <= 0 || time_rows < 0 || !kernel_width(width) ||
-      !kernel_width(head) || (n_rgb != 2 && n_rgb != 4)) {
+  if (M <= 0 || pos_rows <= 0 || dir_rows <= 0 || time_rows < 0 || !fwd_width(width) ||
+      !fwd_width(head) || (n_rgb != 2 && n_rgb != 4)) {
     return false;
   }
   set_offsets(p, off);
@@ -243,7 +246,7 @@ bool fill_params(Params& p, const int* off, int M, int pos_rows, int dir_rows, i
 bool make_layout(Layout& L, const int* off, int M, int pos_rows, int dir_rows, int time_rows,
                  int width, int head, int n_rgb, int n_w, int n_b) {
   Params& p = L.p;
-  if (n_w <= 0 || n_b <= 0 ||
+  if (n_w <= 0 || n_b <= 0 || !bwd_width(width) || !bwd_width(head) ||
       !fill_params(p, off, M, pos_rows, dir_rows, time_rows, width, head, n_rgb)) {
     return false;
   }
@@ -251,6 +254,40 @@ bool make_layout(Layout& L, const int* off, int M, int pos_rows, int dir_rows, i
            static_cast<size_t>(4 + 4 + pos_rows) * BM * sizeof(float);
   finish_layout(L, n_w, n_b, 0, sm_count());
   return true;
+}
+
+using FwdKernel = decltype(&spacenet_fwd_tc_kernel<128>);
+
+FwdKernel fwd_kernel_for(int tb) {
+  return tb == 128 ? spacenet_fwd_tc_kernel<128>
+                   : tb == 64 ? spacenet_fwd_tc_kernel<64> : spacenet_fwd_tc_kernel<32>;
+}
+
+// The forward's block for filled Params and its dynamic shared memory: the
+// largest block of 128, 64 or 32 samples whose tiles fit the card's shared
+// memory (128 at every width up to 256): two ping-pong tiles as wide as the
+// wider of trunk and head, the encodings, the float32 output rows, the
+// recompute's mask and lists. False if none fits.
+bool fwd_block(const Params& p, int* tb, size_t* smem) {
+  int dev = 0, optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
+          cudaSuccess) {
+    return false;
+  }
+  const int rows_a = imax(p.width, p.head);
+  for (const int b : {128, 64, 32}) {
+    const size_t bytes =
+        static_cast<size_t>(2 * rows_a + p.pos_pad + p.dir_pad + p.time_pad) * b * 2 +
+        static_cast<size_t>(4) * b * sizeof(float) + static_cast<size_t>(rows_a) * b / 8 +
+        static_cast<size_t>(TC_THREADS / 32) * LIST * 2;
+    if (bytes <= static_cast<size_t>(optin)) {
+      *tb = b;
+      *smem = bytes;
+      return true;
+    }
+  }
+  return false;
 }
 
 }  // namespace
@@ -267,28 +304,41 @@ extern "C" int stnerf_spacenet_fwd_tc(const void* pos, const void* dir, const vo
                                       int dir_rows, int time_rows, int width, int head,
                                       int n_rgb, void* stream) {
   Params p{};
+  int tb = 0;
+  size_t smem = 0;
   if (!fill_params(p, static_cast<const int*>(offsets), M, pos_rows, dir_rows, time_rows, width,
-                   head, n_rgb)) {
+                   head, n_rgb) ||
+      !fwd_block(p, &tb, &smem)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  // two ping-pong tiles as wide as the wider of trunk and head, the
-  // encodings, the float32 output rows, the recompute's mask and lists
-  const int rows_a = imax(width, head);
-  const size_t smem =
-      static_cast<size_t>(2 * rows_a + p.pos_pad + p.dir_pad + p.time_pad) * FWD_BM * 2 +
-      static_cast<size_t>(4) * FWD_BM * sizeof(float) + static_cast<size_t>(rows_a) * FWD_BM / 8 +
-      static_cast<size_t>(TC_THREADS / 32) * LIST * 2;
-  cudaError_t e = cudaFuncSetAttribute(spacenet_fwd_tc_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const FwdKernel kernel = fwd_kernel_for(tb);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  spacenet_fwd_tc_kernel<<<(M + FWD_BM - 1) / FWD_BM, TC_THREADS, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<(M + tb - 1) / tb, TC_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(pos), static_cast<const float*>(dir),
       static_cast<const float*>(time), static_cast<const unsigned short*>(weights),
       static_cast<const uint4*>(frags), static_cast<const float*>(biases),
       static_cast<const int*>(active), static_cast<float*>(out), p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The forward's launch for the same ints as stnerf_spacenet_fwd_tc: out[0]
+// the block's samples, out[1] its dynamic shared memory. Returns a CUDA
+// error (0 = the launch would be configured).
+extern "C" int stnerf_spacenet_fwd_tc_block(int M, int pos_rows, int dir_rows, int time_rows,
+                                            int width, int head, int n_rgb, void* out) {
+  Params p{};
+  int tb = 0;
+  size_t smem = 0;
+  if (!fill_params(p, nullptr, M, pos_rows, dir_rows, time_rows, width, head, n_rgb) ||
+      !fwd_block(p, &tb, &smem)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int* o = static_cast<int*>(out);
+  o[0] = tb;
+  o[1] = static_cast<int>(smem);
+  return 0;
 }
 
 // The bytes of workspace stnerf_spacenet_bwd_tc needs for these shapes, into

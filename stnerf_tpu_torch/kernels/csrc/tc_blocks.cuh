@@ -275,13 +275,16 @@ __device__ void tc_product_n(const Seg* segs, int nseg, int rows, int n_lo, Epi&
   }
 }
 
+// n_cnt is BM or, in a block of two skip-flag tiles (BM >= 64), half of it
 template <int BM, class Epi>
 __device__ void tc_product(const Seg* segs, int nseg, int rows, int n_lo, int n_cnt, Epi epi) {
-  if (n_cnt == BM) {
-    tc_product_n<BM, BM>(segs, nseg, rows, n_lo, epi);
-  } else {
-    tc_product_n<BM, BM / 2>(segs, nseg, rows, n_lo, epi);
+  if constexpr (BM >= 64) {
+    if (n_cnt != BM) {
+      tc_product_n<BM, BM / 2>(segs, nseg, rows, n_lo, epi);
+      return;
+    }
   }
+  tc_product_n<BM, BM>(segs, nseg, rows, n_lo, epi);
 }
 
 // out = round_bf16(relu(sum_s W_s^T x_s + bias)), rows < O, into an act tile

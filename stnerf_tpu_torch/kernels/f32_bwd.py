@@ -35,7 +35,8 @@ import functools
 import numpy as np
 import torch
 
-from .fused_field import B_SLOTS, TILE, W_SLOTS, PackedField
+from .fused_field import (B_SLOTS, TILE, W_SLOTS, PackedField, check_backward_widths,
+                          field_widths)
 
 # the record's tiles, in csrc/f32_bwd.cuh's enum Tile order
 REC_TILES = ("hs0", "hs1", "hs2", "dhs0", "dhs1", "dhs2", "g3rgb",
@@ -186,6 +187,7 @@ def make_plan(field: PackedField, m: int, sms: int) -> Plan:
     multiprocessors."""
     if m <= 0 or sms <= 0:
         raise ValueError(f"make_plan needs m > 0 and sms > 0, got {m}, {sms}")
+    check_backward_widths(field_widths(field))
     rows = record_rows(field)
     tile = np.full(len(REC_TILES), -1, np.int32)
     rec_floats = 0

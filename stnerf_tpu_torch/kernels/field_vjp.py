@@ -36,7 +36,7 @@ import torch
 
 from ..ops.rounding import round_to
 from . import f32_bwd
-from .fused_field import (TILE, PackedField, _check_inputs, _check_kernel_support,
+from .fused_field import (TILE, PackedField, _check_inputs, check_backward_support,
                           _encode, _field_linears, _linear_grads, fused_field,
                           fused_field_reference, kernel_ints, pack_field,
                           prepare_kernel_params_planar, prepare_motion_params_planar)
@@ -181,7 +181,7 @@ def field_bwd(field: PackedField, xyz: torch.Tensor, ids: torch.Tensor,
         return field_bwd_reference(field, xyz, ids, dir_enc, d_rgb, d_sigma, tile_flags)
     if xyz.device.type != "cuda":
         raise ValueError(f"field_bwd runs on cpu or cuda, not {xyz.device}")
-    _check_kernel_support(field)
+    check_backward_support(field)
     from ._build import load_library
 
     lib = load_library()
@@ -241,7 +241,7 @@ field_bwd.launches_tc = 0
 
 class _TrainableField(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, net, motion, motion_mode, compute_dtype, plain, xyz, ids,
+    def forward(ctx, net, motion, motion_mode, compute_dtype, plain, grad, xyz, ids,
                 dir_enc, tile_flags, *params):
         dt = torch.bfloat16 if compute_dtype == "bfloat16" else torch.float32
         field = pack_field(prepare_kernel_params_planar(net, dt),
@@ -250,6 +250,8 @@ class _TrainableField(torch.autograd.Function):
         if plain:
             rgb, sigma = fused_field_reference(field, xyz, ids, dir_enc, tile_flags)
         else:  # rounded as the plain version rounds near bf16 ties
+            if grad and xyz.device.type == "cuda":
+                check_backward_support(field)  # before the forward launches
             rgb, sigma = fused_field(field, xyz, ids, dir_enc, tile_flags, checked=True)
         ctx.field, ctx.plain = field, plain
         ctx.save_for_backward(xyz, ids, dir_enc, tile_flags)
@@ -264,9 +266,9 @@ class _TrainableField(torch.autograd.Function):
                                         tile_flags)
         grads = [g for pair in _linear_grads(ctx.field, gw, gb) for g in pair]
         need = ctx.needs_input_grad
-        return (None, None, None, None, None,
-                d_xyz if need[5] else None, None,
-                d_dir if need[7] else None, None, *grads)
+        return (None, None, None, None, None, None,
+                d_xyz if need[6] else None, None,
+                d_dir if need[8] else None, None, *grads)
 
 
 def field_planar_trainable(net: SpaceNet, motion: MotionNet | None,
@@ -283,11 +285,15 @@ def field_planar_trainable(net: SpaceNet, motion: MotionNet | None,
     -> (rgb (3, M), sigma (M,)), raw. Gradients flow to the linears of
     ``net`` and ``motion`` (with ``motion_mode`` "direct" or "lerp"), to xyz
     and to dir_enc. ``plain`` runs the plain forward and backward whatever
-    the device; otherwise CUDA tensors go through both kernels.
+    the device; otherwise CUDA tensors go through both kernels, and a field
+    wider than the backward kernels take is refused before the forward
+    launches when a gradient will be asked for (grad mode on, an input or a
+    parameter requiring one).
     """
     if motion_mode and motion is None:
         raise ValueError(f"motion_mode {motion_mode!r} needs a motion net")
     params = [p for layer in _field_linears(net, motion if motion_mode else None)
               for p in (layer.weight, layer.bias)]
-    return _TrainableField.apply(net, motion, motion_mode, compute_dtype, plain,
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (*params, xyz, dir_enc))
+    return _TrainableField.apply(net, motion, motion_mode, compute_dtype, plain, grad,
                                  xyz, ids, dir_enc, tile_flags, *params)

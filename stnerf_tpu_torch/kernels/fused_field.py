@@ -32,8 +32,14 @@ lays a field of any other trunk, head or motion width out at the next
 kernel width (:func:`kernel_width`): the padded units have zero weights and
 biases and so do the rows that feed them from the layer below, so each is
 ReLU(0) = 0 and feeds nothing. Outputs and the real gradients stay the
-model's; :func:`_linear_grads` cuts the padded ones away. Widths above 256
+model's; :func:`_linear_grads` cuts the padded ones away. Widths above 1024
 pack unpadded, and the kernels refuse them.
+
+The forward kernels take every kernel width: each launch picks the largest
+sample block whose activations fit a block's shared memory (64, 32 or 16
+samples on the float32 route, 128, 64 or 32 on the tensor cores; at widths
+up to 256 always the first). The backward kernels take widths up to 256
+(:func:`check_backward_widths`).
 """
 
 from __future__ import annotations
@@ -56,7 +62,8 @@ if TYPE_CHECKING:  # models imports this module
 TILE = 64  # samples per CUDA block = granularity of the skip flags
 
 MOTION_MODES = {None: 0, "direct": 1, "lerp": 2}
-KERNEL_WIDTHS = (32, 64, 128, 256)  # layer widths the kernel's tiling takes
+KERNEL_WIDTHS = (32, 64, 128, 256, 512, 1024)  # layer widths the forward kernels take
+BACKWARD_MAX_WIDTH = 256  # the widest layer the backward kernels take
 
 # operand slots of the packed buffers, in csrc/fused_field.cu's order
 W_SLOTS = ("m0", "m1", "m2", "m3", "m4", "m5", "w1", "w2", "w3", "w4",
@@ -407,24 +414,55 @@ def _check_inputs(field: PackedField, xyz, ids, dir_enc, tile_flags):
             raise ValueError("tile_flags must be contiguous, on the inputs' device")
 
 
-def check_kernel_widths(widths: list):
-    """The CUDA kernels take layer widths up to 256, packed at
-    :data:`KERNEL_WIDTHS`: the float32 kernels hold two activation tiles of
-    width x 64 floats in shared memory, 256 KB at 512, more than the 227 KB
-    a block can have."""
+def check_forward_widths(widths: list):
+    """The forward kernels (K1, K3, K6) take layer widths up to 1024, packed
+    at :data:`KERNEL_WIDTHS`: above 256 a launch takes a smaller sample
+    block, so that its activations still fit a block's 227 KB of shared
+    memory."""
     if any(w not in KERNEL_WIDTHS for w in widths):
-        raise ValueError(f"the CUDA kernels take layer widths of at most {KERNEL_WIDTHS[-1]} "
-                         f"(packed at {KERNEL_WIDTHS}), got {widths}: two float32 activation "
-                         "tiles of width x 64 samples must fit a block's 227 KB of shared "
-                         "memory")
+        raise ValueError(f"the forward CUDA kernels take layer widths of at most "
+                         f"{KERNEL_WIDTHS[-1]} (packed at {KERNEL_WIDTHS}), got {widths}: the "
+                         "activations of a 16-sample block (float32) or a 32-sample block "
+                         "(bf16) must fit a block's 227 KB of shared memory")
 
 
-def _check_kernel_support(field: PackedField):
+def check_backward_widths(widths: list):
+    """The backward kernels (K2, K3's backward) take layer widths up to
+    :data:`BACKWARD_MAX_WIDTH`: their 64-sample records and pass-1 tiles
+    do not fit shared memory above it (F8b's backward half, not yet
+    redesigned)."""
+    check_forward_widths(widths)
+    if max(widths) > BACKWARD_MAX_WIDTH:
+        raise ValueError(f"the backward CUDA kernels take layer widths of at most "
+                         f"{BACKWARD_MAX_WIDTH}, got {widths}: their 64-sample blocks do not "
+                         "fit a block's 227 KB of shared memory at wider layers (F8b's "
+                         "backward half); the forward kernels take up to "
+                         f"{KERNEL_WIDTHS[-1]}")
+
+
+def field_widths(field: PackedField) -> list:
+    """The packed widths a kernel tiles: trunk, head and motion net."""
+    return [field.width, field.head] + ([field.motion_width] if field.motion_mode else [])
+
+
+def _check_time(field: PackedField):
     spec = field.spec
-    check_kernel_widths([field.width, field.head]
-                        + ([field.motion_width] if field.motion_mode else []))
     if spec.use_time and spec.time_freqs != spec.pos_freqs:
         raise ValueError("the kernel encodes time with pos_freqs octaves")
+
+
+def check_forward_support(field: PackedField):
+    """What the forward kernels take of a field: its widths
+    (:func:`check_forward_widths`) and its time encoding."""
+    check_forward_widths(field_widths(field))
+    _check_time(field)
+
+
+def check_backward_support(field: PackedField):
+    """What the backward kernels take of a field: its widths
+    (:func:`check_backward_widths`) and its time encoding."""
+    check_backward_widths(field_widths(field))
+    _check_time(field)
 
 
 def kernel_ints(field: PackedField, m: int, dir_rows: int) -> tuple:
@@ -459,7 +497,7 @@ def fused_field(field: PackedField, xyz: torch.Tensor, ids: torch.Tensor,
         return fused_field_reference(field, xyz, ids, dir_enc, tile_flags)
     if xyz.device.type != "cuda":
         raise ValueError(f"fused_field runs on cpu or cuda, not {xyz.device}")
-    _check_kernel_support(field)
+    check_forward_support(field)
     from ._build import load_library
 
     lib = load_library()
@@ -495,18 +533,35 @@ fused_field.launches_tc = 0
 
 
 def float32_ring(field: PackedField, m: int, dir_rows: int) -> dict:
-    """The weight ring of the float32 kernel's launch for this field at
-    ``m`` samples (``csrc/w_ring.cuh``): its stages, a stage's bytes and the
-    block's dynamic shared memory. Needs the card."""
+    """The float32 kernel's launch for this field at ``m`` samples: its
+    sample block, the weight ring's stages (``csrc/w_ring.cuh``), a stage's
+    bytes and the block's dynamic shared memory. Needs the card."""
     from ._build import load_library
 
-    _check_kernel_support(field)
-    out = np.zeros(3, np.int32)
+    check_forward_support(field)
+    out = np.zeros(4, np.int32)
     err = load_library().stnerf_fused_field_ring(*kernel_ints(field, m, dir_rows),
                                                  out.ctypes.data_as(ctypes.c_void_p))
     if err != 0:
         raise RuntimeError(f"fused_field ring query failed: CUDA error {err}")
-    return {"stages": int(out[0]), "stage_bytes": int(out[1]), "smem_bytes": int(out[2])}
+    return {"stages": int(out[0]), "stage_bytes": int(out[1]), "smem_bytes": int(out[2]),
+            "block_samples": int(out[3])}
+
+
+def tc_launch(field: PackedField, m: int, dir_rows: int, checked: bool = False) -> dict:
+    """The tensor-core kernel's launch for this bf16 field at ``m`` samples
+    (``csrc/fused_field_tc.cu``): its sample block and the block's dynamic
+    shared memory. Needs the card."""
+    from ._build import load_library
+
+    check_forward_support(field)
+    out = np.zeros(2, np.int32)
+    err = load_library().stnerf_fused_field_tc_block(*kernel_ints(field, m, dir_rows),
+                                                     int(checked),
+                                                     out.ctypes.data_as(ctypes.c_void_p))
+    if err != 0:
+        raise RuntimeError(f"fused_field_tc block query failed: CUDA error {err}")
+    return {"block_samples": int(out[0]), "smem_bytes": int(out[1])}
 
 
 # ---------------------------------------------------------------------------

@@ -25,8 +25,10 @@ runs here. The pieces, as for every kernel of the port:
   to the tensor-core one.
 * :func:`tc_workspace_bytes` — the device workspace the tensor-core
   backward allocates per call (its records and partial sums); and
-  :func:`float32_ring` — the float32 forward's weight ring (stages and
-  shared memory) for a launch.
+  :func:`float32_ring` and :func:`tc_launch` — a forward launch's sample
+  block and shared memory (the float32 route's weight ring too). The
+  forward takes widths up to 1024, the backward up to 256
+  (``fused_field.check_backward_widths``).
 * ``active``: an optional (1,) int32 tensor on the inputs' device. Where it
   holds 0 the field is skipped, as the JAX path's chunk-level ``lax.cond``
   skips a hidden or missed performer: rgb and sigma are zeros, and so is
@@ -51,8 +53,8 @@ import torch
 
 from ..ops.rounding import round_to
 from . import f32_bwd
-from .fused_field import (PackedField, _field_linears, check_kernel_widths,
-                          _linear_grads, pack_field,
+from .fused_field import (PackedField, _field_linears, _linear_grads,
+                          check_backward_widths, check_forward_widths, pack_field,
                           prepare_kernel_params_planar, spacenet_chain)
 
 if TYPE_CHECKING:  # models imports this module
@@ -203,10 +205,13 @@ def _check_inputs(field: PackedField, pos_enc, dir_enc, time_enc, active=None,
                          f"inputs on {pos_enc.device}")
 
 
-def _kernel_args(field: PackedField, pos_enc, dir_enc, time_enc, active) -> tuple:
+def _kernel_args(field: PackedField, pos_enc, dir_enc, time_enc, active,
+                 backward: bool = False) -> tuple:
     """The ints the entry points take after the pointers, the time pointer
-    (null without a time input) and the active pointer (null without one)."""
-    check_kernel_widths([field.width, field.head])
+    (null without a time input) and the active pointer (null without one),
+    once the field's widths pass the forward or the ``backward`` kernels'
+    check."""
+    (check_backward_widths if backward else check_forward_widths)([field.width, field.head])
     time_rows = time_enc.shape[0] if field.spec.use_time else 0
     ints = (pos_enc.shape[1], pos_enc.shape[0], dir_enc.shape[0], time_rows,
             field.width, field.head, field.n_rgb)
@@ -250,7 +255,7 @@ def tc_workspace_bytes(field: PackedField, pos_enc: torch.Tensor, dir_enc: torch
     these inputs: its records and partial sums (``csrc/spacenet_tc.cu``)."""
     from ._build import load_library
 
-    ints = _kernel_args(field, pos_enc, dir_enc, time_enc, None)[0]
+    ints = _kernel_args(field, pos_enc, dir_enc, time_enc, None, backward=True)[0]
     nbytes = ctypes.c_int64()
     err = load_library().stnerf_spacenet_bwd_tc_workspace(
         *ints, field.weights.numel(), field.biases.numel(), ctypes.byref(nbytes))
@@ -261,18 +266,34 @@ def tc_workspace_bytes(field: PackedField, pos_enc: torch.Tensor, dir_enc: torch
 
 def float32_ring(field: PackedField, pos_enc: torch.Tensor, dir_enc: torch.Tensor,
                  time_enc: torch.Tensor | None) -> dict:
-    """The weight ring of the float32 forward kernel's launch for this field
-    on these inputs (``csrc/w_ring.cuh``, as K1's float32 route): its
-    stages, a stage's bytes and the block's dynamic shared memory. Needs
-    the card."""
+    """The float32 forward kernel's launch for this field on these inputs
+    (as K1's float32 route): its sample block, the weight ring's stages
+    (``csrc/w_ring.cuh``), a stage's bytes and the block's dynamic shared
+    memory. Needs the card."""
     from ._build import load_library
 
-    out = (ctypes.c_int * 3)()
+    out = (ctypes.c_int * 4)()
     ints = _kernel_args(field, pos_enc, dir_enc, time_enc, None)[0]
     err = load_library().stnerf_spacenet_ring(*ints, ctypes.cast(out, ctypes.c_void_p))
     if err != 0:
         raise RuntimeError(f"spacenet ring query failed: CUDA error {err}")
-    return {"stages": out[0], "stage_bytes": out[1], "smem_bytes": out[2]}
+    return {"stages": out[0], "stage_bytes": out[1], "smem_bytes": out[2],
+            "block_samples": out[3]}
+
+
+def tc_launch(field: PackedField, pos_enc: torch.Tensor, dir_enc: torch.Tensor,
+              time_enc: torch.Tensor | None) -> dict:
+    """The tensor-core forward kernel's launch for this bf16 field on these
+    inputs (``csrc/spacenet_tc.cu``): its sample block and the block's
+    dynamic shared memory. Needs the card."""
+    from ._build import load_library
+
+    out = (ctypes.c_int * 2)()
+    ints = _kernel_args(field, pos_enc, dir_enc, time_enc, None)[0]
+    err = load_library().stnerf_spacenet_fwd_tc_block(*ints, ctypes.cast(out, ctypes.c_void_p))
+    if err != 0:
+        raise RuntimeError(f"spacenet_tc block query failed: CUDA error {err}")
+    return {"block_samples": out[0], "smem_bytes": out[1]}
 
 
 def _on_cuda(name: str, t: torch.Tensor) -> bool:
@@ -332,7 +353,8 @@ def spacenet_bwd(field: PackedField, pos_enc: torch.Tensor, dir_enc: torch.Tenso
     from ._build import load_library
 
     lib = load_library()
-    ints, time_ptr, active_ptr = _kernel_args(field, pos_enc, dir_enc, time_enc, active)
+    ints, time_ptr, active_ptr = _kernel_args(field, pos_enc, dir_enc, time_enc, active,
+                                              backward=True)
     dev = pos_enc.device
     # both routes' last pass writes every entry
     gw = torch.empty(field.weights.shape, dtype=torch.float32, device=dev)
@@ -383,11 +405,14 @@ spacenet_bwd.launches_tc = 0
 
 class _TrainableSpaceNet(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, net, compute_dtype, plain, pos_enc, dir_enc, time_enc, active,
+    def forward(ctx, net, compute_dtype, plain, grad, pos_enc, dir_enc, time_enc, active,
                 *params):
         dt = torch.bfloat16 if compute_dtype == "bfloat16" else torch.float32
         field = pack_field(prepare_kernel_params_planar(net, dt), (), net.spec, None,
                            compute_dtype)
+        if grad and not plain and pos_enc.device.type == "cuda":
+            # before the forward launches
+            check_backward_widths([field.width, field.head])
         evaluate = spacenet_fwd_reference if plain else spacenet_fwd
         rgb, sigma = evaluate(field, pos_enc, dir_enc, time_enc, active)
         ctx.field, ctx.plain = field, plain
@@ -402,8 +427,8 @@ class _TrainableSpaceNet(torch.autograd.Function):
                                         d_rgb.contiguous(), d_sigma.contiguous(), active)
         grads = [g for pair in _linear_grads(ctx.field, gw, gb) for g in pair]
         need = ctx.needs_input_grad
-        return (None, None, None, d_pos if need[3] else None,
-                d_dir if need[4] else None, None, None, *grads)
+        return (None, None, None, None, d_pos if need[4] else None,
+                d_dir if need[5] else None, None, None, *grads)
 
 
 def spacenet_planar_trainable(net: SpaceNet, pos_enc: torch.Tensor,
@@ -418,9 +443,14 @@ def spacenet_planar_trainable(net: SpaceNet, pos_enc: torch.Tensor,
     -> (rgb (3, M), sigma (M,)), raw. Gradients flow to the linears of
     ``net``, to pos_enc and to dir_enc; time_enc gets none. ``plain`` runs
     the plain forward and backward whatever the device; otherwise CUDA
-    tensors go through both kernels. ``active`` (see the module docstring)
-    skips the field on the device.
+    tensors go through both kernels, and a field wider than the backward
+    kernels take is refused before the forward launches when a gradient
+    will be asked for (grad mode on, an input or a parameter requiring
+    one). ``active`` (see the module docstring) skips the field on the
+    device.
     """
     params = [p for layer in _field_linears(net, None) for p in (layer.weight, layer.bias)]
-    return _TrainableSpaceNet.apply(net, compute_dtype, plain, pos_enc, dir_enc, time_enc,
-                                    active, *params)
+    grad = torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (*params, pos_enc, dir_enc))
+    return _TrainableSpaceNet.apply(net, compute_dtype, plain, grad, pos_enc, dir_enc,
+                                    time_enc, active, *params)

@@ -145,6 +145,24 @@ def test_render_rays_matches_jax(case):
         assert not out.fine_layers.acc[1].any()
 
 
+def test_render_rays_matches_jax_wide():
+    """The exact path with every field wider than the backward kernels take
+    (trunk 384, head 192, motion 160: packed at 512/256/256, where the
+    forward kernels take a smaller sample block), a few rays against JAX."""
+    cfg = _cfg()
+    cfg.MODEL.BACKBONE_DIM, cfg.MODEL.HEAD_DIM, cfg.MODEL.MOTION_DIM = 384, 192, 160
+    cfg.MODEL.COARSE_RAY_SAMPLING, cfg.MODEL.FINE_RAY_SAMPLING = 8, 4
+    ref, out = _render_both("shift_scale", cfg)
+    np.testing.assert_array_equal(out.hit.numpy(), np.asarray(ref.hit))
+    assert out.hit[1:].any()
+    assert float(out.fine.acc.min()) > 0.5
+    assert _psnr(out.fine.color, ref.fine.color) >= TARGET_DB
+    assert _psnr(out.fine.acc, ref.fine.acc) >= TARGET_DB
+    assert _psnr(out.coarse.color, ref.coarse.color) >= TARGET_DB
+    for i in range(3):
+        assert _psnr(out.fine_layers.color[i], ref.fine_layers.color[i]) >= TARGET_DB, i
+
+
 def test_render_rays_near_far_matches_jax():
     cfg = _cfg()
     cfg.MODEL.SAMPLE_METHOD = "NEAR_FAR"

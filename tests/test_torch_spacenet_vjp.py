@@ -22,6 +22,7 @@ M = 200          # samples: not a multiple of the JAX tile
 JAX_TILE = 128
 W, HEAD = 32, 16
 F8_WIDTHS = (96, 48)  # neither a kernel width: packed at 128, 64
+WIDE_WIDTHS = (384, 192)  # packed at 512, 256: wider than the backward kernels take
 
 
 def _net(seed, widths=(W, HEAD), **kw):
@@ -229,11 +230,16 @@ def test_active_flag_skips_the_field(rng):
             spacenet_fwd(_pack(net), pos, dirs, time, bad)
 
 
-@pytest.mark.parametrize("entry", ["fused_spacenet", "fused_spacenet_planar",
-                                   "fused_spacenet_stacked"])
-def test_fused_spacenet_matches_jax(rng, entry):
+@pytest.mark.parametrize("entry,widths", [
+    pytest.param("fused_spacenet", (W, HEAD), id="fused_spacenet"),
+    pytest.param("fused_spacenet_planar", (W, HEAD), id="fused_spacenet_planar"),
+    pytest.param("fused_spacenet_stacked", (W, HEAD), id="fused_spacenet_stacked"),
+    pytest.param("fused_spacenet_stacked", WIDE_WIDTHS, id="fused_spacenet_stacked-wide")])
+def test_fused_spacenet_matches_jax(rng, entry, widths):
     """K6's three entry points (their plain versions on the CPU) against the
-    JAX package's, interpret mode, float32, at each entry's own layout."""
+    JAX package's, interpret mode, float32, at each entry's own layout; the
+    stacked entry also at a trunk and head the forward kernels take with a
+    smaller sample block (WIDE_WIDTHS, packed at 512/256)."""
     import jax
     import jax.numpy as jnp
     import torch
@@ -246,7 +252,7 @@ def test_fused_spacenet_matches_jax(rng, entry):
                                           fused_spacenet_stacked)
 
     kw = dict(use_dir=True, use_time=entry != "fused_spacenet_planar", deep_rgb=entry == "fused_spacenet")
-    nets = [_net(seed, **kw) for seed in (6, 7)]
+    nets = [_net(seed, widths, **kw) for seed in (6, 7)]
     jspec = nets[0][0]
     if entry == "fused_spacenet_planar":
         pos, dirs, time = _encodings(rng, jspec, 260)

@@ -38,14 +38,16 @@ run. Compare checkouts only within one invocation.
   6's performer encodings (M = 2000 x 120), each timed alike by this
   checkout's ``chip_smoke.cuda_ms``; and ptxas's registers, stack and
   spills for the tensor-core K1 and K3 forward kernels of the checkout's
-  build.
+  build (by sample block where a checkout has several).
 * ``k1_f32``: K1's float32 route. A digest of its outputs (sha256 of
   their bytes: equal digests, the same bits) in every case of phase 2 on
   phase 2's inputs: the four fields at M = 4096 x 120 with 25% of the
   tiles off, then the edges at M = 122,045 (the narrow 64/32/32 fields, a
   96/48/48 performer, which a checkout that pads no widths refuses, and
   the ragged M with all tiles on, a quarter off, all off and no flags),
-  each run twice ("differs run to run" if the two differ); its ms on the
+  each run twice ("differs run to run" if the two differ), and the bf16
+  route's digests (render, run twice, and ``checked``) in the same cases;
+  its ms on the
   performer and the background at phase 2's shape; the bf16 routes' K1 ms
   and output digest there and K2's on phase 4's seeded inputs (K2's ms
   also first of all, before any float32 call); a digest of
@@ -58,7 +60,8 @@ run. Compare checkouts only within one invocation.
   4-layer rgb head and no directions at M = 2000 x 120, then the narrow
   64/32 fields, a 96/48 performer and the ragged M = 122,045 with the
   ``active`` flag unset, 1 and 0 (0: "zeros" when every output is exactly
-  zero); K3's float32 ms on four of them; the K6 entries' float32 ms and
+  zero), and the bf16 route's digests of K3 and the three K6 entries in the
+  same cases; K3's float32 ms on four of them; the K6 entries' float32 ms and
   digests at phase 6's K6 shape (M = 65,536, two weight sets); K1's
   float32 digests and ms as ``k1_f32``; the bf16 routes' digests (K1, K2,
   K3's forward and backward); a digest of every gradient of phase 8's
@@ -205,7 +208,7 @@ print("AB " + json.dumps({"k1_ms": {k: k1[k] for k in ("bfloat16_ms", "float32_m
                           "trained_f32_nosort_s": trained_s}))
 """}
 CHILD["kernels"] = PRELUDE + """
-import importlib.util, inspect
+import importlib.util, inspect, re
 import numpy as np
 from stnerf_tpu_torch.kernels._build import BUILD_DIR
 from stnerf_tpu_torch.kernels.fused_field import fused_field
@@ -240,7 +243,9 @@ for line in "".join(p.read_text() for p in sorted(BUILD_DIR.glob("*.log"))).spli
     if "entry function" in line:
         name = next((k for k in ("fused_field_tc_kernel", "spacenet_fwd_tc_kernel")
                      if k in line), None)
-        name = name and name + ("<true>" if "ILb1E" in line else "")
+        block = re.search(r"kernelILi(\\d+)E", line)
+        name = name and name + (f"<{block.group(1)}>" if block else "") + (
+            "<true>" if "Lb1E" in line else "")
     elif name and ("registers" in line or "spill" in line):
         ptxas.setdefault(name, []).append(line.strip())
 out["ptxas"] = ptxas
@@ -310,17 +315,23 @@ cases += [("narrow_performer", narrow.layers_fine[0], narrow.motion[0], "lerp", 
           ("ragged_no_flags", wide.layers_fine[0], wide.motion[0], "lerp", edge(None)),
           ("f8_performer", f8.layers_fine[0], f8.motion[0], "lerp", edge(seeded))]
 """
-# K1's float32 route on every case: digests, and ms on the main two
+# K1's float32 route on every case: digests, and ms on the main two; the
+# bf16 route's digests (render and checked) on every case
 K1_F32 = """
-k1_digests, k1_ms = {}, {}
+k1_digests, k1_bf16_digests, k1_ms = {}, {}, {}
 for name, net, mnet, mode, args in cases:
     f = cs.pack_dtype(net, mnet, mode, "float32")
+    fb16 = cs.pack_dtype(net, mnet, mode, "bfloat16")
     try:
         first, again = fused_field(f, *args), fused_field(f, *args)
     except ValueError as e:  # a checkout that refuses the widths
-        k1_digests[name] = "refused"
+        k1_digests[name] = k1_bf16_digests[name] = "refused"
         continue
     k1_digests[name] = digest(first) if digest(again) == digest(first) else "differs run to run"
+    k1_bf16_digests[name] = [
+        digest(fused_field(fb16, *args)) if digest(fused_field(fb16, *args))
+        == digest(fused_field(fb16, *args)) else "differs run to run",
+        digest(fused_field(fb16, *args, checked=True))]
     if name in ("performer_lerp", "background"):
         k1_ms[name] = cs.cuda_ms(lambda: fused_field(f, *args), 10)
 """
@@ -352,7 +363,8 @@ t0 = time.perf_counter()
 step(scene, batch, torch.Generator(device=device).manual_seed(cs.SEED + 1), 1.0)
 torch.cuda.synchronize()
 bf16["k2_first_ms"] = k2_first_ms
-print("AB " + json.dumps({"k1_f32_ms": k1_ms, "k1_f32_digests": k1_digests, "bf16": bf16,
+print("AB " + json.dumps({"k1_f32_ms": k1_ms, "k1_f32_digests": k1_digests,
+                          "k1_bf16_digests": k1_bf16_digests, "bf16": bf16,
                           "f32_step_grad_digests": step_digests,
                           "f32_step_s": time.perf_counter() - t0}))
 """
@@ -387,7 +399,7 @@ k3_cases = [("performer_time", vp.layers_fine[0], x), ("background", vp.bkgd_fin
             ("narrow_background", k3_narrow.bkgd_fine, xe),
             ("f8_performer", k3_f8.layers_fine[0], xe),
             ("ragged_performer", vp.layers_fine[0], xe)]
-k3_digests, k6_digests, k3_ms = {}, {}, {}
+k3_digests, k6_digests, k3_bf16_digests, k3_ms = {}, {}, {}, {}
 on, off = (torch.full((1,), v, dtype=torch.int32, device=device) for v in (1, 0))
 for name, net, enc in k3_cases:
     f = pack32(net)
@@ -407,6 +419,13 @@ for name, net, enc in k3_cases:
     k6_digests[name] = [twice(lambda: fused_spacenet_planar(*a)),
                         twice(lambda: fused_spacenet(f, *rows)),
                         twice(lambda: fused_spacenet_stacked([f], *stack))]
+    fb16 = pack_field(prepare_kernel_params_planar(net, torch.bfloat16), (), net.spec, None,
+                      "bfloat16")
+    b = (fb16, pos, dir_enc, time_enc)
+    k3_bf16_digests[name] = [twice(lambda: spacenet_fwd(*b)),
+                             twice(lambda: fused_spacenet_planar(*b)),
+                             twice(lambda: fused_spacenet(fb16, *rows)),
+                             twice(lambda: fused_spacenet_stacked([fb16], *stack))]
     if name in ("performer_time", "background", "performer_deep_rgb", "narrow_performer"):
         k3_ms[name] = cs.cuda_ms(lambda: spacenet_fwd(*a), 10)
 # K6's float32 entries at phase 6's K6 shape (M = 65,536; two weight sets)
@@ -454,7 +473,9 @@ step(scene, batch, torch.Generator(device=device).manual_seed(cs.SEED + 1), 1.0)
 torch.cuda.synchronize()
 print("AB " + json.dumps({"k3_f32_fwd_ms": k3_ms, "k6_f32_ms": k6_ms,
                           "k3_f32_digests": k3_digests, "k6_f32_digests": k6_digests,
-                          "k1_f32_ms": k1_ms, "k1_f32_digests": k1_digests, "bf16": bf16,
+                          "k3_k6_bf16_digests": k3_bf16_digests,
+                          "k1_f32_ms": k1_ms, "k1_f32_digests": k1_digests,
+                          "k1_bf16_digests": k1_bf16_digests, "bf16": bf16,
                           "staged_f32_step_grad_digests": step_digests,
                           "staged_f32_step_s": time.perf_counter() - t0}))
 """

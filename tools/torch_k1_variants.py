@@ -47,6 +47,10 @@ VARIANTS = {
                     '"{\\n.reg .b64 pol;\\ncreatepolicy.fractional.L2::evict_last.b64 pol, 1.0;\\n"'
                     '"cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes'
                     '.L2::cache_hint "\n          "[%0], [%1], %2, [%3], pol;\\n}\\n" ::')],
+    # the dense layers inlined at each call site (ring_dense.cuh's
+    # dense_call keeps one copy in K1)
+    "dense_inline": [("ring_dense.cuh", "__device__ __noinline__ void dense_call(",
+                      "__device__ __forceinline__ void dense_call(")],
     # no barrier between layers (wrong outputs): what the barriers cost
     "no_layer_sync": [("ring_dense.cuh",
                        'asm volatile("bar.sync 1, %0;\\n" ::"n"(CONSUMERS) : "memory");', "")],
