@@ -23,9 +23,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    both. Then the edges: a narrow model (trunk
    64, head 32, motion 32), a performer at widths no kernel tiles (96/48/48,
    packed at 128/64/64 with zeros in the padded units), a ragged M with
-   all tiles on, all off and no flags, and three fields wider than the
-   backward kernels take, which the forward kernels run with a smaller
-   sample block: ``wide_performer`` (512/256/256), ``wide_padded``
+   all tiles on, all off and no flags, and three fields wider than 256,
+   which every kernel runs with a smaller sample block:
+   ``wide_performer`` (512/256/256), ``wide_padded``
    (384/192/160, packed at 512/256/256) and ``xwide_background``
    (1024/512), each with every route's sample block (the widths up to 256
    must keep 64 in float32 and 128 in bf16); a 1040-wide field refused
@@ -52,10 +52,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    5's model, pool and batch; ``real_bwd_inputs``); both routes bitwise the
    same gradients when run twice (``check_field_bwd``; float32: three
    passes, 3xTF32 products, a fixed-order sum). The same edges as phase 2
-   (bf16 on the real background inputs cut to the ragged M); the wide ones
-   and a training forward of the 512/256/256 performer
-   (``field_planar_trainable``) refused before any launch. Prints both
-   routes' times and bounds per case at the seeded shape, the float32
+   (bf16 on the real background inputs cut to the ragged M), each route's
+   backward block (64 up to 256); the three wide ones as comparisons too,
+   a leaf past the fixed bars held to ``order_bar`` (within twice the
+   plain version's own deviation with its hidden units permuted: at 512
+   and 1024 two plain summation orders alone miss the fixed bars), with
+   each route's block, ms, bound and share; a training step of each wide
+   performer (``field_planar_trainable``, forward and backward) launched on
+   its dtype's route; a 1040-wide field refused before any launch. Prints
+   both routes' times and bounds per case at the seeded shape, the float32
    route's workspace, and its time beside the former design's.
 5. Training: ``do_train`` on the taekwondo model at batch 2000 (one
    coarse-only epoch, then one full epoch, 20 steps each) from a compact
@@ -79,9 +84,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    every gradient bitwise unchanged, 0 gives zeros everywhere. The same
    checks on the edges: a narrow model (trunk 64, head 32), a performer at
    F8_WIDTHS' trunk and head (96/48, packed at 128/64), a ragged M with
-   the flag unset, 1 and 0, and phase 2's three wide fields (the forward's
-   checks and sample blocks; the backward and a training forward refused
-   before any launch). Then the three K6 entry points
+   the flag unset, 1 and 0, and phase 2's three wide fields (both halves,
+   each route's forward and backward block, the backward held to
+   ``order_bar`` as phase 4's, each backward route's ms, bound and
+   share); a training step of each wide field
+   (``spacenet_planar_trainable``) on its dtype's route; a 1040-wide
+   field refused before any launch. Then the three K6 entry points
    (``fused_spacenet*``, on K3's forward kernels) against their plain
    versions at one shape, and at 512/256 (``fused_spacenet_vs_plain_wide``).
    Prints both routes' times, bounds and shares of
@@ -100,7 +108,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    imply, every one on the tensor-core route. Prints seconds per pose.
 7b. The wide slice (``phase_wide_slice``): the taekwondo model at trunk
    512, head 256, motion 256 (``merge_from_list`` on
-   configs/config_taekwondo.yml), wider than the backward kernels take:
+   configs/config_taekwondo.yml):
    phase 3's five requests in bf16 (K1's tensor-core kernel, blocks of 64),
    the first in float32 (K1's CUDA-core kernel, blocks of 32) and phase
    7's three requests of its view-deform variant (K3's forward, blocks of
@@ -118,6 +126,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    in bf16 (every leaf at relative L2 <= 1e-2 but the two ``cam_pose``
    leaves, held to a tenth of their own bf16 rounding error), each kernel
    step's K3 launches by route. Prints seconds per step and rays/s.
+8b. The wide slice in training (``phase_wide_train``): phase 7b's
+   512/256/256 model through ``do_train`` on phase 5's pool as phase 5
+   does (bf16): finite losses, a falling loss over the full epoch, K1
+   (``checked``) and K2 once per field and stage of every step, all on the
+   tensor-core route, no plain field evaluation; one step through the
+   kernels and one through the plain versions in bf16 and float32 (phase
+   5's bars) and of its view-deform variant (K3's forward and backward,
+   phase 8's bars), each also against the plain step on a copy of the
+   model with its hidden units permuted (``order_bar``); then
+   ``wide_bwd_kernels``: every backward route on the 512/256/256
+   performer at M = 240,000 (block, ms, plain ms, bound, share) and the
+   phase's seconds.
 9. Cross-stream kernels vs plain: ``cross_successor`` (K4) and
    ``cross_log_transmittance_fwd`` / ``_bwd`` (K5) against their plain cube
    forms at (3, 2000, 120), (3, 2000, 90), a ragged (3, 37, 24) with
@@ -285,8 +305,9 @@ band and then phase 18 alone: the same training in both forms, in bf16
 and in float32, at seed 0, from the initial weights nudged one float32 ulp
 and at seeds 1 and 2, each curve inside the band, and per dtype the
 largest gap between the card's runs and their mean. ``python3 chip_smoke.py
---backward`` runs phases 4 and 6 alone (K2 and K3 against their plain
-versions, both routes; about a minute after the build).
+--backward`` runs phases 4, 6 and 8b alone (K2 and K3 against their plain
+versions, both routes, and the wide slice in training; about 95 s after
+the build).
 """
 
 from __future__ import annotations
@@ -320,12 +341,14 @@ K3_F32_FWD_MS_BEFORE = 6.802
 # a field at widths no kernel tiles (trunk, head, motion): packed at the
 # next kernel widths, 128/64/64
 F8_WIDTHS = (96, 48, 48)
-# fields wider than the backward kernels take (trunk, head, motion), which
-# the forward kernels run with a smaller sample block: the wide slice's
-# widths, a padded one (packed at 512/256/256) and the widest (1024/512)
+# fields wider than 256 (trunk, head, motion), which every kernel runs with
+# a smaller sample block: the wide slice's widths, a padded one (packed at
+# 512/256/256) and the widest (1024/512); and one wider than the kernels
+# take, refused before any launch
 WIDE_WIDTHS = (512, 256, 256)
 WIDE_PADDED_WIDTHS = (384, 192, 160)
 XWIDE_WIDTHS = (1024, 512, 512)
+TOO_WIDE_WIDTHS = (1040, 256, 256)
 
 
 def check(cond, msg: str):
@@ -348,11 +371,12 @@ def check_refused(call, wrappers: list, what: str, limit: int) -> str:
     raise RuntimeError(f"chip_smoke check failed: {what}: not refused")
 
 
-def wider_than_backward(field) -> bool:
-    """Whether a packed field is wider than the backward kernels take."""
-    from stnerf_tpu_torch.kernels.fused_field import BACKWARD_MAX_WIDTH, field_widths
+def wider_than_256(field) -> bool:
+    """Whether a packed field has a layer wider than 256: every kernel then
+    takes a smaller sample block than at the taekwondo widths."""
+    from stnerf_tpu_torch.kernels.fused_field import field_widths
 
-    return max(field_widths(field)) > BACKWARD_MAX_WIDTH
+    return max(field_widths(field)) > 256
 
 
 def psnr(a, b) -> float:
@@ -560,7 +584,7 @@ def phase_kernel_vs_plain(device, m: int, reps: int):
                  "bound_ms": row["float32_bound_ms"],
                  "share": row["float32_bound_ms"] / row["float32_ms"]}), flush=True)
         results.append(row)
-    def check_edge(name, fields, xyz, ids, dir_enc, flags, skipped):
+    def check_edge(name, fields, xyz, ids, dir_enc, flags, skipped, nets):
         """check_fused_field, and each route's sample block: the widths up
         to 256 keep 64 (float32) and 128 (bf16, render and checked)."""
         row = check_fused_field(name, fields, xyz, ids, dir_enc, flags, skipped)
@@ -569,7 +593,7 @@ def phase_kernel_vs_plain(device, m: int, reps: int):
             "float32": float32_ring(fields["float32"], m, rows)["block_samples"],
             "bfloat16": tc_launch(fields["bfloat16"], m, rows)["block_samples"],
             "bfloat16_checked": tc_launch(fields["bfloat16"], m, rows, True)["block_samples"]}
-        if not wider_than_backward(fields["float32"]):
+        if not wider_than_256(fields["float32"]):
             check(row["block_samples"] == {"float32": 64, "bfloat16": 128,
                                            "bfloat16_checked": 128},
                   f"{name}: a width up to 256 took another block: {row['block_samples']}")
@@ -667,12 +691,12 @@ def edge_cases(device, check_fn, label: str, seed: int) -> list:
     kernel widths, zeros in the padded units) with seeded skip flags (25% of
     the tiles off), and the taekwondo performer at a ragged M (not a
     multiple of 64 or 128) with all tiles flagged on, the seeded flags, all
-    flagged off and no flags; then fields wider than the backward kernels
-    take, with the seeded flags: ``wide_performer`` (WIDE_WIDTHS, "lerp"
-    with time), ``wide_padded`` (WIDE_PADDED_WIDTHS) and
-    ``xwide_background`` (XWIDE_WIDTHS' trunk and head). ``check_fn(name,
-    fields, xyz, ids, dir_enc, flags, skipped)`` is phase 2's or phase 4's
-    check. -> its rows."""
+    flagged off and no flags; then fields wider than 256, with the seeded
+    flags: ``wide_performer`` (WIDE_WIDTHS, "lerp" with time),
+    ``wide_padded`` (WIDE_PADDED_WIDTHS) and ``xwide_background``
+    (XWIDE_WIDTHS' trunk and head). ``check_fn(name, fields, xyz, ids,
+    dir_enc, flags, skipped, nets)`` is phase 2's or phase 4's check, nets
+    the field's (SpaceNet, MotionNet or None, motion mode). -> its rows."""
     import torch
 
     from stnerf_tpu_torch.kernels.fused_field import TILE
@@ -716,7 +740,8 @@ def edge_cases(device, check_fn, label: str, seed: int) -> list:
         fields = {dt: pack_dtype(net, mnet, mode, dt) for dt in ("float32", "bfloat16")}
         flags = None if flags_np is None else torch.tensor(flags_np, device=device)
         off = np.zeros(m, bool) if flags_np is None else np.repeat(flags_np == 0, TILE)[:m]
-        row = check_fn(name, fields, xyz, ids, dir_enc, flags, torch.tensor(off, device=device))
+        row = check_fn(name, fields, xyz, ids, dir_enc, flags, torch.tensor(off, device=device),
+                       (net, mnet, mode))
         print(label, json.dumps(row), flush=True)
         rows.append(row)
     return rows
@@ -853,6 +878,37 @@ def f32_close(stat: dict) -> bool:
     return stat["outside"] <= max(1, stat["size"] // 1000)
 
 
+# A wide field's gradients may differ from the plain version's by at most
+# this many times what the plain version itself moves when its sums run in
+# another order (``order_bar``)
+ORDER_FACTOR = 2
+
+
+def order_bar(stats: dict, yard: dict, dtype: str, bars: dict | None = None) -> dict:
+    """The leaves of ``stats`` (kernel vs plain, ``linear_stats``) beyond
+    the dtype's bar (float32: ``f32_close``; bf16: relative L2 1e-2) and
+    beyond ORDER_FACTOR times the plain version's own deviation ``yard``
+    under another summation order (``permuted_nets``' copies, vs the same
+    plain version) on that leaf: float32 its entries outside the
+    elementwise bar (more than twice the reordered plain version's, plus
+    ``f32_close``'s allowance), bf16 its relative L2. At widths above 256
+    the two plain orders alone take some leaves beyond the fixed bars: a
+    layer of 512 or 1024 units sums more terms, so more ReLU inputs (float32)
+    and more bf16 roundings lie within an order's round-off of their flip
+    (PERF.md, Findings). ``bars``: a bf16 leaf's fixed bar where it is not
+    1e-2. -> {leaf: [kernel, reordered plain]}."""
+    bad = {}
+    for k, v in stats.items():
+        y = yard[k]
+        if dtype == "float32":
+            if (not f32_close(v)
+                    and v["outside"] > ORDER_FACTOR * y["outside"] + max(1, v["size"] // 1000)):
+                bad[k] = [v["outside"], y["outside"]]
+        elif v["rel"] > max((bars or {}).get(k, 1e-2), ORDER_FACTOR * y["rel"]):
+            bad[k] = [v["rel"], y["rel"]]
+    return bad
+
+
 def _leaf_stats(field, got, ref, x_name: str = "d_xyz") -> dict:
     """compare_leaf for every weight and bias slot in the model's own shape
     (a padded field's padded rows and columns are dropped with the
@@ -865,6 +921,101 @@ def _leaf_stats(field, got, ref, x_name: str = "d_xyz") -> dict:
     pairs = {s: (leaf(s, gw, gb), leaf(s, rw, rb)) for s in field.shapes}
     pairs.update({x_name: (gx, rx), "d_dir": (gd, rd)})
     return {name: compare_leaf(a, b) for name, (a, b) in pairs.items()}
+
+
+def _unit_linears(module) -> list:
+    """A SpaceNet's linears (stage 1, stage 2, density, rgb: the order of
+    ``_field_linears``) or a MotionNet's."""
+    from stnerf_tpu_torch.models import MotionNet
+
+    if isinstance(module, MotionNet):
+        return list(module.net)
+    return [*module.stage1, *module.stage2, *module.density, *module.rgb]
+
+
+def permute_units(modules: list, seed: int) -> list:
+    """Permute at random, in place, the units of every hidden layer of each
+    SpaceNet or MotionNet in ``modules``: the same functions, whose every
+    sum over a hidden layer runs in another order. -> per module, the
+    (output, input) permutation of each of its linears (``_unit_linears``)."""
+    import torch
+
+    from stnerf_tpu_torch.models import MotionNet
+
+    gen = torch.Generator().manual_seed(seed)
+
+    def keep(n, start=0):
+        return torch.arange(start, start + n)
+
+    ios = []
+    for module in modules:
+        layers = _unit_linears(module)
+        if isinstance(module, MotionNet):  # hidden layers u1-u5
+            u = [torch.randperm(layers[0].out_features, generator=gen) for _ in range(5)]
+            io = [(u[0], keep(layers[0].in_features))]
+            io += [(u[k], u[k - 1]) for k in range(1, 5)] + [(keep(3), u[4])]
+        else:  # trunk a0-a6, rgb head h0..
+            width = layers[0].out_features
+            a = [torch.randperm(width, generator=gen) for _ in range(7)]
+            pos = layers[0].in_features
+            io = [(a[0], keep(pos))] + [(a[k], a[k - 1]) for k in (1, 2, 3)]
+            io += [(a[4], torch.cat([a[3], keep(pos, width)])), (a[5], a[4]), (a[6], a[5]),
+                   (keep(1), a[6])]
+            rgb = module.rgb
+            h = [torch.randperm(rgb[0].out_features, generator=gen)
+                 for _ in range(len(rgb) - 1)]
+            io += [(h[0], torch.cat([a[6], keep(rgb[0].in_features - width, width)]))]
+            io += [(h[i], h[i - 1]) for i in range(1, len(h))] + [(keep(3), h[-1])]
+        with torch.no_grad():
+            for layer, (po, pi) in zip(layers, io):
+                dev = layer.weight.device
+                layer.weight.copy_(layer.weight[po.to(dev)][:, pi.to(dev)])
+                layer.bias.copy_(layer.bias[po.to(dev)])
+        ios.append(io)
+    return ios
+
+
+def unpermute_grads(modules: list, ios: list):
+    """Map the ``.grad`` of every linear of ``permute_units``' modules back
+    to the units' first order, in place."""
+    import torch
+
+    for module, io in zip(modules, ios):
+        for layer, (po, pi) in zip(_unit_linears(module), io):
+            po, pi = (torch.argsort(q).to(layer.weight.device) for q in (po, pi))
+            layer.weight.grad = layer.weight.grad[po][:, pi]
+            layer.bias.grad = layer.bias.grad[po]
+
+
+def permuted_nets(net, mnet, seed: int) -> tuple:
+    """Copies of a SpaceNet and its MotionNet (or None) with their hidden
+    units permuted (``permute_units``). -> (net, mnet, the (output, input)
+    permutation of each linear in ``_field_linears`` order)."""
+    import copy
+
+    net, mnet = copy.deepcopy(net), copy.deepcopy(mnet)
+    ios = permute_units([net] + ([mnet] if mnet is not None else []), seed)
+    return net, mnet, [p for io in ios for p in io]
+
+
+def linear_stats(field, got, ref, io=None) -> dict:
+    """compare_leaf of the gradients per linear of the field (weight and
+    bias in the model's own shape, ``_linear_grads``) and of its two input
+    gradients. ``io``: ``got`` comes from ``permuted_nets``' copies, whose
+    weight gradients are permuted back first."""
+    import torch
+
+    from stnerf_tpu_torch.kernels.fused_field import _linear_grads
+
+    g, r = _linear_grads(field, *got[:2]), _linear_grads(field, *ref[:2])
+    out = {}
+    for i, ((gw, gb), (rw, rb)) in enumerate(zip(g, r)):
+        if io is not None:
+            po, pi = (torch.argsort(p).to(gw.device) for p in io[i])
+            gw, gb = gw[po][:, pi], gb[po]
+        out[f"L{i}.w"], out[f"L{i}.b"] = compare_leaf(gw, rw), compare_leaf(gb, rb)
+    out["d_x"], out["d_dir"] = compare_leaf(got[2], ref[2]), compare_leaf(got[3], ref[3])
+    return out
 
 
 def train_batch(device, bundle, scene, cfg):
@@ -952,7 +1103,7 @@ def phase_field_bwd_vs_plain(device, m: int, reps: int):
 
     from stnerf_tpu_torch.kernels import f32_bwd
     from stnerf_tpu_torch.kernels.field_vjp import (field_bwd, field_bwd_reference,
-                                                    field_planar_trainable)
+                                                    field_planar_trainable, tc_bwd_launch)
     from stnerf_tpu_torch.kernels.fused_field import TILE, fused_field
     from stnerf_tpu_torch.models import LayeredSpec, MotionNet, SpaceNet
     from stnerf_tpu_torch.ops.encoding import positional_encoding_planar
@@ -1030,51 +1181,94 @@ def phase_field_bwd_vs_plain(device, m: int, reps: int):
         results.append(row)
     background = real["background"]
 
-    def check_edge(name, fields, xyz, ids, dir_enc, flags, skipped):
+    def check_edge(name, fields, xyz, ids, dir_enc, flags, skipped, nets):
         """float32 on the edge case's seeded inputs, bf16 on the real
-        background inputs cut to its M, both with its flags; a field wider
-        than the backward kernels take refused in both dtypes before any
-        launch."""
+        background inputs cut to its M, both with its flags. A field wider
+        than 256: held to ``order_bar`` against its reordered plain version,
+        each route's sample block (64 at widths up to 256), its ms, bound
+        and share printed."""
         n = xyz.shape[1]
         rng = np.random.default_rng(n)
         cot = (t(rng.normal(size=(3, n))), t(rng.normal(size=n)))
         row = {"case": name, "m": n}
-        if wider_than_backward(fields["float32"]):
-            for dt, f in fields.items():
-                row[f"{dt}_refused"] = check_refused(
-                    lambda: field_bwd(f, xyz, ids, dir_enc, *cot, flags), [field_bwd],
-                    f"{name} {dt} backward", 256)
-            return row
-        row.update(check_field_bwd(name, fields["float32"], (xyz, ids, dir_enc, *cot, flags),
-                                   skipped))
-        cut = tuple(a[..., :n].contiguous() for a in background[:5])
-        row.update(check_field_bwd(name, fields["bfloat16"], (*cut, flags), skipped))
+        args = {"float32": (xyz, ids, dir_enc, *cot, flags),
+                "bfloat16": (*(a[..., :n].contiguous() for a in background[:5]), flags)}
+        order = dict.fromkeys(fields)
+        wide = wider_than_256(fields["float32"])
+        if wide:
+            net_p, mnet_p, io = permuted_nets(*nets[:2], SEED + 10)
+            order = {dt: (pack_dtype(net_p, mnet_p, nets[2], dt), io) for dt in fields}
+        for dt, f in fields.items():
+            row.update(check_field_bwd(name, f, args[dt], skipped, order[dt]))
+            row[f"{dt}_block_samples"] = (
+                f32_bwd.make_plan(f, n, f32_bwd.sm_count(device),
+                                  f32_bwd.smem_optin(device)).block if dt == "float32"
+                else tc_bwd_launch(f, n, dir_enc.shape[0])["block_samples"])
+            if not wide:
+                check(row[f"{dt}_block_samples"] == 64,
+                      f"{name} {dt}: a width up to 256 took a backward block of "
+                      f"{row[f'{dt}_block_samples']}")
+                continue
+            a = args[dt]
+            run = int((~skipped).sum())
+            nbytes = (4 * n * (4 + dir_enc.shape[0] + 4 + 3 + dir_enc.shape[0])
+                      + f.weights.element_size() * f.weights.numel()
+                      + 4 * (f.weights.numel() + f.biases.numel()))
+            ms = cuda_ms(lambda: field_bwd(f, *a), reps)
+            b_ms, b_by = bound_ms(2 * field_macs(f)["bwd"] * run, nbytes, dt)
+            row.update({f"{dt}_ms": ms, f"{dt}_bound_ms": b_ms, f"{dt}_bound_by": b_by,
+                        f"{dt}_share": b_ms / ms})
         return row
 
     results += edge_cases(device, check_edge, "field_bwd_vs_plain_edge", seed=SEED + 6)
-    # a training forward of a wide field: refused before its forward launches
-    net = widths_model(taekwondo_cfg(), WIDE_WIDTHS, device)
+    # a training forward and backward of each wide field: launched, every
+    # one on its dtype's route; then a field wider than the kernels take,
+    # refused before any launch
     n = 4096
+    part = tuple(a[:, :n].contiguous() for a in (xyz, ids, dir_enc))
+    for widths in (WIDE_WIDTHS, WIDE_PADDED_WIDTHS, XWIDE_WIDTHS):
+        net = widths_model(taekwondo_cfg(), widths, device)
+        for dt in ("float32", "bfloat16"):
+            for k in (fused_field, field_bwd):
+                k.launches = k.launches_tc = 0
+            rgb, sigma = field_planar_trainable(net.layers_fine[0], net.motion[0], *part,
+                                                flags[:n // TILE], "lerp", dt)
+            (rgb.sum() + sigma.sum()).backward()
+            grads = [p.grad for p in net.layers_fine[0].parameters()]
+            check(all(g is not None and bool(torch.isfinite(g).all()) for g in grads),
+                  f"a {widths} {dt} training step: a missing or non-finite gradient")
+            tc = int(dt == "bfloat16")
+            counts = [fused_field.launches, fused_field.launches_tc, field_bwd.launches,
+                      field_bwd.launches_tc]
+            check(counts == [1, tc, 1, tc], f"a {widths} {dt} training step launched "
+                                            f"{counts} (fused_field, _tc, field_bwd, _tc)")
+            print("field_bwd_vs_plain_train", json.dumps(
+                {"widths": widths, "dtype": dt, "path": "field_planar_trainable",
+                 "launches": counts}), flush=True)
+    over = SpaceNet(dataclasses.replace(spec.spacenet_spec(bkgd=True),
+                                        backbone_dim=TOO_WIDE_WIDTHS[0]), gen).to(device)
     for dt in ("float32", "bfloat16"):
         msg = check_refused(
-            lambda: field_planar_trainable(net.layers_fine[0], net.motion[0],
-                                           *(a[:, :n].contiguous() for a in (xyz, ids, dir_enc)),
-                                           flags[:n // TILE], "lerp", dt),
-            [fused_field, field_bwd], f"a {WIDE_WIDTHS} {dt} training forward", 256)
+            lambda: field_planar_trainable(over, None, *part, flags[:n // TILE], None, dt),
+            [fused_field, field_bwd], f"a {TOO_WIDE_WIDTHS[0]}-wide {dt} training forward",
+            1024)
         print("field_bwd_vs_plain_refused", json.dumps(
-            {"widths": WIDE_WIDTHS, "dtype": dt, "path": "field_planar_trainable",
+            {"width": TOO_WIDE_WIDTHS[0], "dtype": dt, "path": "field_planar_trainable",
              "message": msg}), flush=True)
     return results
 
 
-def check_field_bwd(name, f, args, skipped) -> dict:
+def check_field_bwd(name, f, args, skipped, order=None) -> dict:
     """field_bwd against field_bwd_reference for one packed field on args =
     (xyz, ids, dir_enc, d_rgb, d_sigma, tile_flags): finite gradients, zero
     d_xyz and d_dir in skipped tiles (and all-zero weight gradients when
     every tile is skipped); float32 per leaf within rtol 2e-3, atol 2e-3
     max|g| but for at most one entry or 0.1% of the leaf (``f32_close``),
     and the same bits when run twice (no atomics: three passes, a
-    fixed-order sum); bf16 per leaf within relative L2 1e-2. -> the
+    fixed-order sum); bf16 per leaf within relative L2 1e-2 and the same
+    bits when run twice. ``order``: (the field of ``permuted_nets``'
+    copies, their permutations) for a field wider than 256: the leaves are
+    the model's (``linear_stats``) and held to ``order_bar``. -> the
     errors."""
     import torch
 
@@ -1091,21 +1285,31 @@ def check_field_bwd(name, f, args, skipped) -> dict:
     if bool(skipped.all()):
         check(not got[0].any() and not got[1].any(),
               f"{name} {dt}: every tile skipped, but weight gradients are nonzero")
-    stats = _leaf_stats(f, got, ref)
+    again = field_bwd(f, *args)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"{name}: {dt} gradients differ between two runs")
+    out = {}
+    if order is None:
+        stats = _leaf_stats(f, got, ref)
+        bad = ({k: v for k, v in stats.items() if not f32_close(v)} if dt == "float32" else
+               {k: v["rel"] for k, v in stats.items() if v["rel"] > 1e-2})
+    else:
+        stats = linear_stats(f, got, ref)
+        yard = linear_stats(f, field_bwd_reference(order[0], *args), ref, order[1])
+        bad = order_bar(stats, yard, dt)
+        out[f"{dt}_order_yardstick"] = {  # the leaves beyond the fixed bar: [kernel, plain]
+            k: ([v["outside"], yard[k]["outside"]] if dt == "float32"
+                else [v["rel"], yard[k]["rel"]])
+            for k, v in stats.items() if (not f32_close(v) if dt == "float32" else v["rel"] > 1e-2)}
     if dt == "float32":
-        bad = {k: v for k, v in stats.items() if not f32_close(v)}
         check(not bad, f"{name}: f32 kernel vs plain beyond the float32 bar: {bad}")
-        again = field_bwd(f, *args)
-        check(all(torch.equal(a, b) for a, b in zip(got, again)),
-              f"{name}: f32 gradients differ between two runs")
-        return {"f32_max_abs_err": max(v["err"] for v in stats.values()),
+        return {**out, "f32_max_abs_err": max(v["err"] for v in stats.values()),
                 "f32_max_rel_l2": max(v["rel"] for v in stats.values()),
                 "f32_entries_outside": {k: v["outside"] for k, v in stats.items()
                                         if v["outside"]}}
     worst = max(stats, key=lambda k: stats[k]["rel"])
-    check(stats[worst]["rel"] <= 1e-2, f"{name}: bf16 kernel vs plain relative L2 "
-                                      f"{stats[worst]['rel']:.3g} on {worst} > 1e-2")
-    return {"bf16_worst_rel_l2": [worst, stats[worst]["rel"]],
+    check(not bad, f"{name}: bf16 kernel vs plain relative L2 beyond its bar: {bad}")
+    return {**out, "bf16_worst_rel_l2": [worst, stats[worst]["rel"]],
             "bf16_max_abs_err": max(v["err"] for v in stats.values())}
 
 
@@ -1141,42 +1345,46 @@ def check_spacenet(name, net, x, flags: bool) -> dict:
     bitwise the same when run twice. With ``flags``, the device-side
     ``active`` flag on both routes: 1 leaves the forward and every
     gradient bitwise unchanged, 0 gives zeros everywhere,
-    weight gradients included. A field wider than the backward kernels
-    take: the forward's checks, each route's sample block, and the backward
-    refused before any launch. -> the errors; ``fields`` and the call
+    weight gradients included. Each route's sample block, forward and
+    backward: at widths up to 256 the forward keeps 64 (float32) and 128
+    (bf16), the backward 64 on both routes. A field wider than 256: its
+    backward held to ``order_bar`` against a reordered plain version
+    (``permuted_nets``) in both dtypes, on the model's leaves.
+    -> the errors and each route's sample blocks; ``fields`` and the call
     arguments under "_args" for the timing."""
     import torch
 
+    from stnerf_tpu_torch.kernels import f32_bwd
     from stnerf_tpu_torch.kernels.fused_field import pack_field, prepare_kernel_params_planar
     from stnerf_tpu_torch.kernels.spacenet_vjp import (float32_ring, spacenet_bwd,
                                                        spacenet_bwd_reference, spacenet_fwd,
-                                                       spacenet_fwd_reference, tc_launch)
+                                                       spacenet_fwd_reference, tc_bwd_launch,
+                                                       tc_launch)
 
     pos = x["pos"]
     m, device = pos.shape[1], pos.device
     dir_enc = x["dir"] if net.spec.use_dir else torch.zeros((1, m), device=device)
     time_enc = x["time"] if net.spec.use_time else None
     row, args = {"case": name, "m": m}, {}
+    net_p, _, io = permuted_nets(net, None, SEED + 11)
     for dt in ("float32", "bfloat16"):
         tdt = torch.bfloat16 if dt == "bfloat16" else torch.float32
         f = pack_field(prepare_kernel_params_planar(net, tdt), (), net.spec, None, dt)
+        wide = wider_than_256(f)
         fwd_args = (f, pos, dir_enc, time_enc)
         bwd_args = fwd_args + (x["d_rgb"], x["d_sigma"])
         args[dt] = fwd_args, bwd_args
         launch = float32_ring if dt == "float32" else tc_launch
         row[f"{dt}_block_samples"] = launch(*fwd_args)["block_samples"]
-        if not wider_than_backward(f):
-            check(row[f"{dt}_block_samples"] == (64 if dt == "float32" else 128),
-                  f"{name} {dt}: a width up to 256 took a block of "
-                  f"{row[f'{dt}_block_samples']}")
+        row[f"{dt}_bwd_block_samples"] = (
+            f32_bwd.make_plan(f, m, f32_bwd.sm_count(device), f32_bwd.smem_optin(device)).block
+            if dt == "float32" else tc_bwd_launch(*fwd_args)["block_samples"])
+        if not wide:
+            blocks = [row[f"{dt}_block_samples"], row[f"{dt}_bwd_block_samples"]]
+            check(blocks == [64 if dt == "float32" else 128, 64],
+                  f"{name} {dt}: a width up to 256 took blocks (forward, backward) {blocks}")
         rgb_k, sig_k = spacenet_fwd(*fwd_args)
-        if wider_than_backward(f):
-            row[f"{dt}_bwd_refused"] = check_refused(lambda: spacenet_bwd(*bwd_args),
-                                                     [spacenet_bwd], f"{name} {dt} backward",
-                                                     256)
-            got = ()
-        else:
-            got = spacenet_bwd(*bwd_args)
+        got = spacenet_bwd(*bwd_args)
         sync(device)
         check(bool(torch.isfinite(rgb_k).all() and torch.isfinite(sig_k).all()),
               f"{name} {dt}: non-finite forward")
@@ -1193,7 +1401,21 @@ def check_spacenet(name, net, x, flags: bool) -> dict:
                   f"{name} {dt}: active 0 left a nonzero output or gradient")
         rgb_p, sig_p = spacenet_fwd_reference(*fwd_args)
         fwd_err = max(float((rgb_k - rgb_p).abs().max()), float((sig_k - sig_p).abs().max()))
-        stats = _leaf_stats(f, got, spacenet_bwd_reference(*bwd_args), "d_pos") if got else {}
+        ref = spacenet_bwd_reference(*bwd_args)
+        if wide:  # the model's leaves, each against its reordered plain version's
+            stats = linear_stats(f, got, ref)
+            f_p = pack_field(prepare_kernel_params_planar(net_p, tdt), (), net.spec, None, dt)
+            yard = linear_stats(f, spacenet_bwd_reference(f_p, *bwd_args[1:]), ref, io)
+            bad = order_bar(stats, yard, dt)
+            row[f"{dt}_order_yardstick"] = {
+                k: ([v["outside"], yard[k]["outside"]] if dt == "float32"
+                    else [v["rel"], yard[k]["rel"]])
+                for k, v in stats.items()
+                if (not f32_close(v) if dt == "float32" else v["rel"] > 1e-2)}
+        else:
+            stats = _leaf_stats(f, got, ref, "d_pos")
+            bad = ({k: v for k, v in stats.items() if not f32_close(v)} if dt == "float32"
+                   else {k: v["rel"] for k, v in stats.items() if v["rel"] > 1e-2})
         if dt == "float32":
             close = (torch.allclose(rgb_k, rgb_p, rtol=2e-3, atol=2e-4)
                      and torch.allclose(sig_k, sig_p, rtol=2e-3, atol=2e-4))
@@ -1204,13 +1426,10 @@ def check_spacenet(name, net, x, flags: bool) -> dict:
                                                         (rgb_k, sig_k))),
                   f"{name}: f32 forward differs between two runs")
             plain_rgb = rgb_p
-            if not got:
-                continue
             row["f32_bwd_max_abs_err"] = max(v["err"] for v in stats.values())
             row["f32_bwd_max_rel_l2"] = max(v["rel"] for v in stats.values())
             row["f32_entries_outside"] = {k: v["outside"] for k, v in stats.items()
                                           if v["outside"]}
-            bad = {k: v for k, v in stats.items() if not f32_close(v)}
             check(not bad, f"{name}: f32 backward kernel vs plain beyond the float32 "
                            f"bar: {bad}")
             again = spacenet_bwd(*bwd_args)
@@ -1223,14 +1442,11 @@ def check_spacenet(name, net, x, flags: bool) -> dict:
             row["bf16_fwd_max_abs_err"] = fwd_err
             row["bf16_fwd_rel_l2"] = [compare_leaf(rgb_k, rgb_p)["rel"],
                                       compare_leaf(sig_k, sig_p)["rel"]]
-            if not got:
-                continue
             worst = max(stats, key=lambda k: stats[k]["rel"])
             row["bf16_bwd_worst_rel_l2"] = [worst, stats[worst]["rel"]]
             row["bf16_bwd_max_abs_err"] = max(v["err"] for v in stats.values())
-            check(stats[worst]["rel"] <= 1e-2,
-                  f"{name}: bf16 backward kernel vs plain relative L2 "
-                  f"{stats[worst]['rel']:.3g} on {worst} > 1e-2")
+            check(not bad, f"{name}: bf16 backward kernel vs plain relative L2 beyond its "
+                           f"bar: {bad}")
             again = spacenet_bwd(*bwd_args)
             check(all(torch.equal(a, b) for a, b in zip(got, again)),
                   f"{name}: bf16 gradients differ between two runs")
@@ -1245,8 +1461,10 @@ def phase_spacenet_vs_plain(device, m: int, reps: int):
     shares, and the float32 forward's weight ring; then the edges: a narrow
     model (trunk 64, head 32), a performer at F8_WIDTHS' trunk and head
     (packed at 128/64), a ragged M with ``active`` None, 1 and 0, and the
-    wide fields of ``edge_cases`` (their forward; their backward and a
-    training forward refused) -> per-case results."""
+    wide fields of ``edge_cases`` (each with its blocks, and each route's
+    backward ms, bound and share); a training step of each wide field
+    through both kernels, and a 1040-wide training forward refused before
+    any launch -> per-case results."""
     import torch
 
     from stnerf_tpu_torch.kernels import f32_bwd
@@ -1319,13 +1537,13 @@ def phase_spacenet_vs_plain(device, m: int, reps: int):
         results.append(row)
 
     # the edges: every width the tiling pads, a ragged M (not a multiple of
-    # 64 or 128) with the flag unset, 1 and 0, and fields wider than the
-    # backward kernels take (their forward alone)
+    # 64 or 128) with the flag unset, 1 and 0, and fields wider than 256
     narrow = widths_model(view_pose_cfg(), (64, 32, 32), device, camera_num=8)
     f8 = widths_model(view_pose_cfg(), F8_WIDTHS, device, camera_num=8)
     wide = {w: widths_model(view_pose_cfg(), w, device, camera_num=8)
             for w in (WIDE_WIDTHS, WIDE_PADDED_WIDTHS, XWIDE_WIDTHS)}
     xe = _encoded_inputs(device, 2000 * 61 + 45, SEED + 7)
+    n_edge = xe["pos"].shape[1]
     for name, net, flags in (("narrow_performer", narrow.layers_fine[0], False),
                              ("narrow_background", narrow.bkgd_fine, False),
                              ("f8_performer", f8.layers_fine[0], False),
@@ -1334,18 +1552,52 @@ def phase_spacenet_vs_plain(device, m: int, reps: int):
                              ("wide_padded", wide[WIDE_PADDED_WIDTHS].layers_fine[0], False),
                              ("xwide_background", wide[XWIDE_WIDTHS].bkgd_fine, False)):
         row = check_spacenet(name, net, xe, flags)
-        row.pop("_args")
+        args = row.pop("_args")
+        if name.startswith(("wide", "xwide")):  # each backward route's time at the edge M
+            for dt, (fwd_args, bwd_args) in args.items():
+                f, pos, dir_enc, time_enc = fwd_args
+                rows = sum(e.shape[0] for e in (pos, dir_enc, time_enc) if e is not None)
+                nbytes = (4 * n_edge * (rows + 4 + pos.shape[0] + dir_enc.shape[0])
+                          + f.weights.element_size() * f.weights.numel()
+                          + 4 * (f.weights.numel() + f.biases.numel()))
+                ms = cuda_ms(lambda: spacenet_bwd(*bwd_args), reps)
+                b_ms, b_by = bound_ms(2 * field_macs(f)["bwd"] * n_edge, nbytes, dt)
+                row.update({f"{dt}_bwd_ms": ms, f"{dt}_bwd_bound_ms": b_ms,
+                            f"{dt}_bwd_bound_by": b_by, f"{dt}_bwd_share": b_ms / ms})
         print("spacenet_vs_plain_edge", json.dumps(row), flush=True)
         results.append(row)
-    # a training forward of a wide field: refused before its forward launches
-    net, n = wide[WIDE_WIDTHS].layers_fine[0], 4096
+    # a training step of each wide field through both kernels, every launch
+    # on its dtype's route; then a field wider than the kernels take,
+    # refused before any launch
+    n = 4096
+    enc = [xe[k][:, :n].contiguous() for k in ("pos", "dir", "time")]
+    for widths, model_w in wide.items():
+        net = model_w.layers_fine[0]
+        for dt in ("float32", "bfloat16"):
+            for k in (spacenet_fwd, spacenet_bwd):
+                k.launches = k.launches_tc = 0
+            pos = enc[0].clone().requires_grad_(True)
+            rgb, sigma = spacenet_planar_trainable(net, pos, *enc[1:], dt)
+            (rgb.sum() + sigma.sum()).backward()
+            grads = [p.grad for p in net.parameters()] + [pos.grad]
+            check(all(g is not None and bool(torch.isfinite(g).all()) for g in grads),
+                  f"a {widths} {dt} K3 training step: a missing or non-finite gradient")
+            tc = int(dt == "bfloat16")
+            counts = [spacenet_fwd.launches, spacenet_fwd.launches_tc, spacenet_bwd.launches,
+                      spacenet_bwd.launches_tc]
+            check(counts == [1, tc, 1, tc], f"a {widths} {dt} K3 training step launched "
+                                            f"{counts} (spacenet_fwd, _tc, spacenet_bwd, _tc)")
+            print("spacenet_vs_plain_train", json.dumps(
+                {"widths": widths[:2], "dtype": dt, "path": "spacenet_planar_trainable",
+                 "launches": counts}), flush=True)
+    over = SpaceNet(dataclasses.replace(sspec, backbone_dim=TOO_WIDE_WIDTHS[0]),
+                    gen).to(device)
     for dt in ("float32", "bfloat16"):
-        msg = check_refused(
-            lambda: spacenet_planar_trainable(
-                net, *(xe[k][:, :n].contiguous() for k in ("pos", "dir", "time")), dt),
-            [spacenet_fwd, spacenet_bwd], f"a {WIDE_WIDTHS} {dt} K3 training forward", 256)
+        msg = check_refused(lambda: spacenet_planar_trainable(over, *enc, dt),
+                            [spacenet_fwd, spacenet_bwd],
+                            f"a {TOO_WIDE_WIDTHS[0]}-wide {dt} K3 training forward", 1024)
         print("spacenet_vs_plain_refused", json.dumps(
-            {"widths": WIDE_WIDTHS[:2], "dtype": dt, "path": "spacenet_planar_trainable",
+            {"width": TOO_WIDE_WIDTHS[0], "dtype": dt, "path": "spacenet_planar_trainable",
              "message": msg}), flush=True)
     return results
 
@@ -1504,7 +1756,7 @@ def _flat_leaves(tree, prefix=""):
 
 
 def compare_train_step(device, bundle, scene, dtype: str, cfg_fn=None,
-                       f32_plain: dict | None = None) -> tuple:
+                       f32_plain: dict | None = None, order: bool = False) -> tuple:
     """One training step through the kernels and one through their plain
     versions, from the same weights, batch and sampling noise: gradients
     per leaf, and the seconds of a second step of each path. ``cfg_fn``
@@ -1521,7 +1773,11 @@ def compare_train_step(device, bundle, scene, dtype: str, cfg_fn=None,
     summation order moves it far more than the leaves it sums (even in
     float32: PERF.md, PR 3). The float32 step is therefore the fault check
     for ``cam_pose``: it holds both leaves to the fixed elementwise bar, as
-    every other leaf, and the bf16 bar only bounds the rounding on top."""
+    every other leaf, and the bf16 bar only bounds the rounding on top.
+    ``order`` (the fields wider than 256): a third step, the plain versions
+    on a copy of the model whose SpaceNets and MotionNets have their hidden
+    units permuted (``permute_units``), and every leaf held to
+    ``order_bar`` against that step's deviation from the plain one."""
     import torch
 
     from stnerf_tpu_torch.engine import make_optimizer, make_train_step
@@ -1561,16 +1817,33 @@ def compare_train_step(device, bundle, scene, dtype: str, cfg_fn=None,
                                          ("", k.launches - k.launches_tc))}
     stats = {k: compare_leaf(grads[False][k], b) for k, b in grads[True].items()}
     worst = max(stats, key=lambda k: stats[k]["rel"])
-    bars = {}
+    bars, yard = {}, None
+    if order:  # the plain step in another summation order
+        from stnerf_tpu_torch.models import MotionNet, SpaceNet
+
+        model = make_model(spec, device)
+        mods = [mm for mm in model.modules() if isinstance(mm, (SpaceNet, MotionNet))]
+        ios = permute_units(mods, SEED + 12)
+        opt, sched = make_optimizer(cfg, model)
+        step = make_train_step(model, opt, sched, remove_outliers=True, plain=True,
+                               device=device)
+        step(scene, batch, torch.Generator(device=device).manual_seed(SEED), 1.0)
+        unpermute_grads(mods, ios)
+        yard = {k: compare_leaf(a, grads[True][k])
+                for k, a in _flat_leaves(export_jax_params(model, grad=True))}
     if dtype == "bfloat16":
         bars = {k: 1e-2 if f32_plain is None or not k.startswith("/cam_pose/") else
                 max(1e-2, 0.1 * compare_leaf(grads[True][k], f32_plain[k])["rel"])
                 for k in stats}
-        bad = {k: [v["rel"], bars[k]] for k, v in stats.items() if v["rel"] > bars[k]}
+        if yard is None:
+            bad = {k: [v["rel"], bars[k]] for k, v in stats.items() if v["rel"] > bars[k]}
+        else:
+            bad = order_bar(stats, yard, dtype, bars)
         check(not bad, f"bf16 step: kernel vs plain gradient relative L2 above its bar "
-                       f"[rel, bar]: {bad}")
+                       f"[rel, bar or reordered plain]: {bad}")
     else:
-        bad = {k: v for k, v in stats.items() if not f32_close(v)}
+        bad = ({k: v for k, v in stats.items() if not f32_close(v)} if yard is None
+               else order_bar(stats, yard, dtype))
         check(not bad, f"f32 step: kernel vs plain gradients beyond the float32 bar: {bad}")
     row = {"model": "view_pose" if spec.use_deform_view else "taekwondo", "dtype": dtype,
            "pose_refinement": spec.pose_refinement, "fast_fine_train": spec.fast_fine_train,
@@ -1593,6 +1866,12 @@ def compare_train_step(device, bundle, scene, dtype: str, cfg_fn=None,
     if f32_plain is not None:
         row["pose_bars"] = {k: [stats[k]["rel"], b] for k, b in bars.items()
                             if k.startswith("/cam_pose/")}
+    if yard is not None:  # the leaves beyond the fixed bar: [kernel, reordered plain]
+        row["order_yardstick"] = {
+            k: ([v["outside"], yard[k]["outside"]] if dtype == "float32"
+                else [v["rel"], yard[k]["rel"]])
+            for k, v in stats.items()
+            if (not f32_close(v) if dtype == "float32" else v["rel"] > bars.get(k, 1e-2))}
     print("train_step_kernel_vs_plain", json.dumps(row), flush=True)
     return row, grads[True]
 
@@ -1802,8 +2081,8 @@ def wide_kernel_times(device, m: int, reps: int) -> dict:
 
 def phase_wide_slice(device, h: int, w: int, chunk: int, tile_cols: int, card: str) -> dict:
     """The taekwondo model at trunk 512, head 256, motion 256 (WIDE_WIDTHS,
-    set on configs/config_taekwondo.yml through merge_from_list), wider
-    than the backward kernels take, rendered at h x w through
+    set on configs/config_taekwondo.yml through merge_from_list), rendered
+    at h x w through
     render_pose_host: phase 3's five edit requests in bf16 (every field on
     K1's tensor-core kernel), the first in float32 (K1's CUDA-core kernel),
     and phase 7's three requests of its view-deform + pose-refinement
@@ -1990,6 +2269,178 @@ def phase_view_pose_train(device, bundle, scene) -> dict:
     row16, _ = compare_train_step(device, bundle, scene, "bfloat16", view_pose_cfg, plain32)
     summary["steps"] = [row16, row32]
     return summary
+
+
+def wide_cfg(cfg_fn=None):
+    """``cfg_fn()`` (default taekwondo_cfg) at the wide slice's widths
+    (WIDE_WIDTHS), set through merge_from_list."""
+    cfg = (cfg_fn or taekwondo_cfg)()
+    cfg.merge_from_list(["MODEL.BACKBONE_DIM", WIDE_WIDTHS[0], "MODEL.HEAD_DIM",
+                         WIDE_WIDTHS[1], "MODEL.MOTION_DIM", WIDE_WIDTHS[2]])
+    return cfg
+
+
+def wide_bwd_times(device, m: int, reps: int) -> dict:
+    """The wide slice's performer (WIDE_WIDTHS) through each backward route
+    at ``m`` samples, every sample run: K2 (bf16, float32) on seeded
+    positions, frame ids, directions and cotangents, K3's backward (bf16,
+    float32) on seeded encodings and cotangents of the view-deform
+    variant's performer; each route's sample block, ms, plain ms, bound
+    (operations at the dtype's peak, or bytes) and share; the float32
+    routes' bound for the operations as they do them and their workspace.
+    -> {route: row}."""
+    import torch
+
+    from stnerf_tpu_torch.kernels import f32_bwd, spacenet_vjp
+    from stnerf_tpu_torch.kernels.field_vjp import (field_bwd, field_bwd_reference,
+                                                    tc_bwd_launch)
+    from stnerf_tpu_torch.ops.encoding import positional_encoding_planar
+
+    rng = np.random.default_rng(SEED + 13)
+
+    def t(a):
+        return torch.tensor(a, dtype=torch.float32, device=device).contiguous()
+
+    xyz = t(rng.uniform(-3.0, 3.0, (3, m)))
+    ids = t(rng.integers(1, 101, (1, m)) + rng.choice([0.0, 0.25, 0.5], (1, m)))
+    d = rng.normal(size=(3, m))
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    dir_enc = positional_encoding_planar(t(d), 4, True, recursive=True).contiguous()
+    cot = (t(rng.normal(size=(3, m))), t(rng.normal(size=m)))
+    net = widths_model(taekwondo_cfg(), WIDE_WIDTHS, device)
+    vp_net = widths_model(view_pose_cfg(), WIDE_WIDTHS, device, camera_num=8).layers_fine[0]
+    x = _encoded_inputs(device, m, SEED + 14)
+    enc = (x["pos"], x["dir"], x["time"])
+    out = {}
+    for dt in ("float32", "bfloat16"):
+        f = pack_dtype(net.layers_fine[0], net.motion[0], "lerp", dt)
+        g = pack_dtype(vp_net, None, None, dt)
+        k2 = (f, xyz, ids, dir_enc, *cot)
+        k3 = (g, *enc, x["d_rgb"], x["d_sigma"])
+        if dt == "float32":
+            plans = [f32_bwd.make_plan(h, m, f32_bwd.sm_count(device),
+                                       f32_bwd.smem_optin(device)) for h in (f, g)]
+            blocks = [p.block for p in plans]
+        else:
+            blocks = [tc_bwd_launch(f, m, dir_enc.shape[0])["block_samples"],
+                      spacenet_vjp.tc_bwd_launch(g, *enc)["block_samples"]]
+        routes = {
+            f"field_bwd_{dt}": (lambda: field_bwd(*k2), lambda: field_bwd_reference(*k2),
+                                f, blocks[0], 4 * m * (4 + dir_enc.shape[0] + 4 + 3
+                                                       + dir_enc.shape[0])),
+            f"spacenet_bwd_{dt}": (lambda: spacenet_vjp.spacenet_bwd(*k3),
+                                   lambda: spacenet_vjp.spacenet_bwd_reference(*k3),
+                                   g, blocks[1],
+                                   4 * m * (sum(e.shape[0] for e in enc) + 4
+                                            + enc[0].shape[0] + enc[1].shape[0]))}
+        for i, (name, (fn, plain, h, block, io_bytes)) in enumerate(routes.items()):
+            nbytes = (io_bytes + h.weights.element_size() * h.weights.numel()
+                      + 4 * (h.weights.numel() + h.biases.numel()))
+            macs = field_macs(h)
+            b_ms, b_by = bound_ms(2 * macs["bwd"] * m, nbytes, dt)
+            ms = cuda_ms(fn, reps)
+            row = {"m": m, "widths": list(WIDE_WIDTHS), "block_samples": block, "ms": ms,
+                   "plain_ms": cuda_ms(plain, reps), "bound_ms": b_ms, "bound_by": b_by,
+                   "share": b_ms / ms}
+            if dt == "float32":
+                row["route_bound_ms"], _ = f32_bwd_bound_ms(macs, m, nbytes)
+                row["workspace_bytes"] = plans[i].workspace_bytes
+            out[name] = row
+    return out
+
+
+def phase_wide_train(device, bundle, scene, card: str) -> dict:
+    """The wide slice in training (phase 8b): the taekwondo model at
+    WIDE_WIDTHS (wide_cfg) through do_train on phase 5's pool as phase 5
+    does (one coarse-only epoch, one full epoch, bf16): finite losses, a
+    falling loss over the full epoch, K1 (``checked``) and K2 launched once
+    per field and stage of every step, all on the tensor-core route, and
+    no plain field evaluation; then one step through the kernels and one
+    through the plain versions in float32 and in bf16 (phase 5's bars), and
+    one of the view-deform variant (K3's forward and backward) in float32
+    and in bf16 (phase 8's bars), every step also against the plain step on
+    a reordered copy of the model (``compare_train_step``'s ``order``: at
+    these widths two plain orders alone take some leaves past the fixed
+    bars); then the backward routes' times at M = 240,000
+    (``wide_bwd_times``) and the phase's seconds. -> summary."""
+    import torch
+
+    from stnerf_tpu_torch.engine import do_train, make_optimizer
+    from stnerf_tpu_torch.kernels import field_vjp
+    from stnerf_tpu_torch.kernels.field_vjp import field_bwd
+    from stnerf_tpu_torch.kernels.fused_field import fused_field
+    from stnerf_tpu_torch.kernels.spacenet_vjp import spacenet_bwd, spacenet_fwd
+    from stnerf_tpu_torch.models import LayeredSpec
+
+    t_phase = time.perf_counter()
+    cfg = wide_cfg()
+    s = cfg.SOLVER
+    s.COARSE_STAGE, s.MAX_EPOCHS, s.WARMUP_ITERS, s.LOG_PERIOD = 2, 3, 1, 5
+    cfg.OUTPUT_DIR = os.path.join(REPO, "build", "chip_smoke_wide_train")
+    spec = LayeredSpec.from_cfg(cfg)
+    model = make_model(spec, device)
+    opt, sched = make_optimizer(cfg, model)
+    records = []
+    logger = logging.getLogger("chip_smoke.wide_train")
+    logger.setLevel(logging.INFO)
+    handler = logging.StreamHandler(sys.stdout)
+    handler.emit = lambda r: (records.append(r), print("wide_train", r.getMessage(), flush=True))
+    logger.addHandler(handler)
+
+    counted = (fused_field, field_bwd, spacenet_fwd, spacenet_bwd)
+    for k in counted:
+        k.launches = k.launches_tc = 0
+    zero_k6()
+    names = ["fused_field_reference", "field_bwd_reference"]
+    saved = {name: getattr(field_vjp, name) for name in names}
+    plain = count_calls(field_vjp, names)
+    try:
+        history = do_train(cfg, model, scene, bundle, opt, sched, logger=logger, seed=SEED,
+                           device=device)
+    finally:
+        for name, fn in saved.items():
+            setattr(field_vjp, name, fn)
+    launches = {f"{k.__name__}{route}": n for k in counted
+                for route, n in (("_tc", k.launches_tc), ("", k.launches))}
+    launches.update(read_k6())
+    steps = len(bundle["labels"]) // s.IMS_PER_BATCH
+    lp1 = spec.layer_num + 1
+    expected = sum(steps * (1 if epoch < s.COARSE_STAGE else 2) * lp1 for epoch, _ in history)
+    check([e for e, _ in history] == [1, 2], f"wide: epochs run: {[e for e, _ in history]}")
+    check(all(launches[k] == expected for k in ("fused_field", "fused_field_tc", "field_bwd",
+                                                "field_bwd_tc")),
+          f"wide training launched {launches}, the steps imply {expected} of K1 and K2, all "
+          "on the tensor-core route")
+    check(not any(plain.values()), f"wide training evaluated a field plainly: {plain}")
+    for epoch, m in history:
+        check(bool(np.isfinite(m.loss).all()), f"wide: epoch {epoch}: non-finite loss")
+    full = history[-1][1].loss
+    check(full[-1] < full[0], f"wide: epoch 2 loss did not fall: {full[0]:.4g} -> "
+                              f"{full[-1]:.4g}")
+    epoch_s = {r.args[0]: r.args[1] for r in records if r.msg.startswith("Epoch %d done")}
+    out = {"widths": list(WIDE_WIDTHS), "card": card, "steps_per_epoch": steps,
+           "launches": launches, "plain_field_calls": plain,
+           "loss_epoch2_first_last": [float(full[0]), float(full[-1])],
+           "s_per_step": {e: t / steps for e, t in epoch_s.items()},
+           "rays_per_s": {e: steps * s.IMS_PER_BATCH / t for e, t in epoch_s.items()}}
+    out["train_s"] = time.perf_counter() - t_phase
+    print("wide_train", json.dumps(out), flush=True)
+
+    def vp_cfg():
+        return wide_cfg(view_pose_cfg)
+
+    out["steps"] = [compare_train_step(device, bundle, scene, dt, wide_cfg, order=True)[0]
+                    for dt in ("bfloat16", "float32")]
+    row32, plain32 = compare_train_step(device, bundle, scene, "float32", vp_cfg, order=True)
+    row16, _ = compare_train_step(device, bundle, scene, "bfloat16", vp_cfg, plain32,
+                                  order=True)
+    out["view_pose_steps"] = [row16, row32]
+    out["kernels"] = wide_bwd_times(device, 240_000, 3)
+    for name, row in out["kernels"].items():
+        print("wide_bwd_kernels", json.dumps({"route": name, **row, "card": card}), flush=True)
+    out["s"] = time.perf_counter() - t_phase
+    print(f"phase wide_train: {out['s']:.1f} s", flush=True)
+    return out
 
 
 def cross_inputs(device, L: int, N: int, S: int, seed: int, hard: bool = False,
@@ -4389,7 +4840,8 @@ def main():
     script_t0 = time.perf_counter()
     import torch
 
-    if sys.argv[1:] not in ([], ["--model-axis-nccl"], ["--trained-spread"], ["--backward"]):
+    modes = (["--model-axis-nccl"], ["--trained-spread"], ["--backward"])
+    if sys.argv[1:] not in ([], *modes):
         raise SystemExit("usage: python3 chip_smoke.py [--model-axis-nccl | --trained-spread | "
                          "--backward]")
     if not torch.cuda.is_available():
@@ -4414,14 +4866,16 @@ def main():
         for line in log.read_text().splitlines():
             if "entry function" in line or "registers" in line or "spill" in line:
                 print("ptxas", line.strip(), flush=True)
-    if sys.argv[1:] in (["--model-axis-nccl"], ["--trained-spread"], ["--backward"]):
-        if sys.argv[1:] == ["--backward"]:  # phases 4 and 6 alone
+    if sys.argv[1:] in modes:
+        if sys.argv[1:] == ["--backward"]:  # phases 4, 6 and 8b alone
             m = taekwondo_cfg().SOLVER.IMS_PER_BATCH * 120
             for name, phase in (("field_bwd_vs_plain", phase_field_bwd_vs_plain),
                                 ("spacenet_vs_plain", phase_spacenet_vs_plain)):
                 t0 = time.perf_counter()
                 phase(device, m=m, reps=3)
                 print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+            scene, _ = scene_and_requests(device)
+            phase_wide_train(device, ring_bundle(scene), scene, card)
         elif sys.argv[1:] == ["--model-axis-nccl"]:
             row = model_axis_nccl_only(device, card)["2x2_nccl"]
             check(row.get("ran", True), f"17(c) did not run: {row.get('why')}")
@@ -4477,6 +4931,7 @@ def main():
     t0 = time.perf_counter()
     vp_train = phase_view_pose_train(device, bundle, scene)
     print(f"phase view_pose_train: {time.perf_counter() - t0:.1f} s", flush=True)
+    wide_train = phase_wide_train(device, bundle, scene, card)
     t0 = time.perf_counter()
     cross = phase_cross_vs_plain(device, reps=20)
     compositor = phase_compositor(device, reps=3)
@@ -4505,9 +4960,7 @@ def main():
 
     # the performer field: the main paths' case. K1 and K2 in two routes
     # each: bf16 fields on the tensor-core kernels (every main path), float32
-    # fields on the CUDA-core kernels (phase 5's float32 training step). The
-    # backward rows' errors leave out the wide edges, which the backward
-    # refuses
+    # fields on the CUDA-core kernels (phase 5's float32 training step)
     perf, bwd, k3 = cases[0], bwd_cases[0], k3_cases[0]
     f32_step = train["steps"][1]["launches"]
     vp_f32_step = vp_train["steps"][1]["launches"]  # K3's float32 route
@@ -4538,7 +4991,7 @@ def main():
          "replaces": "stnerf_tpu/kernels/field_vjp.py:192",
          "launches": train["launches"],
          "launches_by_path": {"train": train["launches"]},
-         "max_abs_err": max(c["bf16_max_abs_err"] for c in bwd_cases if "bf16_max_abs_err" in c),
+         "max_abs_err": max(c["bf16_max_abs_err"] for c in bwd_cases),
          "ms": bwd["bfloat16_ms"], "plain_ms": bwd["bfloat16_plain_ms"],
          "bound_ms": bwd["bfloat16_bound_ms"], "bound_by": bwd["bfloat16_bound_by"],
          "library_ms": None},
@@ -4547,7 +5000,7 @@ def main():
          "replaces": "stnerf_tpu/kernels/field_vjp.py:192",
          "launches": f32_step["field_bwd"],
          "launches_by_path": {"train_step_float32": f32_step["field_bwd"]},
-         "max_abs_err": max(c["f32_max_abs_err"] for c in bwd_cases if "f32_max_abs_err" in c),
+         "max_abs_err": max(c["f32_max_abs_err"] for c in bwd_cases),
          "ms": bwd["float32_ms"], "plain_ms": bwd["float32_plain_ms"],
          "bound_ms": bwd["float32_bound_ms"], "bound_by": bwd["float32_bound_by"],
          "route_bound_ms": bwd["float32_route_bound_ms"],
@@ -4576,7 +5029,7 @@ def main():
          "replaces": "stnerf_tpu/kernels/spacenet_vjp.py:238",
          "launches": vp_train["launches_bwd_tc"],
          "launches_by_path": {"train": vp_train["launches_bwd_tc"]},
-         "max_abs_err": max(c["bf16_bwd_max_abs_err"] for c in k3_cases if "bf16_bwd_max_abs_err" in c),
+         "max_abs_err": max(c["bf16_bwd_max_abs_err"] for c in k3_cases),
          "ms": k3["bfloat16_bwd_ms"], "plain_ms": k3["bfloat16_bwd_plain_ms"],
          "bound_ms": k3["bfloat16_bwd_bound_ms"], "bound_by": k3["bfloat16_bwd_bound_by"],
          "library_ms": None},
@@ -4585,7 +5038,7 @@ def main():
          "replaces": "stnerf_tpu/kernels/spacenet_vjp.py:238",
          "launches": vp_f32_step["spacenet_bwd"],
          "launches_by_path": {"train_step_float32": vp_f32_step["spacenet_bwd"]},
-         "max_abs_err": max(c["f32_bwd_max_abs_err"] for c in k3_cases if "f32_bwd_max_abs_err" in c),
+         "max_abs_err": max(c["f32_bwd_max_abs_err"] for c in k3_cases),
          "ms": k3["float32_bwd_ms"], "plain_ms": k3["float32_bwd_plain_ms"],
          "bound_ms": k3["float32_bwd_bound_ms"], "bound_by": k3["float32_bwd_bound_by"],
          "route_bound_ms": k3["float32_bwd_route_bound_ms"],
@@ -4654,7 +5107,10 @@ def main():
                     if "launches" in r},
                  **{f"trained_synthetic_{k}": r for k, r in trained["launches"].items()},
                  **{f"wide_slice_{k}": wide_slice[k]["launches"]
-                    for k in ("bfloat16", "float32", "view_pose")}}
+                    for k in ("bfloat16", "float32", "view_pose")},
+                 "wide_slice_train": wide_train["launches"],
+                 **{f"wide_slice_{r['model']}_step_{r['dtype']}": r["launches"]
+                    for r in wide_train["steps"] + wide_train["view_pose_steps"]}}
     # the forward routes at the wide slice's widths (M = 240,000, every
     # sample run): their sample block, times, bound and share
     for name, route in (("fused_field_tc", "fused_field_bfloat16"),
@@ -4663,6 +5119,12 @@ def main():
                         ("spacenet_fwd", "spacenet_fwd_float32")):
         row = next(r for r in kernels if r["name"] == name)
         row["wide"] = wide_slice["kernels"][route]
+    # and the backward routes (phase 8b)
+    for name, route in (("field_bwd_tc", "field_bwd_bfloat16"),
+                        ("field_bwd", "field_bwd_float32"),
+                        ("spacenet_bwd_tc", "spacenet_bwd_bfloat16"),
+                        ("spacenet_bwd", "spacenet_bwd_float32")):
+        next(r for r in kernels if r["name"] == name)["wide"] = wide_train["kernels"][route]
         if name == "fused_field_tc":
             row["wide_checked"] = wide_slice["kernels"]["fused_field_bfloat16_checked"]
     for row in kernels:

@@ -58,6 +58,9 @@ SIGNATURES = {
     # the 10 ints and the two counts, then a host int64 for the workspace's
     # bytes
     "stnerf_field_bwd_tc_workspace": [_I] * 12 + [_P],
+    # the same 12 ints, then a host int[2] of pass 1's block of samples and
+    # its dynamic shared memory
+    "stnerf_field_bwd_tc_block": [_I] * 12 + [_P],
     # float32 fields: pos, dir, time, weights, biases, offsets (host),
     # active, out, then M, pos_rows, dir_rows, time_rows, width, head, n_rgb,
     # and the stream
@@ -78,6 +81,9 @@ SIGNATURES = {
     # the same 7 ints, the packed weights' and biases' element counts, then
     # a host int64 for the workspace's bytes
     "stnerf_spacenet_bwd_tc_workspace": [_I] * 9 + [_P],
+    # the same 9 ints, then a host int[2] of pass 1's block of samples and
+    # its dynamic shared memory
+    "stnerf_spacenet_bwd_tc_block": [_I] * 9 + [_P],
     # bf16 (tensor cores): pos, dir, time, d_rgb, d_sigma, weights,
     # fragments, biases, offsets (host), active, gw, gb, d_pos, d_dir,
     # workspace, then the same 7 ints and the two counts, and the stream

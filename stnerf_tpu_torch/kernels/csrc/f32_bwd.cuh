@@ -2,8 +2,8 @@
 // (field_bwd.cu: the fused field with its motion net and encodings) and K3
 // (spacenet.cu: the SpaceNet on encoded inputs). They run the bf16 route's
 // three passes (tc_bwd.cuh) in float32:
-//   1. pass 1, a block of THREADS threads per RBM = 64 samples (one skip-flag
-//      tile, fused_field.py TILE): recompute the forward on CUDA cores
+//   1. pass 1, a block of THREADS threads per RBM samples (a record):
+//      recompute the forward on CUDA cores
 //      (mlp_blocks.cuh's fwd_seg: exact float32 FMA, as the forward kernels,
 //      so that the ReLU masks are what they are there) and compute every
 //      dx = W dy as 3xTF32 on the tensor cores (dx_tc_t), copying each
@@ -12,8 +12,8 @@
 //      copy a tile, issued by one thread, marked evict-first in L2 so that
 //      the records do not push out of it the weights every block reads). The
 //      backward reads no activation back: each ReLU's mask is kept in shared
-//      memory as bits (a byte per row and 8 samples), so nothing is
-//      recomputed and the activations need two ping-pong tiles.
+//      memory as bits (RBM / 8 bytes a row), so nothing is recomputed and
+//      the activations need two ping-pong tiles.
 //   2. f32_dw_kernel: dW = x dy^T and db = sum dy for every layer from the
 //      records (a job per layer), the sum over samples as 3xTF32 on the
 //      tensor cores. A block takes one KT x KT tile of one layer's dW (NK x
@@ -26,6 +26,15 @@
 // Passes 1 and 2 run over slices of the blocks in order, so that the records
 // of one slice are held at a time; each (slice, range) has its own partials.
 // No atomics: every output is the same on every run.
+//
+// The block RBM is the plan's (f32_bwd.py make_plan: the largest of 64, 32
+// and 16 samples whose pass-1 shared memory fits the card's, smem_bytes),
+// so every kernel here is a template over it: 64 at every width up to 256
+// (one skip-flag tile, fused_field.py TILE: those launches run the 64-sample
+// code throughout), 32 at 512 and 16 at 1024, where a block is part of a
+// tile and block b's flag is flags[b / (64 / RBM)] (block_flag). A thread
+// keeps at most 64 accumulators of a layer's outputs (TO x RBM / 8), so a
+// block takes layers up to 16384 / RBM wide (max_width).
 //
 // 3xTF32: each float32 operand v is split into hi, v rounded to TF32, and lo
 // = v - hi, of which the tensor cores read the TF32 part (split), and a
@@ -50,13 +59,24 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
 #include "field_common.cuh"
 #include "mlp_blocks.cuh"
 
 namespace {
 
-constexpr int RBM = 64;  // samples per pass-1 block = one record
+constexpr int FLAG_TILE = 64;  // samples per skip flag (fused_field.py TILE)
+
+// the widest layer a block of RBM samples takes: TO x RBM / 8 <= 64
+// accumulators a thread
+__host__ __device__ constexpr int max_width(int rbm) { return 16384 / rbm; }
+
+// the skip flag of block b of RBM samples, `step` apart (0: one flag)
+template <int RBM>
+__device__ __forceinline__ int block_flag(const int* flags, int b, int step) {
+  return flags[b / (FLAG_TILE / RBM) * step];
+}
 
 // The record's tiles, in the order of f32_bwd.py REC_TILES
 enum Tile {
@@ -85,13 +105,13 @@ struct Job {
 };
 constexpr int JOB_INTS = 8;
 constexpr int MAX_JOBS = 24;
-constexpr int PLAN_HEAD = 4;  // rec_floats, slice_blocks, ranges, n_jobs
+constexpr int PLAN_HEAD = 5;  // rec_floats, slice_blocks, ranges, n_jobs, block
 
 // The plan array: PLAN_HEAD ints, N_TILES tile offsets (floats within a
 // record, -1 absent), N_W offsets of the dx fragments (floats; -1: no dx on
 // the tensor cores), then n_jobs x JOB_INTS.
 struct Plan {
-  int rec_floats, slice_blocks, ranges, n_jobs;
+  int rec_floats, slice_blocks, ranges, n_jobs, rbm;
   const int* tile;
   const int* frag;
   const int* jobs;
@@ -103,11 +123,13 @@ bool read_plan(const int* a, Plan& P) {
   P.slice_blocks = a[1];
   P.ranges = a[2];
   P.n_jobs = a[3];
+  P.rbm = a[4];
   P.tile = a + PLAN_HEAD;
   P.frag = P.tile + N_TILES;
   P.jobs = P.frag + N_W;
-  return P.rec_floats > 0 && P.rec_floats % RBM == 0 && P.slice_blocks > 0 &&
-         P.ranges > 0 && P.n_jobs > 0 && P.n_jobs <= MAX_JOBS;
+  return (P.rbm == 64 || P.rbm == 32 || P.rbm == 16) && P.rec_floats > 0 &&
+         P.rec_floats % P.rbm == 0 && P.slice_blocks > 0 && P.ranges > 0 && P.n_jobs > 0 &&
+         P.n_jobs <= MAX_JOBS;
 }
 
 // pass 1's parameters (both kernels; the motion entries are K2's)
@@ -135,10 +157,10 @@ void set_plan(BwdParams& p, const int* offsets, const Plan& P) {
 // Pass 1's shared memory: float tiles of RBM samples (X: xyz and id, XD:
 // displaced xyz, FL: the flow, R: the sigma cotangent, G3: the rgb or flow
 // cotangent, P / D / T: the encodings, DP: d(pos enc), A and B: the
-// ping-pong tiles), then the mask bytes (8 a row: trunk a0-a6, head h0-h2,
-// motion u1-u5). Rows of RBM floats; the cotangent tiles that dx makes are
-// swizzled (swz), the rest plain. Every tile starts 16-byte aligned (rows of
-// 256 bytes), as the bulk copies need.
+// ping-pong tiles), then the mask bytes (RBM / 8 a row: trunk a0-a6, head
+// h0-h2, motion u1-u5). Rows of RBM floats; the cotangent tiles that dx
+// makes are swizzled (swz), the rest plain. Every tile starts 16-byte
+// aligned (rows of at least 64 bytes), as the bulk copies need.
 struct Smem {
   float *X, *XD, *FL, *R, *G3, *P, *D, *T, *DP, *A, *B;
   unsigned char* MK;
@@ -148,12 +170,15 @@ inline int mask_rows(const BwdParams& p) {
   return 7 * p.width + 3 * p.head + 5 * p.motion_width;
 }
 
-size_t smem_bytes(const BwdParams& p) {
+// (f32_bwd.py pass1_smem_bytes)
+size_t smem_bytes(const BwdParams& p, int rbm) {
   const int rows = 4 + 3 + 3 + 1 + 3 + 2 * p.pos_rows + p.dir_rows + p.time_rows + 2 * p.rows_a;
-  return static_cast<size_t>(rows) * RBM * sizeof(float) + static_cast<size_t>(mask_rows(p)) * 8;
+  return static_cast<size_t>(rows) * rbm * sizeof(float) +
+         static_cast<size_t>(mask_rows(p)) * (rbm / 8);
 }
 
 // smem_bytes' layout, in the same order
+template <int RBM>
 __device__ Smem carve(const BwdParams& p, void* base) {
   Smem s;
   float* f = static_cast<float*>(base);
@@ -178,8 +203,9 @@ __device__ Smem carve(const BwdParams& p, void* base) {
 }
 
 // the ReLU mask of (row k, sample m): the stored activation is positive
+template <int RBM>
 __device__ __forceinline__ bool pos_bit(const unsigned char* mk, int k, int m) {
-  return (mk[k * 8 + m / 8] >> (m % 8)) & 1;
+  return (mk[k * (RBM / 8) + m / 8] >> (m % 8)) & 1;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -201,26 +227,39 @@ __device__ __forceinline__ void sync_async() {
   __syncthreads();
 }
 
-// A thread's tile acc[i][j] (rows r = r0 + i, samples m = tm * 8 + j) into
-// a plain (rows, RBM) shared tile
-template <int TR>
+// A thread's tile acc[i][j] (rows r = r0 + i, samples m = tm * CPT + j,
+// CPT = RBM / 8) into a plain (rows, RBM) shared tile
+template <int RBM, int TR>
 __device__ __forceinline__ void store_tile(const float (&acc)[TR][RBM / 8], int r0, int tm,
                                            float* out) {
 #pragma unroll
   for (int i = 0; i < TR; ++i) {
-    float4* o = reinterpret_cast<float4*>(out + (r0 + i) * RBM + tm * 8);
-    o[0] = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    o[1] = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+    float* o = out + (r0 + i) * RBM + tm * (RBM / 8);
+    if constexpr (RBM == 16) {
+      *reinterpret_cast<float2*>(o) = make_float2(acc[i][0], acc[i][1]);
+    } else {
+#pragma unroll
+      for (int h = 0; h < RBM / 32; ++h) {
+        reinterpret_cast<float4*>(o)[h] =
+            make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
+      }
+    }
   }
 }
 
 // out = relu(W0^T in0 + W1^T in1 + W2^T in2 + bias), O = 32 * TO rows (a
-// segment with K = 0 is absent), with its mask
-template <int TO>
+// segment with K = 0 is absent), with its mask. Thread (to, tm) computes
+// rows to * TO + i, samples tm * CPT + j; below 64 samples a mask byte's 8
+// samples span 8 / CPT neighbouring lanes, which gather its bits.
+template <int RBM, int TO>
 __device__ __noinline__ void dense_t(const float* w0, const float* in0, int k0, const float* w1,
                         const float* in1, int k1, const float* w2, const float* in2, int k2,
                         const float* __restrict__ bias, float* out, unsigned char* mk) {
   constexpr int O = 32 * TO, CPT = RBM / 8;
+  // eight k steps in flight, where the forward kernels have four (the
+  // variant `unroll4`): the weights come from L2 for every block; fewer
+  // for wider thread tiles
+  constexpr int UNROLL = TO > 8 ? 64 / TO : 8;
   const int to = threadIdx.x / 8, tm = threadIdx.x % 8;
   float acc[TO][CPT];
 #pragma unroll
@@ -228,12 +267,11 @@ __device__ __noinline__ void dense_t(const float* w0, const float* in0, int k0, 
 #pragma unroll
     for (int j = 0; j < CPT; ++j) acc[i][j] = 0.f;
   }
-  // eight k steps in flight, where the forward kernels have four (the
-  // variant `unroll4`): the weights come from L2 for every block
-  fwd_seg<float, float, RBM, TO, 8>(acc, w0, O, k0, in0, to, tm);
-  if (k1) fwd_seg<float, float, RBM, TO, 8>(acc, w1, O, k1, in1, to, tm);
-  if (k2) fwd_seg<float, float, RBM, TO, 8>(acc, w2, O, k2, in2, to, tm);
+  fwd_seg<float, float, RBM, TO, UNROLL>(acc, w0, O, k0, in0, to, tm);
+  if (k1) fwd_seg<float, float, RBM, TO, UNROLL>(acc, w1, O, k1, in1, to, tm);
+  if (k2) fwd_seg<float, float, RBM, TO, UNROLL>(acc, w2, O, k2, in2, to, tm);
   copies_read();
+  constexpr int PER = 8 / CPT;  // threads of one mask byte
 #pragma unroll
   for (int i = 0; i < TO; ++i) {
     const float b = bias[to * TO + i];
@@ -243,15 +281,29 @@ __device__ __noinline__ void dense_t(const float* w0, const float* in0, int k0, 
       acc[i][j] = fmaxf(acc[i][j] + b, 0.f);
       bits |= (acc[i][j] > 0.f ? 1u : 0u) << j;
     }
-    mk[(to * TO + i) * 8 + tm] = static_cast<unsigned char>(bits);
+    if constexpr (PER > 1) {
+      bits <<= (tm % PER) * CPT;
+#pragma unroll
+      for (int d = 1; d < PER; d <<= 1) bits |= __shfl_xor_sync(0xffffffffu, bits, d);
+    }
+    if (tm % PER == 0) {
+      mk[(to * TO + i) * (RBM / 8) + tm / PER] = static_cast<unsigned char>(bits);
+    }
   }
-  store_tile<TO>(acc, to * TO, tm, out);
+  store_tile<RBM, TO>(acc, to * TO, tm, out);
 }
 
 // Where (row o, sample m) of a cotangent tile lies: rows of RBM floats,
-// the samples of row o XOR-ed by (o % 4) * 8, so that the four rows an mma
-// B fragment reads at one column fall in four bank groups.
-__device__ __forceinline__ int swz(int o, int m) { return o * RBM + (m ^ ((o & 3) << 3)); }
+// the samples of row o XOR-ed by swz_mask(o), so that the four rows an mma
+// B fragment reads at one column fall in four bank groups: (o % 4) * 8 for
+// rows of 64 or 32 floats (each row in the same banks), ((o / 2) % 2) * 8
+// for rows of 16 (rows o and o + 1 already half a bank cycle apart).
+template <int RBM>
+__device__ __forceinline__ int swz_mask(int o) {
+  return RBM >= 32 ? (o & 3) << 3 : (o & 2) << 2;
+}
+template <int RBM>
+__device__ __forceinline__ int swz(int o, int m) { return o * RBM + (m ^ swz_mask<RBM>(o)); }
 
 // v = hi + lo: hi is v rounded to TF32 (to nearest, ties away from zero, as
 // cvt.rna: the carry of the 13th bit, then the low 13 bits cleared), lo the
@@ -282,18 +334,22 @@ __device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
 // into the pass-1 kernels, they spilled ~2 KB a thread: the variant
 // `inline` of tools/torch_f32_bwd_variants.py).
 //
-// epi(k, m, sum_o W[k, o] dy[o, m]) for the rows k < 16 * MT * (8 / WN) of
-// W (K, O) and the RBM samples, 3xTF32 on the tensor cores. frag: W in mma
+// epi(k, m, sum_o W[k, o] dy[o, m]) for the rows k of W (K, O) from row
+// tile r0 on, 16 * MT * (8 / WN) of them, those of row tiles past K left
+// out, and the RBM samples, 3xTF32 on the tensor cores. frag: W in mma
 // A-fragment order (f32_bwd.py dx_fragments: for each 16-row tile and each
 // 8-column step, a float4 a lane), rows past K zero; dy: a swizzled tile of
 // O rows (O a multiple of 8). Warp w takes MT row tiles and NT 8-sample
-// column tiles (WN = 8 / NT warps share a row group).
-template <int MT, int NT, class Epi>
-__device__ __noinline__ void dx_tc_t(const float4* __restrict__ frag, int O, const float* dy, Epi epi) {
-  constexpr int WN = 8 / NT;
+// column tiles (WN = RBM / (8 NT) warps share a row group).
+template <int RBM, int MT, int NT, class Epi>
+__device__ __noinline__ void dx_tc_t(const float4* __restrict__ frag, int K, int O,
+                                     const float* dy, Epi epi, int r0 = 0) {
+  constexpr int WN = RBM / (8 * NT);
+  static_assert(WN >= 1 && 8 % WN == 0, "a warp's columns tile the block");
   const int w = threadIdx.x >> 5, l = threadIdx.x & 31, g = l >> 2, q = l & 3;
-  const int mt0 = (w / WN) * MT, n0 = (w % WN) * NT * 8;
-  const int steps = O / 8;
+  const int mt0 = r0 + (w / WN) * MT, n0 = (w % WN) * NT * 8;
+  const bool live = mt0 * 16 < K;  // a warp whose row tiles all lie past K
+  const int steps = live ? O / 8 : 0;
   float acc[MT][NT][4];
 #pragma unroll
   for (int i = 0; i < MT; ++i) {
@@ -319,15 +375,15 @@ __device__ __noinline__ void dx_tc_t(const float4* __restrict__ frag, int O, con
       split(f[i].z, ah[i][2], al[i][2]);
       split(f[i].w, ah[i][3], al[i][3]);
     }
-    // rows kt * 8 + q and + 4: both swizzled by q
-    const float* r0 = dy + (kt * 8 + q) * RBM;
-    const float* r1 = r0 + 4 * RBM;
+    // rows kt * 8 + q and + 4: the same swizzle
+    const float* y0 = dy + (kt * 8 + q) * RBM;
+    const float* y1 = y0 + 4 * RBM;
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
-      const int c = (n0 + 8 * j + g) ^ (q << 3);
+      const int c = (n0 + 8 * j + g) ^ swz_mask<RBM>(q);
       uint32_t bh[2], bl[2];
-      split(r0[c], bh[0], bl[0]);
-      split(r1[c], bh[1], bl[1]);
+      split(y0[c], bh[0], bl[0]);
+      split(y1[c], bh[1], bl[1]);
 #pragma unroll
       for (int i = 0; i < MT; ++i) mma3(acc[i][j], ah[i], al[i], bh, bl);
     }
@@ -345,6 +401,7 @@ __device__ __noinline__ void dx_tc_t(const float4* __restrict__ frag, int O, con
     }
   }
   copies_read();
+  if (!live) return;
 #pragma unroll
   for (int i = 0; i < MT; ++i) {
 #pragma unroll
@@ -359,34 +416,36 @@ __device__ __noinline__ void dx_tc_t(const float4* __restrict__ frag, int O, con
 
 // The same on CUDA cores for a layer of O <= 4 outputs (dy a plain tile)
 // and K = 32 * TK inputs; the sum runs over o in order.
-template <int TK, class Epi>
+template <int RBM, int TK, class Epi>
 __device__ void dx_small_t(const float* __restrict__ w, int O, const float* dy, Epi epi) {
+  constexpr int CPT = RBM / 8;
   const int tk = threadIdx.x / 8, tm = threadIdx.x % 8;
-  float acc[TK][8];
+  float acc[TK][CPT];
 #pragma unroll
   for (int i = 0; i < TK; ++i) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < CPT; ++j) acc[i][j] = 0.f;
   }
   for (int o = 0; o < O; ++o) {
-    float y[8];
-    ld_vec<8>(dy + o * RBM + tm * 8, y);
+    float y[CPT];
+    ld_vec<CPT>(dy + o * RBM + tm * CPT, y);
 #pragma unroll
     for (int i = 0; i < TK; ++i) {
       const float wv = w[(tk * TK + i) * O + o];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(wv, y[j], acc[i][j]);
+      for (int j = 0; j < CPT; ++j) acc[i][j] = fmaf(wv, y[j], acc[i][j]);
     }
   }
   copies_read();
 #pragma unroll
   for (int i = 0; i < TK; ++i) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) epi(tk * TK + i, tm * 8 + j, acc[i][j]);
+    for (int j = 0; j < CPT; ++j) epi(tk * TK + i, tm * CPT + j, acc[i][j]);
   }
 }
 
 // One pass-1 block: the packed operands, its record and its masks
+template <int RBM>
 struct Blk {
   const BwdParams& p;
   const float* wts;
@@ -396,11 +455,14 @@ struct Blk {
   unsigned char* mk;
   __device__ const float* W(int s) const { return wts + p.w_off[s]; }
   __device__ const float* Bi(int s) const { return bias + p.b_off[s]; }
-  __device__ unsigned char* trunk_mask(int l) const { return mk + l * p.width * 8; }
-  __device__ unsigned char* head_mask(int i) const { return mk + (7 * p.width + i * p.head) * 8; }
+  static constexpr int MB = RBM / 8;  // mask bytes a row
+  __device__ unsigned char* trunk_mask(int l) const { return mk + l * p.width * MB; }
+  __device__ unsigned char* head_mask(int i) const {
+    return mk + (7 * p.width + i * p.head) * MB;
+  }
   // the mask of the motion net's hidden layer u_{k+1}
   __device__ unsigned char* motion_mask(int k) const {
-    return mk + (7 * p.width + 3 * p.head + k * p.motion_width) * 8;
+    return mk + (7 * p.width + 3 * p.head + k * p.motion_width) * MB;
   }
   // `rows` rows of a shared tile (written before the last sync) into record
   // tile r: one bulk copy from shared to global memory, issued by thread 0,
@@ -420,16 +482,30 @@ struct Blk {
     if (threadIdx.x == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
   }
 
+  // dense_t at O = 32 * TO, a width a block of RBM samples takes; the
+  // launchers refuse the others (max_width), which trap
+  template <int TO>
+  __device__ void dense_as(int s0, const float* in0, int k0, int s1, const float* in1, int k1,
+                           int s2, const float* in2, int k2, int bslot, float* out,
+                           unsigned char* m) const {
+    if constexpr (32 * TO <= max_width(RBM)) {
+      dense_t<RBM, TO>(W(s0), in0, k0, W(s1), in1, k1, W(s2), in2, k2, Bi(bslot), out, m);
+    } else {
+      __trap();
+    }
+  }
   // out = relu(dense), O rows, with its mask m, saved as record tile r
   __device__ void dense(int s0, const float* in0, int k0, int s1, const float* in1, int k1,
                         int s2, const float* in2, int k2, int bslot, int O, float* out, int r,
                         unsigned char* m) const {
     switch (O) {
-      case 256: dense_t<8>(W(s0), in0, k0, W(s1), in1, k1, W(s2), in2, k2, Bi(bslot), out, m); break;
-      case 128: dense_t<4>(W(s0), in0, k0, W(s1), in1, k1, W(s2), in2, k2, Bi(bslot), out, m); break;
-      case 64: dense_t<2>(W(s0), in0, k0, W(s1), in1, k1, W(s2), in2, k2, Bi(bslot), out, m); break;
-      case 32: dense_t<1>(W(s0), in0, k0, W(s1), in1, k1, W(s2), in2, k2, Bi(bslot), out, m); break;
-      default: __trap();  // no backward width (bwd_width): the launchers refuse it
+      case 1024: dense_as<32>(s0, in0, k0, s1, in1, k1, s2, in2, k2, bslot, out, m); break;
+      case 512: dense_as<16>(s0, in0, k0, s1, in1, k1, s2, in2, k2, bslot, out, m); break;
+      case 256: dense_as<8>(s0, in0, k0, s1, in1, k1, s2, in2, k2, bslot, out, m); break;
+      case 128: dense_as<4>(s0, in0, k0, s1, in1, k1, s2, in2, k2, bslot, out, m); break;
+      case 64: dense_as<2>(s0, in0, k0, s1, in1, k1, s2, in2, k2, bslot, out, m); break;
+      case 32: dense_as<1>(s0, in0, k0, s1, in1, k1, s2, in2, k2, bslot, out, m); break;
+      default: __trap();  // not a kernel width (fwd_width): the launchers refuse it
     }
     sync_async();
     save(r, out, O);
@@ -443,29 +519,73 @@ struct Blk {
   // fragments (dy swizzled; epi also sees the padding rows k >= K), else on
   // CUDA cores (O <= 4, dy plain); then the barrier (after a fence for the
   // bulk copies)
+  //
+  // The tensor-core split: the fragments' rows are K padded to a kernel
+  // width (f32_bwd.py padded_rows), and each case's warps cover exactly
+  // those rows (16 x MT x 8 / WN), but the narrowest: with 16 samples two
+  // warps share a row group, and 32 rows take half of the warps.
   template <class Epi>
   __device__ void dx(int slot, int K, int O, const float* dy, Epi epi) const {
     if (p.frag[slot] >= 0) {
       const float4* f = reinterpret_cast<const float4*>(frags + p.frag[slot]);
-      if (K > 128) {
-        dx_tc_t<2, 8>(f, O, dy, epi);
-      } else if (K > 64) {
-        dx_tc_t<1, 8>(f, O, dy, epi);
-      } else if (K > 32) {
-        dx_tc_t<1, 4>(f, O, dy, epi);
+      if constexpr (RBM == 64) {
+        if (K > 128) {
+          dx_tc_t<RBM, 2, 8>(f, K, O, dy, epi);
+        } else if (K > 64) {
+          dx_tc_t<RBM, 1, 8>(f, K, O, dy, epi);
+        } else if (K > 32) {
+          dx_tc_t<RBM, 1, 4>(f, K, O, dy, epi);
+        } else {
+          dx_tc_t<RBM, 1, 2>(f, K, O, dy, epi);
+        }
+      } else if constexpr (RBM == 32) {
+        if (K > 256) {
+          dx_tc_t<RBM, 4, 4>(f, K, O, dy, epi);
+        } else if (K > 128) {
+          dx_tc_t<RBM, 2, 4>(f, K, O, dy, epi);
+        } else if (K > 64) {
+          dx_tc_t<RBM, 1, 4>(f, K, O, dy, epi);
+        } else if (K > 32) {
+          dx_tc_t<RBM, 1, 2>(f, K, O, dy, epi);
+        } else {
+          dx_tc_t<RBM, 1, 1>(f, K, O, dy, epi);
+        }
       } else {
-        dx_tc_t<1, 2>(f, O, dy, epi);
+        if (K > 512) {  // two halves of 512 rows
+          dx_tc_t<RBM, 4, 2>(f, K, O, dy, epi);
+          dx_tc_t<RBM, 4, 2>(f, K, O, dy, epi, 32);
+        } else if (K > 256) {
+          dx_tc_t<RBM, 4, 2>(f, K, O, dy, epi);
+        } else if (K > 128) {
+          dx_tc_t<RBM, 2, 2>(f, K, O, dy, epi);
+        } else if (K > 64) {
+          dx_tc_t<RBM, 1, 2>(f, K, O, dy, epi);
+        } else {
+          dx_tc_t<RBM, 1, 1>(f, K, O, dy, epi);
+        }
       }
     } else {
       switch (K) {
-        case 256: dx_small_t<8>(W(slot), O, dy, epi); break;
-        case 128: dx_small_t<4>(W(slot), O, dy, epi); break;
-        case 64: dx_small_t<2>(W(slot), O, dy, epi); break;
-        case 32: dx_small_t<1>(W(slot), O, dy, epi); break;
-        default: __trap();  // no backward width (bwd_width): the launchers refuse it
+        case 1024: dx_small_as<32>(slot, O, dy, epi); break;
+        case 512: dx_small_as<16>(slot, O, dy, epi); break;
+        case 256: dx_small_as<8>(slot, O, dy, epi); break;
+        case 128: dx_small_as<4>(slot, O, dy, epi); break;
+        case 64: dx_small_as<2>(slot, O, dy, epi); break;
+        case 32: dx_small_as<1>(slot, O, dy, epi); break;
+        default: __trap();  // not a kernel width (fwd_width): the launchers refuse it
       }
     }
     sync_async();
+  }
+  // dx_small_t at K = 32 * TK, a width a block of RBM samples takes (the
+  // others trap: the launchers refuse them, max_width)
+  template <int TK, class Epi>
+  __device__ void dx_small_as(int slot, int O, const float* dy, Epi epi) const {
+    if constexpr (32 * TK <= max_width(RBM)) {
+      dx_small_t<RBM, TK>(W(slot), O, dy, epi);
+    } else {
+      __trap();
+    }
   }
   // the backward of a hidden layer: its input's cotangent, f(k, m, W dy)
   // masked by the input's ReLU mask m, into the swizzled tile `out`, saved
@@ -474,7 +594,7 @@ struct Blk {
   __device__ void hidden_f(int slot, int K, int O, const float* dy, const unsigned char* m,
                            F f, float* out, int r) const {
     dx(slot, K, O, dy, [=](int k, int mm, float v) {
-      out[swz(k, mm)] = pos_bit(m, k, mm) ? f(k, mm, v) : 0.f;
+      out[swz<RBM>(k, mm)] = pos_bit<RBM>(m, k, mm) ? f(k, mm, v) : 0.f;
     });
     save(r, out, K);
   }
@@ -491,8 +611,10 @@ struct Blk {
 // d_dir_enc (dir_rows, M), masked where D is not positive, leaves d(pos enc)
 // = w1 dy0 + s2b dy4 in s.DP behind a barrier, and copies every layer's x
 // and dy to the record (Blk::done() before the block exits).
-__device__ void spacenet_block(const Blk& c, int m0, const Smem& s, const float* __restrict__ drgb,
-                               const float* __restrict__ dsig, float* __restrict__ ddir) {
+template <int RBM>
+__device__ void spacenet_block(const Blk<RBM>& c, int m0, const Smem& s,
+                               const float* __restrict__ drgb, const float* __restrict__ dsig,
+                               float* __restrict__ ddir) {
   const BwdParams& p = c.p;
   const int t = threadIdx.x;
   const int M = p.M, W = p.width, H = p.head, kp = p.pos_rows;
@@ -578,15 +700,25 @@ __device__ void spacenet_block(const Blk& c, int m0, const Smem& s, const float*
 
 constexpr int KT = 128;           // a wide tile: KT x KT entries of dW
 constexpr int NK = 256, NO = 4;   // a narrow tile (o <= NO): NK x NO
-constexpr int XS = RBM + 4;       // a row's floats in a stage: conflict-free fragments
-constexpr int DW_STAGES = 3;      // records in flight
-constexpr int DW_STAGE = (NK + NO) * XS;  // floats of one stage: x rows, then dy rows
-static_assert(DW_STAGE >= 2 * KT * XS, "a wide stage fits");
-constexpr int DW_SMEM = DW_STAGES * DW_STAGE * static_cast<int>(sizeof(float));
+// a row's floats in a stage: conflict-free fragments
+template <int RBM>
+__host__ __device__ constexpr int xs_floats() { return RBM + 4; }
+// floats of one stage: x rows, then dy rows
+template <int RBM>
+__host__ __device__ constexpr int dw_stage() { return (NK + NO) * xs_floats<RBM>(); }
+static_assert(dw_stage<16>() >= 2 * KT * xs_floats<16>(), "a wide stage fits");
+// records in flight: three of 64 samples; at smaller records as many as fit
+// in about the same shared memory
+template <int RBM>
+__host__ __device__ constexpr int dw_stages() { return RBM == 64 ? 3 : RBM == 32 ? 6 : 10; }
+template <int RBM>
+__host__ __device__ constexpr int dw_smem() {
+  return dw_stages<RBM>() * dw_stage<RBM>() * static_cast<int>(sizeof(float));
+}
 
-// records: this slice's; record b's flag is flags[(block0 + b) * flag_step]
-// (K2: one a block; K3: flag_step 0, the field's `active` flag); no flags:
-// every record counts
+// records: this slice's; record b's flag is block_flag(flags, block0 + b,
+// flag_step) (K2: one a tile; K3: flag_step 0, the field's `active` flag);
+// no flags: every record counts
 struct DwArgs {
   Job job[MAX_JOBS];
   int tile0[MAX_JOBS + 1];  // first tile of each job; the last entry is the total
@@ -615,18 +747,21 @@ __device__ __forceinline__ void cp_wait() {
 //   narrow: NK x NO on CUDA cores, a row a thread; thread 0 sums db.
 // Rows and columns past the layer's (rows not loaded, stale stages) fall in
 // entries that are never written.
-template <bool NARROW>
+template <int RBM, bool NARROW>
 __device__ void dw_tile(const float* __restrict__ records, const int* __restrict__ flags,
                         float* __restrict__ out, const DwArgs& a, const Job& jb, int k0, int n0,
                         int b_lo, int b_hi) {
   extern __shared__ __align__(16) float dsm[];
+  constexpr int XS = xs_floats<RBM>(), DW_STAGE = dw_stage<RBM>(), DW_STAGES = dw_stages<RBM>();
   constexpr int XT = NARROW ? NK : KT;  // rows of x a stage holds
   constexpr int YOFF = XT * XS;         // dy's rows in a stage
   const int t = threadIdx.x;
   const int xr = min(XT, jb.k_in - k0);  // rows to load
   const int yr = NARROW ? jb.o : min(KT, jb.o - n0);
   const auto next = [&](int b) {  // the first record from b on that pass 1 wrote
-    while (b < b_hi && flags != nullptr && flags[(a.block0 + b) * a.flag_step] == 0) ++b;
+    while (b < b_hi && flags != nullptr && block_flag<RBM>(flags, a.block0 + b, a.flag_step) == 0) {
+      ++b;
+    }
     return b;
   };
   const auto issue = [&](int st, int b) {  // record b into stage st (none past b_hi)
@@ -641,8 +776,8 @@ __device__ void dw_tile(const float* __restrict__ records, const int* __restrict
       const float* yg = rec + jb.y + n0 * RBM;
       for (int i = t; i < yr * (RBM / 4); i += THREADS) {
         const int r = i / (RBM / 4), c = (i % (RBM / 4)) * 4;
-        // the chunk of samples c..c+3 of swizzled row o holds c ^ ((o % 4) * 8)..
-        cp16(xs + YOFF + r * XS + (NARROW ? c : c ^ (((n0 + r) & 3) << 3)), yg + r * RBM + c);
+        // the chunk of samples c..c+3 of swizzled row o holds c ^ swz_mask(o)..
+        cp16(xs + YOFF + r * XS + (NARROW ? c : c ^ swz_mask<RBM>(n0 + r)), yg + r * RBM + c);
       }
     }
     cp_commit();
@@ -783,6 +918,7 @@ __device__ void dw_tile(const float* __restrict__ records, const int* __restrict
 
 // grid: (tiles of all jobs, ranges of records); THREADS threads; `partial`
 // this slice's first range's partials (n_params floats a range)
+template <int RBM>
 __global__ void __launch_bounds__(THREADS, 1)
 f32_dw_kernel(const float* __restrict__ records, const int* __restrict__ flags,
               float* __restrict__ partial, int n_params, const __grid_constant__ DwArgs a) {
@@ -797,17 +933,18 @@ f32_dw_kernel(const float* __restrict__ records, const int* __restrict__ flags,
   const int b_hi = static_cast<int>(static_cast<long long>(r + 1) * a.n_records / a.ranges);
   float* out = partial + static_cast<size_t>(r) * n_params;
   if (narrow) {
-    dw_tile<true>(records, flags, out, a, jb, k0, 0, b_lo, b_hi);
+    dw_tile<RBM, true>(records, flags, out, a, jb, k0, 0, b_lo, b_hi);
   } else {
-    dw_tile<false>(records, flags, out, a, jb, k0, n0, b_lo, b_hi);
+    dw_tile<RBM, false>(records, flags, out, a, jb, k0, n0, b_lo, b_hi);
   }
 }
 
-// Passes 1-3 for M samples. pass1(b0, nb, records) launches pass 1 for the
-// blocks [b0, b0 + nb) into records [0, nb). `work` holds the plan's
-// workspace: one slice's records, then every (slice, range)'s partials.
-// gw and gb (n_w and n_b floats) are overwritten.
-template <class Pass1>
+// Passes 1-3 for M samples in blocks of RBM (the plan's). pass1(b0, nb,
+// records) launches pass 1 for the blocks [b0, b0 + nb) into records [0,
+// nb). `work` holds the plan's workspace: one slice's records, then every
+// (slice, range)'s partials. gw and gb (n_w and n_b floats) are
+// overwritten.
+template <int RBM, class Pass1>
 cudaError_t run_f32_bwd(const Plan& P, int M, const int* flags, int flag_step, float* work,
                         int n_w, int n_b, float* gw, float* gb, cudaStream_t s, Pass1 pass1) {
   const int n_blocks = (M + RBM - 1) / RBM;
@@ -830,7 +967,9 @@ cudaError_t run_f32_bwd(const Plan& P, int M, const int* flags, int flag_step, f
   cudaError_t e = cudaMemsetAsync(
       partial, 0, static_cast<size_t>(n_slices) * P.ranges * n * sizeof(float), s);
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(f32_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DW_SMEM);
+  constexpr int DW_SMEM = dw_smem<RBM>();
+  e = cudaFuncSetAttribute(f32_dw_kernel<RBM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           DW_SMEM);
   if (e != cudaSuccess) return e;
   for (int sl = 0; sl < n_slices; ++sl) {
     const int b0 = sl * P.slice_blocks;
@@ -839,13 +978,26 @@ cudaError_t run_f32_bwd(const Plan& P, int M, const int* flags, int flag_step, f
     if (e != cudaSuccess) return e;
     a.n_records = nb;
     a.block0 = b0;
-    f32_dw_kernel<<<dim3(a.tile0[P.n_jobs], P.ranges), THREADS, DW_SMEM, s>>>(
+    f32_dw_kernel<RBM><<<dim3(a.tile0[P.n_jobs], P.ranges), THREADS, DW_SMEM, s>>>(
         records, flags, partial + static_cast<size_t>(sl) * P.ranges * n, n, a);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
   field_dw_reduce<<<(n + 255) / 256, 256, 0, s>>>(partial, n_slices * P.ranges, n_w, n_b, gw, gb);
   return cudaGetLastError();
+}
+
+// f(std::integral_constant<int, RBM>) for the plan's block, from a launcher
+// whose kernels are templates over it; the shapes a block takes
+// (max_width, with p.rows_a the widest layer) are checked first
+template <class F>
+cudaError_t with_block(const Plan& P, const BwdParams& p, F f) {
+  if (p.rows_a > max_width(P.rbm)) return cudaErrorInvalidValue;
+  switch (P.rbm) {
+    case 64: return f(std::integral_constant<int, 64>{});
+    case 32: return f(std::integral_constant<int, 32>{});
+    default: return f(std::integral_constant<int, 16>{});
+  }
 }
 
 }  // namespace

@@ -4,7 +4,7 @@
 // Replaces stnerf_tpu/kernels/field_vjp.py::_call_bwd (the Pallas TPU kernel
 // _field_bwd_kernel / _field_bwd_body, with spacenet_vjp._bwd_math) for
 // float32 fields; bf16 fields go to the tensor-core kernel of
-// field_bwd_tc.cu. Per block of 64 samples it recomputes the whole field
+// field_bwd_tc.cu. Per block of samples it recomputes the whole field
 // forward — motion encoding, the 6-layer flow MLP, the encoding of the
 // displaced positions, the SpaceNet trunk and both heads — then
 // backpropagates the rgb and sigma cotangents through all of it and emits:
@@ -13,7 +13,9 @@
 //     fixed order;
 //   * d_xyz (3, M) and d_dir_enc (dir_rows, M) in float32.
 // A sample tile whose skip flag is 0 (flags cover 64 samples, the tile of
-// fused_field.cu) writes zero d_xyz and d_dir and adds nothing.
+// fused_field.cu) writes zero d_xyz and d_dir and adds nothing. A block is
+// 64 samples at widths up to 256, 32 at 512 and 16 at 1024 (the plan's,
+// f32_bwd.cuh), part of a tile below 64.
 //
 // Bound: about 3x the forward's arithmetic per sample (recompute, dx = W dy,
 // dW = x dy^T) against ~80 bytes of sample input and output, so arithmetic
@@ -33,7 +35,12 @@
 // 128): two ping-pong tiles of 256 x 64 floats (128 KB; the motion net's
 // encoding and layers pass through them first), the encodings and d(pos
 // enc) (43.5 KB), the ReLU masks (22 KB) and the per-sample rows (3.5 KB):
-// 197 KB.
+// 197 KB. At 512/256/256, 32 samples: the ping-pong tiles 128 KB, the
+// encodings and d(pos enc) 21.75 KB, the masks 22 KB, the rows 1.75 KB:
+// 173.5 KB (64 samples would need 347 KB). At 1024/512/512, 16 samples:
+// 128 + 10.9 + 22 + 0.9 KB: 161.8 KB. The records: ~42 KB a sample at
+// 512/256/256 and ~83 KB at 1024/512/512, so a 4 GiB slice holds ~100,000
+// and ~52,000 samples (f32_bwd.py SLICE_BYTES).
 // Numerics follow the TPU kernel: the masks of ReLU compare the stored
 // activation with 0, the position-encoding and direction gradients and the
 // motion net's input gradient are unmasked float32 sums.
@@ -47,7 +54,8 @@ namespace {
 // Motion net forward: encode (xyz, id) into s.A (menc_rows rows), the five
 // hidden layers u1-u5 through the ping-pong tiles (u5 in s.B), the flow (3
 // rows) into s.FL; each tile copied to the record.
-__device__ void motion_forward(const Blk& c, const Smem& s) {
+template <int RBM>
+__device__ void motion_forward(const Blk<RBM>& c, const Smem& s) {
   const BwdParams& p = c.p;
   const int t = threadIdx.x;
   if (t < 4 * RBM) {
@@ -78,6 +86,7 @@ __device__ void motion_forward(const Blk& c, const Smem& s) {
   __syncthreads();
 }
 
+template <int RBM>
 __global__ void __launch_bounds__(THREADS, 1)
 field_bwd_kernel(const float* __restrict__ xyz, const float* __restrict__ ids,
                  const float* __restrict__ dir, const float* __restrict__ drgb,
@@ -91,7 +100,7 @@ field_bwd_kernel(const float* __restrict__ xyz, const float* __restrict__ ids,
   const int blk = b0 + blockIdx.x;
   const int m0 = blk * RBM;
   const int M = p.M;
-  if (flags != nullptr && flags[blk] == 0) {
+  if (flags != nullptr && block_flag<RBM>(flags, blk, 1) == 0) {
     for (int i = t; i < (3 + p.dir_rows) * RBM; i += THREADS) {
       const int r = i / RBM, gm = m0 + i % RBM;
       if (gm < M) {
@@ -104,9 +113,9 @@ field_bwd_kernel(const float* __restrict__ xyz, const float* __restrict__ ids,
     }
     return;
   }
-  const Smem s = carve(p, smem4);
-  const Blk c{p, wts, frags, bias, records + static_cast<size_t>(blockIdx.x) * p.rec_floats,
-              s.MK};
+  const Smem s = carve<RBM>(p, smem4);
+  const Blk<RBM> c{p, wts, frags, bias, records + static_cast<size_t>(blockIdx.x) * p.rec_floats,
+                   s.MK};
   for (int i = t; i < 4 * RBM; i += THREADS) {
     const int r = i / RBM, gm = m0 + i % RBM;
     s.X[i] = gm < M ? (r < 3 ? xyz[static_cast<size_t>(r) * M + gm] : ids[gm]) : 0.f;
@@ -208,8 +217,8 @@ extern "C" int stnerf_field_bwd(const void* xyz, const void* ids, const void* di
                                 int motion_width, int freqs, int include_input, int use_time,
                                 int n_rgb, int motion_mode, int n_w, int n_b, void* stream) {
   Plan P;
-  if (M <= 0 || dir_rows <= 0 || !bwd_width(width) || !bwd_width(head) ||
-      (motion_mode != 0 && !bwd_width(motion_width)) || (n_rgb != 2 && n_rgb != 4) ||
+  if (M <= 0 || dir_rows <= 0 || !fwd_width(width) || !fwd_width(head) ||
+      (motion_mode != 0 && !fwd_width(motion_width)) || (n_rgb != 2 && n_rgb != 4) ||
       motion_mode < 0 || motion_mode > 2 || n_w <= 0 || n_b <= 0 ||
       !read_plan(static_cast<const int*>(plan), P)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -230,24 +239,25 @@ extern "C" int stnerf_field_bwd(const void* xyz, const void* ids, const void* di
   p.freqs = freqs;
   p.inc = include_input ? 1 : 0;
   p.rows_a = imax(imax(width, head), imax(p.motion_width, p.menc_rows));
-  const size_t smem = smem_bytes(p);
-  cudaError_t e = cudaFuncSetAttribute(field_bwd_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
+  const size_t smem = smem_bytes(p, P.rbm);
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* fl = static_cast<const int*>(flags);
-  const auto pass1 = [&](int b0, int nb, float* records) {
-    field_bwd_kernel<<<nb, THREADS, smem, s>>>(
-        static_cast<const float*>(xyz), static_cast<const float*>(ids),
-        static_cast<const float*>(dir), static_cast<const float*>(drgb),
-        static_cast<const float*>(dsig), fl, static_cast<const float*>(weights),
-        static_cast<const float*>(frags), static_cast<const float*>(biases), records,
-        static_cast<float*>(dxyz),
-        static_cast<float*>(ddir), p, b0);
-    return cudaGetLastError();
-  };
-  return static_cast<int>(run_f32_bwd(P, M, fl, 1, static_cast<float*>(workspace), n_w, n_b,
-                                      static_cast<float*>(gw), static_cast<float*>(gb), s,
-                                      pass1));
+  return static_cast<int>(with_block(P, p, [&](auto block) {
+    constexpr int RBM = decltype(block)::value;
+    cudaError_t e = cudaFuncSetAttribute(field_bwd_kernel<RBM>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+    const auto pass1 = [&](int b0, int nb, float* records) {
+      field_bwd_kernel<RBM><<<nb, THREADS, smem, s>>>(
+          static_cast<const float*>(xyz), static_cast<const float*>(ids),
+          static_cast<const float*>(dir), static_cast<const float*>(drgb),
+          static_cast<const float*>(dsig), fl, static_cast<const float*>(weights),
+          static_cast<const float*>(frags), static_cast<const float*>(biases), records,
+          static_cast<float*>(dxyz), static_cast<float*>(ddir), p, b0);
+      return cudaGetLastError();
+    };
+    return run_f32_bwd<RBM>(P, M, fl, 1, static_cast<float*>(workspace), n_w, n_b,
+                            static_cast<float*>(gw), static_cast<float*>(gb), s, pass1);
+  }));
 }

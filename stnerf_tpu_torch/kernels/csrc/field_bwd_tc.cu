@@ -16,8 +16,9 @@
 // Two passes and a fixed-order sum, no atomics (tc_blocks.cuh has the
 // building blocks; tc_bwd.cuh the parts shared with K3's backward,
 // spacenet_tc.cu: pass 1's SpaceNet part, passes 2 and 3, the layout):
-//   1. field_bwd_tc_kernel, a block per 64 samples (one skip flag): the
-//      recompute and dx = W dy on wgmma, with the weights as register A
+//   1. field_bwd_tc_kernel, a block per BM samples (64 at widths up to 256,
+//      one skip flag; below, shared memory): the recompute and dx = W dy on
+//      wgmma, with the weights as register A
 //      fragments (PackedField.tc's forward and backward packings) and the
 //      activations or cotangents as the B tile; the 1- and 3-wide layers and
 //      the encodings on CUDA cores. Every cotangent a product reads is
@@ -27,13 +28,15 @@
 //      enc), d_dir and d(motion enc) stay float32. Each layer's input x and
 //      output cotangent dy is copied, as it stands in shared memory, into the
 //      block's record in global memory (Rec: 37 bf16 tiles, ~10.5 KB a
-//      sample at the taekwondo widths) by bulk copies marked evict-first in
+//      sample at the taekwondo widths, ~21 KB at 512/256/256, ~42 KB at
+//      1024/512/512) by bulk copies marked evict-first in
 //      L2: plain stores of the same bytes pushed out of L2 the weight
 //      fragments that every product reads from it, and were slower.
 //   2. field_dw_kernel: dW = x dy^T and db = sum dy for every layer, K
 //      running over the samples, on wgmma with both operands from shared
 //      memory. A block takes one 128 x NT tile of one layer's dW over one
-//      range of 64-sample records, streamed through a 4-stage ring by bulk
+//      range of BM-sample records, streamed through a ring of stages (four
+//      of 64 samples, as many bytes at smaller blocks) by bulk
 //      copies (cp.async.bulk, one per operand per record) signalled on
 //      mbarriers. Each record's product starts a fresh accumulator and is
 //      added into a float32 total; a record whose skip flag is 0 is skipped.
@@ -52,6 +55,16 @@
 // KB. 128 samples would need 256 KB for the trunk slots alone. The motion
 // net's tiles (its encoding, five hidden layers and float32 d(motion enc),
 // 108 KB) reuse the trunk's space, recomputed at the end.
+// Wider layers take a smaller block (choose_block in tc_bwd.cuh):
+//   * 512/256/256: 64 samples would need 256 KB for the trunk slots, so BM
+//     = 32: the trunk slots 128 KB, the rgb head 16 KB (48 KB), the
+//     encodings 8 KB, the float32 rows 9.75 KB: 162 KB (194 KB with the
+//     4-layer head). The motion net's tiles (96 + 5 x 256 rows and d(motion
+//     enc) as 192 bf16 rows: 1568 rows, 98 KB) fit in the trunk's 2304
+//     (2816) rows.
+//   * 1024/512/512: BM = 16: the trunk slots 128 KB, the rgb head 16 KB (48
+//     KB), the encodings 4 KB, the float32 rows 4.9 KB: 153 KB (185 KB).
+//     The motion net's 2848 rows (89 KB) fit in the trunk's 4608 (5632).
 
 #include <cstdint>
 
@@ -64,7 +77,8 @@ namespace {
 // Motion net forward: encode (xyz, id) into U[0] (menc_pad rows), the five
 // hidden layers into U[1..5] (motion_width rows each), the flow (3 rows,
 // float32) into R.
-__device__ void motion_forward(const Ctx& c, const float* X, unsigned short* const* U,
+template <int BM>
+__device__ void motion_forward(const Ctx<BM>& c, const float* X, unsigned short* const* U,
                                float* R) {
   const Params& p = c.p;
   for (int i = threadIdx.x; i < 4 * BM; i += TC_THREADS) {
@@ -89,6 +103,7 @@ __device__ void motion_forward(const Ctx& c, const float* X, unsigned short* con
   __syncthreads();
 }
 
+template <int BM>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 field_bwd_tc_kernel(const float* __restrict__ xyz, const float* __restrict__ ids,
                     const float* __restrict__ dir, const float* __restrict__ drgb,
@@ -100,7 +115,7 @@ field_bwd_tc_kernel(const float* __restrict__ xyz, const float* __restrict__ ids
   const int t = threadIdx.x;
   const int m0 = blockIdx.x * BM;
   const int M = p.M;
-  if (flags != nullptr && flags[blockIdx.x] == 0) {
+  if (flags != nullptr && block_flag<BM>(flags, blockIdx.x, 1) == 0) {
     for (int i = t; i < (3 + p.dir_rows) * BM; i += TC_THREADS) {
       const int r = i / BM, gm = m0 + i % BM;
       if (gm < M) {
@@ -113,8 +128,8 @@ field_bwd_tc_kernel(const float* __restrict__ xyz, const float* __restrict__ ids
     }
     return;
   }
-  const Ctx c{p, wts, frags, bias,
-              records + static_cast<size_t>(blockIdx.x) * p.rec_rows * BM};
+  const Ctx<BM> c{p, wts, frags, bias,
+                  records + static_cast<size_t>(blockIdx.x) * p.rec_rows * BM};
   const int mw = p.motion_width;
   unsigned short* U = reinterpret_cast<unsigned short*>(smem);  // u_rows: trunk and head
   unsigned short* P = U + p.u_rows * BM;                        // pos_pad: position encoding
@@ -217,11 +232,18 @@ field_bwd_tc_kernel(const float* __restrict__ xyz, const float* __restrict__ ids
   c.done();
 }
 
+using BwdKernel = decltype(&field_bwd_tc_kernel<64>);
+
+BwdKernel bwd_kernel_for(int bm) {
+  return bm == 64 ? field_bwd_tc_kernel<64>
+                  : bm == 32 ? field_bwd_tc_kernel<32> : field_bwd_tc_kernel<16>;
+}
+
 bool make_layout(Layout& L, const int* off, int M, int dir_rows, int width, int head,
                  int motion_width, int freqs, int include_input, int use_time, int n_rgb,
                  int motion_mode, int n_w, int n_b, int sms) {
-  if (M <= 0 || dir_rows <= 0 || !bwd_width(width) || !bwd_width(head) ||
-      (motion_mode != 0 && !bwd_width(motion_width)) || (n_rgb != 2 && n_rgb != 4) ||
+  if (M <= 0 || dir_rows <= 0 || !fwd_width(width) || !fwd_width(head) ||
+      (motion_mode != 0 && !fwd_width(motion_width)) || (n_rgb != 2 && n_rgb != 4) ||
       motion_mode < 0 || motion_mode > 2 || n_w <= 0 || n_b <= 0) {
     return false;
   }
@@ -249,8 +271,11 @@ bool make_layout(Layout& L, const int* off, int M, int dir_rows, int width, int 
   // rows per float32 row) d(motion enc)
   p.u_rows = imax(4 * width + (n_rgb - 1) * head,
                   motion_mode ? p.menc_pad + 5 * motion_width + 2 * p.menc_pad : 0);
-  L.smem = static_cast<size_t>(p.u_rows + p.pos_pad + p.dir_pad + p.time_pad) * BM * 2 +
-           static_cast<size_t>(4 + 3 + 4 + 4 + p.pos_rows) * BM * sizeof(float);
+  const auto smem = [&](int bm) {
+    return static_cast<size_t>(p.u_rows + p.pos_pad + p.dir_pad + p.time_pad) * bm * 2 +
+           static_cast<size_t>(4 + 3 + 4 + 4 + p.pos_rows) * bm * sizeof(float);
+  };
+  if (!choose_block(L, smem, bwd_kernel_for)) return false;
   finish_layout(L, n_w, n_b, 1, sms);
   return true;
 }
@@ -270,6 +295,24 @@ extern "C" int stnerf_field_bwd_tc_workspace(int M, int dir_rows, int width, int
     return static_cast<int>(cudaErrorInvalidValue);
   }
   *static_cast<long long*>(bytes) = static_cast<long long>(L.rec_bytes + L.part_bytes);
+  return 0;
+}
+
+// The launch of stnerf_field_bwd_tc for the same ints as
+// stnerf_field_bwd_tc_workspace: out[0] pass 1's block of samples, out[1]
+// its dynamic shared memory. Returns 0 or a CUDA error.
+extern "C" int stnerf_field_bwd_tc_block(int M, int dir_rows, int width, int head,
+                                         int motion_width, int freqs, int include_input,
+                                         int use_time, int n_rgb, int motion_mode, int n_w,
+                                         int n_b, void* out) {
+  Layout L;
+  if (!make_layout(L, nullptr, M, dir_rows, width, head, motion_width, freqs, include_input,
+                   use_time, n_rgb, motion_mode, n_w, n_b, sm_count())) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int* o = static_cast<int*>(out);
+  o[0] = L.bm;
+  o[1] = static_cast<int>(L.smem);
   return 0;
 }
 
@@ -296,11 +339,11 @@ extern "C" int stnerf_field_bwd_tc(const void* xyz, const void* ids, const void*
   auto* records = static_cast<unsigned short*>(workspace);
   auto* partial = reinterpret_cast<float*>(static_cast<unsigned char*>(workspace) + L.rec_bytes);
   const auto* fl = static_cast<const int*>(flags);
-  cudaError_t e = cudaFuncSetAttribute(field_bwd_tc_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const BwdKernel kernel = bwd_kernel_for(L.bm);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(L.smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  field_bwd_tc_kernel<<<L.dw.n_blocks, TC_THREADS, L.smem, s>>>(
+  kernel<<<L.dw.n_blocks, TC_THREADS, L.smem, s>>>(
       static_cast<const float*>(xyz), static_cast<const float*>(ids),
       static_cast<const float*>(dir), static_cast<const float*>(drgb),
       static_cast<const float*>(dsig), fl, static_cast<const unsigned short*>(weights),

@@ -121,12 +121,12 @@ __device__ float encode_vjp(float v, const float* dE, int ch, int C, int freqs, 
   return d;
 }
 
-// The layer widths the kernels tile (fused_field.py KERNEL_WIDTHS). The
-// forward kernels pick a sample block per launch that fits the activations
-// of a layer up to 1024 wide; the backward kernels' 64-sample blocks fit
-// layers up to 256 (fused_field.py BACKWARD_MAX_WIDTH).
-bool bwd_width(int w) { return w == 32 || w == 64 || w == 128 || w == 256; }
-bool fwd_width(int w) { return bwd_width(w) || w == 512 || w == 1024; }
+// The layer widths the kernels tile (fused_field.py KERNEL_WIDTHS). Every
+// kernel, forward and backward, picks a sample block per launch that fits
+// the activations of a layer up to 1024 wide in shared memory.
+bool fwd_width(int w) {
+  return w == 32 || w == 64 || w == 128 || w == 256 || w == 512 || w == 1024;
+}
 
 // Pass 3 of the backward kernels' weight gradients (tc_bwd.cuh, f32_bwd.cuh):
 // out[i] = sum over ranges of partial[range][i], in range order: the weight

@@ -41,17 +41,26 @@ __device__ __forceinline__ void ld_vec(const float* p, float (&a)[N]) {
 
 // acc[i][j] += sum_k W[k, to*TO + i] * in[k, tm*CPT + j]; W (K, O) row-major
 // in global memory, in (K, BM) in shared memory. UNROLL k steps are
-// unrolled: their weight loads from L2 in flight together.
+// unrolled: their weight loads from L2 in flight together. A thread's TO
+// weights of a k step come as vectors of at most 8 (the operands are 64-byte
+// aligned).
 template <typename WS, typename AS, int BM, int TO, int UNROLL = 4>
 __device__ __forceinline__ void fwd_seg(float (&acc)[TO][BM / 8], const WS* __restrict__ w,
                                         int O, int K, const AS* in, int to, int tm) {
   constexpr int CPT = BM / 8;
+  constexpr int CH = TO < 8 ? TO : 8;
   const WS* wp = w + to * TO;
   const AS* ip = in + tm * CPT;
 #pragma unroll UNROLL
   for (int k = 0; k < K; ++k) {
     float wv[TO], a[CPT];
-    load_w<WS, TO>(wp + static_cast<size_t>(k) * O, wv);
+#pragma unroll
+    for (int c = 0; c < TO / CH; ++c) {
+      float wc[CH];
+      load_w<WS, CH>(wp + static_cast<size_t>(k) * O + c * CH, wc);
+#pragma unroll
+      for (int i = 0; i < CH; ++i) wv[c * CH + i] = wc[i];
+    }
     ld_vec<CPT>(ip + k * BM, a);
 #pragma unroll
     for (int i = 0; i < TO; ++i) {

@@ -158,7 +158,9 @@ FwdKernel fwd_kernel_for(int bm) {
                                                        : spacenet_fwd_kernel<16>;
 }
 
-// Pass 1 of the backward for the blocks b0 + blockIdx.x (f32_bwd.cuh)
+// Pass 1 of the backward for the blocks b0 + blockIdx.x of RBM samples
+// (f32_bwd.cuh)
+template <int RBM>
 __global__ void __launch_bounds__(THREADS, 1)
 spacenet_bwd_kernel(const float* __restrict__ pos, const float* __restrict__ dir,
                     const float* __restrict__ time, const float* __restrict__ drgb,
@@ -176,9 +178,9 @@ spacenet_bwd_kernel(const float* __restrict__ pos, const float* __restrict__ dir
     zero_rows<RBM>(ddir, p.dir_rows, M, m0, THREADS);
     return;
   }
-  const Smem s = carve(p, smem4);
-  const Blk c{p, wts, frags, bias, records + static_cast<size_t>(blockIdx.x) * p.rec_floats,
-              s.MK};
+  const Smem s = carve<RBM>(p, smem4);
+  const Blk<RBM> c{p, wts, frags, bias, records + static_cast<size_t>(blockIdx.x) * p.rec_floats,
+                   s.MK};
   load_rows<RBM>(pos, kp, M, m0, false, s.P);
   load_rows<RBM>(dir, p.dir_rows, M, m0, true, s.D);
   if (p.time_rows) load_rows<RBM>(time, p.time_rows, M, m0, true, s.T);
@@ -197,8 +199,7 @@ spacenet_bwd_kernel(const float* __restrict__ pos, const float* __restrict__ dir
 
 int imax(int a, int b) { return a > b ? a : b; }
 
-// -> false for shapes the forward kernel does not take (the backward also
-// checks bwd_width)
+// -> false for shapes the kernels do not take
 bool fill_params(Params& p, const void* offsets, int M, int pos_rows, int dir_rows,
                  int time_rows, int width, int head, int n_rgb) {
   if (M <= 0 || pos_rows <= 0 || dir_rows <= 0 || time_rows < 0 || !fwd_width(width) ||
@@ -317,7 +318,7 @@ extern "C" int stnerf_spacenet_bwd(const void* pos, const void* dir, const void*
   Params fp;
   Plan P;
   if (!fill_params(fp, offsets, M, pos_rows, dir_rows, time_rows, width, head, n_rgb) ||
-      !bwd_width(width) || !bwd_width(head) || n_w <= 0 || n_b <= 0 ||
+      n_w <= 0 || n_b <= 0 ||
       !read_plan(static_cast<const int*>(plan), P)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -332,25 +333,26 @@ extern "C" int stnerf_spacenet_bwd(const void* pos, const void* dir, const void*
   p.n_rgb = n_rgb;
   p.motion_mode = p.motion_width = p.menc_rows = p.freqs = p.inc = 0;
   p.rows_a = fp.rows_a;
-  const size_t smem = smem_bytes(p);
-  cudaError_t e = cudaFuncSetAttribute(spacenet_bwd_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
+  const size_t smem = smem_bytes(p, P.rbm);
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* act = static_cast<const int*>(active);
-  const auto pass1 = [&](int b0, int nb, float* records) {
-    spacenet_bwd_kernel<<<nb, THREADS, smem, s>>>(
-        static_cast<const float*>(pos), static_cast<const float*>(dir),
-        static_cast<const float*>(time), static_cast<const float*>(drgb),
-        static_cast<const float*>(dsig), static_cast<const float*>(weights),
-        static_cast<const float*>(frags), static_cast<const float*>(biases), act, records,
-        static_cast<float*>(dpos),
-        static_cast<float*>(ddir), p, b0);
-    return cudaGetLastError();
-  };
-  // every record's flag is the field's `active` flag
-  return static_cast<int>(run_f32_bwd(P, M, act, 0, static_cast<float*>(workspace), n_w, n_b,
-                                      static_cast<float*>(gw), static_cast<float*>(gb), s,
-                                      pass1));
+  return static_cast<int>(with_block(P, p, [&](auto block) {
+    constexpr int RBM = decltype(block)::value;
+    cudaError_t e = cudaFuncSetAttribute(spacenet_bwd_kernel<RBM>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+    const auto pass1 = [&](int b0, int nb, float* records) {
+      spacenet_bwd_kernel<RBM><<<nb, THREADS, smem, s>>>(
+          static_cast<const float*>(pos), static_cast<const float*>(dir),
+          static_cast<const float*>(time), static_cast<const float*>(drgb),
+          static_cast<const float*>(dsig), static_cast<const float*>(weights),
+          static_cast<const float*>(frags), static_cast<const float*>(biases), act, records,
+          static_cast<float*>(dpos), static_cast<float*>(ddir), p, b0);
+      return cudaGetLastError();
+    };
+    // every record's flag is the field's `active` flag
+    return run_f32_bwd<RBM>(P, M, act, 0, static_cast<float*>(workspace), n_w, n_b,
+                            static_cast<float*>(gw), static_cast<float*>(gb), s, pass1);
+  }));
 }

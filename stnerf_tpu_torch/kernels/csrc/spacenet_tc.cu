@@ -51,7 +51,9 @@
 //     output rows and the recompute's 4 KB mask: 166 KB, one block an SM.
 //   * backward, K2's two passes and fixed-order sum (no atomics, so the
 //     weight gradients are the same bits on every run):
-//     1. spacenet_bwd_tc_kernel, a block per BM = 64 samples: loads the
+//     1. spacenet_bwd_tc_kernel, a block per BM samples (64 at widths up
+//        to 256; below, chosen per launch by tc_bwd.cuh's choose_block:
+//        32 at 512, 16 at 1024): loads the
 //        encodings, then tc_bwd.cuh's spacenet_bwd_block (the recompute and
 //        dx = W dy on wgmma, every cotangent rounded to bf16 where the TPU
 //        kernel casts it, ReLU masks on the stored bf16 activations, d_dir
@@ -63,7 +65,11 @@
 //        Shared memory at those widths: the four trunk slots 128 KB, the rgb
 //        head 16 KB (48 KB with the 4-layer head), the encodings 16 KB, the
 //        float32 cotangent rows and d_pos_enc 18 KB: 178 KB (210 KB) of the
-//        227 KB.
+//        227 KB. At 512/256 (BM = 32): the trunk slots 128 KB, the head 16
+//        KB (48 KB), the encodings 8 KB, the float32 rows 8.9 KB: 161 KB
+//        (193 KB); at 1024/512 (BM = 16): 128 + 16 (48) + 4 + 4.4 KB: 152 KB
+//        (184 KB). The records grow with the widths: about 16 KB a sample
+//        at 512/256, 31 KB at 1024/512.
 //     2. and 3. tc_bwd.cuh's field_dw_kernel and field_dw_reduce, with the
 //        `active` flag as every record's flag.
 // The ragged tail of M is guarded: samples past M read as zeros, get zero
@@ -177,6 +183,7 @@ spacenet_fwd_tc_kernel(const float* __restrict__ pos, const float* __restrict__ 
   }
 }
 
+template <int BM>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 spacenet_bwd_tc_kernel(const float* __restrict__ pos, const float* __restrict__ dir,
                        const float* __restrict__ time, const float* __restrict__ drgb,
@@ -192,8 +199,8 @@ spacenet_bwd_tc_kernel(const float* __restrict__ pos, const float* __restrict__ 
     zero_out<BM>(ddir, p.dir_rows, M, m0);
     return;
   }
-  const Ctx c{p, wts, frags, bias,
-              records + static_cast<size_t>(blockIdx.x) * p.rec_rows * BM};
+  const Ctx<BM> c{p, wts, frags, bias,
+                  records + static_cast<size_t>(blockIdx.x) * p.rec_rows * BM};
   unsigned short* U = reinterpret_cast<unsigned short*>(smem);  // u_rows: trunk and head
   unsigned short* P = U + p.u_rows * BM;                        // pos_pad: position encoding
   unsigned short* D = P + p.pos_pad * BM;                       // dir_pad: relu(direction enc)
@@ -215,9 +222,8 @@ spacenet_bwd_tc_kernel(const float* __restrict__ pos, const float* __restrict__ 
 }
 
 // The shapes into p (both kernels' parameters but the record layout);
-// -> false for shapes the forward kernel does not take (the backward's
-// make_layout also checks bwd_width). `off` as the C entry points' (null:
-// only the sizes are wanted).
+// -> false for shapes the kernels do not take. `off` as the C entry points'
+// (null: only the sizes are wanted).
 bool fill_params(Params& p, const int* off, int M, int pos_rows, int dir_rows, int time_rows,
                  int width, int head, int n_rgb) {
   if (M <= 0 || pos_rows <= 0 || dir_rows <= 0 || time_rows < 0 || !fwd_width(width) ||
@@ -241,17 +247,27 @@ bool fill_params(Params& p, const int* off, int M, int pos_rows, int dir_rows, i
   return true;
 }
 
-// the backward's layout: fill_params, pass 1's shared memory, the records
-// and pass 2's jobs
+using BwdKernel = decltype(&spacenet_bwd_tc_kernel<64>);
+
+BwdKernel bwd_kernel_for(int bm) {
+  return bm == 64 ? spacenet_bwd_tc_kernel<64>
+                  : bm == 32 ? spacenet_bwd_tc_kernel<32> : spacenet_bwd_tc_kernel<16>;
+}
+
+// the backward's layout: fill_params, pass 1's block and shared memory, the
+// records and pass 2's jobs
 bool make_layout(Layout& L, const int* off, int M, int pos_rows, int dir_rows, int time_rows,
                  int width, int head, int n_rgb, int n_w, int n_b) {
   Params& p = L.p;
-  if (n_w <= 0 || n_b <= 0 || !bwd_width(width) || !bwd_width(head) ||
+  if (n_w <= 0 || n_b <= 0 ||
       !fill_params(p, off, M, pos_rows, dir_rows, time_rows, width, head, n_rgb)) {
     return false;
   }
-  L.smem = static_cast<size_t>(p.u_rows + p.pos_pad + p.dir_pad + p.time_pad) * BM * 2 +
-           static_cast<size_t>(4 + 4 + pos_rows) * BM * sizeof(float);
+  const auto smem = [&](int bm) {
+    return static_cast<size_t>(p.u_rows + p.pos_pad + p.dir_pad + p.time_pad) * bm * 2 +
+           static_cast<size_t>(4 + 4 + pos_rows) * bm * sizeof(float);
+  };
+  if (!choose_block(L, smem, bwd_kernel_for)) return false;
   finish_layout(L, n_w, n_b, 0, sm_count());
   return true;
 }
@@ -355,6 +371,22 @@ extern "C" int stnerf_spacenet_bwd_tc_workspace(int M, int pos_rows, int dir_row
   return 0;
 }
 
+// The backward's launch for the same ints as
+// stnerf_spacenet_bwd_tc_workspace: out[0] pass 1's block of samples,
+// out[1] its dynamic shared memory. Returns 0 or a CUDA error.
+extern "C" int stnerf_spacenet_bwd_tc_block(int M, int pos_rows, int dir_rows, int time_rows,
+                                            int width, int head, int n_rgb, int n_w, int n_b,
+                                            void* out) {
+  Layout L;
+  if (!make_layout(L, nullptr, M, pos_rows, dir_rows, time_rows, width, head, n_rgb, n_w, n_b)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int* o = static_cast<int*>(out);
+  o[0] = L.bm;
+  o[1] = static_cast<int>(L.smem);
+  return 0;
+}
+
 // n_w and n_b are the packed weights' and biases' element counts; gw and gb
 // (float32, n_w and n_b entries) are overwritten; `workspace` holds
 // stnerf_spacenet_bwd_tc_workspace's bytes.
@@ -374,11 +406,11 @@ extern "C" int stnerf_spacenet_bwd_tc(const void* pos, const void* dir, const vo
   auto* records = static_cast<unsigned short*>(workspace);
   auto* partial = reinterpret_cast<float*>(static_cast<unsigned char*>(workspace) + L.rec_bytes);
   const auto* act = static_cast<const int*>(active);
-  cudaError_t e = cudaFuncSetAttribute(spacenet_bwd_tc_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const BwdKernel kernel = bwd_kernel_for(L.bm);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(L.smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  spacenet_bwd_tc_kernel<<<L.dw.n_blocks, TC_THREADS, L.smem, s>>>(
+  kernel<<<L.dw.n_blocks, TC_THREADS, L.smem, s>>>(
       static_cast<const float*>(pos), static_cast<const float*>(dir),
       static_cast<const float*>(time), static_cast<const float*>(drgb),
       static_cast<const float*>(dsig), act, static_cast<const unsigned short*>(weights),

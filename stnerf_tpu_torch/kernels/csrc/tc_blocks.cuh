@@ -256,7 +256,9 @@ __device__ __forceinline__ void acc_epilogue(const float (&d)[N / 2], int r0, in
 
 // rows x [n_lo, n_lo + n_cnt) of sum_s A_s B_s, A from registers, handed to
 // epi. Each warpgroup takes every other 64-row m-tile at the full width, or,
-// with one m-tile, half of the columns.
+// with one m-tile, half of the columns; 16 columns (the backward's 16-sample
+// block) have no half: both warpgroups compute them and the first hands
+// them on, so that no wgmma sits under a branch.
 template <int BM, int NF, class Epi>
 __device__ void tc_product_n(const Seg* segs, int nseg, int rows, int n_lo, Epi& epi) {
   const int wg = threadIdx.x >> 7;
@@ -267,6 +269,10 @@ __device__ void tc_product_n(const Seg* segs, int nseg, int rows, int n_lo, Epi&
       mma_rs<BM, NF>(d, segs, nseg, mt, n_lo);
       acc_epilogue<NF>(d, mt * 64, n_lo, rows, epi);
     }
+  } else if constexpr (NF == 16) {
+    float d[NF / 2];
+    mma_rs<BM, NF>(d, segs, nseg, 0, n_lo);
+    if (wg == 0) acc_epilogue<NF>(d, 0, n_lo, rows, epi);
   } else {
     constexpr int NH = NF / 2;
     float d[NH / 2];

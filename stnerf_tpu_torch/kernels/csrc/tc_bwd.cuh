@@ -2,10 +2,10 @@
 // cores (sm_90a): K2 (field_bwd_tc.cu, the fused field with its motion net
 // and encodings) and K3 (spacenet_tc.cu, the SpaceNet on encoded inputs).
 // Both run the same three steps (tc_blocks.cuh has the products):
-//   1. pass 1, a block per BM = 64 samples: recompute the forward and
-//      compute dx = W dy on wgmma (spacenet_bwd_block for the SpaceNet
-//      part), writing each layer's bf16 input x and output cotangent dy
-//      into the block's record in global memory (Ctx::save);
+//   1. pass 1, a block per BM samples: recompute the forward and compute
+//      dx = W dy on wgmma (spacenet_bwd_block for the SpaceNet part),
+//      writing each layer's bf16 input x and output cotangent dy into the
+//      block's record in global memory (Ctx::save);
 //   2. field_dw_kernel: dW = x dy^T and db = sum dy for every layer from the
 //      records, one float32 partial per range of records;
 //   3. field_dw_reduce (field_common.cuh): each entry the sum of its ranges'
@@ -14,6 +14,14 @@
 // The caller's pass 1 loads the encodings into act tiles and handles what
 // lies outside the SpaceNet (K2: the motion net and the encoding's VJP);
 // finish_layout and launch_dw set up and launch passes 2 and 3.
+//
+// The sample block BM is chosen per launch (choose_block): the largest of
+// 64, 32 and 16 samples whose pass-1 tiles fit the card's shared memory,
+// 64 at every width up to 256 (those launches are the 64-sample code
+// throughout), 32 at 512 and 16 at 1024. A record is one block's: BM
+// samples. A block of 64 covers one skip-flag tile (fused_field.py TILE),
+// a smaller one part of one, so block b's flag is flags[b / (64 / BM)],
+// in pass 1 as in pass 2.
 #pragma once
 
 #include <cstdint>
@@ -23,7 +31,13 @@
 
 namespace {
 
-constexpr int BM = 64;  // samples per pass-1 block = one skip-flag tile (fused_field.py TILE)
+constexpr int FLAG_TILE = 64;  // samples per skip flag (fused_field.py TILE)
+
+// the skip flag of block b of BM samples
+template <int BM>
+__device__ __forceinline__ int block_flag(const int* flags, int b, int step) {
+  return flags[b / (FLAG_TILE / BM) * step];
+}
 
 // The tiles of a block's record, in rows of BM bf16 samples (act layout).
 enum Rec {
@@ -52,6 +66,7 @@ struct Params {
   int pos_rows, time_rows, menc_rows, pos_pad, dir_pad, time_pad, menc_pad, u_rows, rec_rows;
 };
 
+template <int BM>
 struct Ctx {
   const Params& p;
   const unsigned short* wts;
@@ -144,7 +159,8 @@ struct Ctx {
 // layer's x and dy to the record. The record copies may still be reading
 // the tiles: Ctx::saved() before they are overwritten, Ctx::done() before
 // the block exits.
-__device__ __forceinline__ void spacenet_bwd_block(const Ctx& c, int m0, unsigned short* U,
+template <int BM>
+__device__ __forceinline__ void spacenet_bwd_block(const Ctx<BM>& c, int m0, unsigned short* U,
                                                    unsigned short* P, unsigned short* D,
                                                    unsigned short* T, float* R, float* G3,
                                                    float* DP, const float* __restrict__ drgb,
@@ -246,7 +262,7 @@ __device__ __forceinline__ void spacenet_bwd_block(const Ctx& c, int m0, unsigne
     DP[r * BM + cc] = v0;
     DP[r * BM + cc + 1] = v1;
   });
-  c.dx(W_S2A, S2, W, W, Ctx::mask_round(S1));
+  c.dx(W_S2A, S2, W, W, Ctx<BM>::mask_round(S1));
   layer_sync();
 
   // ---- stage 1: recompute a0-a2 into the dead slots, then backward ----
@@ -276,12 +292,17 @@ struct Job {
 };
 constexpr int MAX_JOBS = 24;
 constexpr int DW_XR = 128;     // rows of x a block takes, 64 per warpgroup
-constexpr int DW_STAGES = 4;   // records in flight
-constexpr int DW_STAGE = (DW_XR + 128) * BM;  // elements of one stage: x, then dy
+// records of BM samples in flight: four of 64, as many bytes at smaller blocks
+template <int BM>
+__host__ __device__ constexpr int dw_stages() { return 4 * FLAG_TILE / BM; }
+// elements of one stage: x, then dy
+template <int BM>
+__host__ __device__ constexpr int dw_stage() { return (DW_XR + 128) * BM; }
 
 // flags: a record whose flag reads 0 was not written by pass 1 and is
-// skipped; record b's flag is flags[b * flag_step] (K2: one per record; K3:
-// flag_step 0, the field's one `active` flag); no flags: every record counts
+// skipped; record b's flag is its tile's, block_flag(flags, b, flag_step)
+// (K2: one per tile; K3: flag_step 0, the field's one `active` flag); no
+// flags: every record counts
 struct DwParams {
   Job job[MAX_JOBS];
   int tile0[MAX_JOBS + 1];  // first tile of each job; the last entry is the total
@@ -319,11 +340,12 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes,
 }
 
 // This block's tile of job jb over records [b_lo, b_hi): NT columns of dy
-template <int NT>
+template <int BM, int NT>
 __device__ void dw_tile(const unsigned short* __restrict__ records, const int* __restrict__ flags,
                         float* __restrict__ partial, const DwParams& p, const Job& jb, int k0,
                         int n0, int b_lo, int b_hi) {
   extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int DW_STAGES = dw_stages<BM>(), DW_STAGE = dw_stage<BM>();
   __shared__ uint64_t full[DW_STAGES];
   __shared__ int n_active;
   unsigned short* stages = reinterpret_cast<unsigned short*>(smem);
@@ -333,7 +355,7 @@ __device__ void dw_tile(const unsigned short* __restrict__ records, const int* _
   const size_t rec_elems = static_cast<size_t>(p.rec_rows) * BM;
   int next = b_lo;  // the next record to load (thread 0)
   const auto issue = [&](int s) {
-    while (flags != nullptr && flags[next * p.flag_step] == 0) ++next;
+    while (flags != nullptr && block_flag<BM>(flags, next, p.flag_step) == 0) ++next;
     const unsigned short* base = records + static_cast<size_t>(next++) * rec_elems;
     unsigned short* st = stages + s * DW_STAGE;
     mbar_expect_tx(&full[s], bytes);
@@ -342,7 +364,9 @@ __device__ void dw_tile(const unsigned short* __restrict__ records, const int* _
   };
   if (t == 0) {
     int n = 0;
-    for (int b = b_lo; b < b_hi; ++b) n += flags == nullptr || flags[b * p.flag_step] != 0;
+    for (int b = b_lo; b < b_hi; ++b) {
+      n += flags == nullptr || block_flag<BM>(flags, b, p.flag_step) != 0;
+    }
     n_active = n;
     for (int s = 0; s < DW_STAGES; ++s) mbar_init(&full[s], 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -407,6 +431,7 @@ __device__ void dw_tile(const unsigned short* __restrict__ records, const int* _
 }
 
 // grid: (tiles of all jobs, ranges of records); 256 threads
+template <int BM>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 field_dw_kernel(const unsigned short* __restrict__ records, const int* __restrict__ flags,
                 float* __restrict__ partial, const __grid_constant__ DwParams p) {
@@ -419,10 +444,10 @@ field_dw_kernel(const unsigned short* __restrict__ records, const int* __restric
   const int b_lo = static_cast<int>(static_cast<long long>(r) * p.n_blocks / p.ranges);
   const int b_hi = static_cast<int>(static_cast<long long>(r + 1) * p.n_blocks / p.ranges);
   switch (jb.nt) {
-    case 16: dw_tile<16>(records, flags, partial, p, jb, k0, n0, b_lo, b_hi); break;
-    case 32: dw_tile<32>(records, flags, partial, p, jb, k0, n0, b_lo, b_hi); break;
-    case 64: dw_tile<64>(records, flags, partial, p, jb, k0, n0, b_lo, b_hi); break;
-    default: dw_tile<128>(records, flags, partial, p, jb, k0, n0, b_lo, b_hi); break;
+    case 16: dw_tile<BM, 16>(records, flags, partial, p, jb, k0, n0, b_lo, b_hi); break;
+    case 32: dw_tile<BM, 32>(records, flags, partial, p, jb, k0, n0, b_lo, b_hi); break;
+    case 64: dw_tile<BM, 64>(records, flags, partial, p, jb, k0, n0, b_lo, b_hi); break;
+    default: dw_tile<BM, 128>(records, flags, partial, p, jb, k0, n0, b_lo, b_hi); break;
   }
 }
 
@@ -432,13 +457,38 @@ int imax(int a, int b) { return a > b ? a : b; }
 int round16(int v) { return (v + 15) / 16 * 16; }
 
 // Everything the launches need, from the field's shape: both kernels'
-// parameters, pass 1's shared memory and the workspace (the records, then
-// the partials).
+// parameters, the sample block, pass 1's shared memory and the workspace
+// (the records, then the partials).
 struct Layout {
   Params p;
   DwParams dw;
+  int bm;
   size_t smem, rec_bytes, part_bytes;
 };
+
+// L.bm and L.smem: the largest pass-1 block of 64, 32 or 16 samples whose
+// dynamic shared memory, smem(bm), fits beside the static shared memory of
+// the kernels kernel(bm) on this card; false if none fits
+template <class Smem, class Kernel>
+bool choose_block(Layout& L, Smem smem, Kernel kernel) {
+  int dev = 0, optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
+          cudaSuccess) {
+    return false;
+  }
+  for (const int bm : {64, 32, 16}) {
+    cudaFuncAttributes attr;
+    const size_t bytes = smem(bm);
+    if (cudaFuncGetAttributes(&attr, kernel(bm)) == cudaSuccess &&
+        bytes + attr.sharedSizeBytes <= static_cast<size_t>(optin)) {
+      L.bm = bm;
+      L.smem = bytes;
+      return true;
+    }
+  }
+  return false;
+}
 
 // The packed offsets (the C entry points' `offsets`: N_W weight, N_B bias,
 // N_W forward-fragment and N_W backward-fragment offsets) into p; all -1
@@ -454,7 +504,8 @@ void set_offsets(Params& p, const int* off) {
 
 // The record's tiles and the jobs of pass 2, from L.p's shapes (the
 // SpaceNet's, and the motion net's when p.motion_mode is set), for M
-// samples and the packed weights' and biases' element counts n_w and n_b.
+// samples in blocks of L.bm and the packed weights' and biases' element
+// counts n_w and n_b.
 void finish_layout(Layout& L, int n_w, int n_b, int flag_step, int sms) {
   Params& p = L.p;
   // the record: each tile's rows, in Rec order
@@ -515,14 +566,14 @@ void finish_layout(Layout& L, int n_w, int n_b, int flag_step, int sms) {
   }
   const int tiles = d.tile0[d.n_jobs];
   d.rec_rows = p.rec_rows;
-  d.n_blocks = (p.M + BM - 1) / BM;
+  d.n_blocks = (p.M + L.bm - 1) / L.bm;
   d.n_params = n_w + n_b;
   d.flag_step = flag_step;
   // ranges of records: about four blocks per SM in all
   d.ranges = (4 * sms + tiles - 1) / tiles;
   if (d.ranges > d.n_blocks) d.ranges = d.n_blocks;
   // the records, plus the rows a DW_XR-row load may read past the last one
-  L.rec_bytes = (static_cast<size_t>(d.n_blocks) * p.rec_rows + DW_XR) * BM * 2;
+  L.rec_bytes = (static_cast<size_t>(d.n_blocks) * p.rec_rows + DW_XR) * L.bm * 2;
   L.part_bytes = static_cast<size_t>(d.ranges) * d.n_params * sizeof(float);
 }
 
@@ -543,10 +594,12 @@ cudaError_t launch_dw(const Layout& L, const unsigned short* records, const int*
   // partials of weights no job writes (padding, absent layers) stay zero
   cudaError_t e = cudaMemsetAsync(partial, 0, L.part_bytes, s);
   if (e != cudaSuccess) return e;
-  const int dw_smem = DW_STAGES * DW_STAGE * 2;
-  e = cudaFuncSetAttribute(field_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dw_smem);
+  const auto kernel = L.bm == 64 ? field_dw_kernel<64>
+                      : L.bm == 32 ? field_dw_kernel<32> : field_dw_kernel<16>;
+  const int dw_smem = dw_stages<64>() * dw_stage<64>() * 2;  // the same at every block
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dw_smem);
   if (e != cudaSuccess) return e;
-  field_dw_kernel<<<dim3(L.dw.tile0[L.dw.n_jobs], L.dw.ranges), TC_THREADS, dw_smem, s>>>(
+  kernel<<<dim3(L.dw.tile0[L.dw.n_jobs], L.dw.ranges), TC_THREADS, dw_smem, s>>>(
       records, flags, partial, L.dw);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;

@@ -2,12 +2,16 @@
 (``csrc/f32_bwd.cuh``): what pass 1 writes where, and how passes 2 and 3
 sum it.
 
-Pass 1 runs a block per 64-sample record (one skip-flag tile,
-``fused_field.TILE``) and copies every layer's float32 input x and output
-cotangent dy into the block's record. A record is a run of tiles in
-:data:`REC_TILES` order; a tile is its rows of 64 floats, one a sample (the
-cotangents that pass 1 makes on the tensor cores with the samples of row o
-swizzled by ``m ^ (o % 4) * 8``). Pass 2 sums dW = x dy^T
+Pass 1 runs a block per record of ``block`` samples and copies every
+layer's float32 input x and output cotangent dy into it. The block is the
+largest of 64, 32 and 16 samples whose pass-1 shared memory
+(:func:`pass1_smem_bytes`) fits the card's: 64 at every width up to 256,
+one skip-flag tile (``fused_field.TILE``); 32 at 512 and 16 at 1024, part
+of a tile, whose flag block b reads at ``b // (TILE // block)``. A record
+is a run of tiles in :data:`REC_TILES` order; a tile is its rows of
+``block`` floats, one a sample (the cotangents that pass 1 makes on the
+tensor cores with the samples of row o swizzled, ``csrc/f32_bwd.cuh``
+swz). Pass 2 sums dW = x dy^T
 and db = sum dy over the records, one job per layer: a block takes one tile
 of a job's dW (128 x 128, or 256 x 4 for the 1- and 3-wide layers) over one
 range of records and writes that range's float32 partials. Passes 1 and 2
@@ -35,8 +39,8 @@ import functools
 import numpy as np
 import torch
 
-from .fused_field import (B_SLOTS, TILE, W_SLOTS, PackedField, check_backward_widths,
-                          field_widths)
+from .fused_field import (B_SLOTS, KERNEL_WIDTHS, W_SLOTS, PackedField,
+                          check_forward_widths, field_widths)
 
 # the record's tiles, in csrc/f32_bwd.cuh's enum Tile order
 REC_TILES = ("hs0", "hs1", "hs2", "dhs0", "dhs1", "dhs2", "g3rgb",
@@ -44,11 +48,14 @@ REC_TILES = ("hs0", "hs1", "hs2", "dhs0", "dhs1", "dhs2", "g3rgb",
              "pos", "dir", "time", "sig",
              *(f"u{k}" for k in range(6)), *(f"du{k}" for k in range(1, 6)), "g3m")
 JOB_INTS = 8     # x, k_in, y, o, w_off, b_off, mt, nt
+PLAN_HEAD = 5    # rec_floats, slice_blocks, ranges, n_jobs, block
 MAX_JOBS = 24
 WIDE = 128       # a wide tile of dW: WIDE x WIDE
 NARROW_K, NARROW_O = 256, 4  # a narrow tile, for layers of <= 4 outputs
 SLICE_BYTES = 4 << 30        # records held at a time, at most
 RANGES_PER_SM = 6            # pass 2: at most six wide tiles per SM in each slice
+BLOCKS = (64, 32, 16)        # pass 1's sample blocks, the largest that fits first
+SMEM_OPTIN = 232_448         # a block's shared memory on an H100 (227 KB)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,7 +63,8 @@ class Plan:
     """One call's plan. ``tile``: per :data:`REC_TILES` entry, its offset
     in floats within a record (-1 absent); ``frag``: per weight slot, the
     offset of its dx fragments in floats (-1: dx on CUDA cores); ``jobs``:
-    (n_jobs, JOB_INTS) int32, in pass 2's order."""
+    (n_jobs, JOB_INTS) int32, in pass 2's order; ``block``: a record's
+    samples."""
     tile: np.ndarray
     frag: np.ndarray
     rec_floats: int
@@ -65,6 +73,7 @@ class Plan:
     slice_blocks: int
     ranges: int
     n_params: int
+    block: int
 
     @property
     def n_slices(self) -> int:
@@ -78,9 +87,9 @@ class Plan:
 
     def array(self) -> np.ndarray:
         """The int32 array the C entry points read (f32_bwd.cuh
-        ``read_plan``): rec_floats, slice_blocks, ranges, n_jobs, the tile
-        offsets, the fragment offsets, the jobs."""
-        head = [self.rec_floats, self.slice_blocks, self.ranges, len(self.jobs)]
+        ``read_plan``): rec_floats, slice_blocks, ranges, n_jobs, the block,
+        the tile offsets, the fragment offsets, the jobs."""
+        head = [self.rec_floats, self.slice_blocks, self.ranges, len(self.jobs), self.block]
         return np.concatenate([np.asarray(head, np.int32), self.tile, self.frag,
                                self.jobs.reshape(-1)]).astype(np.int32)
 
@@ -138,7 +147,41 @@ def job_list(field: PackedField) -> list:
 
 def padded_rows(k: int) -> int:
     """The rows of a dx operand's fragments: the least kernel width >= k."""
-    return next(w for w in (32, 64, 128, 256) if w >= k)
+    return next(w for w in KERNEL_WIDTHS if w >= k)
+
+
+def max_width(block: int) -> int:
+    """The widest layer a pass-1 block of ``block`` samples takes: a thread
+    keeps at most 64 of its outputs (``csrc/f32_bwd.cuh`` max_width)."""
+    return 16384 // block
+
+
+def pass1_smem_bytes(field: PackedField, block: int) -> int:
+    """Pass 1's dynamic shared memory for a block of ``block`` samples
+    (``csrc/f32_bwd.cuh`` smem_bytes): 14 per-sample rows, the encodings
+    and d(pos enc), two ping-pong tiles as wide as the widest layer (the
+    motion net's encoding too), as float32 rows of the block, then the
+    ReLU masks, a bit a sample."""
+    s = field.shapes
+    width, head = s["w1"][1], s["r1a"][1]
+    pos_rows, dir_rows = s["w1"][0], s["r1b"][0]
+    time_rows = s["r1c"][0] if field.spec.use_time else 0
+    motion = field.motion_width if field.motion_mode else 0
+    rows_a = max(width, head, motion, s["m0"][0] if field.motion_mode else 0)
+    rows = 14 + 2 * pos_rows + dir_rows + time_rows + 2 * rows_a
+    return 4 * rows * block + (7 * width + 3 * head + 5 * motion) * block // 8
+
+
+def choose_block(field: PackedField, smem_limit: int = SMEM_OPTIN) -> int:
+    """Pass 1's block: the largest of :data:`BLOCKS` whose shared memory
+    fits ``smem_limit`` bytes and whose threads take the field's widest
+    layer."""
+    for block in BLOCKS:
+        if (pass1_smem_bytes(field, block) <= smem_limit
+                and max(field_widths(field)) <= max_width(block)):
+            return block
+    raise ValueError(f"no pass-1 block of {BLOCKS} samples fits {smem_limit} bytes of "
+                     f"shared memory at widths {field_widths(field)}")
 
 
 def frag_offsets(field: PackedField) -> np.ndarray:
@@ -182,19 +225,20 @@ def dx_fragments(field: PackedField) -> torch.Tensor:
     return torch.cat([field.weights.float(), field.weights.new_zeros(1, dtype=torch.float32)])[idx]
 
 
-def make_plan(field: PackedField, m: int, sms: int) -> Plan:
+def make_plan(field: PackedField, m: int, sms: int, smem_limit: int = SMEM_OPTIN) -> Plan:
     """The plan for ``m`` samples of ``field`` on a card with ``sms``
-    multiprocessors."""
+    multiprocessors and ``smem_limit`` bytes of shared memory a block."""
     if m <= 0 or sms <= 0:
         raise ValueError(f"make_plan needs m > 0 and sms > 0, got {m}, {sms}")
-    check_backward_widths(field_widths(field))
+    check_forward_widths(field_widths(field))
+    block = choose_block(field, smem_limit)
     rows = record_rows(field)
     tile = np.full(len(REC_TILES), -1, np.int32)
     rec_floats = 0
     for i, name in enumerate(REC_TILES):
         if name in rows:
             tile[i] = rec_floats
-            rec_floats += rows[name] * TILE
+            rec_floats += rows[name] * block
     n_w = field.weights.numel()
     jobs = []
     for w, b, x, y in job_list(field):
@@ -208,17 +252,25 @@ def make_plan(field: PackedField, m: int, sms: int) -> Plan:
                      1 if narrow else -(-o // WIDE)))
     jobs = np.asarray(jobs, np.int32)
     assert len(jobs) <= MAX_JOBS
-    n_blocks = -(-m // TILE)
+    n_blocks = -(-m // block)
     per_slice = max(1, SLICE_BYTES // (4 * rec_floats) // sms) * sms
     slice_blocks = min(per_slice, n_blocks)
     # the wide tiles cost the same (the narrow ones little): whole waves of them
     wide = int((jobs[:, 6] * jobs[:, 7])[jobs[:, 3] > NARROW_O].sum())
     ranges = max(1, min(slice_blocks, RANGES_PER_SM * sms // wide))
     return Plan(tile, frag_offsets(field), rec_floats, jobs, n_blocks, slice_blocks, ranges,
-                n_w + field.biases.numel())
+                n_w + field.biases.numel(), block)
 
 
 @functools.lru_cache(maxsize=None)
 def sm_count(device: torch.device) -> int:
     """Multiprocessors of the card that holds ``device``."""
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def smem_optin(device: torch.device) -> int:
+    """A block's shared memory on the card that holds ``device`` (an H100's
+    where the properties do not say)."""
+    props = torch.cuda.get_device_properties(device)
+    return getattr(props, "shared_memory_per_block_optin", SMEM_OPTIN)

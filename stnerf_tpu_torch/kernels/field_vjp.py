@@ -18,6 +18,9 @@ Three pieces beside the forward kernel's:
   is not autograd of the forward; a test holds the two equal in float32.
 * ``field_bwd.launches`` — how many times the wrapper launched a kernel, and
   ``field_bwd.launches_tc`` how many of those went to the tensor-core one.
+* :func:`tc_bwd_launch` — the tensor-core backward's pass-1 sample block
+  (64 at widths up to 256, 32 at 512, 16 at 1024) and workspace; the float32
+  route's block is its plan's.
 
 Both return the gradients in the packed layout of :class:`PackedField`
 (weights and biases float32, at the packed offsets), plus d_xyz (3, M) and
@@ -215,7 +218,7 @@ def field_bwd(field: PackedField, xyz: torch.Tensor, ids: torch.Tensor,
                     offsets.ctypes.data_as(ptr), *outputs, ptr(work.data_ptr()), *ints,
                     *counts, stream)
         else:
-            plan = f32_bwd.make_plan(field, m, f32_bwd.sm_count(dev))
+            plan = f32_bwd.make_plan(field, m, f32_bwd.sm_count(dev), f32_bwd.smem_optin(dev))
             # one slice's records and every range's partial sums
             work = torch.empty(plan.workspace_bytes, dtype=torch.uint8, device=dev)
             plan_ints = plan.array()
@@ -233,6 +236,26 @@ def field_bwd(field: PackedField, xyz: torch.Tensor, ids: torch.Tensor,
 
 field_bwd.launches = 0
 field_bwd.launches_tc = 0
+
+
+def tc_bwd_launch(field: PackedField, m: int, dir_rows: int) -> dict:
+    """The tensor-core backward's launch for ``m`` samples of this bf16
+    field (``csrc/field_bwd_tc.cu``): pass 1's sample block, its dynamic
+    shared memory and the workspace's bytes (the float32 backward's block
+    is its plan's, ``f32_bwd.make_plan``). Needs the card."""
+    from ._build import load_library
+
+    check_backward_support(field)
+    lib = load_library()
+    ints = (*kernel_ints(field, m, dir_rows), field.weights.numel(), field.biases.numel())
+    out = (ctypes.c_int * 2)()
+    nbytes = ctypes.c_int64()
+    err = lib.stnerf_field_bwd_tc_block(*ints, ctypes.cast(out, ctypes.c_void_p))
+    if err == 0:
+        err = lib.stnerf_field_bwd_tc_workspace(*ints, ctypes.byref(nbytes))
+    if err != 0:
+        raise RuntimeError(f"field_bwd_tc block query failed: CUDA error {err}")
+    return {"block_samples": out[0], "smem_bytes": out[1], "workspace_bytes": nbytes.value}
 
 
 # ---------------------------------------------------------------------------
@@ -286,9 +309,9 @@ def field_planar_trainable(net: SpaceNet, motion: MotionNet | None,
     ``net`` and ``motion`` (with ``motion_mode`` "direct" or "lerp"), to xyz
     and to dir_enc. ``plain`` runs the plain forward and backward whatever
     the device; otherwise CUDA tensors go through both kernels, and a field
-    wider than the backward kernels take is refused before the forward
-    launches when a gradient will be asked for (grad mode on, an input or a
-    parameter requiring one).
+    wider than the kernels take is refused before the forward launches when
+    a gradient will be asked for (grad mode on, an input or a parameter
+    requiring one).
     """
     if motion_mode and motion is None:
         raise ValueError(f"motion_mode {motion_mode!r} needs a motion net")

@@ -35,11 +35,10 @@ ReLU(0) = 0 and feeds nothing. Outputs and the real gradients stay the
 model's; :func:`_linear_grads` cuts the padded ones away. Widths above 1024
 pack unpadded, and the kernels refuse them.
 
-The forward kernels take every kernel width: each launch picks the largest
-sample block whose activations fit a block's shared memory (64, 32 or 16
-samples on the float32 route, 128, 64 or 32 on the tensor cores; at widths
-up to 256 always the first). The backward kernels take widths up to 256
-(:func:`check_backward_widths`).
+Every kernel takes every kernel width: each launch picks the largest
+sample block whose activations fit a block's shared memory (forward: 64,
+32 or 16 samples on the float32 route, 128, 64 or 32 on the tensor cores;
+backward: 64, 32 or 16 on both; at widths up to 256 always the first).
 """
 
 from __future__ import annotations
@@ -62,8 +61,7 @@ if TYPE_CHECKING:  # models imports this module
 TILE = 64  # samples per CUDA block = granularity of the skip flags
 
 MOTION_MODES = {None: 0, "direct": 1, "lerp": 2}
-KERNEL_WIDTHS = (32, 64, 128, 256, 512, 1024)  # layer widths the forward kernels take
-BACKWARD_MAX_WIDTH = 256  # the widest layer the backward kernels take
+KERNEL_WIDTHS = (32, 64, 128, 256, 512, 1024)  # layer widths the kernels take
 
 # operand slots of the packed buffers, in csrc/fused_field.cu's order
 W_SLOTS = ("m0", "m1", "m2", "m3", "m4", "m5", "w1", "w2", "w3", "w4",
@@ -415,29 +413,16 @@ def _check_inputs(field: PackedField, xyz, ids, dir_enc, tile_flags):
 
 
 def check_forward_widths(widths: list):
-    """The forward kernels (K1, K3, K6) take layer widths up to 1024, packed
-    at :data:`KERNEL_WIDTHS`: above 256 a launch takes a smaller sample
-    block, so that its activations still fit a block's 227 KB of shared
-    memory."""
+    """The kernels, forward (K1, K3, K6) and backward (K2, K3's), take
+    layer widths up to 1024, packed at :data:`KERNEL_WIDTHS`: above 256 a
+    launch takes a smaller sample block, so that its activations still fit
+    a block's 227 KB of shared memory."""
     if any(w not in KERNEL_WIDTHS for w in widths):
-        raise ValueError(f"the forward CUDA kernels take layer widths of at most "
+        raise ValueError(f"the CUDA kernels take layer widths of at most "
                          f"{KERNEL_WIDTHS[-1]} (packed at {KERNEL_WIDTHS}), got {widths}: the "
-                         "activations of a 16-sample block (float32) or a 32-sample block "
-                         "(bf16) must fit a block's 227 KB of shared memory")
-
-
-def check_backward_widths(widths: list):
-    """The backward kernels (K2, K3's backward) take layer widths up to
-    :data:`BACKWARD_MAX_WIDTH`: their 64-sample records and pass-1 tiles
-    do not fit shared memory above it (F8b's backward half, not yet
-    redesigned)."""
-    check_forward_widths(widths)
-    if max(widths) > BACKWARD_MAX_WIDTH:
-        raise ValueError(f"the backward CUDA kernels take layer widths of at most "
-                         f"{BACKWARD_MAX_WIDTH}, got {widths}: their 64-sample blocks do not "
-                         "fit a block's 227 KB of shared memory at wider layers (F8b's "
-                         "backward half); the forward kernels take up to "
-                         f"{KERNEL_WIDTHS[-1]}")
+                         "activations of a 16-sample block (float32, and bf16 backward) or a "
+                         "32-sample block (bf16 forward) must fit a block's 227 KB of shared "
+                         "memory")
 
 
 def field_widths(field: PackedField) -> list:
@@ -459,10 +444,9 @@ def check_forward_support(field: PackedField):
 
 
 def check_backward_support(field: PackedField):
-    """What the backward kernels take of a field: its widths
-    (:func:`check_backward_widths`) and its time encoding."""
-    check_backward_widths(field_widths(field))
-    _check_time(field)
+    """What the backward kernels take of a field: what the forward kernels
+    take (:func:`check_forward_support`)."""
+    check_forward_support(field)
 
 
 def kernel_ints(field: PackedField, m: int, dir_rows: int) -> tuple:

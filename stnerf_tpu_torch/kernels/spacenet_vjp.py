@@ -24,11 +24,12 @@ runs here. The pieces, as for every kernel of the port:
   each wrapper launched a kernel, and ``launches_tc`` how many of those went
   to the tensor-core one.
 * :func:`tc_workspace_bytes` — the device workspace the tensor-core
-  backward allocates per call (its records and partial sums); and
+  backward allocates per call (its records and partial sums);
   :func:`float32_ring` and :func:`tc_launch` — a forward launch's sample
-  block and shared memory (the float32 route's weight ring too). The
-  forward takes widths up to 1024, the backward up to 256
-  (``fused_field.check_backward_widths``).
+  block and shared memory (the float32 route's weight ring too); and
+  :func:`tc_bwd_launch` — the tensor-core backward's pass-1 block (the
+  float32 backward's is its plan's, ``f32_bwd.make_plan``). Both halves
+  take widths up to 1024 (``fused_field.check_forward_widths``).
 * ``active``: an optional (1,) int32 tensor on the inputs' device. Where it
   holds 0 the field is skipped, as the JAX path's chunk-level ``lax.cond``
   skips a hidden or missed performer: rgb and sigma are zeros, and so is
@@ -54,8 +55,8 @@ import torch
 from ..ops.rounding import round_to
 from . import f32_bwd
 from .fused_field import (PackedField, _field_linears, _linear_grads,
-                          check_backward_widths, check_forward_widths, pack_field,
-                          prepare_kernel_params_planar, spacenet_chain)
+                          check_forward_widths, pack_field, prepare_kernel_params_planar,
+                          spacenet_chain)
 
 if TYPE_CHECKING:  # models imports this module
     from ..models.spacenet import SpaceNet
@@ -205,13 +206,11 @@ def _check_inputs(field: PackedField, pos_enc, dir_enc, time_enc, active=None,
                          f"inputs on {pos_enc.device}")
 
 
-def _kernel_args(field: PackedField, pos_enc, dir_enc, time_enc, active,
-                 backward: bool = False) -> tuple:
+def _kernel_args(field: PackedField, pos_enc, dir_enc, time_enc, active) -> tuple:
     """The ints the entry points take after the pointers, the time pointer
     (null without a time input) and the active pointer (null without one),
-    once the field's widths pass the forward or the ``backward`` kernels'
-    check."""
-    (check_backward_widths if backward else check_forward_widths)([field.width, field.head])
+    once the field's widths pass the kernels' check."""
+    check_forward_widths([field.width, field.head])
     time_rows = time_enc.shape[0] if field.spec.use_time else 0
     ints = (pos_enc.shape[1], pos_enc.shape[0], dir_enc.shape[0], time_rows,
             field.width, field.head, field.n_rgb)
@@ -255,7 +254,7 @@ def tc_workspace_bytes(field: PackedField, pos_enc: torch.Tensor, dir_enc: torch
     these inputs: its records and partial sums (``csrc/spacenet_tc.cu``)."""
     from ._build import load_library
 
-    ints = _kernel_args(field, pos_enc, dir_enc, time_enc, None, backward=True)[0]
+    ints = _kernel_args(field, pos_enc, dir_enc, time_enc, None)[0]
     nbytes = ctypes.c_int64()
     err = load_library().stnerf_spacenet_bwd_tc_workspace(
         *ints, field.weights.numel(), field.biases.numel(), ctypes.byref(nbytes))
@@ -293,6 +292,22 @@ def tc_launch(field: PackedField, pos_enc: torch.Tensor, dir_enc: torch.Tensor,
     err = load_library().stnerf_spacenet_fwd_tc_block(*ints, ctypes.cast(out, ctypes.c_void_p))
     if err != 0:
         raise RuntimeError(f"spacenet_tc block query failed: CUDA error {err}")
+    return {"block_samples": out[0], "smem_bytes": out[1]}
+
+
+def tc_bwd_launch(field: PackedField, pos_enc: torch.Tensor, dir_enc: torch.Tensor,
+                  time_enc: torch.Tensor | None) -> dict:
+    """The tensor-core backward's launch for this bf16 field on these
+    inputs (``csrc/spacenet_tc.cu``): pass 1's sample block and its dynamic
+    shared memory. Needs the card."""
+    from ._build import load_library
+
+    out = (ctypes.c_int * 2)()
+    ints = _kernel_args(field, pos_enc, dir_enc, time_enc, None)[0]
+    err = load_library().stnerf_spacenet_bwd_tc_block(
+        *ints, field.weights.numel(), field.biases.numel(), ctypes.cast(out, ctypes.c_void_p))
+    if err != 0:
+        raise RuntimeError(f"spacenet_tc backward block query failed: CUDA error {err}")
     return {"block_samples": out[0], "smem_bytes": out[1]}
 
 
@@ -353,8 +368,7 @@ def spacenet_bwd(field: PackedField, pos_enc: torch.Tensor, dir_enc: torch.Tenso
     from ._build import load_library
 
     lib = load_library()
-    ints, time_ptr, active_ptr = _kernel_args(field, pos_enc, dir_enc, time_enc, active,
-                                              backward=True)
+    ints, time_ptr, active_ptr = _kernel_args(field, pos_enc, dir_enc, time_enc, active)
     dev = pos_enc.device
     # both routes' last pass writes every entry
     gw = torch.empty(field.weights.shape, dtype=torch.float32, device=dev)
@@ -379,7 +393,8 @@ def spacenet_bwd(field: PackedField, pos_enc: torch.Tensor, dir_enc: torch.Tenso
                 offsets.ctypes.data_as(ptr), active_ptr, *outputs, ptr(work.data_ptr()),
                 *ints, field.weights.numel(), field.biases.numel(), stream)
         else:
-            plan = f32_bwd.make_plan(field, pos_enc.shape[1], f32_bwd.sm_count(dev))
+            plan = f32_bwd.make_plan(field, pos_enc.shape[1], f32_bwd.sm_count(dev),
+                                     f32_bwd.smem_optin(dev))
             # one slice's records and every range's partial sums
             work = torch.empty(plan.workspace_bytes, dtype=torch.uint8, device=dev)
             plan_ints = plan.array()
@@ -412,7 +427,7 @@ class _TrainableSpaceNet(torch.autograd.Function):
                            compute_dtype)
         if grad and not plain and pos_enc.device.type == "cuda":
             # before the forward launches
-            check_backward_widths([field.width, field.head])
+            check_forward_widths([field.width, field.head])
         evaluate = spacenet_fwd_reference if plain else spacenet_fwd
         rgb, sigma = evaluate(field, pos_enc, dir_enc, time_enc, active)
         ctx.field, ctx.plain = field, plain
@@ -443,11 +458,10 @@ def spacenet_planar_trainable(net: SpaceNet, pos_enc: torch.Tensor,
     -> (rgb (3, M), sigma (M,)), raw. Gradients flow to the linears of
     ``net``, to pos_enc and to dir_enc; time_enc gets none. ``plain`` runs
     the plain forward and backward whatever the device; otherwise CUDA
-    tensors go through both kernels, and a field wider than the backward
-    kernels take is refused before the forward launches when a gradient
-    will be asked for (grad mode on, an input or a parameter requiring
-    one). ``active`` (see the module docstring) skips the field on the
-    device.
+    tensors go through both kernels, and a field wider than the kernels
+    take is refused before the forward launches when a gradient will be
+    asked for (grad mode on, an input or a parameter requiring one).
+    ``active`` (see the module docstring) skips the field on the device.
     """
     params = [p for layer in _field_linears(net, None) for p in (layer.weight, layer.bias)]
     grad = torch.is_grad_enabled() and any(t.requires_grad

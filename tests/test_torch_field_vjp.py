@@ -21,6 +21,7 @@ M = 200          # samples: not a multiple of either package's tile
 JAX_TILE = 128
 W, HEAD, MOTION_W = 32, 16, 16
 F8_WIDTHS = (96, 48, 48)  # none a kernel width: packed at 128, 64, 64
+WIDE_WIDTHS = (384, 192, 160)  # wider than 256: packed at 512, 256, 256
 
 
 def _nets(mode, use_time, deep, widths=(W, HEAD, MOTION_W)):
@@ -104,6 +105,45 @@ def _port_grads(net, mnet, mode, xyz, ids, dir_enc, c_rgb, c_sig, flags=None,
     return float(v), grads, (rgb.detach().numpy(), sig.detach().numpy())
 
 
+def _away_from_kinks(net, mnet, xyz, ids, dir_enc, tau=1e-5):
+    """Per sample: whether every hidden pre-activation of the field (the
+    motion net's, the trunk's and the rgb head's), evaluated in float64,
+    lies more than ``tau`` x its layer's largest |pre-activation| from the
+    ReLU's kink. Nearer, float32 round-off under another summation order
+    (JAX's against the port's) flips the mask, which moves every gradient
+    entry that sample feeds by its whole contribution; at wide layers and
+    M = 200 one such sample takes a leaf beyond the bar."""
+    import torch
+
+    from stnerf_tpu_torch.ops.encoding import (lerp_encoded_time_planar,
+                                               positional_encoding_planar)
+
+    spec, pres = net.spec, []
+
+    def mlp(layers, x, final):
+        for i, layer in enumerate(layers):
+            x = layer.weight.double() @ x + layer.bias.double()[:, None]
+            if i < len(layers) - 1 or final:
+                pres.append(x)
+                x = torch.relu(x)
+        return x
+
+    def d(a):
+        return torch.as_tensor(a, dtype=torch.float64)
+
+    with torch.no_grad():
+        enc = lerp_encoded_time_planar(d(xyz), d(ids[0]), mnet.spec.freqs,
+                                       mnet.spec.include_input, True)
+        p = positional_encoding_planar(d(xyz) + mlp(mnet.net, enc, False), spec.pos_freqs,
+                                       spec.include_input, recursive=True)
+        x = mlp(net.stage2, torch.cat([mlp(net.stage1, p, True), p]), True)
+        t = positional_encoding_planar(d(ids), spec.time_freqs, spec.include_input,
+                                       recursive=True)
+        mlp(net.rgb, torch.relu(torch.cat([x, d(dir_enc), t])), False)
+    margin = torch.stack([(q.abs() / q.abs().amax(1, keepdim=True)).amin(0) for q in pres])
+    return (margin.amin(0) > tau).numpy()
+
+
 def _assert_tree_close(got, ref):
     """Per leaf: rtol 2e-3, atol 2e-3 * max |leaf| (tests/test_kernels.py)."""
     import jax
@@ -121,21 +161,34 @@ def _assert_tree_close(got, ref):
     pytest.param("direct", False, False, None, id="direct-False-False"),
     pytest.param("lerp", True, False, None, id="lerp-True-False"),
     pytest.param("lerp", True, True, None, id="lerp-True-True"),
-    pytest.param("lerp", True, False, F8_WIDTHS, id="lerp-True-False-f8")])
+    pytest.param("lerp", True, False, F8_WIDTHS, id="lerp-True-False-f8"),
+    pytest.param("lerp", True, False, WIDE_WIDTHS, id="lerp-True-False-wide")])
 def test_trainable_field_matches_jax(rng, mode, use_time, deep, widths):
     """Value and every gradient through the port's autograd Function
     (plain forward and backward on the CPU) against JAX's VJP over the
     interpret-mode kernels; also at widths the CUDA kernels take only
-    padded (F8), whose padded gradients are cut away."""
+    padded (F8), whose padded gradients are cut away, and at widths wider
+    than 256 (packed at 512/256/256), which the backward kernels take with
+    a smaller sample block."""
     jsspec, sparams, mparams, net, mnet = _nets(mode, use_time, deep,
                                                 widths or (W, HEAD, MOTION_W))
     args = _inputs(rng, mode)
+    if widths == WIDE_WIDTHS:  # no sample within float32 round-off of a ReLU kink
+        keep = _away_from_kinks(net, mnet, *args[:3])
+        assert keep.mean() > 0.75
+        args = (*args[:3], args[3] * keep, args[4] * keep)
     v_j, g_j, _ = _jax_grads(jsspec, sparams, mparams, mode, *args)
     v_t, g_t, _ = _port_grads(net, mnet, mode, *args)
     np.testing.assert_allclose(v_t, v_j, rtol=2e-4)
     if not mode:
         g_j, g_t = (g_j[0], g_j[2], g_j[3]), (g_t[0], g_t[2], g_t[3])
     _assert_tree_close(g_t, g_j)
+    if widths:  # the packed field's padding cut away: every leaf the model's shape
+        import jax
+
+        assert ([np.shape(a) for a in jax.tree.leaves(g_t)]
+                == [np.shape(b) for b in jax.tree.leaves(g_j)])
+        assert max(p.shape[0] for p in net.parameters()) == max(widths)
 
 
 def test_tile_flags_match_jax(rng):
@@ -284,17 +337,45 @@ def test_tf32x3_backward_matches_jax(rng, monkeypatch, mode, use_time, deep):
     _assert_tree_close(g_t, g_j)
 
 
-@pytest.mark.parametrize("mode,use_time,deep", [("direct", False, False), ("lerp", True, True)])
-def test_f32_plan_layout_and_order(rng, monkeypatch, mode, use_time, deep):
+# sha256 (first 16 hex digits) of f32_bwd.make_plan(...).array() without
+# its block entry, as the plan before the block was chosen per launch made
+# it: (mode, use_time, deep) at the test's widths, m = 700 and 8
+# multiprocessors, then with slices of 8 blocks; and the taekwondo
+# performer (256/128/128, "lerp" with time) at M = 240,000 on 132
+PLAN_DIGESTS = {("direct", False, False): ("2e63ecad01984aa0", "b731d3476c7a481a"),
+                ("lerp", True, True): ("a2af7b5626fb90c7", "b681b586a5821b08"),
+                "taekwondo": "b7970d81a5db8f9d"}
+
+
+def _digest(arr) -> str:
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()[:16]
+
+
+@pytest.mark.parametrize("mode,use_time,deep,widths", [
+    pytest.param("direct", False, False, None, id="direct-False-False"),
+    pytest.param("lerp", True, True, None, id="lerp-True-True"),
+    pytest.param("lerp", True, False, (512, 256, 256), id="lerp-True-False-512"),
+    pytest.param("lerp", True, False, (1024, 512, 512), id="lerp-True-False-1024")])
+def test_f32_plan_layout_and_order(rng, monkeypatch, mode, use_time, deep, widths):
     """The float32 kernels' plan (kernels/f32_bwd.py) for K2's fields: the
-    record's tiles in REC_TILES order, packed; one pass-2 job per weight
-    that has a gradient, on the tiles of its input and output cotangent,
-    with its packed offsets and each bias once; the dx fragments in mma
-    order; the int array the C entry points read. Then the fixed order,
-    with slices of 8 blocks and two ranges or more each at a ragged M: the ranges
-    partition the blocks in order, and the plain backward summed range by
-    range in that order is the one-shot plain backward to float32
-    round-off, the same bits when run again."""
+    record block (64 samples at widths up to 256, 32 at 512, 16 at 1024:
+    the largest whose pass-1 shared memory fits an H100's 227 KB); the
+    record's tiles in REC_TILES order, packed in whole rows of the block;
+    one pass-2 job per weight that has a gradient, on the tiles of its
+    input and output cotangent, with its packed offsets and each bias once;
+    the dx fragments in mma order, their rows padded to a kernel width up
+    to 1024; the int array the C entry points read, at widths up to 256
+    bitwise the array before the block was chosen per launch but for the
+    block's entry. Then the fixed order, with slices of 8 blocks and two
+    ranges or more each (one at the wide widths) at a ragged M: the ranges
+    partition the blocks in
+    order, each record lies in one skip-flag tile and takes its flag, and
+    the plain backward summed range by range in that order is the one-shot
+    plain backward to float32 round-off, the same bits when run again. At
+    the wide widths and M = 240,000 on 132 multiprocessors, each slice's
+    records stay within SLICE_BYTES."""
     import torch
 
     from stnerf_tpu_torch.kernels import f32_bwd
@@ -303,21 +384,38 @@ def test_f32_plan_layout_and_order(rng, monkeypatch, mode, use_time, deep):
                                                       prepare_kernel_params_planar,
                                                       prepare_motion_params_planar)
 
-    _, _, _, net, mnet = _nets(mode, use_time, deep)
+    if widths:  # random weights: the plan depends on the shapes alone
+        from stnerf_tpu_torch.models import MotionNet, MotionNetSpec, SpaceNet, SpaceNetSpec
+
+        gen = torch.Generator().manual_seed(0)
+        net = SpaceNet(SpaceNetSpec(use_dir=True, use_time=use_time, deep_rgb=deep,
+                                    backbone_dim=widths[0], head_dim=widths[1]), gen)
+        mnet = MotionNet(MotionNetSpec(width=widths[2], input_time=mode == "lerp"), gen)
+    else:
+        _, _, _, net, mnet = _nets(mode, use_time, deep)
     field = pack_field(prepare_kernel_params_planar(net, torch.float32),
                        prepare_motion_params_planar(mnet, torch.float32), net.spec, mode,
                        "float32")
     m, sms = 700, 8
     rows = f32_bwd.record_rows(field)
     one = f32_bwd.make_plan(field, m, sms)
+    block = {None: 64, 512: 32, 1024: 16}[widths and widths[0]]
+    assert one.block == block and TILE % block == 0
+    assert f32_bwd.pass1_smem_bytes(field, block) <= f32_bwd.SMEM_OPTIN
+    if block < 64:  # the next larger block does not fit
+        assert f32_bwd.pass1_smem_bytes(field, 2 * block) > f32_bwd.SMEM_OPTIN
+    if widths is None:
+        assert _digest(np.delete(one.array(), 4)) == PLAN_DIGESTS[mode, use_time, deep][0]
     monkeypatch.setattr(f32_bwd, "SLICE_BYTES", 4 * one.rec_floats * 8)
     plan = f32_bwd.make_plan(field, m, sms)
+    if widths is None:
+        assert _digest(np.delete(plan.array(), 4)) == PLAN_DIGESTS[mode, use_time, deep][1]
 
-    # the record: the tiles present, packed in order
+    # the record: the tiles present, packed in order, in rows of the block
     off = 0
     for i, name in enumerate(f32_bwd.REC_TILES):
         assert plan.tile[i] == (off if name in rows else -1), name
-        off += rows.get(name, 0) * TILE
+        off += rows.get(name, 0) * block
     assert plan.rec_floats == off
     # pass 2: every weight with a gradient once, each bias once
     n_w = field.weights.numel()
@@ -352,30 +450,41 @@ def test_f32_plan_layout_and_order(rng, monkeypatch, mode, use_time, deep):
                 for r in (16 * t + g, 16 * t + g + 8)]
         assert got == [float(v) for v in want]
     arr = plan.array()
-    assert arr.dtype == np.int32 and len(arr) == (4 + len(f32_bwd.REC_TILES) + len(W_SLOTS)
-                                                  + f32_bwd.JOB_INTS * len(names))
-    assert arr[:4].tolist() == [plan.rec_floats, plan.slice_blocks, plan.ranges, len(names)]
+    assert arr.dtype == np.int32 and len(arr) == (f32_bwd.PLAN_HEAD + len(f32_bwd.REC_TILES)
+                                                  + len(W_SLOTS) + f32_bwd.JOB_INTS * len(names))
+    assert arr[:5].tolist() == [plan.rec_floats, plan.slice_blocks, plan.ranges, len(names),
+                                block]
     assert plan.workspace_bytes == 4 * (plan.slice_blocks * plan.rec_floats
                                         + plan.n_slices * plan.ranges * (n_w + field.biases.numel()))
+    assert [f32_bwd.padded_rows(k) for k in (27, 63, 84, 300, 512, 600, 1024)] == [
+        32, 64, 128, 512, 512, 1024, 1024]
 
-    # the fixed order: slices [0, 8), [8, 11), two ranges or more each
-    assert (plan.n_blocks, plan.slice_blocks, plan.n_slices) == (11, 8, 2) and plan.ranges >= 2
+    # the fixed order: slices [0, 8) and the rest, two ranges or more each
+    # (one at the wide widths: their dW tiles fill 8 multiprocessors' waves)
+    n_blocks = -(-m // block)
+    assert (plan.n_blocks, plan.slice_blocks, plan.n_slices) == (n_blocks, 8, -(-n_blocks // 8))
+    assert plan.ranges >= (2 if widths is None else 1)
     spans = plan.record_ranges()
-    assert [(s, r) for s, r, _, _ in spans] == [(s, r) for s in range(2)
+    assert [(s, r) for s, r, _, _ in spans] == [(s, r) for s in range(plan.n_slices)
                                                 for r in range(plan.ranges)]
     assert spans[0][2] == 0 and spans[-1][3] == plan.n_blocks
     assert all(a[3] == b[2] for a, b in zip(spans, spans[1:]))
     xyz, ids, dir_enc, c_rgb, c_sig = (torch.tensor(a) for a in _inputs(rng, mode, m))
-    flags = torch.tensor((rng.random(plan.n_blocks) > 0.25).astype(np.int32))
+    flags = torch.tensor((rng.random(-(-m // TILE)) > 0.25).astype(np.int32))
+    # record b (samples [b block, (b + 1) block)) lies in tile b // (TILE // block)
+    rec_flag = flags[torch.arange(plan.n_blocks) // (TILE // block)]
+    on = rec_flag.repeat_interleave(block)[:m].float()
+    assert torch.equal(on, flags.repeat_interleave(TILE)[:m].float())
 
     def in_order():
         gw = gb = 0.0
         for _, _, b_lo, b_hi in spans:
             if b_lo == b_hi:  # an empty range: zero partials
                 continue
-            lo, hi = b_lo * TILE, min(b_hi * TILE, m)
+            lo, hi = b_lo * block, min(b_hi * block, m)
+            # a record whose flag is 0 adds nothing: zero cotangents
             part = field_bwd_reference(field, xyz[:, lo:hi], ids[:, lo:hi], dir_enc[:, lo:hi],
-                                       c_rgb[:, lo:hi], c_sig[lo:hi], flags[b_lo:b_hi])
+                                       c_rgb[:, lo:hi] * on[lo:hi], c_sig[lo:hi] * on[lo:hi])
             gw, gb = gw + part[0], gb + part[1]
         return gw, gb
 
@@ -385,3 +494,21 @@ def test_f32_plan_layout_and_order(rng, monkeypatch, mode, use_time, deep):
     for a, b in zip(first, ref[:2]):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
                                    atol=1e-5 * float(b.abs().max()))
+
+    if widths is None:  # the taekwondo performer, bitwise the former plan
+        from stnerf_tpu_torch.models import MotionNet, MotionNetSpec, SpaceNet, SpaceNetSpec
+
+        gen = torch.Generator().manual_seed(0)
+        net = SpaceNet(SpaceNetSpec(use_dir=True, use_time=True), gen)
+        mnet = MotionNet(MotionNetSpec(width=128, input_time=True), gen)
+        field = pack_field(prepare_kernel_params_planar(net, torch.float32),
+                           prepare_motion_params_planar(mnet, torch.float32), net.spec, "lerp",
+                           "float32")
+    monkeypatch.undo()
+    big = f32_bwd.make_plan(field, 240_000, 132)
+    if widths is None:
+        assert big.block == 64 and _digest(np.delete(big.array(), 4)) == PLAN_DIGESTS["taekwondo"]
+    else:  # records of whole waves of blocks, each slice within SLICE_BYTES
+        assert big.block == block and big.n_blocks == 240_000 // block
+        assert 4 * big.slice_blocks * big.rec_floats <= f32_bwd.SLICE_BYTES
+        assert big.slice_blocks % 132 == 0 and big.n_slices >= 2

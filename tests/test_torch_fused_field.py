@@ -19,7 +19,7 @@ M = 200        # samples: not a multiple of either package's tile
 JAX_TILE = 128
 WIDTHS = (32, 16, 32)     # trunk, head, motion: the head packs at 32
 F8_WIDTHS = (96, 48, 48)  # none a kernel width: packed at 128, 64, 64
-WIDE_WIDTHS = (384, 192, 160)  # packed at 512, 256, 256: wider than the backward takes
+WIDE_WIDTHS = (384, 192, 160)  # packed at 512, 256, 256: a smaller sample block
 
 
 def _pair(motion_mode, deep_rgb=False, compute_dtype="float32", widths=WIDTHS):
@@ -244,13 +244,14 @@ def test_padded_pack_and_gradient_map():
     operand's; ``_linear_grads`` hands each nn.Linear a gradient of its own
     shape, cut from the packed one; a field already at kernel widths packs
     as the unpadded layout (each operand in slot order, 16-element aligned,
-    nothing else); the forward kernels' width check passes every padded
-    width up to 1024 (300 packs at 512, 600 at 1024) and refuses 1025; the
-    backward kernels' check refuses 512."""
+    nothing else); the kernels' width check passes every padded width up to
+    1024 (300 packs at 512, 600 at 1024) and refuses 1025, and so does the
+    backward kernels' (``check_backward_support``): they train every width
+    the forward kernels take."""
     import torch
 
     from stnerf_tpu_torch.kernels.fused_field import (B_SLOTS, W_SLOTS, _field_linears,
-                                                      _linear_grads, check_backward_widths,
+                                                      _linear_grads, check_backward_support,
                                                       check_forward_widths,
                                                       pack_field, prepare_kernel_params_planar,
                                                       prepare_motion_params_planar)
@@ -273,7 +274,7 @@ def test_padded_pack_and_gradient_map():
     net, motion, ops, field = build(*F8_WIDTHS)
     assert (field.width, field.head, field.motion_width) == (128, 64, 64)
     check_forward_widths([field.width, field.head, field.motion_width])
-    check_backward_widths([field.width, field.head, field.motion_width])
+    check_backward_support(field)
     for slot, op in ops.items():
         packed = field.w(slot) if slot in W_SLOTS else field.b(slot)
         assert tuple(packed.shape) == field.shapes[slot], slot
@@ -301,15 +302,16 @@ def test_padded_pack_and_gradient_map():
     for w in (1, 5, 33, 200, 256):
         field = build(w, w, w)[3]
         check_forward_widths([field.width, field.head, field.motion_width])
-        check_backward_widths([field.width, field.head, field.motion_width])
+        check_backward_support(field)
     for w, packed in ((300, 512), (600, 1024)):
         field = build(w, 48, 48)[3]
         assert field.width == packed
         check_forward_widths([field.width, field.head, field.motion_width])
-        with pytest.raises(ValueError, match="at most 256"):
-            check_backward_widths([field.width, field.head, field.motion_width])
+        check_backward_support(field)
     with pytest.raises(ValueError, match="at most 1024"):
         check_forward_widths([build(1025, 48, 48)[3].width])
+    with pytest.raises(ValueError, match="at most 1024"):
+        check_backward_support(build(1025, 48, 48)[3])
 
 
 def test_tensor_core_fragments_hold_the_weights():

@@ -22,7 +22,7 @@ M = 200          # samples: not a multiple of the JAX tile
 JAX_TILE = 128
 W, HEAD = 32, 16
 F8_WIDTHS = (96, 48)  # neither a kernel width: packed at 128, 64
-WIDE_WIDTHS = (384, 192)  # packed at 512, 256: wider than the backward kernels take
+WIDE_WIDTHS = (384, 192)  # packed at 512, 256: the kernels take a smaller sample block
 
 
 def _net(seed, widths=(W, HEAD), **kw):
@@ -80,13 +80,15 @@ def _assert_tree_close(got, ref):
     pytest.param(False, True, True, None, id="False-True-True"),
     pytest.param(True, True, False, None, id="True-True-False"),
     pytest.param(False, False, False, None, id="False-False-False"),
-    pytest.param(False, True, True, F8_WIDTHS, id="False-True-True-f8")])
+    pytest.param(False, True, True, F8_WIDTHS, id="False-True-True-f8"),
+    pytest.param(False, True, True, WIDE_WIDTHS, id="False-True-True-wide")])
 def test_trainable_spacenet_matches_jax(rng, deep, use_dir, use_time, widths):
     """Value and every gradient of a random linear loss: the port's
     autograd Function (plain forward and backward on the CPU) against JAX's
     custom_vjp over the interpret-mode Pallas kernels; also at widths the
     CUDA kernels take only padded (F8), whose padded gradients are cut
-    away."""
+    away, and at widths wider than 256 (packed at 512/256), which the
+    backward kernels take with a smaller sample block."""
     import jax
     import jax.numpy as jnp
     import torch
@@ -120,6 +122,12 @@ def test_trainable_spacenet_matches_jax(rng, deep, use_dir, use_time, widths):
     # the direction-encoding gradient: the pose refinement's signal
     np.testing.assert_allclose(d.grad.numpy(), gd_j, rtol=2e-3, atol=2e-4)
     _assert_tree_close(export_spacenet(net, grad=True), gp_j)
+    if widths:  # the packed field's padding cut away: every leaf the model's shape
+        import jax
+
+        assert ([np.shape(a) for a in jax.tree.leaves(export_spacenet(net, grad=True))]
+                == [np.shape(b) for b in jax.tree.leaves(gp_j)])
+        assert max(p.shape[0] for p in net.parameters()) == max(widths)
 
 
 @pytest.mark.parametrize("deep,use_dir,use_time", [(False, True, True), (True, False, False)])

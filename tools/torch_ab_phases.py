@@ -2,7 +2,7 @@
 """Compare phases of two checkouts of the PyTorch port on one CUDA card.
 
     python3 tools/torch_ab_phases.py OTHER_CHECKOUT [OTHER_CHECKOUT ...]
-        [--set view_pose|field|kernels|k1_f32|k3_f32|cross] [--rounds 1]
+        [--set view_pose|field|kernels|k1_f32|k3_f32|cross|bwd] [--rounds 1]
 
 Runs ``chip_smoke.py``'s phases from each OTHER_CHECKOUT and from this one,
 each in a fresh process from its own root (so each builds and loads its own
@@ -77,6 +77,18 @@ run. Compare checkouts only within one invocation.
   synthetic scene with TPU.COMPOSITOR_KERNEL on, one coarse-only and two
   full epochs of 20 steps): seconds per step by epoch and K4/K5's
   launches.
+* ``bwd``: the four backward routes (K2 and K3's backward, bf16 and
+  float32) at the widths up to 256. A digest (sha256 of the bytes of the
+  weight and bias gradients and both input gradients; each run twice,
+  "differs run to run" if the two differ) in every case of phases 4 and 6
+  on seeded inputs: K2 on phase 4's four fields at M = 2000 x 120 with
+  25% of the tiles off, then its edges at M = 122,045 (the narrow 64/32/32
+  fields, a 96/48/48 performer, the ragged M with all tiles on, a quarter
+  off, all off and no flags); K3 on phase 6's four fields at M = 2000 x
+  120, then the narrow 64/32 fields, a 96/48 performer and the ragged M
+  with the ``active`` flag unset, 1 and 0. Each route's ms on the performer
+  and the background (10 calls each, timed alike by each checkout's
+  ``chip_smoke.cuda_ms``).
 """
 
 from __future__ import annotations
@@ -524,6 +536,104 @@ print("AB " + json.dumps({"kernels": kernels,
                                                     if k.endswith("_ms")},
                           "entry_s_per_step": {e: s / steps[0] for e, s in seconds.items()},
                           "entry_launches": [w.launches for w in wrappers]}))
+"""
+
+CHILD["bwd"] = PRELUDE + """
+import dataclasses, hashlib
+import numpy as np
+from stnerf_tpu_torch.kernels.field_vjp import field_bwd
+from stnerf_tpu_torch.kernels.fused_field import pack_field, prepare_kernel_params_planar
+from stnerf_tpu_torch.kernels.spacenet_vjp import spacenet_bwd
+from stnerf_tpu_torch.models import LayeredSpec, MotionNet, SpaceNet
+from stnerf_tpu_torch.ops.encoding import positional_encoding_planar
+def digest(ts):
+    h = hashlib.sha256()
+    for x in ts:
+        h.update(x.detach().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+def twice(fn):
+    first, again = digest(fn()), digest(fn())
+    return first if again == first else "differs run to run"
+t = lambda a: torch.tensor(a, dtype=torch.float32, device=device).contiguous()
+def inputs(m, seed):
+    rng = np.random.default_rng(seed)
+    xyz = t(rng.uniform(-3.0, 3.0, (3, m)))
+    ids = t(rng.integers(1, 101, (1, m)) + rng.choice([0.0, 0.25, 0.5], (1, m)))
+    d = rng.normal(size=(3, m))
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    dir_enc = positional_encoding_planar(t(d), 4, True, recursive=True).contiguous()
+    cot = (t(rng.normal(size=(3, m))), t(rng.normal(size=m)))
+    return rng, (xyz, ids, dir_enc, *cot)
+def widths(c, w, h, mw, cams=None):
+    c.merge_from_list(["MODEL.BACKBONE_DIM", w, "MODEL.HEAD_DIM", h, "MODEL.MOTION_DIM", mw])
+    return cs.make_model(LayeredSpec.from_cfg(c, camera_num=cams), device)
+digests, ms = {}, {}
+# K2: phase 4's four fields at its seeded shape, then its edges
+spec = LayeredSpec.from_cfg(cfg)
+model = cs.make_model(spec, device)
+gen = torch.Generator().manual_seed(cs.SEED + 1)
+direct_net = MotionNet(spec.motion_spec(input_time=False), gen).to(device)
+deep_net = SpaceNet(dataclasses.replace(spec.spacenet_spec(bkgd=False), deep_rgb=True),
+                    gen).to(device)
+m = cfg.SOLVER.IMS_PER_BATCH * 120
+rng, main = inputs(m, cs.SEED + 2)
+main = (*main, torch.tensor((rng.random(-(-m // 64)) > 0.25).astype(np.int32), device=device))
+m_e = 2000 * 61 + 45
+rng, edge = inputs(m_e, cs.SEED + 6)
+n_tiles = -(-m_e // 64)
+seeded = torch.tensor((rng.random(n_tiles) > 0.25).astype(np.int32), device=device)
+narrow, f8 = widths(cs.taekwondo_cfg(), 64, 32, 32), widths(cs.taekwondo_cfg(), 96, 48, 48)
+perf = (model.layers_fine[0], model.motion[0], "lerp")
+k2_cases = [("performer_lerp", *perf, main), ("background", model.bkgd_fine, None, None, main),
+            ("background_direct", model.bkgd_fine, direct_net, "direct", main),
+            ("performer_deep_rgb", deep_net, model.motion[0], "lerp", main),
+            ("narrow_performer", narrow.layers_fine[0], narrow.motion[0], "lerp",
+             (*edge, seeded)),
+            ("narrow_background", narrow.bkgd_fine, None, None, (*edge, seeded)),
+            ("f8_performer", f8.layers_fine[0], f8.motion[0], "lerp", (*edge, seeded)),
+            ("ragged_all_on", *perf, (*edge, torch.ones_like(seeded))),
+            ("ragged_quarter_off", *perf, (*edge, seeded)),
+            ("ragged_all_off", *perf, (*edge, torch.zeros_like(seeded))),
+            ("ragged_no_flags", *perf, (*edge, None))]
+for dt in ("bfloat16", "float32"):
+    for name, net, mnet, mode, args in k2_cases:
+        f = cs.pack_dtype(net, mnet, mode, dt)
+        digests[f"field_bwd_{dt}_{name}"] = twice(lambda: field_bwd(f, *args))
+        if name in ("performer_lerp", "background"):
+            ms[f"field_bwd_{dt}_{name}"] = cs.cuda_ms(lambda: field_bwd(f, *args), 10)
+# K3: phase 6's four fields at its shape, then its edges
+vp_spec = LayeredSpec.from_cfg(cs.view_pose_cfg(), camera_num=8)
+vp = cs.make_model(vp_spec, device)
+gen = torch.Generator().manual_seed(cs.SEED + 4)
+sspec = vp_spec.spacenet_spec(bkgd=False)
+k3_deep = SpaceNet(dataclasses.replace(sspec, deep_rgb=True), gen).to(device)
+k3_no_dir = SpaceNet(dataclasses.replace(sspec, use_dir=False), gen).to(device)
+k3_narrow = widths(cs.view_pose_cfg(), 64, 32, 32, 8)
+k3_f8 = widths(cs.view_pose_cfg(), 96, 48, 48, 8)
+x = cs._encoded_inputs(device, 2000 * 120, cs.SEED + 5)
+xe = cs._encoded_inputs(device, 2000 * 61 + 45, cs.SEED + 7)
+on, off = (torch.full((1,), v, dtype=torch.int32, device=device) for v in (1, 0))
+k3_cases = [("performer_time", vp.layers_fine[0], x, None),
+            ("background", vp.bkgd_fine, x, None), ("performer_deep_rgb", k3_deep, x, None),
+            ("performer_no_dir", k3_no_dir, x, None),
+            ("narrow_performer", k3_narrow.layers_fine[0], xe, None),
+            ("narrow_background", k3_narrow.bkgd_fine, xe, None),
+            ("f8_performer", k3_f8.layers_fine[0], xe, None),
+            ("ragged_performer", vp.layers_fine[0], xe, None),
+            ("ragged_performer_active_1", vp.layers_fine[0], xe, on),
+            ("ragged_performer_active_0", vp.layers_fine[0], xe, off)]
+for dt in ("bfloat16", "float32"):
+    tdt = torch.bfloat16 if dt == "bfloat16" else torch.float32
+    for name, net, enc, active in k3_cases:
+        f = pack_field(prepare_kernel_params_planar(net, tdt), (), net.spec, None, dt)
+        n = enc["pos"].shape[1]
+        dir_enc = enc["dir"] if net.spec.use_dir else torch.zeros((1, n), device=device)
+        a = (f, enc["pos"], dir_enc, enc["time"] if net.spec.use_time else None,
+             enc["d_rgb"], enc["d_sigma"], active)
+        digests[f"spacenet_bwd_{dt}_{name}"] = twice(lambda: spacenet_bwd(*a))
+        if name in ("performer_time", "background"):
+            ms[f"spacenet_bwd_{dt}_{name}"] = cs.cuda_ms(lambda: spacenet_bwd(*a), 10)
+print("AB " + json.dumps({"ms": ms, "digests": digests}))
 """
 
 
