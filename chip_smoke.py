@@ -59,7 +59,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    and 1024 two plain summation orders alone miss the fixed bars), with
    each route's block, ms, bound and share; a training step of each wide
    performer (``field_planar_trainable``, forward and backward) launched on
-   its dtype's route; a 1040-wide field refused before any launch. Prints
+   its dtype's route; a 1040-wide field refused before any launch. In every
+   bf16 case the kernel's pass-1 records are read back (a launch into a
+   workspace made here, ``bwd_records_check``) and every recorded bf16
+   activation must be the k-order rounding of its layer on the record's own
+   inputs (float32 FMAs in k order, as the near-tie recompute sums): the
+   count per layer is printed and must be 0; each bf16 leaf's relative L2
+   is printed, and the worst before the recompute was checked beside the
+   wide ones. Prints
    both routes' times and bounds per case at the seeded shape, the float32
    route's workspace, and its time beside the former design's.
 5. Training: ``do_train`` on the taekwondo model at batch 2000 (one
@@ -89,7 +96,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``order_bar`` as phase 4's, each backward route's ms, bound and
    share); a training step of each wide field
    (``spacenet_planar_trainable``) on its dtype's route; a 1040-wide
-   field refused before any launch. Then the three K6 entry points
+   field refused before any launch. Every bf16 case's records held to the
+   k-order rounding as in phase 4, its leaves printed. Then the three K6 entry points
    (``fused_spacenet*``, on K3's forward kernels) against their plain
    versions at one shape, and at 512/256 (``fused_spacenet_vs_plain_wide``).
    Prints both routes' times, bounds and shares of
@@ -134,7 +142,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    kernels and one through the plain versions in bf16 and float32 (phase
    5's bars) and of its view-deform variant (K3's forward and backward,
    phase 8's bars), each also against the plain step on a copy of the
-   model with its hidden units permuted (``order_bar``); then
+   model with its hidden units permuted (``order_bar``), every backward
+   call of each bf16 kernel step launched once more and its records held
+   to the k-order rounding as in phase 4; then
    ``wide_bwd_kernels``: every backward route on the 512/256/256
    performer at M = 240,000 (block, ms, plain ms, bound, share) and the
    phase's seconds.
@@ -306,8 +316,7 @@ and in float32, at seed 0, from the initial weights nudged one float32 ulp
 and at seeds 1 and 2, each curve inside the band, and per dtype the
 largest gap between the card's runs and their mean. ``python3 chip_smoke.py
 --backward`` runs phases 4, 6 and 8b alone (K2 and K3 against their plain
-versions, both routes, and the wide slice in training; about 95 s after
-the build).
+versions, both routes, the records check, and the wide slice in training).
 """
 
 from __future__ import annotations
@@ -349,6 +358,13 @@ WIDE_WIDTHS = (512, 256, 256)
 WIDE_PADDED_WIDTHS = (384, 192, 160)
 XWIDE_WIDTHS = (1024, 512, 512)
 TOO_WIDE_WIDTHS = (1040, 256, 256)
+# The wide bf16 backward's readings against its plain version before its
+# recompute was near-tie checked (relative L2, the worst leaf of the case;
+# PERF.md, Findings): printed beside this run's
+UNCHECKED_BF16_WORST = {("field_bwd", "wide_performer"): 0.0116,
+                   ("field_bwd", "xwide_background"): 0.0139,
+                   ("spacenet_bwd", "xwide_background"): 0.0181,
+                   ("step", "view_pose"): 0.0131}
 
 
 def check(cond, msg: str):
@@ -1308,9 +1324,163 @@ def check_field_bwd(name, f, args, skipped, order=None) -> dict:
                 "f32_entries_outside": {k: v["outside"] for k, v in stats.items()
                                         if v["outside"]}}
     worst = max(stats, key=lambda k: stats[k]["rel"])
+    counts = bwd_records_check("field_bwd", f, args)
+    out["bf16_records_not_k_order"] = counts
+    out["bf16_leaf_rel_l2"] = {k: v["rel"] for k, v in stats.items()}
+    if ("field_bwd", name) in UNCHECKED_BF16_WORST:
+        out["unchecked_worst_rel_l2"] = UNCHECKED_BF16_WORST["field_bwd", name]
     check(not bad, f"{name}: bf16 kernel vs plain relative L2 beyond its bar: {bad}")
+    check_records(f"{name} K2", counts)
     return {**out, "bf16_worst_rel_l2": [worst, stats[worst]["rel"]],
             "bf16_max_abs_err": max(v["err"] for v in stats.values())}
+
+
+# The tiles of a pass-1 record of the bf16 backward, in tc_bwd.cuh's Rec order
+REC_TILES = (["hs0", "hs1", "hs2", "dhs0", "dhs1", "dhs2", "g3rgb"]
+             + [f"a{k}" for k in range(7)] + [f"d{k}" for k in range(7)]
+             + ["pos", "dir", "time", "sig"] + [f"u{k}" for k in range(6)]
+             + [f"du{k}" for k in range(1, 6)] + ["g3m"])
+
+
+def bwd_record_tiles(f, pos_rows: int, dir_rows: int, time_rows: int) -> tuple:
+    """The tiles of one pass-1 record of the bf16 backward of the packed
+    field ``f`` (tc_bwd.cuh's ``Rec`` and ``finish_layout``): -> ({tile:
+    (first row, rows)}, the record's rows). The rows of the position,
+    direction and time encodings as the kernel takes them."""
+    def pad(n):
+        return -(-n // 16) * 16
+
+    rows = dict.fromkeys(REC_TILES, 0)
+    for i in range(f.n_rgb - 1):
+        rows[f"hs{i}"] = rows[f"dhs{i}"] = f.head
+    rows["g3rgb"] = rows["sig"] = 16
+    for k in range(7):
+        rows[f"a{k}"] = rows[f"d{k}"] = f.width
+    rows.update(pos=pad(pos_rows), dir=pad(dir_rows), time=pad(time_rows))
+    if f.motion_mode:
+        rows["u0"] = pad(4 * (int(f.spec.include_input) + 2 * f.spec.pos_freqs))
+        for k in range(1, 6):
+            rows[f"u{k}"] = rows[f"du{k}"] = f.motion_width
+        rows["g3m"] = 16
+    tiles, at = {}, 0
+    for name in REC_TILES:
+        if rows[name]:
+            tiles[name] = (at, rows[name])
+            at += rows[name]
+    return tiles, at
+
+
+def record_layers(f) -> list:
+    """Every product layer of pass 1 whose bf16 output the record holds:
+    (output tile, [(weight slot, input tile), ...], bias slot), the
+    segments in the kernel's order."""
+    layers = [("a0", [("w1", "pos")], "b1")]
+    layers += [(f"a{k}", [(f"w{k + 1}", f"a{k - 1}")], f"b{k + 1}") for k in (1, 2, 3)]
+    layers += [("a4", [("s2a", "a3"), ("s2b", "pos")], "sb1"),
+               ("a5", [("s2w2", "a4")], "sb2"), ("a6", [("s2w3", "a5")], "sb3")]
+    head = [("r1a", "a6"), ("r1b", "dir")] + ([("r1c", "time")] if f.spec.use_time else [])
+    layers.append(("hs0", head, "rb1"))
+    layers += [(f"hs{i}", [(f"rgb{i}", f"hs{i - 1}")], f"rgbb{i}")
+               for i in range(1, f.n_rgb - 1)]
+    if f.motion_mode:
+        layers += [(f"u{k}", [(f"m{k - 1}", f"u{k - 1}")], f"mb{k - 1}") for k in range(1, 6)]
+    return layers
+
+
+def count_not_k_order(f, records, bm: int, tiles: dict, on) -> dict:
+    """Per layer of ``record_layers``, the recorded bf16 activations of the
+    blocks that ``on`` selects that are not the k-order rounding of the
+    layer on the record's own input tiles (so that a flip does not
+    cascade): float32 acc + w_k x_k in k order, a segment at a time, the
+    segments then the bias added in order, ReLU, rounded to bf16, as
+    tc_blocks.cuh's ``recompute_one`` sums (a bf16 x bf16 product is exact
+    in float32, so each step is the kernel's FMA). ``records`` (blocks,
+    rec_rows x bm) int16 in the act layout. -> {layer: count, "outputs":
+    the activations compared}."""
+    import torch
+
+    rec = records[on]
+    nb = rec.shape[0]
+
+    def tile(name):
+        r0, rows = tiles[name]
+        t = rec[:, r0 * bm:(r0 + rows) * bm].reshape(nb, rows // 8, bm // 8, 8, 8)
+        return t.permute(1, 3, 0, 2, 4).reshape(rows, nb * bm)
+
+    counts, outputs = {}, 0
+    for out, segs, bslot in record_layers(f):
+        total = None
+        for wslot, src in segs:
+            w = f.w(wslot).float()
+            x = (tile(src).to(torch.int32) << 16).view(torch.float32)
+            acc = torch.zeros((w.shape[1], x.shape[1]), device=x.device)
+            for k in range(w.shape[0]):
+                acc.addcmul_(w[k, :, None], x[k, None, :])
+            total = acc if total is None else total + acc
+        want = torch.relu(total + f.b(bslot).float()[:, None]).to(torch.bfloat16)
+        want, got = want.view(torch.int16), tile(out)
+        # +0 and -0 alike
+        counts[out] = int(((got != want) & ((got | want) != -32768)).sum())
+        outputs += got.numel()
+    counts["outputs"] = outputs
+    return counts
+
+
+def bwd_records_check(kind: str, f, args: tuple, launch=None) -> dict:
+    """One launch of the bf16 backward ``kind`` ("field_bwd": K2, args as
+    ``field_bwd``'s; "spacenet_bwd": K3's, as ``spacenet_bwd``'s) into a
+    workspace made here, its pass-1 records read back and every recorded
+    activation held to the k-order rounding (``count_not_k_order``) ->
+    the counts. ``launch(f, args, workspace)``: how to launch it (default
+    the wrapper's ``workspace`` argument; ``tools/torch_ab_phases.py`` calls
+    the C entry of a checkout whose wrapper has none). The launch is a
+    check's: the caller reads no launch count across it."""
+    import torch
+
+    from stnerf_tpu_torch.kernels import field_vjp, spacenet_vjp
+
+    spec = f.spec
+    if kind == "field_bwd":
+        xyz, ids, dir_enc, _, _, flags = args
+        m, dev = xyz.shape[1], xyz.device
+        q = field_vjp.tc_bwd_launch(f, m, dir_enc.shape[0])
+        nbytes = q["workspace_bytes"]
+        per = int(spec.include_input) + 2 * spec.pos_freqs
+        tiles, rec_rows = bwd_record_tiles(f, 3 * per, dir_enc.shape[0],
+                                           per if spec.use_time else 0)
+        call = field_vjp.field_bwd
+    else:
+        pos, dir_enc, time_enc = args[:3]
+        flags = args[5] if len(args) > 5 else None  # active: one flag for every block
+        m, dev = pos.shape[1], pos.device
+        q = spacenet_vjp.tc_bwd_launch(f, pos, dir_enc, time_enc)
+        nbytes = spacenet_vjp.tc_workspace_bytes(f, pos, dir_enc, time_enc)
+        tiles, rec_rows = bwd_record_tiles(f, pos.shape[0], dir_enc.shape[0],
+                                           time_enc.shape[0] if spec.use_time else 0)
+        call = spacenet_vjp.spacenet_bwd
+    bm = q["block_samples"]
+    n_blocks = -(-m // bm)
+    work = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    if launch is None:
+        call(f, *args, workspace=work)
+    else:
+        launch(f, args, work)
+    sync(dev)
+    records = work[:n_blocks * rec_rows * bm * 2].view(torch.int16).view(n_blocks, rec_rows * bm)
+    if flags is None:
+        on = torch.ones(n_blocks, dtype=torch.bool, device=dev)
+    elif kind == "field_bwd":  # block b's flag is its 64-sample tile's
+        on = (flags != 0).repeat_interleave(64 // bm)[:n_blocks]
+    else:
+        on = (flags != 0).expand(n_blocks)
+    return count_not_k_order(f, records, bm, tiles, on)
+
+
+def check_records(name: str, counts: dict):
+    """Fail on any recorded activation that is not the k-order rounding."""
+    bad = {k: v for k, v in counts.items() if k != "outputs" and v}
+    check(not bad, f"{name}: bf16 pass-1 records not the k-order rounding of their layer "
+                   f"(per layer, of {counts['outputs']} activations): {bad}")
 
 
 def _encoded_inputs(device, m: int, seed: int):
@@ -1445,8 +1615,13 @@ def check_spacenet(name, net, x, flags: bool) -> dict:
             worst = max(stats, key=lambda k: stats[k]["rel"])
             row["bf16_bwd_worst_rel_l2"] = [worst, stats[worst]["rel"]]
             row["bf16_bwd_max_abs_err"] = max(v["err"] for v in stats.values())
+            row["bf16_bwd_leaf_rel_l2"] = {k: v["rel"] for k, v in stats.items()}
+            if ("spacenet_bwd", name) in UNCHECKED_BF16_WORST:
+                row["unchecked_worst_rel_l2"] = UNCHECKED_BF16_WORST["spacenet_bwd", name]
+            row["bf16_records_not_k_order"] = bwd_records_check("spacenet_bwd", f, bwd_args[1:])
             check(not bad, f"{name}: bf16 backward kernel vs plain relative L2 beyond its "
                            f"bar: {bad}")
+            check_records(f"{name} K3", row["bf16_records_not_k_order"])
             again = spacenet_bwd(*bwd_args)
             check(all(torch.equal(a, b) for a, b in zip(got, again)),
                   f"{name}: bf16 gradients differ between two runs")
@@ -1756,7 +1931,8 @@ def _flat_leaves(tree, prefix=""):
 
 
 def compare_train_step(device, bundle, scene, dtype: str, cfg_fn=None,
-                       f32_plain: dict | None = None, order: bool = False) -> tuple:
+                       f32_plain: dict | None = None, order: bool = False,
+                       records: bool = False) -> tuple:
     """One training step through the kernels and one through their plain
     versions, from the same weights, batch and sampling noise: gradients
     per leaf, and the seconds of a second step of each path. ``cfg_fn``
@@ -1777,7 +1953,11 @@ def compare_train_step(device, bundle, scene, dtype: str, cfg_fn=None,
     ``order`` (the fields wider than 256): a third step, the plain versions
     on a copy of the model whose SpaceNets and MotionNets have their hidden
     units permuted (``permute_units``), and every leaf held to
-    ``order_bar`` against that step's deviation from the plain one."""
+    ``order_bar`` against that step's deviation from the plain one.
+    ``records`` (bf16): every bf16 backward call of the first kernel step
+    (K2's or K3's) is launched once more into a workspace of its own and
+    its pass-1 records held to the k-order rounding (``bwd_records_check``),
+    after the launches are read."""
     import torch
 
     from stnerf_tpu_torch.engine import make_optimizer, make_train_step
@@ -1792,8 +1972,22 @@ def compare_train_step(device, bundle, scene, dtype: str, cfg_fn=None,
     from stnerf_tpu_torch.kernels.fused_field import fused_field
     from stnerf_tpu_torch.kernels.spacenet_vjp import spacenet_bwd, spacenet_fwd
 
+    from stnerf_tpu_torch.kernels import field_vjp, spacenet_vjp
+
     counted = (fused_field, field_bwd, spacenet_fwd, spacenet_bwd)
     grads, seconds, launches, peak = {}, {}, {}, {}
+    calls = []  # (kind, field, args) of the first kernel step's backward calls
+
+    def recording(module, kind):
+        original = getattr(module, kind)
+
+        def call(field, *args):
+            calls.append((kind, field, tuple(None if a is None else a.clone() for a in args)))
+            return original(field, *args)
+        # the wrapper counts its launches on the function its module names
+        call.launches, call.launches_tc = original.launches, original.launches_tc
+        return original, call
+
     for plain in (False, True):
         for k in counted:
             k.launches = k.launches_tc = 0
@@ -1801,7 +1995,17 @@ def compare_train_step(device, bundle, scene, dtype: str, cfg_fn=None,
         opt, sched = make_optimizer(cfg, model)
         step = make_train_step(model, opt, sched, remove_outliers=True, plain=plain,
                                device=device)
-        m = step(scene, batch, torch.Generator(device=device).manual_seed(SEED), 1.0)
+        watch = records and not plain and dtype == "bfloat16"
+        saved = [(mod, kind, *recording(mod, kind)) for mod, kind in
+                 ((field_vjp, "field_bwd"), (spacenet_vjp, "spacenet_bwd"))] if watch else []
+        for mod, kind, _, call in saved:  # the autograd Functions look them up there
+            setattr(mod, kind, call)
+        try:
+            m = step(scene, batch, torch.Generator(device=device).manual_seed(SEED), 1.0)
+        finally:
+            for mod, kind, original, call in saved:
+                original.launches, original.launches_tc = call.launches, call.launches_tc
+                setattr(mod, kind, original)
         check(bool(torch.isfinite(m.loss)), f"{dtype} step (plain={plain}): loss not finite")
         grads[plain] = dict(_flat_leaves(export_jax_params(model, grad=True)))
         sync(device)
@@ -1866,6 +2070,15 @@ def compare_train_step(device, bundle, scene, dtype: str, cfg_fn=None,
     if f32_plain is not None:
         row["pose_bars"] = {k: [stats[k]["rel"], b] for k, b in bars.items()
                             if k.startswith("/cam_pose/")}
+    if records:  # after the launches were read
+        check(len(calls) == implied // 2, f"{dtype} step: {len(calls)} backward calls "
+                                          f"recorded, one step implies {implied // 2}")
+        row["records_not_k_order"] = [bwd_records_check(kind, field, args)
+                                      for kind, field, args in calls]
+        for i, counts in enumerate(row["records_not_k_order"]):
+            check_records(f"{row['model']} {dtype} step, backward call {i}", counts)
+        if spec.use_deform_view:
+            row["unchecked_worst_rel_l2"] = UNCHECKED_BF16_WORST["step", "view_pose"]
     if yard is not None:  # the leaves beyond the fixed bar: [kernel, reordered plain]
         row["order_yardstick"] = {
             k: ([v["outside"], yard[k]["outside"]] if dtype == "float32"
@@ -2429,11 +2642,12 @@ def phase_wide_train(device, bundle, scene, card: str) -> dict:
     def vp_cfg():
         return wide_cfg(view_pose_cfg)
 
-    out["steps"] = [compare_train_step(device, bundle, scene, dt, wide_cfg, order=True)[0]
+    out["steps"] = [compare_train_step(device, bundle, scene, dt, wide_cfg, order=True,
+                                       records=dt == "bfloat16")[0]
                     for dt in ("bfloat16", "float32")]
     row32, plain32 = compare_train_step(device, bundle, scene, "float32", vp_cfg, order=True)
     row16, _ = compare_train_step(device, bundle, scene, "bfloat16", vp_cfg, plain32,
-                                  order=True)
+                                  order=True, records=True)
     out["view_pose_steps"] = [row16, row32]
     out["kernels"] = wide_bwd_times(device, 240_000, 3)
     for name, row in out["kernels"].items():

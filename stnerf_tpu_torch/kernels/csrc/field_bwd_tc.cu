@@ -18,7 +18,11 @@
 // spacenet_tc.cu: pass 1's SpaceNet part, passes 2 and 3, the layout):
 //   1. field_bwd_tc_kernel, a block per BM samples (64 at widths up to 256,
 //      one skip flag; below, shared memory): the recompute and dx = W dy on
-//      wgmma, with the weights as register A
+//      wgmma, every recomputed layer near-tie checked (Ctx::dense: the
+//      outputs near a bf16 tie or 0 recomputed in float32 in k order, as
+//      K1's training forward recomputes them; a pre-pass, row_norms_kernel,
+//      puts the weight rows' norms that the check's window scales by into
+//      the workspace), with the weights as register A
 //      fragments (PackedField.tc's forward and backward packings) and the
 //      activations or cotangents as the B tile; the 1- and 3-wide layers and
 //      the encodings on CUDA cores. Every cotangent a product reads is
@@ -51,19 +55,22 @@
 // 64 x 2 B = 128 KB (trunk layers 4-7 are kept through the heads' and stage
 // 2's backward; layers 1-3 are recomputed after it), the rgb head 16 KB (48
 // KB with the 4-layer head), the encodings 16 KB, float32 d(pos enc) and
-// per-sample rows 20 KB: 180 KB (213 KB with the 4-layer head) of the 227
-// KB. 128 samples would need 256 KB for the trunk slots alone. The motion
+// per-sample rows 20 KB, the recompute's check 7.25 KB (a 2 KB mask, 4 KB
+// of lists, 1.25 KB of norms): 187 KB (224,000 bytes, 219 KB, with the
+// 4-layer head and a time input) of the 227 KB. 128 samples would need 256
+// KB for the trunk slots alone. The motion
 // net's tiles (its encoding, five hidden layers and float32 d(motion enc),
 // 108 KB) reuse the trunk's space, recomputed at the end.
 // Wider layers take a smaller block (choose_block in tc_bwd.cuh):
 //   * 512/256/256: 64 samples would need 256 KB for the trunk slots, so BM
 //     = 32: the trunk slots 128 KB, the rgb head 16 KB (48 KB), the
-//     encodings 8 KB, the float32 rows 9.75 KB: 162 KB (194 KB with the
-//     4-layer head). The motion net's tiles (96 + 5 x 256 rows and d(motion
-//     enc) as 192 bf16 rows: 1568 rows, 98 KB) fit in the trunk's 2304
-//     (2816) rows.
+//     encodings 8 KB, the float32 rows 9.75 KB, the check 8.1 KB: 170 KB
+//     (202 KB with the 4-layer head). The motion net's tiles (96 + 5 x 256
+//     rows and d(motion enc) as 192 bf16 rows: 1568 rows, 98 KB) fit in the
+//     trunk's 2304 (2816) rows.
 //   * 1024/512/512: BM = 16: the trunk slots 128 KB, the rgb head 16 KB (48
-//     KB), the encodings 4 KB, the float32 rows 4.9 KB: 153 KB (185 KB).
+//     KB), the encodings 4 KB, the float32 rows 4.9 KB, the check 10.1 KB:
+//     163 KB (195 KB).
 //     The motion net's 2848 rows (89 KB) fit in the trunk's 4608 (5632).
 
 #include <cstdint>
@@ -109,8 +116,9 @@ field_bwd_tc_kernel(const float* __restrict__ xyz, const float* __restrict__ ids
                     const float* __restrict__ dir, const float* __restrict__ drgb,
                     const float* __restrict__ dsig, const int* __restrict__ flags,
                     const unsigned short* __restrict__ wts, const uint4* __restrict__ frags,
-                    const float* __restrict__ bias, unsigned short* __restrict__ records,
-                    float* __restrict__ dxyz, float* __restrict__ ddir, const Params p) {
+                    const float* __restrict__ bias, const float* __restrict__ norms,
+                    unsigned short* __restrict__ records, float* __restrict__ dxyz,
+                    float* __restrict__ ddir, const Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int t = threadIdx.x;
   const int m0 = blockIdx.x * BM;
@@ -128,8 +136,6 @@ field_bwd_tc_kernel(const float* __restrict__ xyz, const float* __restrict__ ids
     }
     return;
   }
-  const Ctx<BM> c{p, wts, frags, bias,
-                  records + static_cast<size_t>(blockIdx.x) * p.rec_rows * BM};
   const int mw = p.motion_width;
   unsigned short* U = reinterpret_cast<unsigned short*>(smem);  // u_rows: trunk and head
   unsigned short* P = U + p.u_rows * BM;                        // pos_pad: position encoding
@@ -140,6 +146,9 @@ field_bwd_tc_kernel(const float* __restrict__ xyz, const float* __restrict__ ids
   float* R = XD + 3 * BM;    // 4: flow, or the sigma cotangent
   float* G3 = R + 4 * BM;    // 4: the rgb or flow cotangent
   float* DP = G3 + 4 * BM;   // pos_rows: d(position encoding)
+  unsigned* mask = reinterpret_cast<unsigned*>(DP + p.pos_rows * BM);  // the check's
+  const Ctx<BM> c = make_ctx<BM>(p, wts, frags, bias, norms, records, mask);
+  c.clear_mask();
   // the motion net's tiles, in the trunk's space
   unsigned short* MU[6];
   MU[0] = U;
@@ -273,7 +282,8 @@ bool make_layout(Layout& L, const int* off, int M, int dir_rows, int width, int 
                   motion_mode ? p.menc_pad + 5 * motion_width + 2 * p.menc_pad : 0);
   const auto smem = [&](int bm) {
     return static_cast<size_t>(p.u_rows + p.pos_pad + p.dir_pad + p.time_pad) * bm * 2 +
-           static_cast<size_t>(4 + 3 + 4 + 4 + p.pos_rows) * bm * sizeof(float);
+           static_cast<size_t>(4 + 3 + 4 + 4 + p.pos_rows) * bm * sizeof(float) +
+           check_bytes(p, bm);
   };
   if (!choose_block(L, smem, bwd_kernel_for)) return false;
   finish_layout(L, n_w, n_b, 1, sms);
@@ -294,7 +304,8 @@ extern "C" int stnerf_field_bwd_tc_workspace(int M, int dir_rows, int width, int
                    use_time, n_rgb, motion_mode, n_w, n_b, sm_count())) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  *static_cast<long long*>(bytes) = static_cast<long long>(L.rec_bytes + L.part_bytes);
+  *static_cast<long long*>(bytes) =
+      static_cast<long long>(L.rec_bytes + L.part_bytes + L.norm_bytes);
   return 0;
 }
 
@@ -338,17 +349,20 @@ extern "C" int stnerf_field_bwd_tc(const void* xyz, const void* ids, const void*
   const auto s = static_cast<cudaStream_t>(stream);
   auto* records = static_cast<unsigned short*>(workspace);
   auto* partial = reinterpret_cast<float*>(static_cast<unsigned char*>(workspace) + L.rec_bytes);
+  float* norms = partial + L.part_bytes / sizeof(float);
   const auto* fl = static_cast<const int*>(flags);
+  const auto* wts = static_cast<const unsigned short*>(weights);
   const BwdKernel kernel = bwd_kernel_for(L.bm);
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(L.smem));
+  if (e == cudaSuccess) e = launch_norms(L, wts, norms, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   kernel<<<L.dw.n_blocks, TC_THREADS, L.smem, s>>>(
       static_cast<const float*>(xyz), static_cast<const float*>(ids),
       static_cast<const float*>(dir), static_cast<const float*>(drgb),
-      static_cast<const float*>(dsig), fl, static_cast<const unsigned short*>(weights),
-      static_cast<const uint4*>(frags), static_cast<const float*>(biases), records,
-      static_cast<float*>(dxyz), static_cast<float*>(ddir), L.p);
+      static_cast<const float*>(dsig), fl, wts, static_cast<const uint4*>(frags),
+      static_cast<const float*>(biases), norms, records, static_cast<float*>(dxyz),
+      static_cast<float*>(ddir), L.p);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(launch_dw(L, records, fl, partial, n_w, n_b, static_cast<float*>(gw),

@@ -54,8 +54,9 @@
 //     1. spacenet_bwd_tc_kernel, a block per BM samples (64 at widths up
 //        to 256; below, chosen per launch by tc_bwd.cuh's choose_block:
 //        32 at 512, 16 at 1024): loads the
-//        encodings, then tc_bwd.cuh's spacenet_bwd_block (the recompute and
-//        dx = W dy on wgmma, every cotangent rounded to bf16 where the TPU
+//        encodings, then tc_bwd.cuh's spacenet_bwd_block (the recompute,
+//        near-tie checked as the forward is, and dx = W dy on wgmma, every
+//        cotangent rounded to bf16 where the TPU
 //        kernel casts it, ReLU masks on the stored bf16 activations, d_dir
 //        masked where the rounded direction encoding is not positive) and
 //        writes d_pos_enc = w1 dy1 + s2b dy4 from its float32 rows. Each
@@ -64,11 +65,12 @@
 //        head and a time input, 1.92 GB at M = 240,000).
 //        Shared memory at those widths: the four trunk slots 128 KB, the rgb
 //        head 16 KB (48 KB with the 4-layer head), the encodings 16 KB, the
-//        float32 cotangent rows and d_pos_enc 18 KB: 178 KB (210 KB) of the
-//        227 KB. At 512/256 (BM = 32): the trunk slots 128 KB, the head 16
-//        KB (48 KB), the encodings 8 KB, the float32 rows 8.9 KB: 161 KB
-//        (193 KB); at 1024/512 (BM = 16): 128 + 16 (48) + 4 + 4.4 KB: 152 KB
-//        (184 KB). The records grow with the widths: about 16 KB a sample
+//        float32 cotangent rows and d_pos_enc 18 KB, the recompute's check
+//        7.25 KB: 185 KB (217 KB) of the 227 KB. At 512/256 (BM = 32): the
+//        trunk slots 128 KB, the head 16 KB (48 KB), the encodings 8 KB, the
+//        float32 rows 8.9 KB, the check 8.1 KB: 169 KB (201 KB); at
+//        1024/512 (BM = 16): 128 + 16 (48) + 4 + 4.4 + 10.1 KB: 163 KB (195
+//        KB). The records grow with the widths: about 16 KB a sample
 //        at 512/256, 31 KB at 1024/512.
 //     2. and 3. tc_bwd.cuh's field_dw_kernel and field_dw_reduce, with the
 //        `active` flag as every record's flag.
@@ -189,8 +191,9 @@ spacenet_bwd_tc_kernel(const float* __restrict__ pos, const float* __restrict__ 
                        const float* __restrict__ time, const float* __restrict__ drgb,
                        const float* __restrict__ dsig, const int* __restrict__ active,
                        const unsigned short* __restrict__ wts, const uint4* __restrict__ frags,
-                       const float* __restrict__ bias, unsigned short* __restrict__ records,
-                       float* __restrict__ dpos, float* __restrict__ ddir, const Params p) {
+                       const float* __restrict__ bias, const float* __restrict__ norms,
+                       unsigned short* __restrict__ records, float* __restrict__ dpos,
+                       float* __restrict__ ddir, const Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int m0 = blockIdx.x * BM;
   const int M = p.M;
@@ -199,8 +202,6 @@ spacenet_bwd_tc_kernel(const float* __restrict__ pos, const float* __restrict__ 
     zero_out<BM>(ddir, p.dir_rows, M, m0);
     return;
   }
-  const Ctx<BM> c{p, wts, frags, bias,
-                  records + static_cast<size_t>(blockIdx.x) * p.rec_rows * BM};
   unsigned short* U = reinterpret_cast<unsigned short*>(smem);  // u_rows: trunk and head
   unsigned short* P = U + p.u_rows * BM;                        // pos_pad: position encoding
   unsigned short* D = P + p.pos_pad * BM;                       // dir_pad: relu(direction enc)
@@ -208,6 +209,9 @@ spacenet_bwd_tc_kernel(const float* __restrict__ pos, const float* __restrict__ 
   float* R = reinterpret_cast<float*>(T + p.time_pad * BM);     // 4: the sigma cotangent
   float* G3 = R + 4 * BM;                                       // 4: the rgb cotangent
   float* DP = G3 + 4 * BM;                                      // pos_rows: d(position enc)
+  unsigned* mask = reinterpret_cast<unsigned*>(DP + p.pos_rows * BM);  // the check's
+  const Ctx<BM> c = make_ctx<BM>(p, wts, frags, bias, norms, records, mask);
+  c.clear_mask();
 
   load_tile<BM>(pos, p.pos_rows, p.pos_pad, M, m0, false, P);
   load_tile<BM>(dir, p.dir_rows, p.dir_pad, M, m0, true, D);
@@ -265,7 +269,7 @@ bool make_layout(Layout& L, const int* off, int M, int pos_rows, int dir_rows, i
   }
   const auto smem = [&](int bm) {
     return static_cast<size_t>(p.u_rows + p.pos_pad + p.dir_pad + p.time_pad) * bm * 2 +
-           static_cast<size_t>(4 + 4 + pos_rows) * bm * sizeof(float);
+           static_cast<size_t>(4 + 4 + pos_rows) * bm * sizeof(float) + check_bytes(p, bm);
   };
   if (!choose_block(L, smem, bwd_kernel_for)) return false;
   finish_layout(L, n_w, n_b, 0, sm_count());
@@ -367,7 +371,8 @@ extern "C" int stnerf_spacenet_bwd_tc_workspace(int M, int pos_rows, int dir_row
   if (!make_layout(L, nullptr, M, pos_rows, dir_rows, time_rows, width, head, n_rgb, n_w, n_b)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  *static_cast<long long*>(bytes) = static_cast<long long>(L.rec_bytes + L.part_bytes);
+  *static_cast<long long*>(bytes) =
+      static_cast<long long>(L.rec_bytes + L.part_bytes + L.norm_bytes);
   return 0;
 }
 
@@ -405,17 +410,20 @@ extern "C" int stnerf_spacenet_bwd_tc(const void* pos, const void* dir, const vo
   const auto s = static_cast<cudaStream_t>(stream);
   auto* records = static_cast<unsigned short*>(workspace);
   auto* partial = reinterpret_cast<float*>(static_cast<unsigned char*>(workspace) + L.rec_bytes);
+  float* norms = partial + L.part_bytes / sizeof(float);
   const auto* act = static_cast<const int*>(active);
+  const auto* wts = static_cast<const unsigned short*>(weights);
   const BwdKernel kernel = bwd_kernel_for(L.bm);
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(L.smem));
+  if (e == cudaSuccess) e = launch_norms(L, wts, norms, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   kernel<<<L.dw.n_blocks, TC_THREADS, L.smem, s>>>(
       static_cast<const float*>(pos), static_cast<const float*>(dir),
       static_cast<const float*>(time), static_cast<const float*>(drgb),
-      static_cast<const float*>(dsig), act, static_cast<const unsigned short*>(weights),
-      static_cast<const uint4*>(frags), static_cast<const float*>(biases), records,
-      static_cast<float*>(dpos), static_cast<float*>(ddir), L.p);
+      static_cast<const float*>(dsig), act, wts, static_cast<const uint4*>(frags),
+      static_cast<const float*>(biases), norms, records, static_cast<float*>(dpos),
+      static_cast<float*>(ddir), L.p);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(launch_dw(L, records, act, partial, n_w, n_b, static_cast<float*>(gw),

@@ -328,6 +328,53 @@ __device__ __forceinline__ bool near_tie(float y) {
   return y > 0.f && (low > 0x8000u ? low - 0x8000u : 0x8000u - low) < NEAR;
 }
 
+// The forwards' rule (near_tie), as dense_checked's Rule: whether output
+// (r, c), y = v + b (v the tensor-core sum, b the bias), is recomputed
+struct TieRule {
+  __device__ __forceinline__ bool operator()(int, int, float y, float, float) const {
+    return near_tie(y);
+  }
+};
+
+// The backward's wider rule (tc_bwd.cuh, the recompute of pass 1). A
+// truncated chain's error is absolute: a few units of 2^-24 of its partial
+// sums a k-step. So near_tie misses the outputs whose sum cancels (a small
+// y has small ulps, and straddles a tie, or the ReLU's 0, from farther than
+// NEAR of them), and more so where the inputs are large (a position
+// encoding's raw coordinates reach 10^3 on a parked sample). The partial
+// sums' scale is estimated per output as S = |w_r| |x_c| / sqrt(K) (the
+// L2 norms of the weight row and of the sample's inputs over the layer's K
+// inputs, all segments), and y is flagged within ABS_KS x 2^-24 x S a
+// k-step of a tie or of 0; the ulp window grows with the k-steps, NEAR_KS
+// ulps a k-step (at least NEAR). The backward's flagged outputs include the
+// forwards'. An exact 0 sum with a 0 bias (a unit that pack_field pads, all
+// of whose weights are 0) is no flip: the k order sums the same zeros.
+// tests/test_torch_near_tie.py holds the rule against a model of the
+// truncation at K = 256, 512 and 1024, at two input scales.
+constexpr unsigned NEAR_KS = 8;
+constexpr unsigned ABS_KS = 8;
+struct WideRule {
+  unsigned near;
+  float scale;       // ABS_KS x ks x 2^-24 / sqrt(K)
+  const float* wn;   // |w_r| for each output row (shared memory)
+  const float* xn;   // |x_c| for each sample of the block (shared memory)
+  __device__ static WideRule make(int ks, const float* wn, const float* xn) {
+    return {NEAR_KS * ks > NEAR ? NEAR_KS * ks : NEAR,
+            static_cast<float>(ABS_KS * ks) / 16777216.f * rsqrtf(16.f * ks), wn, xn};
+  }
+  __device__ __forceinline__ bool operator()(int r, int c, float y, float v, float b) const {
+    if (v == 0.f && b == 0.f) return false;
+    const float win = scale * wn[r] * xn[c];
+    if (fabsf(y) < win) return true;
+    if (!(y > 0.f)) return false;
+    const unsigned u = __float_as_uint(y), low = u & 0xffffu;
+    const unsigned d = low > 0x8000u ? low - 0x8000u : 0x8000u - low;  // ulps to the tie
+    // d ulps of y's binade: d x 2^(e - 23)
+    return d < near ||
+           static_cast<float>(d) * __uint_as_float(u & 0x7f800000u) / 8388608.f < win;
+  }
+};
+
 // acc + sum_k w_k x_k over one k-step (16 inputs) in k order: the four
 // fragments of output row r (PackedField.tc, registers x and z, or y and w
 // for rows 8-15 of a 16-row group, each the bf16 pair (k, k + 1)), x the
@@ -386,15 +433,16 @@ __device__ void recompute_one(const Seg* segs, int nseg, const float* __restrict
 
 // out = round_bf16(relu(sum_s W_s^T x_s + bias)), rows < O, into an act
 // tile of TB samples: tc_dense's products, each output flagged in `mask`
-// (O x TB bits, row-major; zero on entry and on exit) when it lies near a
-// tie; then the flagged outputs recomputed (recompute_one), each by one lane
-// from the segments' fragments. `lists` (LIST entries a warp) is
-// shared-memory scratch. FULL: every column (K3); otherwise the columns
-// [n_lo, n_lo + n_cnt) (K1's blocks with one skip flag off).
-template <int TB, bool FULL>
+// (O x TB bits, row-major; zero on entry and on exit) when `rule` says it
+// lies near a tie (TieRule: near_tie); then the flagged outputs recomputed
+// (recompute_one), each by one lane from the segments' fragments. `lists`
+// (LN entries a warp, a multiple of 32: a chunk of LN / 32 mask words) is
+// shared-memory scratch. FULL: every column (K3, the backward); otherwise
+// the columns [n_lo, n_lo + n_cnt) (K1's blocks with one skip flag off).
+template <int TB, bool FULL, int LN = LIST, class Rule = TieRule>
 __device__ void dense_checked(const Seg* segs, int nseg, int O, const float* __restrict__ bias,
                               unsigned short* out, unsigned* mask, unsigned short* lists,
-                              int n_lo = 0, int n_cnt = TB) {
+                              int n_lo = 0, int n_cnt = TB, Rule rule = Rule()) {
   if (FULL) {
     n_lo = 0;
     n_cnt = TB;
@@ -405,7 +453,8 @@ __device__ void dense_checked(const Seg* segs, int nseg, int O, const float* __r
     *reinterpret_cast<unsigned*>(out + act_idx<TB>(r, c)) =
         static_cast<unsigned>(f_bf(rnd<true>(fmaxf(y0, 0.f)))) |
         (static_cast<unsigned>(f_bf(rnd<true>(fmaxf(y1, 0.f)))) << 16);
-    const unsigned bits = (near_tie(y0) ? 1u : 0u) | (near_tie(y1) ? 2u : 0u);
+    const unsigned bits =
+        (rule(r, c, y0, v0, b) ? 1u : 0u) | (rule(r, c + 1, y1, v1, b) ? 2u : 0u);
     if (bits) {
       const int i = r * TB + c;
       atomicOr(mask + (i >> 5), bits << (i & 31));
@@ -415,19 +464,19 @@ __device__ void dense_checked(const Seg* segs, int nseg, int O, const float* __r
   // each warp lists the flagged outputs of its share of the mask in word
   // order, then its lanes recompute them (one output a lane); a list that
   // would overflow is recomputed and emptied first
-  constexpr int WARPS = TC_THREADS / 32;
+  constexpr int WARPS = TC_THREADS / 32, CH = LN / 32;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int words = O * TB / 32, per = words / WARPS;
-  unsigned short* list = lists + warp * LIST;
+  unsigned short* list = lists + warp * LN;
   const auto recompute = [&](int n) {
     for (int e = lane; e < n; e += 32) recompute_one<TB>(segs, nseg, bias, list[e], out);
     __syncwarp();
   };
   int n = 0;
-  for (int w0 = warp * per; w0 < (warp + 1) * per; w0 += 32) {
+  for (int w0 = warp * per; w0 < (warp + 1) * per; w0 += CH) {
     const int j = w0 + lane;
     unsigned word = 0;
-    if (j < (warp + 1) * per) {
+    if (lane < CH && j < (warp + 1) * per) {
       word = mask[j];
       mask[j] = 0;
     }
@@ -439,7 +488,7 @@ __device__ void dense_checked(const Seg* segs, int nseg, int O, const float* __r
       if (lane >= d) incl += v;
     }
     const int total = __shfl_sync(0xffffffffu, incl, 31);
-    if (n + total > LIST) {
+    if (n + total > LN) {
       recompute(n);
       n = 0;
     }

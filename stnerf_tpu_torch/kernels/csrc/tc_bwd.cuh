@@ -5,7 +5,11 @@
 //   1. pass 1, a block per BM samples: recompute the forward and compute
 //      dx = W dy on wgmma (spacenet_bwd_block for the SpaceNet part),
 //      writing each layer's bf16 input x and output cotangent dy into the
-//      block's record in global memory (Ctx::save);
+//      block's record in global memory (Ctx::save). Every recomputed layer
+//      is near-tie checked as the training forwards' are (Ctx::dense:
+//      tc_blocks.cuh's dense_checked, with its wider WideRule), so its bf16
+//      activations and ReLU masks are the plain version's k-order rounding,
+//      which the forward rounds to wherever it flags the output;
 //   2. field_dw_kernel: dW = x dy^T and db = sum dy for every layer from the
 //      records, one float32 partial per range of records;
 //   3. field_dw_reduce (field_common.cuh): each entry the sum of its ranges'
@@ -32,6 +36,10 @@
 namespace {
 
 constexpr int FLAG_TILE = 64;  // samples per skip flag (fused_field.py TILE)
+// entries of a warp's list in the recompute's check (dense_checked's LN): a
+// chunk of 8 mask words, 4 KB in all, so that the 4-layer rgb head keeps
+// 64-sample blocks at 256/128/128
+constexpr int BWD_LIST = 256;
 
 // the skip flag of block b of BM samples
 template <int BM>
@@ -62,9 +70,49 @@ struct Params {
   int f_off[N_W];  // forward fragments (PackedField.tc), 16-byte units; -1 = absent
   int g_off[N_W];  // backward (dx) fragments
   int rec[N_REC];  // row offset of each record tile; -1 = absent
+  int n_off[N_W];  // each checked slot's first row norm (row_norms_kernel); -1 = none
   int M, dir_rows, width, head, motion_width, freqs, inc, use_time, n_rgb, motion_mode;
   int pos_rows, time_rows, menc_rows, pos_pad, dir_pad, time_pad, menc_pad, u_rows, rec_rows;
 };
+
+// the widest checked layer's outputs: the mask's rows
+__host__ __device__ inline int check_rows(const Params& p) {
+  const int r = p.width > p.head ? p.width : p.head;
+  return p.motion_mode && p.motion_width > r ? p.motion_width : r;
+}
+// pass 1's shared memory for the check at a block of bm samples: the mask
+// (check_rows x bm bits), the lists, then float32 |w_r| (check_rows) and
+// |x_c| (bm) of the layer being checked (WideRule)
+inline size_t check_bytes(const Params& p, int bm) {
+  return static_cast<size_t>(check_rows(p)) * bm / 8 + (TC_THREADS / 32) * BWD_LIST * 2 +
+         static_cast<size_t>(check_rows(p) + bm) * sizeof(float);
+}
+
+// The squared L2 norm of every output row of the checked layers' weight
+// slots over the slot's inputs, a float each, in job order: WideRule's
+// |w_r|, made once a launch before pass 1 (row_norms_kernel).
+struct NormJobs {
+  int n;
+  int w_off[N_W], k[N_W], o[N_W];  // each job's weights: (k, o) row-major bf16
+  int at[N_W + 1];                  // first float of each job; at[n] floats in all
+};
+
+// grid: at[n] threads, one a row
+__global__ void row_norms_kernel(const unsigned short* __restrict__ wts, const NormJobs jobs,
+                                 float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= jobs.at[jobs.n]) return;
+  int j = 0;
+  while (i >= jobs.at[j + 1]) ++j;
+  const int o = i - jobs.at[j], O = jobs.o[j];
+  const unsigned short* w = wts + jobs.w_off[j];
+  float acc = 0.f;
+  for (int k = 0; k < jobs.k[j]; ++k) {
+    const float v = bf_f(w[k * O + o]);
+    acc = fmaf(v, v, acc);
+  }
+  out[i] = acc;
+}
 
 template <int BM>
 struct Ctx {
@@ -72,18 +120,56 @@ struct Ctx {
   const unsigned short* wts;
   const uint4* frags;
   const float* bias;
-  unsigned short* rec;  // this block's record
+  unsigned short* rec;   // this block's record
+  unsigned* mask;        // the check's mask (check_rows x BM bits, zero between layers)
+  unsigned short* lists; // and its lists (BWD_LIST entries a warp)
+  float* wn;             // |w_r| of the layer being checked (check_rows)
+  float* xn;             // |x_c| of its inputs (BM)
+  const float* norms;    // row_norms_kernel's squared row norms
   __device__ const unsigned short* W(int s) const { return wts + p.w_off[s]; }
   __device__ const uint4* F(int s) const { return frags + p.f_off[s]; }
   __device__ const uint4* G(int s) const { return frags + p.g_off[s]; }
   __device__ const float* Bi(int s) const { return bias + p.b_off[s]; }
 
-  // out = dense(in) on the tensor cores, then the barrier before the next product
+  // zero the mask before the first layer (a barrier follows before any reads it)
+  __device__ void clear_mask() const {
+    for (int i = threadIdx.x; i < check_rows(p) * BM / 32; i += TC_THREADS) mask[i] = 0;
+  }
+  // out = relu(sum_s W_s^T x_s + bias) rounded to bf16 for the weight
+  // slots `slots` of the segments, near-tie checked (dense_checked with the
+  // segments' WideRule: first |w_r| and |x_c| over all the segments' inputs
+  // into wn and xn), then the barrier before the next product
+  __device__ void dense(const Seg* segs, const int* slots, int nseg, int bslot, int O,
+                        unsigned short* out) const {
+    int ks = 0;
+    for (int i = 0; i < nseg; ++i) ks += segs[i].ks;
+    for (int r = threadIdx.x; r < O; r += TC_THREADS) {
+      float s = 0.f;
+      for (int i = 0; i < nseg; ++i) s += norms[p.n_off[slots[i]] + r];
+      wn[r] = sqrtf(s);
+    }
+    // TPC threads a sample, each a share of the inputs, summed by shuffles
+    constexpr int TPC = TC_THREADS / BM;
+    const int c = threadIdx.x / TPC, part = threadIdx.x % TPC;
+    float s = 0.f;
+    for (int i = 0; i < nseg; ++i) {
+      for (int k = part; k < 16 * segs[i].ks; k += TPC) {
+        const float v = bf_f(segs[i].b[act_idx<BM>(k, c)]);
+        s = fmaf(v, v, s);
+      }
+    }
+#pragma unroll
+    for (int d = TPC / 2; d > 0; d >>= 1) s += __shfl_down_sync(0xffffffffu, s, d, TPC);
+    if (part == 0) xn[c] = sqrtf(s);
+    __syncthreads();
+    dense_checked<BM, true, BWD_LIST, WideRule>(segs, nseg, O, Bi(bslot), out, mask, lists, 0,
+                                                BM, WideRule::make(ks, wn, xn));
+    layer_sync();
+  }
   __device__ void dense(int slot, const unsigned short* in, int k_rows, int bslot, int O,
                         unsigned short* out) const {
     const Seg s{F(slot), in, k_rows / 16};
-    tc_dense<BM>(&s, 1, O, Bi(bslot), out, 0, BM);
-    layer_sync();
+    dense(&s, &slot, 1, bslot, O, out);
   }
   // dx = W dy (K = O rows of dy) for the layer's `rows` inputs, to epi
   template <class Epi>
@@ -147,10 +233,23 @@ struct Ctx {
   }
 };
 
+// A block's Ctx: its record, and the check's scratch from `mask` on (after
+// pass 1's float32 rows: the mask, the lists, wn, xn; check_bytes)
+template <int BM>
+__device__ Ctx<BM> make_ctx(const Params& p, const unsigned short* wts, const uint4* frags,
+                            const float* bias, const float* norms, unsigned short* records,
+                            unsigned* mask) {
+  auto* lists = reinterpret_cast<unsigned short*>(mask + check_rows(p) * BM / 32);
+  float* wn = reinterpret_cast<float*>(lists + (TC_THREADS / 32) * BWD_LIST);
+  return {p, wts, frags, bias, records + static_cast<size_t>(blockIdx.x) * p.rec_rows * BM,
+          mask, lists, wn, wn + check_rows(p), norms};
+}
+
 // The SpaceNet's pass 1 on one block of BM samples from sample m0 on
 // (spacenet_vjp._bwd_math): the encodings stand in P (position, pos_pad
 // rows), D (relu(direction), dir_pad rows) and T (relu(time), time_pad
-// rows), bf16, zero-padded, behind a layer_sync. U holds u_rows bf16 rows
+// rows), bf16, zero-padded, behind a layer_sync (and c's mask cleared
+// before it). U holds u_rows bf16 rows
 // for the trunk and head tiles; R (4 x BM), G3 (4 x BM) and DP (pos_rows x
 // BM) are float32 scratch. Recomputes the trunk and the rgb head, reads the
 // cotangents drgb (3, M) and dsig (M,) (rounded to bf16), writes d_dir_enc
@@ -188,8 +287,8 @@ __device__ __forceinline__ void spacenet_bwd_block(const Ctx<BM>& c, int m0, uns
   c.dense(W_1 + 3, S3, W, B_1 + 3, W, S1);
   {
     const Seg s[2] = {{c.F(W_S2A), S1, W / 16}, {c.F(W_S2B), P, kp / 16}};
-    tc_dense<BM>(s, 2, W, c.Bi(B_SB1), S2, 0, BM);
-    layer_sync();
+    const int slots[2] = {W_S2A, W_S2B};
+    c.dense(s, slots, 2, B_SB1, W, S2);
   }
   c.dense(W_S2W2, S2, W, B_SB2, W, S3);
   c.dense(W_S2W3, S3, W, B_SB3, W, S0);
@@ -197,8 +296,8 @@ __device__ __forceinline__ void spacenet_bwd_block(const Ctx<BM>& c, int m0, uns
     // rgb head: relu([a6 | dir | time]); a6 >= 0, D and T hold relu'd values
     const Seg s[3] = {{c.F(W_R1A), S0, W / 16}, {c.F(W_R1B), D, p.dir_pad / 16},
                       {c.F(W_R1C), T, p.time_pad / 16}};
-    tc_dense<BM>(s, p.use_time ? 3 : 2, H, c.Bi(B_RB1), HS[0], 0, BM);
-    layer_sync();
+    const int slots[3] = {W_R1A, W_R1B, W_R1C};
+    c.dense(s, slots, p.use_time ? 3 : 2, B_RB1, H, HS[0]);
   }
   for (int i = 1; i < p.n_rgb - 1; ++i) c.dense(W_RGB1 + i - 1, HS[i - 1], H, B_RGB1 + i - 1, H, HS[i]);
 
@@ -456,14 +555,15 @@ field_dw_kernel(const unsigned short* __restrict__ records, const int* __restric
 int imax(int a, int b) { return a > b ? a : b; }
 int round16(int v) { return (v + 15) / 16 * 16; }
 
-// Everything the launches need, from the field's shape: both kernels'
+// Everything the launches need, from the field's shape: the kernels'
 // parameters, the sample block, pass 1's shared memory and the workspace
-// (the records, then the partials).
+// (the records, the partials, then the weight-row norms of the check).
 struct Layout {
   Params p;
   DwParams dw;
   int bm;
-  size_t smem, rec_bytes, part_bytes;
+  NormJobs norm;
+  size_t smem, rec_bytes, part_bytes, norm_bytes;
 };
 
 // L.bm and L.smem: the largest pass-1 block of 64, 32 or 16 samples whose
@@ -575,6 +675,35 @@ void finish_layout(Layout& L, int n_w, int n_b, int flag_step, int sms) {
   // the records, plus the rows a DW_XR-row load may read past the last one
   L.rec_bytes = (static_cast<size_t>(d.n_blocks) * p.rec_rows + DW_XR) * L.bm * 2;
   L.part_bytes = static_cast<size_t>(d.ranges) * d.n_params * sizeof(float);
+
+  // the checked layers' weight slots (k inputs, o outputs) for row_norms_kernel
+  NormJobs& nj = L.norm;
+  nj.n = 0;
+  nj.at[0] = 0;
+  for (int i = 0; i < N_W; ++i) p.n_off[i] = -1;
+  const auto job = [&](int slot, int k, int o) {
+    p.n_off[slot] = nj.at[nj.n];
+    nj.w_off[nj.n] = p.w_off[slot];
+    nj.k[nj.n] = k;
+    nj.o[nj.n] = o;
+    nj.at[nj.n + 1] = nj.at[nj.n] + o;
+    ++nj.n;
+  };
+  if (p.motion_mode) {
+    job(W_M0, p.menc_rows, p.motion_width);
+    for (int k = 1; k < 5; ++k) job(W_M0 + k, p.motion_width, p.motion_width);
+  }
+  job(W_1, p.pos_rows, W);
+  for (int k = 1; k < 4; ++k) job(W_1 + k, W, W);
+  job(W_S2A, W, W);
+  job(W_S2B, p.pos_rows, W);
+  job(W_S2W2, W, W);
+  job(W_S2W3, W, W);
+  job(W_R1A, W, H);
+  job(W_R1B, p.dir_rows, H);
+  if (p.use_time) job(W_R1C, p.time_rows, H);
+  for (int i = 0; i < p.n_rgb - 2; ++i) job(W_RGB1 + i, H, H);
+  L.norm_bytes = static_cast<size_t>(nj.at[nj.n]) * sizeof(float);
 }
 
 int sm_count() {
@@ -584,6 +713,15 @@ int sm_count() {
     return 132;
   }
   return sms;
+}
+
+// The weight-row norms into `norms` (L.norm_bytes of the workspace, after
+// the partials), on the stream before pass 1
+cudaError_t launch_norms(const Layout& L, const unsigned short* wts, float* norms,
+                         cudaStream_t s) {
+  const int n = L.norm.at[L.norm.n];
+  row_norms_kernel<<<(n + 255) / 256, 256, 0, s>>>(wts, L.norm, norms);
+  return cudaGetLastError();
 }
 
 // Passes 2 and 3 on the stream after pass 1: dW and db from the records

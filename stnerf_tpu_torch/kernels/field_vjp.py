@@ -43,7 +43,7 @@ from .fused_field import (TILE, PackedField, _check_inputs, check_backward_suppo
                           _encode, _field_linears, _linear_grads, fused_field,
                           fused_field_reference, kernel_ints, pack_field,
                           prepare_kernel_params_planar, prepare_motion_params_planar)
-from .spacenet_vjp import pack_grads, spacenet_bwd_math
+from .spacenet_vjp import _workspace, pack_grads, spacenet_bwd_math
 
 if TYPE_CHECKING:  # models imports this module
     from ..models.motionnet import MotionNet
@@ -162,7 +162,8 @@ def field_bwd_reference(field: PackedField, xyz: torch.Tensor, ids: torch.Tensor
 
 def field_bwd(field: PackedField, xyz: torch.Tensor, ids: torch.Tensor,
               dir_enc: torch.Tensor, d_rgb: torch.Tensor, d_sigma: torch.Tensor,
-              tile_flags: torch.Tensor | None = None):
+              tile_flags: torch.Tensor | None = None, *,
+              workspace: torch.Tensor | None = None):
     """Backward of :func:`fused_field` at the same inputs, given the
     cotangents d_rgb (3, M) and d_sigma (M,) float32.
     -> (gw, gb, d_xyz, d_dir) as :func:`field_bwd_reference`.
@@ -170,7 +171,11 @@ def field_bwd(field: PackedField, xyz: torch.Tensor, ids: torch.Tensor,
     CPU tensors run :func:`field_bwd_reference`. CUDA tensors launch the
     bf16 kernels for a bf16 field and the float32 ones for a float32 field
     (each three passes with a fixed-order sum: the same bits on every run),
-    and any failure to build or launch them raises.
+    and any failure to build or launch them raises. ``workspace``: for
+    checks only, a caller-made uint8 CUDA tensor of at least
+    :func:`tc_bwd_launch`'s ``workspace_bytes`` that the bf16 route uses in
+    place of its own, so that the caller can read pass 1's records from it
+    afterwards (``chip_smoke.bwd_records``); the float32 route refuses one.
     """
     _check_inputs(field, xyz, ids, dir_enc, tile_flags)
     m = xyz.shape[1]
@@ -212,12 +217,14 @@ def field_bwd(field: PackedField, xyz: torch.Tensor, ids: torch.Tensor,
             err = lib.stnerf_field_bwd_tc_workspace(*ints, *counts, ctypes.byref(nbytes))
             if err == 0:
                 # the two-pass weight gradients' records and partial sums
-                work = torch.empty(nbytes.value, dtype=torch.uint8, device=dev)
+                work = _workspace(workspace, nbytes.value, dev)
                 err = lib.stnerf_field_bwd_tc(
                     *inputs, ptr(frags.data_ptr()), ptr(field.biases.data_ptr()),
                     offsets.ctypes.data_as(ptr), *outputs, ptr(work.data_ptr()), *ints,
                     *counts, stream)
         else:
+            if workspace is not None:
+                raise ValueError("field_bwd takes a workspace on the bf16 route only")
             plan = f32_bwd.make_plan(field, m, f32_bwd.sm_count(dev), f32_bwd.smem_optin(dev))
             # one slice's records and every range's partial sums
             work = torch.empty(plan.workspace_bytes, dtype=torch.uint8, device=dev)

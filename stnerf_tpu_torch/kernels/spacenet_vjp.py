@@ -349,9 +349,21 @@ spacenet_fwd.launches = 0
 spacenet_fwd.launches_tc = 0
 
 
+def _workspace(given: torch.Tensor | None, nbytes: int, dev: torch.device) -> torch.Tensor:
+    """A new workspace of ``nbytes``, or the caller's (checked)."""
+    if given is None:
+        return torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    if (given.dtype != torch.uint8 or given.device != dev or not given.is_contiguous()
+            or given.numel() < nbytes):
+        raise ValueError(f"the workspace must be contiguous uint8 of at least {nbytes} "
+                         f"bytes on {dev}, got {given.dtype} {given.numel()} on {given.device}")
+    return given
+
+
 def spacenet_bwd(field: PackedField, pos_enc: torch.Tensor, dir_enc: torch.Tensor,
                  time_enc: torch.Tensor | None, d_rgb: torch.Tensor,
-                 d_sigma: torch.Tensor, active: torch.Tensor | None = None):
+                 d_sigma: torch.Tensor, active: torch.Tensor | None = None, *,
+                 workspace: torch.Tensor | None = None):
     """Backward of :func:`spacenet_fwd` at the same inputs, given the
     cotangents d_rgb (3, M) and d_sigma (M,) float32.
     -> (gw, gb, d_pos, d_dir) as :func:`spacenet_bwd_reference`.
@@ -359,7 +371,9 @@ def spacenet_bwd(field: PackedField, pos_enc: torch.Tensor, dir_enc: torch.Tenso
     CPU tensors run :func:`spacenet_bwd_reference`. CUDA tensors launch the
     bf16 kernels for a bf16 field and the float32 ones for a float32 field
     (each three passes with a fixed-order sum: the same bits on every run),
-    and any failure to build or launch them raises.
+    and any failure to build or launch them raises. ``workspace``: for
+    checks only, as ``field_vjp.field_bwd``'s (at least
+    :func:`tc_workspace_bytes`; pass 1's records stay in it).
     """
     _check_inputs(field, pos_enc, dir_enc, time_enc, active, d_rgb=d_rgb, d_sigma=d_sigma)
     if not _on_cuda("spacenet_bwd", pos_enc):
@@ -386,13 +400,15 @@ def spacenet_bwd(field: PackedField, pos_enc: torch.Tensor, dir_enc: torch.Tenso
         if tc:
             frags, offsets = field.tc
             # the two-pass weight gradients' records and partial sums
-            work = torch.empty(tc_workspace_bytes(field, pos_enc, dir_enc, time_enc),
-                               dtype=torch.uint8, device=dev)
+            work = _workspace(workspace, tc_workspace_bytes(field, pos_enc, dir_enc, time_enc),
+                              dev)
             err = lib.stnerf_spacenet_bwd_tc(
                 *inputs, ptr(frags.data_ptr()), ptr(field.biases.data_ptr()),
                 offsets.ctypes.data_as(ptr), active_ptr, *outputs, ptr(work.data_ptr()),
                 *ints, field.weights.numel(), field.biases.numel(), stream)
         else:
+            if workspace is not None:
+                raise ValueError("spacenet_bwd takes a workspace on the bf16 route only")
             plan = f32_bwd.make_plan(field, pos_enc.shape[1], f32_bwd.sm_count(dev),
                                      f32_bwd.smem_optin(dev))
             # one slice's records and every range's partial sums

@@ -512,3 +512,72 @@ def test_f32_plan_layout_and_order(rng, monkeypatch, mode, use_time, deep, width
         assert big.block == block and big.n_blocks == 240_000 // block
         assert 4 * big.slice_blocks * big.rec_floats <= f32_bwd.SLICE_BYTES
         assert big.slice_blocks % 132 == 0 and big.n_slices >= 2
+
+
+def _recorded_roundings(monkeypatch, modules: list) -> list:
+    """Every ``round_to`` result of the given modules from here on, in call
+    order (the plain versions round each activation to the compute dtype
+    through their module's ``round_to``)."""
+    from stnerf_tpu_torch.ops.rounding import round_to
+
+    rounded = []
+
+    def recording(x, dt):
+        y = round_to(x, dt)
+        rounded.append(y)
+        return y
+
+    for module in modules:
+        monkeypatch.setattr(module, "round_to", recording)
+    return rounded
+
+
+@pytest.mark.parametrize("widths", [(W, HEAD, MOTION_W), WIDE_WIDTHS], ids=["narrow", "wide"])
+def test_plain_backward_recomputes_the_forward(rng, monkeypatch, widths):
+    """The plain bf16 backward (``field_bwd_reference``) recomputes, layer
+    for layer, the very bf16 activations of the plain bf16 forward
+    (``fused_field_reference``) on the same inputs, and so its ReLU masks:
+    the motion net's encoding and five hidden layers, the encodings, the
+    trunk's seven layers and the rgb head's hidden layers, bit for bit, at
+    a narrow width and at 384/192/160 (packed at 512/256/256), a 4-layer
+    rgb head with time. The bf16 backward kernels are held to the same
+    property on the card (``chip_smoke.bwd_records_check``: their pass-1
+    records are the k-order rounding, to which the training forward rounds
+    every output it flags)."""
+    import importlib
+
+    import torch
+
+    from stnerf_tpu_torch.kernels import field_vjp
+    from stnerf_tpu_torch.models import MotionNet, MotionNetSpec, SpaceNet, SpaceNetSpec
+    from stnerf_tpu_torch.ops.encoding import positional_encoding_planar
+
+    # the module (the package's name fused_field is the function)
+    ff = importlib.import_module("stnerf_tpu_torch.kernels.fused_field")
+    gen = torch.Generator().manual_seed(11)
+    net = SpaceNet(SpaceNetSpec(use_time=True, deep_rgb=True, backbone_dim=widths[0],
+                                head_dim=widths[1]), gen)
+    mnet = MotionNet(MotionNetSpec(width=widths[2], input_time=True), gen)
+    field = ff.pack_field(ff.prepare_kernel_params_planar(net, torch.bfloat16),
+                          ff.prepare_motion_params_planar(mnet, torch.bfloat16), net.spec,
+                          "lerp", "bfloat16")
+    m = M
+    xyz = torch.tensor(rng.normal(size=(3, m)), dtype=torch.float32)
+    ids = torch.tensor(rng.integers(1, 4, size=(1, m)) + 0.3, dtype=torch.float32)
+    dir_enc = positional_encoding_planar(torch.tensor(rng.normal(size=(3, m)),
+                                                      dtype=torch.float32), 4, True).contiguous()
+    c_rgb = torch.tensor(rng.normal(size=(3, m)), dtype=torch.float32)
+    c_sig = torch.tensor(rng.normal(size=m), dtype=torch.float32)
+
+    rounded = _recorded_roundings(monkeypatch, [ff, field_vjp])
+    ff.fused_field_reference(field, xyz, ids, dir_enc)
+    fwd = list(rounded)
+    rounded.clear()
+    field_vjp.field_bwd_reference(field, xyz, ids, dir_enc, c_rgb, c_sig)
+    # motion encoding, u1-u5, time, position and direction encodings, a0-a6,
+    # the rgb head's hidden layers; the backward then rounds its cotangents
+    assert len(fwd) == 1 + 5 + 3 + 7 + field.n_rgb - 1
+    assert len(rounded) > len(fwd)
+    for i, (a, b) in enumerate(zip(fwd, rounded)):
+        assert a.dtype == b.dtype and torch.equal(a, b), f"rounded activation {i} differs"
+        assert torch.equal(a > 0, b > 0)

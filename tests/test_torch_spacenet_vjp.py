@@ -445,3 +445,52 @@ def test_f32_plan_for_spacenet_fields():
     assert 4 * plan.slice_blocks * plan.rec_floats <= f32_bwd.SLICE_BYTES
     wide = int((plan.jobs[:, 6] * plan.jobs[:, 7])[plan.jobs[:, 3] > f32_bwd.NARROW_O].sum())
     assert wide * plan.ranges <= f32_bwd.RANGES_PER_SM * 132 < wide * (plan.ranges + 1)
+
+
+@pytest.mark.parametrize("widths", [(W, HEAD), WIDE_WIDTHS], ids=["narrow", "wide"])
+def test_plain_backward_recomputes_the_forward(rng, monkeypatch, widths):
+    """The plain bf16 backward (``spacenet_bwd_reference``) recomputes,
+    layer for layer, the very bf16 activations of the plain bf16 forward
+    (``spacenet_fwd_reference``) on the same encodings, and so its ReLU
+    masks: the rounded encodings, the trunk's seven layers and the rgb
+    head's hidden layers, bit for bit, at a narrow width and at 384/192
+    (packed at 512/256), a 4-layer rgb head with time. The bf16 backward
+    kernel is held to the same property on the card
+    (``chip_smoke.bwd_records_check``)."""
+    import importlib
+
+    import torch
+
+    from stnerf_tpu_torch.kernels import spacenet_vjp
+    from stnerf_tpu_torch.models import SpaceNet, SpaceNetSpec
+    from stnerf_tpu_torch.ops.encoding import positional_encoding_planar as pe
+    from test_torch_field_vjp import _recorded_roundings
+
+    # the module (the package's name fused_field is the function)
+    ff = importlib.import_module("stnerf_tpu_torch.kernels.fused_field")
+    gen = torch.Generator().manual_seed(12)
+    net = SpaceNet(SpaceNetSpec(use_time=True, deep_rgb=True, backbone_dim=widths[0],
+                                head_dim=widths[1]), gen)
+    field = ff.pack_field(ff.prepare_kernel_params_planar(net, torch.bfloat16), (), net.spec,
+                          None, "bfloat16")
+
+    def t(a):
+        return torch.tensor(a, dtype=torch.float32)
+
+    pos = pe(t(rng.normal(size=(3, M))), 10, True).contiguous()
+    dirs = pe(t(rng.normal(size=(3, M))), 4, True).contiguous()
+    time = pe(t(rng.integers(1, 5, size=(1, M))), 10, True).contiguous()
+    cot = (t(rng.normal(size=(3, M))), t(rng.normal(size=M)))
+
+    rounded = _recorded_roundings(monkeypatch, [ff, spacenet_vjp])
+    spacenet_vjp.spacenet_fwd_reference(field, pos, dirs, time)
+    fwd = list(rounded)
+    rounded.clear()
+    spacenet_vjp.spacenet_bwd_reference(field, pos, dirs, time, *cot)
+    # time, position and direction encodings, a0-a6, the rgb head's hidden
+    # layers; the backward then rounds its cotangents
+    assert len(fwd) == 3 + 7 + field.n_rgb - 1
+    assert len(rounded) > len(fwd)
+    for i, (a, b) in enumerate(zip(fwd, rounded)):
+        assert a.dtype == b.dtype and torch.equal(a, b), f"rounded activation {i} differs"
+        assert torch.equal(a > 0, b > 0)

@@ -88,7 +88,19 @@ run. Compare checkouts only within one invocation.
   120, then the narrow 64/32 fields, a 96/48 performer and the ragged M
   with the ``active`` flag unset, 1 and 0. Each route's ms on the performer
   and the background (10 calls each, timed alike by each checkout's
-  ``chip_smoke.cuda_ms``).
+  ``chip_smoke.cuda_ms``). Then, in every bf16 case of phases 4 and 6 on
+  the inputs those phases hold the bf16 route on (K2: a real training
+  step's, ``real_bwd_inputs``; K3: the seeded encodings), each leaf's
+  relative L2 distance from the plain version and, per layer, the pass-1
+  records that are not the k-order rounding of their layer (this
+  checkout's ``chip_smoke.bwd_records_check``, run against each checkout's
+  kernels; a checkout whose wrappers take no ``workspace`` is launched
+  through its C entry points with one). The bf16 digests of a checkout
+  whose bf16 backward rounds its recompute otherwise differ by design; the
+  closing ``summary`` line says which digests match the first other
+  checkout's, and fails nothing. Last, a bf16 full training step of the
+  taekwondo model at batch 2000 (phase 5's model and batch), the seconds
+  of steps 2-6 from the host.
 """
 
 from __future__ import annotations
@@ -539,7 +551,7 @@ print("AB " + json.dumps({"kernels": kernels,
 """
 
 CHILD["bwd"] = PRELUDE + """
-import dataclasses, hashlib
+import dataclasses, hashlib, os
 import numpy as np
 from stnerf_tpu_torch.kernels.field_vjp import field_bwd
 from stnerf_tpu_torch.kernels.fused_field import pack_field, prepare_kernel_params_planar
@@ -633,7 +645,68 @@ for dt in ("bfloat16", "float32"):
         digests[f"spacenet_bwd_{dt}_{name}"] = twice(lambda: spacenet_bwd(*a))
         if name in ("performer_time", "background"):
             ms[f"spacenet_bwd_{dt}_{name}"] = cs.cuda_ms(lambda: spacenet_bwd(*a), 10)
-print("AB " + json.dumps({"ms": ms, "digests": digests}))
+# the bf16 records and leaves, by this checkout's chip_smoke; a checkout
+# whose wrappers take no workspace is launched through its C entry points
+# (tools/torch_near_tie_variants.py's launchers)
+import importlib.util, inspect
+from stnerf_tpu_torch.kernels.field_vjp import field_bwd_reference
+from stnerf_tpu_torch.kernels.spacenet_vjp import spacenet_bwd_reference
+def load(name, path):
+    spec_ = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec_)
+    spec_.loader.exec_module(module)
+    return module
+ts = load("this_smoke", sys.argv[1])
+tv = load("this_variants", os.path.join(os.path.dirname(sys.argv[1]), "tools",
+                                         "torch_near_tie_variants.py"))
+k2_launch, k3_launch = tv.launchers(load_library(), load_library())
+own = "workspace" in inspect.signature(field_bwd).parameters
+records, leaves = {}, {}
+real = cs.real_bwd_inputs(device)
+cut = tuple(a[..., :m_e].contiguous() for a in real["background"][:5])
+for name, net, mnet, mode, args in k2_cases:
+    f = cs.pack_dtype(net, mnet, mode, "bfloat16")
+    if len(args) == 6 and args[0].shape[1] == m:  # phase 4's four fields: the real inputs
+        args = real["performer" if name.startswith("performer") else "background"]
+    else:  # its edges: the real background inputs cut to the edge's M, the edge's flags
+        args = (*cut, args[5])
+    stats = ts._leaf_stats(f, field_bwd(f, *args), field_bwd_reference(f, *args))
+    leaves[f"field_bwd_{name}"] = {k: v["rel"] for k, v in stats.items()}
+    records[f"field_bwd_{name}"] = ts.bwd_records_check("field_bwd", f, args,
+                                                        None if own else k2_launch)
+for name, net, enc, active in k3_cases:
+    f = pack_field(prepare_kernel_params_planar(net, torch.bfloat16), (), net.spec, None,
+                   "bfloat16")
+    n = enc["pos"].shape[1]
+    dir_enc = enc["dir"] if net.spec.use_dir else torch.zeros((1, n), device=device)
+    a = (enc["pos"], dir_enc, enc["time"] if net.spec.use_time else None,
+         enc["d_rgb"], enc["d_sigma"], active)
+    stats = ts._leaf_stats(f, spacenet_bwd(f, *a), spacenet_bwd_reference(f, *a), "d_pos")
+    leaves[f"spacenet_bwd_{name}"] = {k: v["rel"] for k, v in stats.items()}
+    records[f"spacenet_bwd_{name}"] = ts.bwd_records_check("spacenet_bwd", f, a,
+                                                           None if own else k3_launch)
+# a bf16 full training step of the taekwondo model at batch 2000 (phase 5's):
+# the seconds of steps 2-6 from the host, each after a sync
+import time
+from stnerf_tpu_torch.engine import make_optimizer, make_train_step
+scene, _ = cs.scene_and_requests(device)
+bundle = cs.ring_bundle(scene)
+cfg16 = cs.taekwondo_cfg()
+cfg16.SOLVER.WARMUP_ITERS = 1
+spec16, batch = cs.train_batch(device, bundle, scene, cfg16)
+net = cs.make_model(spec16, device)
+opt, sched = make_optimizer(cfg16, net)
+step = make_train_step(net, opt, sched, remove_outliers=True, plain=False, device=device)
+bf16_step_s = []
+for i in range(6):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(scene, batch, torch.Generator(device=device).manual_seed(cs.SEED + i), 1.0)
+    torch.cuda.synchronize()
+    bf16_step_s.append(time.perf_counter() - t0)
+print("AB " + json.dumps({"ms": ms, "digests": digests, "bf16_leaf_rel_l2": leaves,
+                          "bf16_records_not_k_order": records,
+                          "bf16_step_s": bf16_step_s[1:]}))
 """
 
 
@@ -660,10 +733,21 @@ def main():
                           "--format=csv,noheader"], check=True, capture_output=True,
                          text=True).stdout.strip(), flush=True)
     order = [*others, REPO, REPO, *reversed(others)]
+    digests = {}
     for _ in range(args.rounds):
         for root in order:
             name = "this" if root == REPO else os.path.relpath(root, REPO)
-            print(json.dumps({"checkout": name, **run(root, args.phases)}), flush=True)
+            out = run(root, args.phases)
+            print(json.dumps({"checkout": name, **out}), flush=True)
+            for key, d in out.get("digests", {}).items():
+                digests.setdefault(key, {}).setdefault(name, set()).add(d)
+    if digests:  # which digests match the first other checkout's (no check fails)
+        first = os.path.relpath(others[0], REPO)
+        same = {k: v.get("this") == v.get(first) and len(v["this"]) == 1
+                for k, v in digests.items()}
+        print(json.dumps({"summary": {
+            "equal_to": first, "equal": sorted(k for k, e in same.items() if e),
+            "differ": sorted(k for k, e in same.items() if not e)}}), flush=True)
 
 
 if __name__ == "__main__":
