@@ -20,7 +20,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    plain >= 40 dB on sigmoid(rgb); the training forward (``checked``: the
    near-tie outputs recomputed in float32) within relative L2 1e-2 too,
    and the share of outputs not bitwise the plain version's printed for
-   both. Then the edges: a narrow model (trunk
+   both; one ``checked`` launch's taps read back (``fwd_taps``: the
+   encodings and every layer's bf16 output) and every tapped activation
+   held to the k-order rounding of its layer on its own input tile (the
+   count per layer printed, 0 allowed). Then the edges: a narrow model (trunk
    64, head 32, motion 32), a performer at widths no kernel tiles (96/48/48,
    packed at 128/64/64 with zeros in the padded units), a ragged M with
    all tiles on, all off and no flags, and three fields wider than 256,
@@ -66,7 +69,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    inputs (float32 FMAs in k order, as the near-tie recompute sums): the
    count per layer is printed and must be 0; each bf16 leaf's relative L2
    is printed, and the worst before the recompute was checked beside the
-   wide ones. Prints
+   wide ones; K1's ``checked`` forward on the same inputs is read back
+   with taps and must equal the records bit for bit, tile by tile
+   (``taps_vs_records``: the forward and the backward round alike). Prints
    both routes' times and bounds per case at the seeded shape, the float32
    route's workspace, and its time beside the former design's.
 5. Training: ``do_train`` on the taekwondo model at batch 2000 (one
@@ -97,9 +102,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    share); a training step of each wide field
    (``spacenet_planar_trainable``) on its dtype's route; a 1040-wide
    field refused before any launch. Every bf16 case's records held to the
-   k-order rounding as in phase 4, its leaves printed. Then the three K6 entry points
+   k-order rounding as in phase 4, its leaves printed, and its forward's
+   taps held to the same and to the records bit for bit. Then the three K6 entry points
    (``fused_spacenet*``, on K3's forward kernels) against their plain
-   versions at one shape, and at 512/256 (``fused_spacenet_vs_plain_wide``).
+   versions at one shape, and at 512/256 (``fused_spacenet_vs_plain_wide``),
+   with the taps of their kernel (K3's forward) on the first entry's inputs.
    Prints both routes' times, bounds and shares of
    bound, and ``spacenet_fwd_float32_ring`` for the performer: the float32
    forward's weight ring (stages, a stage's bytes, the block's dynamic
@@ -125,7 +132,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    plain path on the first request at 240x135; prints each field's sample
    block per route, then
    ``wide_kernels``: every forward route on the 512/256/256 performer at M
-   = 240,000 (ms, plain ms, block, bound, share) and the phase's seconds.
+   = 240,000 (ms, plain ms, block, bound, share; the two checked bf16
+   routes' taps held to the k-order rounding) and the phase's seconds.
 8. Training that model on phase 5's pool as phase 5 does: finite losses, a
    falling loss over the full epoch, K3's forward and backward each once
    per field and stage of every step, all on the tensor-core route,
@@ -142,9 +150,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    kernels and one through the plain versions in bf16 and float32 (phase
    5's bars) and of its view-deform variant (K3's forward and backward,
    phase 8's bars), each also against the plain step on a copy of the
-   model with its hidden units permuted (``order_bar``), every backward
-   call of each bf16 kernel step launched once more and its records held
-   to the k-order rounding as in phase 4; then
+   model with its hidden units permuted (``order_bar``), every forward
+   and backward call of each bf16 kernel step launched once more, the
+   backward's records and the forward's taps held to the k-order rounding
+   and to each other as in phase 4, every bf16 leaf printed
+   (``train_step_bf16_leaves``, as in phases 5, 8 and 14); then
    ``wide_bwd_kernels``: every backward route on the 512/256/256
    performer at M = 240,000 (block, ms, plain ms, bound, share) and the
    phase's seconds.
@@ -646,7 +656,10 @@ def check_fused_field(name, fields, xyz, ids, dir_enc, flags, skipped) -> dict:
     rtol 2e-3, atol 2e-4 (CUDA-core route) and bitwise the same when run
     twice, bf16 (tensor-core route) within
     relative L2 1e-2 of the bf16 plain version on rgb and on sigma, and bf16
-    >= 40 dB from the float32 plain version on sigmoid(rgb). -> the errors."""
+    >= 40 dB from the float32 plain version on sigmoid(rgb); the checked bf16
+    route (the training forward) within the same bar, and every activation
+    of one launch's taps the k-order rounding of its layer
+    (``fwd_taps_check``). -> the errors."""
     import torch
 
     from stnerf_tpu_torch.kernels.fused_field import fused_field, fused_field_reference
@@ -681,6 +694,8 @@ def check_fused_field(name, fields, xyz, ids, dir_enc, flags, skipped) -> dict:
                               f"(rgb, sigma) {rel_c} > 1e-2")
     differ = [float(((rgb != rgb_bp).sum() + (sig != sig_bp).sum()) / (4 * sig.numel()))
               for rgb, sig in ((rgb_b, sig_b), (rgb_c, sig_c))]
+    taps = fwd_taps_check("fused_field", fields["bfloat16"], (xyz, ids, dir_enc, flags))
+    check_records(f"{name} K1 checked", taps, "bf16 forward taps")
     db = psnr(torch.sigmoid(rgb_b).cpu(), torch.sigmoid(rgb_p).cpu())
     check(db >= 40.0, f"{name}: bf16 kernel vs f32 plain {db:.1f} dB < 40")
     bf_err = max(float((rgb_b - rgb_bp).abs().max()), float((sig_b - sig_bp).abs().max()))
@@ -688,7 +703,8 @@ def check_fused_field(name, fields, xyz, ids, dir_enc, flags, skipped) -> dict:
             "bf16_vs_bf16_rel_l2": rel, "bf16_vs_bf16_max_abs_err": bf_err,
             "bf16_vs_f32_db": db, "bf16_checked_vs_bf16_rel_l2": rel_c,
             "bf16_share_not_plain_bits": differ[0],
-            "bf16_checked_share_not_plain_bits": differ[1]}
+            "bf16_checked_share_not_plain_bits": differ[1],
+            "bf16_checked_taps_not_k_order": taps}
 
 
 def widths_model(cfg, widths, device, camera_num=None):
@@ -1282,10 +1298,11 @@ def check_field_bwd(name, f, args, skipped, order=None) -> dict:
     max|g| but for at most one entry or 0.1% of the leaf (``f32_close``),
     and the same bits when run twice (no atomics: three passes, a
     fixed-order sum); bf16 per leaf within relative L2 1e-2 and the same
-    bits when run twice. ``order``: (the field of ``permuted_nets``'
-    copies, their permutations) for a field wider than 256: the leaves are
-    the model's (``linear_stats``) and held to ``order_bar``. -> the
-    errors."""
+    bits when run twice, its pass-1 records the k-order rounding and
+    bitwise the taps of K1's training forward on the same inputs.
+    ``order``: (the field of ``permuted_nets``' copies, their permutations)
+    for a field wider than 256: the leaves are the model's
+    (``linear_stats``) and held to ``order_bar``. -> the errors."""
     import torch
 
     from stnerf_tpu_torch.kernels.field_vjp import field_bwd, field_bwd_reference
@@ -1324,13 +1341,18 @@ def check_field_bwd(name, f, args, skipped, order=None) -> dict:
                 "f32_entries_outside": {k: v["outside"] for k, v in stats.items()
                                         if v["outside"]}}
     worst = max(stats, key=lambda k: stats[k]["rel"])
-    counts = bwd_records_check("field_bwd", f, args)
+    records = bwd_records("field_bwd", f, args)
+    counts = count_not_k_order(f, records)
     out["bf16_records_not_k_order"] = counts
+    # K1's training forward on the same inputs: its taps are these records
+    agree = taps_vs_records(fwd_taps("fused_field", f, (*args[:3], args[5])), records)
+    out["bf16_forward_taps_vs_records"] = agree
     out["bf16_leaf_rel_l2"] = {k: v["rel"] for k, v in stats.items()}
     if ("field_bwd", name) in UNCHECKED_BF16_WORST:
         out["unchecked_worst_rel_l2"] = UNCHECKED_BF16_WORST["field_bwd", name]
     check(not bad, f"{name}: bf16 kernel vs plain relative L2 beyond its bar: {bad}")
     check_records(f"{name} K2", counts)
+    check_agree(f"{name} K1 and K2", agree)
     return {**out, "bf16_worst_rel_l2": [worst, stats[worst]["rel"]],
             "bf16_max_abs_err": max(v["err"] for v in stats.values())}
 
@@ -1387,25 +1409,39 @@ def record_layers(f) -> list:
     return layers
 
 
-def count_not_k_order(f, records, bm: int, tiles: dict, on) -> dict:
-    """Per layer of ``record_layers``, the recorded bf16 activations of the
-    blocks that ``on`` selects that are not the k-order rounding of the
-    layer on the record's own input tiles (so that a flip does not
-    cascade): float32 acc + w_k x_k in k order, a segment at a time, the
-    segments then the bias added in order, ReLU, rounded to bf16, as
-    tc_blocks.cuh's ``recompute_one`` sums (a bf16 x bf16 product is exact
-    in float32, so each step is the kernel's FMA). ``records`` (blocks,
-    rec_rows x bm) int16 in the act layout. -> {layer: count, "outputs":
-    the activations compared}."""
-    import torch
+# The tiles of a record that the checked forwards' taps hold: the encodings
+# and every product layer's bf16 output
+FWD_TILES = (["hs0", "hs1", "hs2"] + [f"a{k}" for k in range(7)] + ["pos", "dir", "time"]
+             + [f"u{k}" for k in range(6)])
 
-    rec = records[on]
-    nb = rec.shape[0]
+
+def record_tiles(records, bm: int, tiles: dict, on):
+    """Records (blocks, rec_rows x bm) int16 in the act layout, one a block
+    of ``bm`` samples, with their ``tiles`` ({name: (first row, rows)}) ->
+    tile(name): that tile of every block as (rows, samples) int16, the
+    samples of [0, M) that ``on`` (a bool per sample) selects;
+    ``tile.names`` the tiles there are."""
+    nb = records.shape[0]
 
     def tile(name):
         r0, rows = tiles[name]
-        t = rec[:, r0 * bm:(r0 + rows) * bm].reshape(nb, rows // 8, bm // 8, 8, 8)
-        return t.permute(1, 3, 0, 2, 4).reshape(rows, nb * bm)
+        t = records[:, r0 * bm:(r0 + rows) * bm].reshape(nb, rows // 8, bm // 8, 8, 8)
+        return t.permute(1, 3, 0, 2, 4).reshape(rows, nb * bm)[:, :on.numel()][:, on]
+
+    tile.names = tuple(tiles)
+    return tile
+
+
+def count_not_k_order(f, tile) -> dict:
+    """Per layer of ``record_layers``, the recorded bf16 activations
+    (``tile``: ``record_tiles``' accessor) that are not the k-order
+    rounding of the layer on the record's own input tiles (so that a flip
+    does not cascade): float32 acc + w_k x_k in k order, a segment at a
+    time, the segments then the bias added in order, ReLU, rounded to bf16,
+    as tc_blocks.cuh's ``recompute_one`` sums (a bf16 x bf16 product is
+    exact in float32, so each step is the kernel's FMA). -> {layer: count,
+    "outputs": the activations compared}."""
+    import torch
 
     counts, outputs = {}, 0
     for out, segs, bslot in record_layers(f):
@@ -1426,15 +1462,27 @@ def count_not_k_order(f, records, bm: int, tiles: dict, on) -> dict:
     return counts
 
 
-def bwd_records_check(kind: str, f, args: tuple, launch=None) -> dict:
+def tile_samples(flags, m: int, per_tile: bool):
+    """Whether each sample of [0, m) ran: its 64-sample tile's skip flag
+    (``per_tile``: K1 and K2) or the field's ``active`` flag (K3); every
+    sample without flags."""
+    import torch
+
+    if flags is None:
+        return torch.ones(m, dtype=torch.bool)
+    on = flags != 0
+    return (on.repeat_interleave(64)[:m] if per_tile else on.expand(m)).cpu()
+
+
+def bwd_records(kind: str, f, args: tuple, launch=None):
     """One launch of the bf16 backward ``kind`` ("field_bwd": K2, args as
     ``field_bwd``'s; "spacenet_bwd": K3's, as ``spacenet_bwd``'s) into a
-    workspace made here, its pass-1 records read back and every recorded
-    activation held to the k-order rounding (``count_not_k_order``) ->
-    the counts. ``launch(f, args, workspace)``: how to launch it (default
-    the wrapper's ``workspace`` argument; ``tools/torch_ab_phases.py`` calls
-    the C entry of a checkout whose wrapper has none). The launch is a
-    check's: the caller reads no launch count across it."""
+    workspace made here, its pass-1 records read back -> their
+    ``record_tiles`` over the samples that ran. ``launch(f, args,
+    workspace)``: how to launch it (default the wrapper's ``workspace``
+    argument; ``tools/torch_ab_phases.py`` calls the C entry of a checkout
+    whose wrapper has none). The launch is a check's: the caller reads no
+    launch count across it."""
     import torch
 
     from stnerf_tpu_torch.kernels import field_vjp, spacenet_vjp
@@ -1467,20 +1515,98 @@ def bwd_records_check(kind: str, f, args: tuple, launch=None) -> dict:
         launch(f, args, work)
     sync(dev)
     records = work[:n_blocks * rec_rows * bm * 2].view(torch.int16).view(n_blocks, rec_rows * bm)
-    if flags is None:
-        on = torch.ones(n_blocks, dtype=torch.bool, device=dev)
-    elif kind == "field_bwd":  # block b's flag is its 64-sample tile's
-        on = (flags != 0).repeat_interleave(64 // bm)[:n_blocks]
+    on = tile_samples(flags, m, kind == "field_bwd").to(dev)
+    return record_tiles(records, bm, tiles, on)
+
+
+def bwd_records_check(kind: str, f, args: tuple, launch=None) -> dict:
+    """``bwd_records``' activations held to the k-order rounding
+    (``count_not_k_order``) -> the counts."""
+    return count_not_k_order(f, bwd_records(kind, f, args, launch))
+
+
+def fwd_taps(kind: str, f, args: tuple, launch=None):
+    """One launch of the checked bf16 forward ``kind`` ("fused_field": K1's
+    training forward, args (xyz, ids, dir_enc, tile_flags); "spacenet_fwd":
+    K3's forward, args (pos, dir_enc, time_enc[, active])) with taps made
+    here: its encodings and bf16 layer outputs, in the backward's record
+    layout at the forward's block -> their ``record_tiles`` over the samples
+    that ran. ``launch(f, args, taps)``: how to launch it (default the
+    wrapper's ``taps`` argument; ``tools/torch_near_tie_variants.py`` calls
+    an edited build's C entry). The launch is a check's: the caller reads no
+    launch count across it."""
+    import torch
+
+    from stnerf_tpu_torch.kernels import spacenet_vjp
+    from stnerf_tpu_torch.kernels.fused_field import fused_field, tc_launch
+
+    spec = f.spec
+    if kind == "fused_field":
+        xyz, ids, dir_enc, flags = args
+        m, dev = xyz.shape[1], xyz.device
+        q = tc_launch(f, m, dir_enc.shape[0], True)
+        taps = torch.empty(q["taps_bytes"], dtype=torch.uint8, device=dev)
+        if launch is None:
+            fused_field(f, *args, checked=True, taps=taps)
+        else:
+            launch(f, args, taps)
+        per = int(spec.include_input) + 2 * spec.pos_freqs
+        tiles, rec_rows = bwd_record_tiles(f, 3 * per, dir_enc.shape[0],
+                                           per if spec.use_time else 0)
     else:
-        on = (flags != 0).expand(n_blocks)
-    return count_not_k_order(f, records, bm, tiles, on)
+        pos, dir_enc, time_enc = args[:3]
+        flags = args[3] if len(args) > 3 else None
+        m, dev = pos.shape[1], pos.device
+        q = spacenet_vjp.tc_launch(f, pos, dir_enc, time_enc)
+        taps = torch.empty(q["taps_bytes"], dtype=torch.uint8, device=dev)
+        if launch is None:
+            spacenet_vjp.spacenet_fwd(f, pos, dir_enc, time_enc, flags, taps=taps)
+        else:
+            launch(f, args, taps)
+        tiles, rec_rows = bwd_record_tiles(f, pos.shape[0], dir_enc.shape[0],
+                                           time_enc.shape[0] if spec.use_time else 0)
+    sync(dev)
+    check(rec_rows == q["tap_rows"], f"{kind}: the taps' record has {q['tap_rows']} rows, "
+                                     f"the backward's layout {rec_rows}")
+    bm = q["block_samples"]
+    n_blocks = -(-m // bm)
+    records = taps[:n_blocks * rec_rows * bm * 2].view(torch.int16).view(n_blocks, rec_rows * bm)
+    on = tile_samples(flags, m, kind == "fused_field").to(dev)
+    return record_tiles(records, bm, {k: v for k, v in tiles.items() if k in FWD_TILES}, on)
 
 
-def check_records(name: str, counts: dict):
+def fwd_taps_check(kind: str, f, args: tuple, launch=None) -> dict:
+    """``fwd_taps``' activations held to the k-order rounding
+    (``count_not_k_order``) -> the counts."""
+    return count_not_k_order(f, fwd_taps(kind, f, args, launch))
+
+
+def taps_vs_records(taps, records) -> dict:
+    """The forward's taps against the backward's pass-1 records of the same
+    inputs (``fwd_taps``, ``bwd_records``), tile by tile over the samples
+    that ran: the bf16 values that differ (+0 and -0 alike). -> {tile:
+    count, "values": the values compared}."""
+    counts, values = {}, 0
+    for name in taps.names:
+        a, b = taps(name), records(name)
+        counts[name] = int(((a != b) & ((a | b) != -32768)).sum())
+        values += a.numel()
+    counts["values"] = values
+    return counts
+
+
+def check_records(name: str, counts: dict, what: str = "bf16 pass-1 records"):
     """Fail on any recorded activation that is not the k-order rounding."""
     bad = {k: v for k, v in counts.items() if k != "outputs" and v}
-    check(not bad, f"{name}: bf16 pass-1 records not the k-order rounding of their layer "
+    check(not bad, f"{name}: {what} not the k-order rounding of their layer "
                    f"(per layer, of {counts['outputs']} activations): {bad}")
+
+
+def check_agree(name: str, counts: dict):
+    """Fail on any forward tap that differs from the backward's record."""
+    bad = {k: v for k, v in counts.items() if k != "values" and v}
+    check(not bad, f"{name}: the checked forward's taps differ from the backward's pass-1 "
+                   f"records (per tile, of {counts['values']} values): {bad}")
 
 
 def _encoded_inputs(device, m: int, seed: int):
@@ -1512,7 +1638,8 @@ def check_spacenet(name, net, x, flags: bool) -> dict:
     3xTF32; ``f32_close``), both bitwise the same when run twice; the bf16
     route (tensor cores) >= 40 dB from the float32 plain forward, its
     backward within relative L2 1e-2 of the bf16 plain version per leaf and
-    bitwise the same when run twice. With ``flags``, the device-side
+    bitwise the same when run twice, the forward's taps and the backward's
+    pass-1 records the k-order rounding and bitwise equal. With ``flags``, the device-side
     ``active`` flag on both routes: 1 leaves the forward and every
     gradient bitwise unchanged, 0 gives zeros everywhere,
     weight gradients included. Each route's sample block, forward and
@@ -1618,10 +1745,17 @@ def check_spacenet(name, net, x, flags: bool) -> dict:
             row["bf16_bwd_leaf_rel_l2"] = {k: v["rel"] for k, v in stats.items()}
             if ("spacenet_bwd", name) in UNCHECKED_BF16_WORST:
                 row["unchecked_worst_rel_l2"] = UNCHECKED_BF16_WORST["spacenet_bwd", name]
-            row["bf16_records_not_k_order"] = bwd_records_check("spacenet_bwd", f, bwd_args[1:])
+            records = bwd_records("spacenet_bwd", f, bwd_args[1:])
+            row["bf16_records_not_k_order"] = count_not_k_order(f, records)
+            taps = fwd_taps("spacenet_fwd", f, fwd_args[1:])
+            row["bf16_fwd_taps_not_k_order"] = count_not_k_order(f, taps)
+            row["bf16_forward_taps_vs_records"] = taps_vs_records(taps, records)
             check(not bad, f"{name}: bf16 backward kernel vs plain relative L2 beyond its "
                            f"bar: {bad}")
             check_records(f"{name} K3", row["bf16_records_not_k_order"])
+            check_records(f"{name} K3 forward", row["bf16_fwd_taps_not_k_order"],
+                          "bf16 forward taps")
+            check_agree(f"{name} K3", row["bf16_forward_taps_vs_records"])
             again = spacenet_bwd(*bwd_args)
             check(all(torch.equal(a, b) for a, b in zip(got, again)),
                   f"{name}: bf16 gradients differ between two runs")
@@ -1856,6 +1990,10 @@ def entries_vs_plain(device, nets: list, m: int, reps: int, label: str) -> dict:
                 row["bf16_rel_l2"] = rel
                 row["bf16_max_abs_err"] = max(float((rgb_k - rgb_p).abs().max()),
                                               float((sig_k - sig_p).abs().max()))
+                if name == "fused_spacenet_planar":  # the forward kernel the entries launch
+                    taps = fwd_taps_check("spacenet_fwd", fields[0], planar)
+                    check_records(f"{label} K3 forward", taps, "bf16 forward taps")
+                    row["bf16_taps_not_k_order"] = taps
                 # the encodings in, rgb and sigma out, each weight set once
                 n_rows = sum(a.shape[0] for a in planar)
                 row["bf16_bound_ms"], row["bound_by"] = bound_ms(
@@ -1954,10 +2092,13 @@ def compare_train_step(device, bundle, scene, dtype: str, cfg_fn=None,
     on a copy of the model whose SpaceNets and MotionNets have their hidden
     units permuted (``permute_units``), and every leaf held to
     ``order_bar`` against that step's deviation from the plain one.
-    ``records`` (bf16): every bf16 backward call of the first kernel step
-    (K2's or K3's) is launched once more into a workspace of its own and
-    its pass-1 records held to the k-order rounding (``bwd_records_check``),
-    after the launches are read."""
+    ``records`` (bf16): every call of the checked bf16 kernels in the
+    first kernel step (K1's training forward and K2, or K3's forward and
+    backward) is launched once more, after the launches are read: the
+    backward into a workspace of its own, its pass-1 records held to the
+    k-order rounding (``bwd_records``), the forward with taps, held to the
+    same (``fwd_taps``) and bitwise to the records of its field's backward
+    call (``taps_vs_records``). Every bf16 leaf is printed."""
     import torch
 
     from stnerf_tpu_torch.engine import make_optimizer, make_train_step
@@ -1976,16 +2117,17 @@ def compare_train_step(device, bundle, scene, dtype: str, cfg_fn=None,
 
     counted = (fused_field, field_bwd, spacenet_fwd, spacenet_bwd)
     grads, seconds, launches, peak = {}, {}, {}, {}
-    calls = []  # (kind, field, args) of the first kernel step's backward calls
+    calls = []  # (kind, field, args) of the first kernel step's checked bf16 calls
 
     def recording(module, kind):
         original = getattr(module, kind)
 
-        def call(field, *args):
+        def call(field, *args, **kwargs):
             calls.append((kind, field, tuple(None if a is None else a.clone() for a in args)))
-            return original(field, *args)
-        # the wrapper counts its launches on the function its module names
-        call.launches, call.launches_tc = original.launches, original.launches_tc
+            return original(field, *args, **kwargs)
+        # a wrapper counts its launches on the function its own module names
+        # (the recorder, while it stands in its module's place)
+        call.launches = call.launches_tc = 0
         return original, call
 
     for plain in (False, True):
@@ -1997,14 +2139,17 @@ def compare_train_step(device, bundle, scene, dtype: str, cfg_fn=None,
                                device=device)
         watch = records and not plain and dtype == "bfloat16"
         saved = [(mod, kind, *recording(mod, kind)) for mod, kind in
-                 ((field_vjp, "field_bwd"), (spacenet_vjp, "spacenet_bwd"))] if watch else []
+                 ((field_vjp, "fused_field"), (field_vjp, "field_bwd"),
+                  (spacenet_vjp, "spacenet_fwd"), (spacenet_vjp, "spacenet_bwd"))
+                 ] if watch else []
         for mod, kind, _, call in saved:  # the autograd Functions look them up there
             setattr(mod, kind, call)
         try:
             m = step(scene, batch, torch.Generator(device=device).manual_seed(SEED), 1.0)
         finally:
             for mod, kind, original, call in saved:
-                original.launches, original.launches_tc = call.launches, call.launches_tc
+                original.launches += call.launches
+                original.launches_tc += call.launches_tc
                 setattr(mod, kind, original)
         check(bool(torch.isfinite(m.loss)), f"{dtype} step (plain={plain}): loss not finite")
         grads[plain] = dict(_flat_leaves(export_jax_params(model, grad=True)))
@@ -2035,7 +2180,14 @@ def compare_train_step(device, bundle, scene, dtype: str, cfg_fn=None,
         unpermute_grads(mods, ios)
         yard = {k: compare_leaf(a, grads[True][k])
                 for k, a in _flat_leaves(export_jax_params(model, grad=True))}
-    if dtype == "bfloat16":
+    if dtype == "bfloat16":  # every leaf, kernel vs plain, before the bars
+        print("train_step_bf16_leaves", json.dumps(
+            {"model": "view_pose" if spec.use_deform_view else "taekwondo",
+             "widths": [spec.backbone_dim, spec.head_dim], "pose_refinement": spec.pose_refinement,
+             "fast_fine_train": spec.fast_fine_train,
+             "rel_l2": {k: v["rel"] for k, v in stats.items()},
+             **({"reordered_plain_rel_l2": {k: v["rel"] for k, v in yard.items()}}
+                if yard is not None else {})}), flush=True)
         bars = {k: 1e-2 if f32_plain is None or not k.startswith("/cam_pose/") else
                 max(1e-2, 0.1 * compare_leaf(grads[True][k], f32_plain[k])["rel"])
                 for k in stats}
@@ -2071,12 +2223,25 @@ def compare_train_step(device, bundle, scene, dtype: str, cfg_fn=None,
         row["pose_bars"] = {k: [stats[k]["rel"], b] for k, b in bars.items()
                             if k.startswith("/cam_pose/")}
     if records:  # after the launches were read
-        check(len(calls) == implied // 2, f"{dtype} step: {len(calls)} backward calls "
-                                          f"recorded, one step implies {implied // 2}")
-        row["records_not_k_order"] = [bwd_records_check(kind, field, args)
-                                      for kind, field, args in calls]
-        for i, counts in enumerate(row["records_not_k_order"]):
-            check_records(f"{row['model']} {dtype} step, backward call {i}", counts)
+        fwd = [c for c in calls if c[0] in ("fused_field", "spacenet_fwd")]
+        bwd = [c for c in calls if c[0] in ("field_bwd", "spacenet_bwd")]
+        check(len(fwd) == len(bwd) == implied // 2,
+              f"{dtype} step: {len(fwd)} forward and {len(bwd)} backward calls recorded, one "
+              f"step implies {implied // 2} of each")
+        for key in ("records_not_k_order", "forward_taps_not_k_order",
+                    "forward_taps_vs_records"):
+            row[key] = []
+        for i, (kind, field, args) in enumerate(bwd):
+            rec = bwd_records(kind, field, args)
+            f_kind, _, f_args = next(c for c in fwd if c[1] is field)
+            taps = fwd_taps(f_kind, field, f_args)
+            row["records_not_k_order"].append(count_not_k_order(field, rec))
+            row["forward_taps_not_k_order"].append(count_not_k_order(field, taps))
+            row["forward_taps_vs_records"].append(taps_vs_records(taps, rec))
+            what = f"{row['model']} {dtype} step, call {i}"
+            check_records(what, row["records_not_k_order"][-1])
+            check_records(what, row["forward_taps_not_k_order"][-1], "bf16 forward taps")
+            check_agree(what, row["forward_taps_vs_records"][-1])
         if spec.use_deform_view:
             row["unchecked_worst_rel_l2"] = UNCHECKED_BF16_WORST["step", "view_pose"]
     if yard is not None:  # the leaves beyond the fixed bar: [kernel, reordered plain]
@@ -2289,6 +2454,12 @@ def wide_kernel_times(device, m: int, reps: int) -> dict:
             out[name] = {"m": m, "widths": list(WIDE_WIDTHS), "block_samples": r["block"],
                          "ms": ms, "plain_ms": cuda_ms(r["plain"], reps), "bound_ms": b_ms,
                          "bound_by": b_by, "share": b_ms / ms}
+        if dt == "bfloat16":  # the training forwards' taps: the k-order rounding
+            for name, kind, f_k, a in (
+                    ("fused_field_bfloat16_checked", "fused_field", f, (xyz, ids, dir_enc, None)),
+                    ("spacenet_fwd_bfloat16", "spacenet_fwd", g, enc)):
+                out[name]["taps_not_k_order"] = fwd_taps_check(kind, f_k, a)
+                check_records(f"wide {name}", out[name]["taps_not_k_order"], "bf16 forward taps")
     return out
 
 
@@ -5339,8 +5510,8 @@ def main():
                         ("spacenet_bwd_tc", "spacenet_bwd_bfloat16"),
                         ("spacenet_bwd", "spacenet_bwd_float32")):
         next(r for r in kernels if r["name"] == name)["wide"] = wide_train["kernels"][route]
-        if name == "fused_field_tc":
-            row["wide_checked"] = wide_slice["kernels"]["fused_field_bfloat16_checked"]
+    next(r for r in kernels if r["name"] == "fused_field_tc")["wide_checked"] = (
+        wide_slice["kernels"]["fused_field_bfloat16_checked"])
     for row in kernels:
         for path, launches in new_paths.items():
             row["launches_by_path"][path] = route_launches(launches, row["name"])

@@ -40,12 +40,16 @@ SIGNATURES = {
     # stage's bytes, the block's dynamic shared memory and its samples
     "stnerf_fused_field_ring": [_I] * 10 + [_P],
     # bf16 fields (tensor cores): xyz, ids, dir, flags, weights, fragments,
-    # biases, offsets (host), out, then the same 10 ints, checked, and the
-    # stream
-    "stnerf_fused_field_tc": [_P] * 9 + [_I] * 11 + [_P],
-    # its launch for the same 10 ints and checked: a host int[2] of the
-    # block's samples and its dynamic shared memory
+    # biases, row norms (PackedField.tc_norms; null unless checked), offsets
+    # (host), out, then the same 10 ints, checked, the taps (null, or a
+    # checks-only read-back) and the stream
+    "stnerf_fused_field_tc": [_P] * 10 + [_I] * 11 + [_P] * 2,
+    # its launch for the same 10 ints and checked: a host int[3] of the
+    # block's samples, its dynamic shared memory and a block's taps' rows
     "stnerf_fused_field_tc_block": [_I] * 11 + [_P],
+    # the checked products' weight-row norms: weights, a host int array of
+    # (offset, inputs, outputs) per slot, the slots, out, and the stream
+    "stnerf_tc_row_norms": [_P] * 2 + [_I] + [_P] * 2,
     # float32: xyz, ids, dir, d_rgb, d_sigma, flags, weights, dx fragments
     # (PackedField.dx_frags), biases, offsets (host), plan (host,
     # f32_bwd.Plan.array), gw, gb, d_xyz, d_dir, workspace, then the same 10
@@ -73,10 +77,11 @@ SIGNATURES = {
     # workspace, then the same 7 ints, the two counts, and the stream
     "stnerf_spacenet_bwd": [_P] * 16 + [_I] * 9 + [_P],
     # bf16 fields (tensor cores): pos, dir, time, weights, fragments, biases,
-    # offsets (host), active, out, then the same 7 ints, and the stream
-    "stnerf_spacenet_fwd_tc": [_P] * 9 + [_I] * 7 + [_P],
-    # its launch for the same 7 ints: a host int[2] of the block's samples
-    # and its dynamic shared memory
+    # row norms, offsets (host), active, out, then the same 7 ints, the taps
+    # (null, or a checks-only read-back) and the stream
+    "stnerf_spacenet_fwd_tc": [_P] * 10 + [_I] * 7 + [_P] * 2,
+    # its launch for the same 7 ints: a host int[3] of the block's samples,
+    # its dynamic shared memory and a block's taps' rows
     "stnerf_spacenet_fwd_tc_block": [_I] * 7 + [_P],
     # the same 7 ints, the packed weights' and biases' element counts, then
     # a host int64 for the workspace's bytes

@@ -37,14 +37,26 @@
 //     flags 0 writes its zeros and exits.
 // Numerics as the CUDA-core kernel and the TPU kernel: bf16 products,
 // float32 accumulation, bias, ReLU, then one rounding to bf16 per layer.
-// With `checked` (the training forward) every product layer is
-// tc_blocks.cuh's dense_checked: the outputs whose tensor-core sum lies near
-// a bf16 rounding tie are recomputed in float32 as the plain version sums
-// them, so that they round as it rounds them. wgmma truncates its float32
-// accumulation, and in training such flips move the pose-refinement
-// gradients past their bar (PERF.md, Findings PR 11); rendering keeps the
-// plain products. The check takes a 4 KB mask and 16 KB of lists of shared
-// memory (184 KB of the 227 KB at the taekwondo widths).
+// With `checked` (the training forward) every product layer (motion net,
+// trunk, rgb head) is tc_blocks.cuh's dense_checked: the outputs whose
+// tensor-core sum lies near a bf16 rounding tie or the ReLU's 0 are
+// recomputed in float32 as the plain version sums them, so that they round
+// as it rounds them. wgmma truncates its float32 accumulation, and in
+// training such flips move the pose-refinement gradients past their bar
+// (PERF.md, Findings PR 11); rendering keeps the plain products. The check
+// is one rule, WideRule, on the pack's weight-row norms
+// (PackedField.tc_norms) and the backward's input-norm sum: the rule of
+// K2's recompute, so the backward differentiates the bits this forward
+// computed. It takes a 4 KB mask, 16
+// KB of lists and 1.5 KB of norms of shared memory (186 KB of the 227 KB at
+// the taekwondo widths). With `taps` (checks only) the checked forward also
+// copies each layer's bf16 output and the encodings into K2's record
+// layout (tc_blocks.cuh tap).
+//
+// stnerf_tc_row_norms: the forwards' pre-pass (tc_blocks.cuh
+// row_norms_kernel, which the backward runs once a launch), the squared L2
+// norm of each output row of the checked weight slots, made once per packed
+// field (PackedField.tc_norms).
 
 #include "field_common.cuh"
 #include "tc_blocks.cuh"
@@ -57,8 +69,10 @@ struct Params {
   int w_off[N_W];
   int b_off[N_B];
   int f_off[N_W];  // forward fragments (PackedField.tc), in 16-byte units; -1 = absent
+  int n_off[N_W];  // each checked slot's first row norm (PackedField.tc_norms); -1 = none
+  int rec[N_REC];  // the taps: each record tile's first row (record_layout)
   int M, dir_rows, width, head, motion_width, freqs, inc, use_time, n_rgb, motion_mode;
-  int rows_a, pos_rows, time_rows, menc_rows, pos_pad, dir_pad, time_pad, menc_pad;
+  int rows_a, pos_rows, time_rows, menc_rows, pos_pad, dir_pad, time_pad, menc_pad, rec_rows;
 };
 
 // One block of BM samples: 128 (two skip-flag tiles), or 64 or 32 (one
@@ -68,7 +82,9 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
 fused_field_tc_kernel(const float* __restrict__ xyz, const float* __restrict__ ids,
                       const float* __restrict__ dir, const int* __restrict__ flags,
                       const unsigned short* __restrict__ wts, const uint4* __restrict__ frags,
-                      const float* __restrict__ bias, float* __restrict__ out, const Params p) {
+                      const float* __restrict__ bias, const float* __restrict__ norms,
+                      float* __restrict__ out, unsigned short* __restrict__ taps,
+                      const Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int t = threadIdx.x;
   const int m0 = blockIdx.x * BM;
@@ -97,11 +113,10 @@ fused_field_tc_kernel(const float* __restrict__ xyz, const float* __restrict__ i
   unsigned short* T = D + p.dir_pad * BM;                        // time_pad: relu(time encoding)
   float* X = reinterpret_cast<float*>(T + p.time_pad * BM);      // 4 x BM: xyz rows, id row
   float* R = X + 4 * BM;                                         // 4 x BM: flow or rgb, sigma
-  unsigned* mask = reinterpret_cast<unsigned*>(R + 4 * BM);      // CHECKED: rows_a x BM bits
-  unsigned short* lists = reinterpret_cast<unsigned short*>(mask + p.rows_a * BM / 32);
+  const Check ck = make_check(R + 4 * BM, p.rows_a, BM, LIST);   // CHECKED: the check's scratch
 
   if (CHECKED) {
-    for (int i = t; i < p.rows_a * BM / 32; i += TC_THREADS) mask[i] = 0;
+    for (int i = t; i < p.rows_a * BM / 32; i += TC_THREADS) ck.mask[i] = 0;
   }
   for (int i = t; i < 4 * BM; i += TC_THREADS) {
     const int r = i / BM, gm = m0 + i % BM;
@@ -110,20 +125,32 @@ fused_field_tc_kernel(const float* __restrict__ xyz, const float* __restrict__ i
   __syncthreads();
 
   const auto W = [&](int slot) { return wts + p.w_off[slot]; };
-  const auto F = [&](int slot) { return frags + p.f_off[slot]; };
   const auto Bi = [&](int slot) { return bias + p.b_off[slot]; };
-  const auto dense = [&](const Seg* s, int nseg, int O, int bslot, unsigned short* o) {
+  // the segment of weight slot s over the input tile b (k_rows rows), with
+  // its row norms when CHECKED
+  const auto seg = [&](int slot, const unsigned short* b, int k_rows) {
+    return Seg{frags + p.f_off[slot], b, k_rows / 16, CHECKED ? norms + p.n_off[slot] : nullptr};
+  };
+  // CHECKED with taps: record tile r of this block <- the tile's rows
+  const auto rec = [&](int r, const unsigned short* tile, int rows) {
+    if constexpr (CHECKED) tap<BM>(taps, p.rec_rows, p.rec[r], tile, rows);
+  };
+  // a layer into o, then its record tile r
+  const auto dense = [&](const Seg* s, int nseg, int O, int bslot, unsigned short* o, int r) {
     if constexpr (CHECKED) {
-      dense_checked<BM, false>(s, nseg, O, Bi(bslot), o, mask, lists, n_lo, n_cnt);
+      dense_checked<BM, false, LIST>(s, nseg, O, Bi(bslot), o, ck.mask, ck.lists,
+                                     wide_rule<BM>(s, nseg, O, n_lo, n_cnt, ck.wn, ck.xn),
+                                     n_lo, n_cnt);
     } else {
       tc_dense<BM>(s, nseg, O, Bi(bslot), o, n_lo, n_cnt);
     }
     layer_sync();
+    rec(r, o, O);
   };
   const auto dense1 = [&](int slot, const unsigned short* in, int k_rows, int bslot, int O,
-                          unsigned short* o) {
-    const Seg s{F(slot), in, k_rows / 16};
-    dense(&s, 1, O, bslot, o);
+                          unsigned short* o, int r) {
+    const Seg s = seg(slot, in, k_rows);
+    dense(&s, 1, O, bslot, o, r);
   };
 
   if (p.motion_mode) {
@@ -142,12 +169,13 @@ fused_field_tc_kernel(const float* __restrict__ xyz, const float* __restrict__ i
     }
     zero_rows<BM>(A, p.menc_rows, p.menc_pad);
     layer_sync();
+    rec(R_U0, A, p.menc_pad);
     const int mw = p.motion_width;
-    dense1(W_M0, A, p.menc_pad, B_M0, mw, B);
-    dense1(W_M0 + 1, B, mw, B_M0 + 1, mw, A);
-    dense1(W_M0 + 2, A, mw, B_M0 + 2, mw, B);
-    dense1(W_M0 + 3, B, mw, B_M0 + 3, mw, A);
-    dense1(W_M0 + 4, A, mw, B_M0 + 4, mw, B);
+    dense1(W_M0, A, p.menc_pad, B_M0, mw, B, R_U0 + 1);
+    dense1(W_M0 + 1, B, mw, B_M0 + 1, mw, A, R_U0 + 2);
+    dense1(W_M0 + 2, A, mw, B_M0 + 2, mw, B, R_U0 + 3);
+    dense1(W_M0 + 3, B, mw, B_M0 + 3, mw, A, R_U0 + 4);
+    dense1(W_M0 + 4, A, mw, B_M0 + 4, mw, B, R_U0 + 5);
     small_fwd<BM>(W(W_M0 + 5), B, mw, Bi(B_M0 + 5), 3, R);
     __syncthreads();
     for (int i = t; i < 3 * BM; i += TC_THREADS) X[i] = __fadd_rn(X[i], R[i]);  // displaced
@@ -175,30 +203,32 @@ fused_field_tc_kernel(const float* __restrict__ xyz, const float* __restrict__ i
   zero_rows<BM>(D, p.dir_rows, p.dir_pad);
   zero_rows<BM>(T, p.time_rows, p.time_pad);
   layer_sync();
+  rec(R_POS, P, p.pos_pad);
+  rec(R_DIR, D, p.dir_pad);
+  if (p.use_time) rec(R_TIME, T, p.time_pad);
 
   const int wd = p.width, kp = p.pos_pad;
-  dense1(W_1, P, kp, B_1, wd, A);
-  dense1(W_1 + 1, A, wd, B_1 + 1, wd, B);
-  dense1(W_1 + 2, B, wd, B_1 + 2, wd, A);
-  dense1(W_1 + 3, A, wd, B_1 + 3, wd, B);
+  dense1(W_1, P, kp, B_1, wd, A, R_A0);
+  dense1(W_1 + 1, A, wd, B_1 + 1, wd, B, R_A0 + 1);
+  dense1(W_1 + 2, B, wd, B_1 + 2, wd, A, R_A0 + 2);
+  dense1(W_1 + 3, A, wd, B_1 + 3, wd, B, R_A0 + 3);
   {
-    const Seg s[2] = {{F(W_S2A), B, wd / 16}, {F(W_S2B), P, kp / 16}};
-    dense(s, 2, wd, B_SB1, A);
+    const Seg s[2] = {seg(W_S2A, B, wd), seg(W_S2B, P, kp)};
+    dense(s, 2, wd, B_SB1, A, R_A0 + 4);
   }
-  dense1(W_S2W2, A, wd, B_SB2, wd, B);
-  dense1(W_S2W3, B, wd, B_SB3, wd, A);
+  dense1(W_S2W2, A, wd, B_SB2, wd, B, R_A0 + 5);
+  dense1(W_S2W3, B, wd, B_SB3, wd, A, R_A0 + 6);
   small_fwd<BM>(W(W_DW), A, wd, Bi(B_DB), 1, R + 3 * BM);  // sigma
   {
     // rgb head: relu([x | dir | time]); x >= 0 already, D and T hold relu'd values
-    const Seg s[3] = {{F(W_R1A), A, wd / 16}, {F(W_R1B), D, p.dir_pad / 16},
-                      {F(W_R1C), T, p.time_pad / 16}};
-    dense(s, p.use_time ? 3 : 2, p.head, B_RB1, B);
+    const Seg s[3] = {seg(W_R1A, A, wd), seg(W_R1B, D, p.dir_pad), seg(W_R1C, T, p.time_pad)};
+    dense(s, p.use_time ? 3 : 2, p.head, B_RB1, B, R_HS0);
   }
   if (p.n_rgb == 2) {
     small_fwd<BM>(W(W_RGB1), B, p.head, Bi(B_RGB1), 3, R);
   } else {
-    dense1(W_RGB1, B, p.head, B_RGB1, p.head, A);
-    dense1(W_RGB2, A, p.head, B_RGB2, p.head, B);
+    dense1(W_RGB1, B, p.head, B_RGB1, p.head, A, R_HS0 + 1);
+    dense1(W_RGB2, A, p.head, B_RGB2, p.head, B, R_HS0 + 2);
     small_fwd<BM>(W(W_RGB3), B, p.head, Bi(B_RGB3), 3, R);
   }
   __syncthreads();
@@ -239,6 +269,7 @@ bool configure(Params& p, const int* off, int M, int dir_rows, int width, int he
     for (int i = 0; i < N_W; ++i) p.w_off[i] = off[i];
     for (int i = 0; i < N_B; ++i) p.b_off[i] = off[N_W + i];
     for (int i = 0; i < N_W; ++i) p.f_off[i] = off[N_W + N_B + i];
+    for (int i = 0; i < N_W; ++i) p.n_off[i] = off[3 * N_W + N_B + i];
   }
   const int per = (include_input ? 1 : 0) + 2 * freqs;
   p.M = M;
@@ -264,6 +295,7 @@ bool configure(Params& p, const int* off, int M, int dir_rows, int width, int he
     rows_a = rows_a > p.menc_pad ? rows_a : p.menc_pad;
   }
   p.rows_a = rows_a;
+  record_layout(p);
   int dev = 0, optin = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
@@ -271,10 +303,10 @@ bool configure(Params& p, const int* off, int M, int dir_rows, int width, int he
     return false;
   }
   for (const int b : {128, 64, 32}) {
-    // the act tiles, the encodings, the float32 rows; checked: the mask and lists
+    // the act tiles, the encodings, the float32 rows; checked: the check's scratch
     size_t bytes = static_cast<size_t>(2 * rows_a + p.pos_pad + p.dir_pad + p.time_pad) * b * 2 +
                    static_cast<size_t>(8) * b * sizeof(float);
-    if (checked) bytes += static_cast<size_t>(rows_a) * b / 8 + (TC_THREADS / 32) * LIST * 2;
+    if (checked) bytes += check_bytes(rows_a, b, LIST);
     if (bytes <= static_cast<size_t>(optin)) {
       *bm = b;
       *smem = bytes;
@@ -286,23 +318,29 @@ bool configure(Params& p, const int* off, int M, int dir_rows, int width, int he
 
 }  // namespace
 
-// C entry point. Pointers are device pointers except `offsets`, a host array
-// of N_W weight, N_B bias and N_W forward-fragment offsets (-1 = absent
-// operand): weights are the packed bf16 buffer (fused_field.py pack_field),
-// frags its PackedField.tc fragments. `checked` != 0 recomputes the near-tie
-// outputs (the training forward). Returns the CUDA error of the launch (0 =
-// launched).
+// C entry points. Pointers are device pointers except `offsets`, a host
+// array of N_W weight, N_B bias, N_W forward-fragment, N_W
+// backward-fragment and N_W row-norm offsets (-1 = absent operand;
+// PackedField.tc): weights are the packed bf16 buffer (fused_field.py
+// pack_field), frags its PackedField.tc fragments, norms its
+// PackedField.tc_norms (null when not `checked`). `checked` != 0 recomputes
+// the near-tie outputs (the training forward); `taps`, null or (checks
+// only, with `checked`) a device buffer for each block's forward tiles of
+// K2's record (stnerf_fused_field_tc_block's rows x the block's samples,
+// bf16). Each returns the CUDA error of its launch (0 = launched).
 extern "C" int stnerf_fused_field_tc(const void* xyz, const void* ids, const void* dir,
                                      const void* flags, const void* weights, const void* frags,
-                                     const void* biases, const void* offsets, void* out, int M,
-                                     int dir_rows, int width, int head, int motion_width,
-                                     int freqs, int include_input, int use_time, int n_rgb,
-                                     int motion_mode, int checked, void* stream) {
+                                     const void* biases, const void* norms, const void* offsets,
+                                     void* out, int M, int dir_rows, int width, int head,
+                                     int motion_width, int freqs, int include_input,
+                                     int use_time, int n_rgb, int motion_mode, int checked,
+                                     void* taps, void* stream) {
   Params p;
   int bm = 0;
   size_t smem = 0;
   if (!configure(p, static_cast<const int*>(offsets), M, dir_rows, width, head, motion_width,
-                 freqs, include_input, use_time, n_rgb, motion_mode, checked, &bm, &smem)) {
+                 freqs, include_input, use_time, n_rgb, motion_mode, checked, &bm, &smem) ||
+      (checked && norms == nullptr) || (!checked && taps != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Kernel kernel = kernel_for(bm, checked != 0);
@@ -313,13 +351,14 @@ extern "C" int stnerf_fused_field_tc(const void* xyz, const void* ids, const voi
       static_cast<const float*>(xyz), static_cast<const float*>(ids),
       static_cast<const float*>(dir), static_cast<const int*>(flags),
       static_cast<const unsigned short*>(weights), static_cast<const uint4*>(frags),
-      static_cast<const float*>(biases), static_cast<float*>(out), p);
+      static_cast<const float*>(biases), static_cast<const float*>(norms),
+      static_cast<float*>(out), static_cast<unsigned short*>(taps), p);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The launch of stnerf_fused_field_tc with the same ints: out[0] the
-// block's samples, out[1] its dynamic shared memory. Returns a CUDA error
-// (0 = the launch would be configured).
+// block's samples, out[1] its dynamic shared memory, out[2] the rows of a
+// block's taps. Returns a CUDA error (0 = the launch would be configured).
 extern "C" int stnerf_fused_field_tc_block(int M, int dir_rows, int width, int head,
                                            int motion_width, int freqs, int include_input,
                                            int use_time, int n_rgb, int motion_mode, int checked,
@@ -334,5 +373,28 @@ extern "C" int stnerf_fused_field_tc_block(int M, int dir_rows, int width, int h
   int* o = static_cast<int*>(out);
   o[0] = bm;
   o[1] = static_cast<int>(smem);
+  o[2] = p.rec_rows;
   return 0;
+}
+
+// The squared L2 norm of every output row of n_jobs weight slots into out
+// (floats, the jobs' rows in order): `jobs` a host int array of (packed
+// offset, k inputs, o outputs) per slot (fused_field.py PackedField.tc_norms).
+extern "C" int stnerf_tc_row_norms(const void* weights, const void* jobs, int n_jobs, void* out,
+                                   void* stream) {
+  if (n_jobs <= 0 || n_jobs > N_W) return static_cast<int>(cudaErrorInvalidValue);
+  NormJobs nj;
+  const int* in = static_cast<const int*>(jobs);
+  nj.n = n_jobs;
+  nj.at[0] = 0;
+  for (int j = 0; j < n_jobs; ++j) {
+    nj.w_off[j] = in[3 * j];
+    nj.k[j] = in[3 * j + 1];
+    nj.o[j] = in[3 * j + 2];
+    nj.at[j + 1] = nj.at[j] + nj.o[j];
+  }
+  const int n = nj.at[n_jobs];
+  row_norms_kernel<<<(n + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned short*>(weights), nj, static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
 }

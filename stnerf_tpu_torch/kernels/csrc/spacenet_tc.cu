@@ -44,11 +44,16 @@
 //     a wgmma product, the weights as register A
 //     fragments from L2 (PackedField.tc), the activations the B operand in
 //     shared memory, bias, ReLU and the rounding to bf16 in the epilogue;
-//     the outputs whose sum lies near a bf16 rounding tie recomputed in
-//     float32 on CUDA cores (dense_checked); the 1- and 3-wide layers on
-//     CUDA cores. Shared memory at the taekwondo widths: two ping-pong tiles
-//     of 256 x 128 (128 KB), the encodings (128 rows, 32 KB), 2 KB of float32
-//     output rows and the recompute's 4 KB mask: 166 KB, one block an SM.
+//     the outputs whose sum lies near a bf16 rounding tie or 0 recomputed
+//     in float32 on CUDA cores in k order (dense_checked, by tc_blocks.cuh's
+//     one rule, WideRule, on the pack's weight-row norms: the rule of the
+//     backward's recompute, so the backward differentiates these bits); the
+//     1- and 3-wide layers on CUDA cores. Shared memory at the taekwondo
+//     widths: two ping-pong tiles of 256 x 128 (128 KB), the encodings (128
+//     rows, 32 KB), 2 KB of float32 output rows, the recompute's 4 KB mask,
+//     16 KB of lists and 1.5 KB of norms: 184 KB, one block an SM. With
+//     `taps` (checks only) each layer's bf16 output and the encodings are
+//     copied into the backward's record layout (tc_blocks.cuh tap).
 //   * backward, K2's two passes and fixed-order sum (no atomics, so the
 //     weight gradients are the same bits on every run):
 //     1. spacenet_bwd_tc_kernel, a block per BM samples (64 at widths up
@@ -118,7 +123,9 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
 spacenet_fwd_tc_kernel(const float* __restrict__ pos, const float* __restrict__ dir,
                        const float* __restrict__ time, const unsigned short* __restrict__ wts,
                        const uint4* __restrict__ frags, const float* __restrict__ bias,
-                       const int* __restrict__ active, float* __restrict__ out, const Params p) {
+                       const float* __restrict__ norms, const int* __restrict__ active,
+                       float* __restrict__ out, unsigned short* __restrict__ taps,
+                       const Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int m0 = blockIdx.x * TB;
   const int M = p.M;
@@ -133,49 +140,60 @@ spacenet_fwd_tc_kernel(const float* __restrict__ pos, const float* __restrict__ 
   unsigned short* D = P + p.pos_pad * TB;                        // dir_pad: relu(dir encoding)
   unsigned short* T = D + p.dir_pad * TB;                        // time_pad: relu(time encoding)
   float* R = reinterpret_cast<float*>(T + p.time_pad * TB);      // 4 x TB: rgb, sigma
-  unsigned* mask = reinterpret_cast<unsigned*>(R + 4 * TB);      // rows_a x TB bits
-  unsigned short* lists = reinterpret_cast<unsigned short*>(mask + rows_a * TB / 32);
+  const Check ck = make_check(R + 4 * TB, rows_a, TB, LIST);      // the check's scratch
 
-  for (int i = threadIdx.x; i < rows_a * TB / 32; i += TC_THREADS) mask[i] = 0;
+  for (int i = threadIdx.x; i < rows_a * TB / 32; i += TC_THREADS) ck.mask[i] = 0;
   load_tile<TB>(pos, p.pos_rows, p.pos_pad, M, m0, false, P);
   load_tile<TB>(dir, p.dir_rows, p.dir_pad, M, m0, true, D);
   if (p.use_time) load_tile<TB>(time, p.time_rows, p.time_pad, M, m0, true, T);
   layer_sync();
+  const auto rec = [&](int r, const unsigned short* tile, int rows) {
+    tap<TB>(taps, p.rec_rows, p.rec[r], tile, rows);
+  };
+  rec(R_POS, P, p.pos_pad);
+  rec(R_DIR, D, p.dir_pad);
+  if (p.use_time) rec(R_TIME, T, p.time_pad);
 
   const auto W = [&](int slot) { return wts + p.w_off[slot]; };
-  const auto F = [&](int slot) { return frags + p.f_off[slot]; };
   const auto Bi = [&](int slot) { return bias + p.b_off[slot]; };
-  const auto dense1 = [&](int slot, const unsigned short* in, int k_pad, int bslot, int O,
-                          unsigned short* o) {
-    const Seg s{F(slot), in, k_pad / 16};
-    dense_checked<TB, true>(&s, 1, O, Bi(bslot), o, mask, lists);
+  // the checked segment of weight slot s over the input tile b (k_rows rows)
+  const auto seg = [&](int slot, const unsigned short* b, int k_rows) {
+    return Seg{frags + p.f_off[slot], b, k_rows / 16, norms + p.n_off[slot]};
+  };
+  // a checked layer into o, then its record tile r (with taps)
+  const auto dense = [&](const Seg* s, int nseg, int O, int bslot, unsigned short* o, int r) {
+    dense_checked<TB, true, LIST>(s, nseg, O, Bi(bslot), o, ck.mask, ck.lists,
+                                  wide_rule<TB>(s, nseg, O, 0, TB, ck.wn, ck.xn));
     layer_sync();
+    rec(r, o, O);
+  };
+  const auto dense1 = [&](int slot, const unsigned short* in, int k_pad, int bslot, int O,
+                          unsigned short* o, int r) {
+    const Seg s = seg(slot, in, k_pad);
+    dense(&s, 1, O, bslot, o, r);
   };
   const int wd = p.width, kp = p.pos_pad;
-  dense1(W_1, P, kp, B_1, wd, A);
-  dense1(W_1 + 1, A, wd, B_1 + 1, wd, B);
-  dense1(W_1 + 2, B, wd, B_1 + 2, wd, A);
-  dense1(W_1 + 3, A, wd, B_1 + 3, wd, B);
+  dense1(W_1, P, kp, B_1, wd, A, R_A0);
+  dense1(W_1 + 1, A, wd, B_1 + 1, wd, B, R_A0 + 1);
+  dense1(W_1 + 2, B, wd, B_1 + 2, wd, A, R_A0 + 2);
+  dense1(W_1 + 3, A, wd, B_1 + 3, wd, B, R_A0 + 3);
   {
-    const Seg s[2] = {{F(W_S2A), B, wd / 16}, {F(W_S2B), P, kp / 16}};
-    dense_checked<TB, true>(s, 2, wd, Bi(B_SB1), A, mask, lists);
-    layer_sync();
+    const Seg s[2] = {seg(W_S2A, B, wd), seg(W_S2B, P, kp)};
+    dense(s, 2, wd, B_SB1, A, R_A0 + 4);
   }
-  dense1(W_S2W2, A, wd, B_SB2, wd, B);
-  dense1(W_S2W3, B, wd, B_SB3, wd, A);
+  dense1(W_S2W2, A, wd, B_SB2, wd, B, R_A0 + 5);
+  dense1(W_S2W3, B, wd, B_SB3, wd, A, R_A0 + 6);
   small_fwd<TB>(W(W_DW), A, wd, Bi(B_DB), 1, R + 3 * TB);  // sigma
   {
     // rgb head: relu([x | dir | time]); x >= 0 already, D and T hold relu'd values
-    const Seg s[3] = {{F(W_R1A), A, wd / 16}, {F(W_R1B), D, p.dir_pad / 16},
-                      {F(W_R1C), T, p.time_pad / 16}};
-    dense_checked<TB, true>(s, p.use_time ? 3 : 2, p.head, Bi(B_RB1), B, mask, lists);
-    layer_sync();
+    const Seg s[3] = {seg(W_R1A, A, wd), seg(W_R1B, D, p.dir_pad), seg(W_R1C, T, p.time_pad)};
+    dense(s, p.use_time ? 3 : 2, p.head, B_RB1, B, R_HS0);
   }
   if (p.n_rgb == 2) {
     small_fwd<TB>(W(W_RGB1), B, p.head, Bi(B_RGB1), 3, R);
   } else {
-    dense1(W_RGB1, B, p.head, B_RGB1, p.head, A);
-    dense1(W_RGB2, A, p.head, B_RGB2, p.head, B);
+    dense1(W_RGB1, B, p.head, B_RGB1, p.head, A, R_HS0 + 1);
+    dense1(W_RGB2, A, p.head, B_RGB2, p.head, B, R_HS0 + 2);
     small_fwd<TB>(W(W_RGB3), B, p.head, Bi(B_RGB3), 3, R);
   }
   __syncthreads();
@@ -225,9 +243,10 @@ spacenet_bwd_tc_kernel(const float* __restrict__ pos, const float* __restrict__ 
   c.done();
 }
 
-// The shapes into p (both kernels' parameters but the record layout);
-// -> false for shapes the kernels do not take. `off` as the C entry points'
-// (null: only the sizes are wanted).
+// The shapes into p (both kernels' parameters but pass 2's jobs; the
+// record layout is the backward's and the forward's taps'); -> false for
+// shapes the kernels do not take. `off` as the C entry points' (null: only
+// the sizes are wanted).
 bool fill_params(Params& p, const int* off, int M, int pos_rows, int dir_rows, int time_rows,
                  int width, int head, int n_rgb) {
   if (M <= 0 || pos_rows <= 0 || dir_rows <= 0 || time_rows < 0 || !fwd_width(width) ||
@@ -248,6 +267,7 @@ bool fill_params(Params& p, const int* off, int M, int pos_rows, int dir_rows, i
   p.dir_pad = round16(dir_rows);
   p.time_pad = round16(time_rows);
   p.u_rows = 4 * width + (n_rgb - 1) * head;  // pass 1: the trunk and head tiles
+  record_layout(p);
   return true;
 }
 
@@ -287,7 +307,7 @@ FwdKernel fwd_kernel_for(int tb) {
 // largest block of 128, 64 or 32 samples whose tiles fit the card's shared
 // memory (128 at every width up to 256): two ping-pong tiles as wide as the
 // wider of trunk and head, the encodings, the float32 output rows, the
-// recompute's mask and lists. False if none fits.
+// check's scratch (mask, lists, norms). False if none fits.
 bool fwd_block(const Params& p, int* tb, size_t* smem) {
   int dev = 0, optin = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
@@ -299,8 +319,7 @@ bool fwd_block(const Params& p, int* tb, size_t* smem) {
   for (const int b : {128, 64, 32}) {
     const size_t bytes =
         static_cast<size_t>(2 * rows_a + p.pos_pad + p.dir_pad + p.time_pad) * b * 2 +
-        static_cast<size_t>(4) * b * sizeof(float) + static_cast<size_t>(rows_a) * b / 8 +
-        static_cast<size_t>(TC_THREADS / 32) * LIST * 2;
+        static_cast<size_t>(4) * b * sizeof(float) + check_bytes(rows_a, b, LIST);
     if (bytes <= static_cast<size_t>(optin)) {
       *tb = b;
       *smem = bytes;
@@ -313,16 +332,23 @@ bool fwd_block(const Params& p, int* tb, size_t* smem) {
 }  // namespace
 
 // C entry points. Pointers are device pointers except `offsets`, a host
-// array of N_W weight, N_B bias, N_W forward-fragment and N_W
-// backward-fragment offsets (-1 = absent operand; PackedField.tc); `time`
-// may be null when time_rows is 0, `active` (one int) null for a field that
-// always runs. Each returns the CUDA error of its launches (0 = launched).
+// array of N_W weight, N_B bias, N_W forward-fragment, N_W
+// backward-fragment and N_W row-norm offsets (-1 = absent operand;
+// PackedField.tc); the forward's `norms` holds the squared weight-row norms
+// (PackedField.tc_norms; the backward makes its own, a pre-pass into its
+// workspace); `time` may be null when time_rows is 0, `active`
+// (one int) null for a field that always runs; the forward's `taps` null,
+// or (checks only) a device buffer for each block's forward tiles of the
+// backward's record (stnerf_spacenet_fwd_tc_block's rows x the block's
+// samples, bf16). Each returns the CUDA error of its launches (0 =
+// launched).
 extern "C" int stnerf_spacenet_fwd_tc(const void* pos, const void* dir, const void* time,
                                       const void* weights, const void* frags,
-                                      const void* biases, const void* offsets,
-                                      const void* active, void* out, int M, int pos_rows,
-                                      int dir_rows, int time_rows, int width, int head,
-                                      int n_rgb, void* stream) {
+                                      const void* biases, const void* norms,
+                                      const void* offsets, const void* active, void* out,
+                                      int M, int pos_rows, int dir_rows, int time_rows,
+                                      int width, int head, int n_rgb, void* taps,
+                                      void* stream) {
   Params p{};
   int tb = 0;
   size_t smem = 0;
@@ -339,13 +365,14 @@ extern "C" int stnerf_spacenet_fwd_tc(const void* pos, const void* dir, const vo
       static_cast<const float*>(pos), static_cast<const float*>(dir),
       static_cast<const float*>(time), static_cast<const unsigned short*>(weights),
       static_cast<const uint4*>(frags), static_cast<const float*>(biases),
-      static_cast<const int*>(active), static_cast<float*>(out), p);
+      static_cast<const float*>(norms), static_cast<const int*>(active),
+      static_cast<float*>(out), static_cast<unsigned short*>(taps), p);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The forward's launch for the same ints as stnerf_spacenet_fwd_tc: out[0]
-// the block's samples, out[1] its dynamic shared memory. Returns a CUDA
-// error (0 = the launch would be configured).
+// the block's samples, out[1] its dynamic shared memory, out[2] the rows of
+// a block's taps. Returns a CUDA error (0 = the launch would be configured).
 extern "C" int stnerf_spacenet_fwd_tc_block(int M, int pos_rows, int dir_rows, int time_rows,
                                             int width, int head, int n_rgb, void* out) {
   Params p{};
@@ -358,6 +385,7 @@ extern "C" int stnerf_spacenet_fwd_tc_block(int M, int pos_rows, int dir_rows, i
   int* o = static_cast<int*>(out);
   o[0] = tb;
   o[1] = static_cast<int>(smem);
+  o[2] = p.rec_rows;
   return 0;
 }
 

@@ -2,7 +2,9 @@
 // field_bwd_tc.cu, spacenet_tc.cu) on Hopper (sm_90a): dense layers over a
 // tile of BM samples as warpgroup matrix products (wgmma), bf16 operands and
 // float32 accumulation, exactly the TPU kernels' products; dense_checked
-// recomputes the outputs that lie near a bf16 rounding tie in float32.
+// recomputes in float32 the outputs that lie near a bf16 rounding tie or the
+// ReLU's 0, by one rule (WideRule) for the training forwards and the
+// backward's recompute alike.
 //
 // Operand roles. For y = W^T x a layer's outputs are the MMA's M, the
 // samples its N and the inputs its K; for dx = W dy the inputs are M and the
@@ -180,11 +182,14 @@ __device__ __forceinline__ void keep(const uint4& a) {
 // One K segment of a product with A from registers: `frag` the packed
 // fragments (PackedField.tc: m-tile major, then k-step, then thread, 16 bytes a
 // thread), `b` the B tile in shared memory (act layout, its first feature
-// row is the segment's first k), `ks` the k-steps of 16.
+// row is the segment's first k), `ks` the k-steps of 16; `rn`, for a
+// checked product (dense_checked), the squared L2 norm of each output row
+// of the segment's weights (PackedField.tc_norms).
 struct Seg {
   const uint4* frag;
   const unsigned short* b;
   int ks;
+  const float* rn = nullptr;
 };
 
 constexpr int KC = 4;  // k-steps whose fragments are loaded together
@@ -307,50 +312,40 @@ __device__ void tc_dense(const Seg* segs, int nseg, int O, const float* __restri
 
 // ------------------------------ products checked against the plain rounding
 
-// The forward's activations are rounded to bf16 as the plain version rounds
-// them. A wgmma k-step aligns its products and accumulator to the largest
-// exponent, keeps 25 bits and truncates toward zero, so a chained sum of
-// K = 256 inputs lies a few float32 ulps from the plain version's float32
-// product, which sums each output with FMAs in k order, and off it always
-// toward zero. Rounded to bf16, the two differ only where they straddle a
-// bf16 rounding tie, and a training step's fine sampling turns such flips
-// into a different step (the pose gradients, PERF.md). So every
-// output whose tensor-core sum lies within NEAR float32 ulps of a tie (NEAR /
-// 2^15 of the positive ones) is recomputed as the plain version sums it:
+// The training forwards' activations are rounded to bf16 as the plain
+// version rounds them, and the backward's recompute rounds to the same bits,
+// so that the backward differentiates the activations the forward computed.
+// A wgmma k-step aligns its products and accumulator to the largest
+// exponent, keeps 25 bits and truncates toward zero, so a chained sum of K
+// inputs lies off the plain version's float32 sum (FMAs in k order) by a few
+// units of 2^-24 of its partial sums a k-step, always toward zero. Rounded
+// to bf16 and through the ReLU, the two differ only where they straddle a
+// bf16 rounding tie or 0, and a training step's fine sampling turns such
+// flips into a different step (the pose gradients, PERF.md). So every
+// output that WideRule flags is recomputed as the plain version sums it:
 // float32 FMAs in k order on CUDA cores, each K segment on its own, the
-// segments then the bias added in order.
-constexpr unsigned NEAR = 128;
+// segments then the bias added in order. One rule serves K1's checked
+// forward, K3's forward (and K6's) and pass 1 of K2's and K3's backward, on
+// the same weight-row norms (the forwards' PackedField.tc_norms, the
+// backward's own pre-pass: one kernel, the same bits) and input norms
+// (input_norms, the backward's sum), so both directions flag the same
+// outputs.
+constexpr unsigned NEAR = 128;  // the smallest ulp window
 constexpr int LIST = 1024;  // entries of a warp's list: one chunk of 32 mask words
 
-// whether y (> 0) lies within NEAR float32 ulps of a bf16 rounding tie
-__device__ __forceinline__ bool near_tie(float y) {
-  const unsigned low = __float_as_uint(y) & 0xffffu;
-  return y > 0.f && (low > 0x8000u ? low - 0x8000u : 0x8000u - low) < NEAR;
-}
-
-// The forwards' rule (near_tie), as dense_checked's Rule: whether output
-// (r, c), y = v + b (v the tensor-core sum, b the bias), is recomputed
-struct TieRule {
-  __device__ __forceinline__ bool operator()(int, int, float y, float, float) const {
-    return near_tie(y);
-  }
-};
-
-// The backward's wider rule (tc_bwd.cuh, the recompute of pass 1). A
-// truncated chain's error is absolute: a few units of 2^-24 of its partial
-// sums a k-step. So near_tie misses the outputs whose sum cancels (a small
-// y has small ulps, and straddles a tie, or the ReLU's 0, from farther than
-// NEAR of them), and more so where the inputs are large (a position
-// encoding's raw coordinates reach 10^3 on a parked sample). The partial
-// sums' scale is estimated per output as S = |w_r| |x_c| / sqrt(K) (the
-// L2 norms of the weight row and of the sample's inputs over the layer's K
-// inputs, all segments), and y is flagged within ABS_KS x 2^-24 x S a
-// k-step of a tie or of 0; the ulp window grows with the k-steps, NEAR_KS
-// ulps a k-step (at least NEAR). The backward's flagged outputs include the
-// forwards'. An exact 0 sum with a 0 bias (a unit that pack_field pads, all
-// of whose weights are 0) is no flip: the k order sums the same zeros.
-// tests/test_torch_near_tie.py holds the rule against a model of the
-// truncation at K = 256, 512 and 1024, at two input scales.
+// The error is absolute, so a window of ulps of y alone misses the outputs
+// whose sum cancels (a small y has small ulps, and straddles a tie, or the
+// ReLU's 0, from farther than NEAR of them), and more so where the inputs
+// are large (a position encoding's raw coordinates reach 10^3 on a parked
+// sample). The partial sums' scale is estimated per output as S = |w_r|
+// |x_c| / sqrt(K) (the L2 norms of the weight row and of the sample's
+// inputs over the layer's K inputs, all segments), and y is flagged within
+// ABS_KS x 2^-24 x S a k-step of a tie or of 0; the ulp window grows with
+// the k-steps, NEAR_KS ulps a k-step (at least NEAR). An exact 0 sum with a
+// 0 bias (a unit that pack_field pads, all of whose weights are 0) is no
+// flip: the k order sums the same zeros. tests/test_torch_near_tie.py holds
+// the rule against a model of the truncation at the K of every checked
+// layer, at two input scales.
 constexpr unsigned NEAR_KS = 8;
 constexpr unsigned ABS_KS = 8;
 struct WideRule {
@@ -362,6 +357,8 @@ struct WideRule {
     return {NEAR_KS * ks > NEAR ? NEAR_KS * ks : NEAR,
             static_cast<float>(ABS_KS * ks) / 16777216.f * rsqrtf(16.f * ks), wn, xn};
   }
+  // whether output (r, c), y = v + b (v the tensor-core sum, b the bias),
+  // is recomputed
   __device__ __forceinline__ bool operator()(int r, int c, float y, float v, float b) const {
     if (v == 0.f && b == 0.f) return false;
     const float win = scale * wn[r] * xn[c];
@@ -374,6 +371,90 @@ struct WideRule {
            static_cast<float>(d) * __uint_as_float(u & 0x7f800000u) / 8388608.f < win;
   }
 };
+
+// The check's shared-memory scratch: the mask (rows x TB bits, zero between
+// layers), the lists (LN entries a warp), then WideRule's |w_r| (rows) and
+// |x_c| (TB), each a float
+struct Check {
+  unsigned* mask;
+  unsigned short* lists;
+  float* wn;
+  float* xn;
+};
+// its bytes for layers of at most `rows` outputs, TB samples, LN entries a warp
+__host__ __device__ constexpr size_t check_bytes(int rows, int tb, int ln) {
+  return static_cast<size_t>(rows) * tb / 8 + static_cast<size_t>(TC_THREADS / 32) * ln * 2 +
+         static_cast<size_t>(rows + tb) * sizeof(float);
+}
+// the scratch laid out from `at` (check_bytes of it)
+__device__ inline Check make_check(void* at, int rows, int tb, int ln) {
+  auto* mask = static_cast<unsigned*>(at);
+  auto* lists = reinterpret_cast<unsigned short*>(mask + rows * tb / 32);
+  auto* wn = reinterpret_cast<float*>(lists + (TC_THREADS / 32) * ln);
+  return {mask, lists, wn, wn + rows};
+}
+
+// The pre-pass of every checked product: the squared L2 norm of each
+// output row of the checked layers' weight slots over the slot's inputs, a
+// float each, in job order (WideRule's |w_r|): once a packed field for the
+// forwards (PackedField.tc_norms, stnerf_tc_row_norms), once a launch for
+// the backward (tc_bwd.cuh launch_norms), by this one kernel.
+struct NormJobs {
+  int n;
+  int w_off[N_W], k[N_W], o[N_W];  // each job's weights: (k, o) row-major bf16
+  int at[N_W + 1];                  // first float of each job; at[n] floats in all
+};
+
+// grid: at[n] threads, one a row, its squares summed in k order
+__global__ void row_norms_kernel(const unsigned short* __restrict__ wts, const NormJobs jobs,
+                                 float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= jobs.at[jobs.n]) return;
+  int j = 0;
+  while (i >= jobs.at[j + 1]) ++j;
+  const int o = i - jobs.at[j], O = jobs.o[j];
+  const unsigned short* w = wts + jobs.w_off[j];
+  float acc = 0.f;
+  for (int k = 0; k < jobs.k[j]; ++k) {
+    const float v = bf_f(w[k * O + o]);
+    acc = fmaf(v, v, acc);
+  }
+  out[i] = acc;
+}
+
+// |x_c|, the L2 norm of each sample's inputs over every segment, for the
+// samples [n_lo, n_lo + n_cnt) of an act tile of TB, into xn. The squares
+// are summed in 4 chains (chain q the inputs k = q mod 4 of each segment in
+// order, carried from segment to segment), then as (q0 + q2) + (q1 + q3):
+// the bf16 backward's sum at its 64-sample block (tc_bwd.cuh Ctx::dense,
+// 4 threads a sample), so that at every width up to 256 both directions
+// see the same |x_c|, bit for bit (a wider layer's smaller backward block
+// sums in 8 or 16 chains).
+template <int TB>
+__device__ void input_norms(const Seg* segs, int nseg, int n_lo, int n_cnt, float* xn) {
+  constexpr int TPC = TC_THREADS / TB;      // threads a sample: 2 at TB = 128, 4 at 64, 8 at 32
+  constexpr int J = TPC < 4 ? 4 / TPC : 1;  // chains a thread: q = part + TPC j
+  const int c = threadIdx.x / TPC, part = threadIdx.x % TPC;
+  float s[J];
+#pragma unroll
+  for (int j = 0; j < J; ++j) s[j] = 0.f;
+  if (c >= n_lo && c < n_lo + n_cnt && part < 4) {
+    for (int i = 0; i < nseg; ++i) {
+      const unsigned short* b = segs[i].b;
+      for (int k0 = 0; k0 < 16 * segs[i].ks; k0 += 4) {
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          const float v = bf_f(b[act_idx<TB>(k0 + part + TPC * j, c)]);
+          s[j] = fmaf(v, v, s[j]);
+        }
+      }
+    }
+  }
+  if constexpr (J == 2) s[0] += s[1];  // q + (q + 2)
+#pragma unroll
+  for (int d = TPC / 2; d > 0; d >>= 1) s[0] += __shfl_down_sync(0xffffffffu, s[0], d, TPC);
+  if (c >= n_lo && c < n_lo + n_cnt && part == 0) xn[c] = sqrtf(s[0]);
+}
 
 // acc + sum_k w_k x_k over one k-step (16 inputs) in k order: the four
 // fragments of output row r (PackedField.tc, registers x and z, or y and w
@@ -431,18 +512,38 @@ __device__ void recompute_one(const Seg* segs, int nseg, const float* __restrict
   out[act_idx<TB>(r, c)] = f_bf(rnd<true>(fmaxf(__fadd_rn(sum, bias[r]), 0.f)));
 }
 
+// WideRule for one checked layer over these segments: |w_r| (the root of
+// the segments' squared row norms rn, summed in order) for its O rows into
+// wn, and |x_c| (input_norms) for the samples [n_lo, n_lo + n_cnt) into xn,
+// then a barrier before the product that reads them
+template <int TB>
+__device__ WideRule wide_rule(const Seg* segs, int nseg, int O, int n_lo, int n_cnt, float* wn,
+                              float* xn) {
+  int ks = 0;
+  for (int i = 0; i < nseg; ++i) ks += segs[i].ks;
+  for (int r = threadIdx.x; r < O; r += TC_THREADS) {
+    float s = 0.f;
+    for (int i = 0; i < nseg; ++i) s += segs[i].rn[r];
+    wn[r] = sqrtf(s);
+  }
+  input_norms<TB>(segs, nseg, n_lo, n_cnt, xn);
+  __syncthreads();
+  return WideRule::make(ks, wn, xn);
+}
+
 // out = round_bf16(relu(sum_s W_s^T x_s + bias)), rows < O, into an act
 // tile of TB samples: tc_dense's products, each output flagged in `mask`
-// (O x TB bits, row-major; zero on entry and on exit) when `rule` says it
-// lies near a tie (TieRule: near_tie); then the flagged outputs recomputed
+// (O x TB bits, row-major; zero on entry and on exit) when `rule` (the
+// layer's wide_rule) says so; then the flagged outputs recomputed
 // (recompute_one), each by one lane from the segments' fragments. `lists`
 // (LN entries a warp, a multiple of 32: a chunk of LN / 32 mask words) is
-// shared-memory scratch. FULL: every column (K3, the backward); otherwise
-// the columns [n_lo, n_lo + n_cnt) (K1's blocks with one skip flag off).
-template <int TB, bool FULL, int LN = LIST, class Rule = TieRule>
+// shared-memory scratch. FULL: every column (K3's forward, the backward);
+// otherwise the columns [n_lo, n_lo + n_cnt) (K1's blocks with one skip
+// flag off), the only ones normed and flagged.
+template <int TB, bool FULL, int LN>
 __device__ void dense_checked(const Seg* segs, int nseg, int O, const float* __restrict__ bias,
                               unsigned short* out, unsigned* mask, unsigned short* lists,
-                              int n_lo = 0, int n_cnt = TB, Rule rule = Rule()) {
+                              const WideRule rule, int n_lo = 0, int n_cnt = TB) {
   if (FULL) {
     n_lo = 0;
     n_cnt = TB;
@@ -540,6 +641,67 @@ __device__ void zero_rows(unsigned short* t, int from, int to) {
 __device__ __forceinline__ void layer_sync() {
   fence_smem_async();
   __syncthreads();
+}
+
+// ------------------------------------- the record layout, and the taps
+
+// The tiles of a block's record of the bf16 backward's pass 1 (tc_bwd.cuh),
+// in rows of BM bf16 samples (act layout). The checked forwards' taps (a
+// read-back for checks: chip_smoke.py) write the forward's tiles of it in
+// the same layout at the forward's block.
+enum Rec {
+  R_HS0 = 0,     // rgb head activations (3)
+  R_DHS0 = 3,    // their cotangents (3)
+  R_G3RGB = 6,   // the rgb cotangent, 3 rows padded to 16
+  R_A0 = 7,      // trunk activations a0-a6 (7)
+  R_D0 = 14,     // their cotangents (7)
+  R_POS = 21,    // position encoding
+  R_DIR = 22,    // relu(direction encoding)
+  R_TIME = 23,   // relu(time encoding)
+  R_SIG = 24,    // the sigma cotangent, 1 row padded to 16
+  R_U0 = 25,     // motion encoding and hidden layers u0-u5 (6)
+  R_DU1 = 31,    // the hidden layers' cotangents du1-du5 (5)
+  R_G3M = 36,    // the flow cotangent, 3 rows padded to 16
+  N_REC = 37
+};
+
+// p.rec (each tile's first row; -1 = absent) and p.rec_rows from p's
+// shapes: the SpaceNet's, and the motion net's when p.motion_mode is set
+template <class P>
+void record_layout(P& p) {
+  int rows[N_REC];
+  for (int r = 0; r < N_REC; ++r) rows[r] = 0;
+  for (int i = 0; i < p.n_rgb - 1; ++i) rows[R_HS0 + i] = rows[R_DHS0 + i] = p.head;
+  rows[R_G3RGB] = rows[R_SIG] = 16;
+  for (int k = 0; k < 7; ++k) rows[R_A0 + k] = rows[R_D0 + k] = p.width;
+  rows[R_POS] = p.pos_pad;
+  rows[R_DIR] = p.dir_pad;
+  rows[R_TIME] = p.time_pad;
+  if (p.motion_mode) {
+    rows[R_U0] = p.menc_pad;
+    for (int k = 1; k < 6; ++k) rows[R_U0 + k] = rows[R_DU1 + k - 1] = p.motion_width;
+    rows[R_G3M] = 16;
+  }
+  p.rec_rows = 0;
+  for (int r = 0; r < N_REC; ++r) {
+    p.rec[r] = rows[r] ? p.rec_rows : -1;
+    p.rec_rows += rows[r];
+  }
+}
+
+// With taps (not null): the `rows` rows of an act tile of TB samples, as
+// they stand in shared memory behind the last layer_sync, into the record
+// tile at row `at` of this block's record in taps (rec_rows x TB bf16 a
+// block). Each thread copies its share before it reaches the next barrier,
+// so the tile may be overwritten after the layer that follows.
+template <int TB>
+__device__ void tap(unsigned short* taps, int rec_rows, int at, const unsigned short* tile,
+                    int rows) {
+  if (taps == nullptr || at < 0) return;
+  auto* dst = reinterpret_cast<uint4*>(
+      taps + (static_cast<size_t>(blockIdx.x) * rec_rows + at) * TB);
+  const auto* src = reinterpret_cast<const uint4*>(tile);
+  for (int i = threadIdx.x; i < rows * TB / 8; i += TC_THREADS) dst[i] = src[i];
 }
 
 }  // namespace

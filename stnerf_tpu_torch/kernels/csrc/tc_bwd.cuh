@@ -7,9 +7,9 @@
 //      writing each layer's bf16 input x and output cotangent dy into the
 //      block's record in global memory (Ctx::save). Every recomputed layer
 //      is near-tie checked as the training forwards' are (Ctx::dense:
-//      tc_blocks.cuh's dense_checked, with its wider WideRule), so its bf16
-//      activations and ReLU masks are the plain version's k-order rounding,
-//      which the forward rounds to wherever it flags the output;
+//      tc_blocks.cuh's dense_checked with its one rule, WideRule), so its
+//      bf16 activations and ReLU masks are the plain version's k-order
+//      rounding, the bits the checked forward computed;
 //   2. field_dw_kernel: dW = x dy^T and db = sum dy for every layer from the
 //      records, one float32 partial per range of records;
 //   3. field_dw_reduce (field_common.cuh): each entry the sum of its ranges'
@@ -47,23 +47,7 @@ __device__ __forceinline__ int block_flag(const int* flags, int b, int step) {
   return flags[b / (FLAG_TILE / BM) * step];
 }
 
-// The tiles of a block's record, in rows of BM bf16 samples (act layout).
-enum Rec {
-  R_HS0 = 0,     // rgb head activations (3)
-  R_DHS0 = 3,    // their cotangents (3)
-  R_G3RGB = 6,   // the rgb cotangent, 3 rows padded to 16
-  R_A0 = 7,      // trunk activations a0-a6 (7)
-  R_D0 = 14,     // their cotangents (7)
-  R_POS = 21,    // position encoding
-  R_DIR = 22,    // relu(direction encoding)
-  R_TIME = 23,   // relu(time encoding)
-  R_SIG = 24,    // the sigma cotangent, 1 row padded to 16
-  R_U0 = 25,     // motion encoding and hidden layers u0-u5 (6)
-  R_DU1 = 31,    // the hidden layers' cotangents du1-du5 (5)
-  R_G3M = 36,    // the flow cotangent, 3 rows padded to 16
-  N_REC = 37
-};
-
+// The record's tiles are tc_blocks.cuh's Rec; record_layout lays them out.
 struct Params {
   int w_off[N_W];
   int b_off[N_B];
@@ -86,32 +70,6 @@ __host__ __device__ inline int check_rows(const Params& p) {
 inline size_t check_bytes(const Params& p, int bm) {
   return static_cast<size_t>(check_rows(p)) * bm / 8 + (TC_THREADS / 32) * BWD_LIST * 2 +
          static_cast<size_t>(check_rows(p) + bm) * sizeof(float);
-}
-
-// The squared L2 norm of every output row of the checked layers' weight
-// slots over the slot's inputs, a float each, in job order: WideRule's
-// |w_r|, made once a launch before pass 1 (row_norms_kernel).
-struct NormJobs {
-  int n;
-  int w_off[N_W], k[N_W], o[N_W];  // each job's weights: (k, o) row-major bf16
-  int at[N_W + 1];                  // first float of each job; at[n] floats in all
-};
-
-// grid: at[n] threads, one a row
-__global__ void row_norms_kernel(const unsigned short* __restrict__ wts, const NormJobs jobs,
-                                 float* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= jobs.at[jobs.n]) return;
-  int j = 0;
-  while (i >= jobs.at[j + 1]) ++j;
-  const int o = i - jobs.at[j], O = jobs.o[j];
-  const unsigned short* w = wts + jobs.w_off[j];
-  float acc = 0.f;
-  for (int k = 0; k < jobs.k[j]; ++k) {
-    const float v = bf_f(w[k * O + o]);
-    acc = fmaf(v, v, acc);
-  }
-  out[i] = acc;
 }
 
 template <int BM>
@@ -162,8 +120,8 @@ struct Ctx {
     for (int d = TPC / 2; d > 0; d >>= 1) s += __shfl_down_sync(0xffffffffu, s, d, TPC);
     if (part == 0) xn[c] = sqrtf(s);
     __syncthreads();
-    dense_checked<BM, true, BWD_LIST, WideRule>(segs, nseg, O, Bi(bslot), out, mask, lists, 0,
-                                                BM, WideRule::make(ks, wn, xn));
+    dense_checked<BM, true, BWD_LIST>(segs, nseg, O, Bi(bslot), out, mask, lists,
+                                      WideRule::make(ks, wn, xn));
     layer_sync();
   }
   __device__ void dense(int slot, const unsigned short* in, int k_rows, int bslot, int O,
@@ -590,14 +548,17 @@ bool choose_block(Layout& L, Smem smem, Kernel kernel) {
   return false;
 }
 
-// The packed offsets (the C entry points' `offsets`: N_W weight, N_B bias,
-// N_W forward-fragment and N_W backward-fragment offsets) into p; all -1
-// when `off` is null (only the sizes are wanted).
+// The packed offsets (the C entry points' `offsets`, PackedField.tc: N_W
+// weight, N_B bias, N_W forward-fragment, N_W backward-fragment and N_W
+// row-norm offsets, the last into PackedField.tc_norms, which K3's forward
+// reads; the backward lays out its own, finish_layout) into p; all -1 when
+// `off` is null (only the sizes are wanted).
 void set_offsets(Params& p, const int* off) {
   for (int i = 0; i < N_W; ++i) {
     p.w_off[i] = off ? off[i] : -1;
     p.f_off[i] = off ? off[N_W + N_B + i] : -1;
     p.g_off[i] = off ? off[2 * N_W + N_B + i] : -1;
+    p.n_off[i] = off ? off[3 * N_W + N_B + i] : -1;
   }
   for (int i = 0; i < N_B; ++i) p.b_off[i] = off ? off[N_W + i] : -1;
 }
@@ -608,25 +569,7 @@ void set_offsets(Params& p, const int* off) {
 // counts n_w and n_b.
 void finish_layout(Layout& L, int n_w, int n_b, int flag_step, int sms) {
   Params& p = L.p;
-  // the record: each tile's rows, in Rec order
-  int rows[N_REC];
-  for (int r = 0; r < N_REC; ++r) rows[r] = 0;
-  for (int i = 0; i < p.n_rgb - 1; ++i) rows[R_HS0 + i] = rows[R_DHS0 + i] = p.head;
-  rows[R_G3RGB] = rows[R_SIG] = 16;
-  for (int k = 0; k < 7; ++k) rows[R_A0 + k] = rows[R_D0 + k] = p.width;
-  rows[R_POS] = p.pos_pad;
-  rows[R_DIR] = p.dir_pad;
-  rows[R_TIME] = p.time_pad;
-  if (p.motion_mode) {
-    rows[R_U0] = p.menc_pad;
-    for (int k = 1; k < 6; ++k) rows[R_U0 + k] = rows[R_DU1 + k - 1] = p.motion_width;
-    rows[R_G3M] = 16;
-  }
-  p.rec_rows = 0;
-  for (int r = 0; r < N_REC; ++r) {
-    p.rec[r] = rows[r] ? p.rec_rows : -1;
-    p.rec_rows += rows[r];
-  }
+  record_layout(p);
 
   DwParams& d = L.dw;
   d.n_jobs = 0;

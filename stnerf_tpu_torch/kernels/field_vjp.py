@@ -39,11 +39,11 @@ import torch
 
 from ..ops.rounding import round_to
 from . import f32_bwd
-from .fused_field import (TILE, PackedField, _check_inputs, check_backward_support,
-                          _encode, _field_linears, _linear_grads, fused_field,
+from .fused_field import (TILE, PackedField, _check_inputs, _encode, _field_linears,
+                          _linear_grads, _workspace, check_backward_support, fused_field,
                           fused_field_reference, kernel_ints, pack_field,
                           prepare_kernel_params_planar, prepare_motion_params_planar)
-from .spacenet_vjp import _workspace, pack_grads, spacenet_bwd_math
+from .spacenet_vjp import pack_grads, spacenet_bwd_math
 
 if TYPE_CHECKING:  # models imports this module
     from ..models.motionnet import MotionNet

@@ -184,12 +184,37 @@ class PackedField:
         fragments are the weights gathered into :func:`tc_fragments` order
         (one indexed copy on the weights' device); the offsets are
         ``self.offsets`` followed by the forward and backward fragment
-        offsets, in 16-byte units (:func:`_tc_index`)."""
+        offsets, in 16-byte units (:func:`_tc_index`), and each weight
+        slot's first row in :attr:`tc_norms` (:func:`_norm_jobs`)."""
         shapes = tuple(sorted((s, v) for s, v in self.shapes.items() if s in W_SLOTS))
         idx, f_offs, g_offs = _tc_index(self.weights.device, self.weights.numel(), shapes,
                                         tuple(int(o) for o in self.offsets[:len(W_SLOTS)]))
         src = torch.cat([self.weights, self.weights.new_zeros(1)])
-        return src[idx], np.concatenate([self.offsets, f_offs, g_offs]).astype(np.int32)
+        n_offs = _norm_jobs(self)[0]
+        return src[idx], np.concatenate([self.offsets, f_offs, g_offs, n_offs]).astype(np.int32)
+
+    @functools.cached_property
+    def tc_norms(self) -> torch.Tensor:
+        """The squared L2 norm of each output row of every weight slot that a
+        checked tensor-core product takes (float32, the slots in
+        :data:`W_SLOTS` order): WideRule's |w_r| of K1's checked forward and
+        of K3's forward (``csrc/tc_blocks.cuh``), made once per packed field
+        by ``stnerf_tc_row_norms`` on the weights' CUDA device; the bf16
+        backward makes the same values once a launch with the same kernel,
+        ``row_norms_kernel``."""
+        from ._build import load_library
+
+        _, jobs = _norm_jobs(self)
+        out = torch.empty(int(jobs[:, 2].sum()), dtype=torch.float32,
+                          device=self.weights.device)
+        ptr = ctypes.c_void_p
+        with torch.cuda.device(out.device):
+            err = load_library().stnerf_tc_row_norms(
+                ptr(self.weights.data_ptr()), jobs.ctypes.data_as(ptr), len(jobs),
+                ptr(out.data_ptr()), ptr(torch.cuda.current_stream().cuda_stream))
+        if err != 0:
+            raise RuntimeError(f"stnerf_tc_row_norms launch failed: CUDA error {err}")
+        return out
 
     @functools.cached_property
     def dx_frags(self) -> torch.Tensor:
@@ -300,6 +325,24 @@ def _tc_index(device: torch.device, n_weights: int, shapes: tuple, offsets: tupl
     index[index < 0] = n_weights
     return (torch.as_tensor(index, device=device), np.asarray(f_offs, np.int32),
             np.asarray(g_offs, np.int32))
+
+
+def _norm_jobs(field: PackedField) -> tuple:
+    """The weight slots of the checked products, those with forward
+    fragments (every layer of width >= 32; :func:`_tc_index`) -> (each W
+    slot's first row in :attr:`PackedField.tc_norms`, -1 for none; an int32
+    (slots, 3) array of each such slot's packed offset, inputs and outputs,
+    in :data:`W_SLOTS` order)."""
+    n_offs, jobs, at = [], [], 0
+    for i, slot in enumerate(W_SLOTS):
+        if slot not in field.shapes or field.shapes[slot][1] < 32:
+            n_offs.append(-1)
+            continue
+        k_in, k_out = field.shapes[slot]
+        n_offs.append(at)
+        jobs.append((int(field.offsets[i]), k_in, k_out))
+        at += k_out
+    return np.asarray(n_offs, np.int32), np.asarray(jobs, np.int32).reshape(-1, 3)
 
 
 def _encode(v: torch.Tensor, spec: SpaceNetSpec) -> torch.Tensor:
@@ -459,9 +502,28 @@ def kernel_ints(field: PackedField, m: int, dir_rows: int) -> tuple:
             MOTION_MODES[field.motion_mode])
 
 
+def _check_taps(taps: torch.Tensor | None, tc: bool, dev: torch.device,
+               what: str) -> None:
+    """``taps`` are read back from a checked tensor-core forward on the card:
+    refused for a CPU tensor, the float32 route and the render route."""
+    if taps is not None and not (tc and dev.type == "cuda"):
+        raise ValueError(f"{what} takes taps on the card's checked bf16 route only")
+
+
+def _workspace(given: torch.Tensor | None, nbytes: int, dev: torch.device) -> torch.Tensor:
+    """A new uint8 device buffer of ``nbytes``, or the caller's (checked)."""
+    if given is None:
+        return torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    if (given.dtype != torch.uint8 or given.device != dev or not given.is_contiguous()
+            or given.numel() < nbytes):
+        raise ValueError(f"the buffer must be contiguous uint8 of at least {nbytes} "
+                         f"bytes on {dev}, got {given.dtype} {given.numel()} on {given.device}")
+    return given
+
+
 def fused_field(field: PackedField, xyz: torch.Tensor, ids: torch.Tensor,
                 dir_enc: torch.Tensor, tile_flags: torch.Tensor | None = None,
-                checked: bool = False):
+                checked: bool = False, *, taps: torch.Tensor | None = None):
     """Evaluate one (optionally deformed) radiance field.
 
     xyz (3, M) canonical positions, ids (1, M) frame ids, dir_enc
@@ -473,10 +535,17 @@ def fused_field(field: PackedField, xyz: torch.Tensor, ids: torch.Tensor,
     tensor-core kernel for a bf16 field and the CUDA-core kernel for a
     float32 one, and any failure to build or launch it raises. ``checked``
     (the training forward) has the tensor-core kernel recompute in float32
-    the outputs whose sum lies near a bf16 rounding tie, so that they round
-    as the plain version rounds them (``csrc/fused_field_tc.cu``).
+    the outputs whose sum lies near a bf16 rounding tie or 0, so that they
+    round as the plain version rounds them, by the rule of the bf16
+    backward's recompute (``csrc/fused_field_tc.cu``). ``taps``: for checks
+    only, a caller-made uint8 CUDA tensor of at least :func:`tc_launch`'s
+    ``taps_bytes`` into which the checked bf16 route copies each block's
+    encodings and bf16 layer outputs, in the bf16 backward's record layout
+    at this launch's block (``chip_smoke.fwd_taps``); a CPU tensor, the
+    float32 route and the unchecked route refuse them.
     """
     _check_inputs(field, xyz, ids, dir_enc, tile_flags)
+    _check_taps(taps, checked and field.compute_dtype == "bfloat16", xyz.device, "fused_field")
     if xyz.device.type == "cpu":
         return fused_field_reference(field, xyz, ids, dir_enc, tile_flags)
     if xyz.device.type != "cuda":
@@ -497,10 +566,14 @@ def fused_field(field: PackedField, xyz: torch.Tensor, ids: torch.Tensor,
                   ptr(field.weights.data_ptr()))
         if tc:
             frags, offsets = field.tc
+            norms = ptr(field.tc_norms.data_ptr() if checked else None)
+            if taps is not None:
+                taps = _workspace(taps, tc_launch(field, m, dir_enc.shape[0], True)["taps_bytes"],
+                                 xyz.device)
             err = lib.stnerf_fused_field_tc(
-                *inputs, ptr(frags.data_ptr()), ptr(field.biases.data_ptr()),
+                *inputs, ptr(frags.data_ptr()), ptr(field.biases.data_ptr()), norms,
                 offsets.ctypes.data_as(ptr), ptr(out.data_ptr()), *ints, int(checked),
-                stream)
+                ptr(None if taps is None else taps.data_ptr()), stream)
         else:
             err = lib.stnerf_fused_field(
                 *inputs, ptr(field.biases.data_ptr()), field.offsets.ctypes.data_as(ptr),
@@ -534,18 +607,21 @@ def float32_ring(field: PackedField, m: int, dir_rows: int) -> dict:
 
 def tc_launch(field: PackedField, m: int, dir_rows: int, checked: bool = False) -> dict:
     """The tensor-core kernel's launch for this bf16 field at ``m`` samples
-    (``csrc/fused_field_tc.cu``): its sample block and the block's dynamic
-    shared memory. Needs the card."""
+    (``csrc/fused_field_tc.cu``): its sample block, the block's dynamic
+    shared memory, and the taps' rows a block and bytes (the ``taps`` of
+    the checked route). Needs the card."""
     from ._build import load_library
 
     check_forward_support(field)
-    out = np.zeros(2, np.int32)
+    out = np.zeros(3, np.int32)
     err = load_library().stnerf_fused_field_tc_block(*kernel_ints(field, m, dir_rows),
                                                      int(checked),
                                                      out.ctypes.data_as(ctypes.c_void_p))
     if err != 0:
         raise RuntimeError(f"fused_field_tc block query failed: CUDA error {err}")
-    return {"block_samples": int(out[0]), "smem_bytes": int(out[1])}
+    bm, rows = int(out[0]), int(out[2])
+    return {"block_samples": bm, "smem_bytes": int(out[1]), "tap_rows": rows,
+            "taps_bytes": -(-m // bm) * rows * bm * 2}
 
 
 # ---------------------------------------------------------------------------

@@ -54,9 +54,9 @@ import torch
 
 from ..ops.rounding import round_to
 from . import f32_bwd
-from .fused_field import (PackedField, _field_linears, _linear_grads,
-                          check_forward_widths, pack_field, prepare_kernel_params_planar,
-                          spacenet_chain)
+from .fused_field import (PackedField, _check_taps, _field_linears, _linear_grads,
+                          _workspace, check_forward_widths, pack_field,
+                          prepare_kernel_params_planar, spacenet_chain)
 
 if TYPE_CHECKING:  # models imports this module
     from ..models.spacenet import SpaceNet
@@ -219,11 +219,12 @@ def _kernel_args(field: PackedField, pos_enc, dir_enc, time_enc, active) -> tupl
 
 
 def _launch_fwd(field: PackedField, pos_enc: torch.Tensor, dir_enc: torch.Tensor,
-                time_enc: torch.Tensor | None, active: torch.Tensor | None) -> torch.Tensor:
+                time_enc: torch.Tensor | None, active: torch.Tensor | None,
+                taps: torch.Tensor | None = None) -> torch.Tensor:
     """One launch of the forward kernel on checked CUDA inputs -> (4, M):
     raw rgb rows, then sigma. A bf16 field runs the tensor-core kernel, a
     float32 one the CUDA-core kernel. Counts nothing: :func:`counted_fwd`
-    does."""
+    does. ``taps`` as :func:`spacenet_fwd`'s."""
     from ._build import load_library
 
     lib = load_library()
@@ -236,9 +237,14 @@ def _launch_fwd(field: PackedField, pos_enc: torch.Tensor, dir_enc: torch.Tensor
                   ptr(field.weights.data_ptr()))
         if field.compute_dtype == "bfloat16":
             frags, offsets = field.tc
+            if taps is not None:
+                taps = _workspace(taps, tc_launch(field, pos_enc, dir_enc, time_enc)["taps_bytes"],
+                                  pos_enc.device)
             err = lib.stnerf_spacenet_fwd_tc(
                 *inputs, ptr(frags.data_ptr()), ptr(field.biases.data_ptr()),
-                offsets.ctypes.data_as(ptr), active_ptr, ptr(out.data_ptr()), *ints, stream)
+                ptr(field.tc_norms.data_ptr()), offsets.ctypes.data_as(ptr), active_ptr,
+                ptr(out.data_ptr()), *ints, ptr(None if taps is None else taps.data_ptr()),
+                stream)
         else:
             err = lib.stnerf_spacenet_fwd(
                 *inputs, ptr(field.biases.data_ptr()), field.offsets.ctypes.data_as(ptr),
@@ -283,16 +289,19 @@ def float32_ring(field: PackedField, pos_enc: torch.Tensor, dir_enc: torch.Tenso
 def tc_launch(field: PackedField, pos_enc: torch.Tensor, dir_enc: torch.Tensor,
               time_enc: torch.Tensor | None) -> dict:
     """The tensor-core forward kernel's launch for this bf16 field on these
-    inputs (``csrc/spacenet_tc.cu``): its sample block and the block's
-    dynamic shared memory. Needs the card."""
+    inputs (``csrc/spacenet_tc.cu``): its sample block, the block's dynamic
+    shared memory, and the taps' rows a block and bytes (``spacenet_fwd``'s
+    ``taps``). Needs the card."""
     from ._build import load_library
 
-    out = (ctypes.c_int * 2)()
+    out = (ctypes.c_int * 3)()
     ints = _kernel_args(field, pos_enc, dir_enc, time_enc, None)[0]
     err = load_library().stnerf_spacenet_fwd_tc_block(*ints, ctypes.cast(out, ctypes.c_void_p))
     if err != 0:
         raise RuntimeError(f"spacenet_tc block query failed: CUDA error {err}")
-    return {"block_samples": out[0], "smem_bytes": out[1]}
+    bm, rows = out[0], out[2]
+    return {"block_samples": bm, "smem_bytes": out[1], "tap_rows": rows,
+            "taps_bytes": -(-pos_enc.shape[1] // bm) * rows * bm * 2}
 
 
 def tc_bwd_launch(field: PackedField, pos_enc: torch.Tensor, dir_enc: torch.Tensor,
@@ -320,44 +329,41 @@ def _on_cuda(name: str, t: torch.Tensor) -> bool:
 
 def counted_fwd(wrapper, field: PackedField, pos_enc: torch.Tensor,
                 dir_enc: torch.Tensor, time_enc: torch.Tensor | None,
-                active: torch.Tensor | None = None):
+                active: torch.Tensor | None = None, taps: torch.Tensor | None = None):
     """The body of every wrapper of the forward kernel (``spacenet_fwd``
     and K6's entries): on CPU tensors the plain version; on CUDA tensors
     one launch, counted on ``wrapper.launches`` (and, on the tensor-core
-    route, ``wrapper.launches_tc``). -> (rgb (3, M), sigma (M,))."""
+    route, ``wrapper.launches_tc``). ``taps`` as :func:`spacenet_fwd`'s.
+    -> (rgb (3, M), sigma (M,))."""
     _check_inputs(field, pos_enc, dir_enc, time_enc, active)
+    _check_taps(taps, field.compute_dtype == "bfloat16", pos_enc.device, wrapper.__name__)
     if not _on_cuda(wrapper.__name__, pos_enc):
         return spacenet_fwd_reference(field, pos_enc, dir_enc, time_enc, active)
-    out = _launch_fwd(field, pos_enc, dir_enc, time_enc, active)
+    out = _launch_fwd(field, pos_enc, dir_enc, time_enc, active, taps)
     wrapper.launches += 1
     wrapper.launches_tc += int(field.compute_dtype == "bfloat16")
     return out[:3], out[3]
 
 
 def spacenet_fwd(field: PackedField, pos_enc: torch.Tensor, dir_enc: torch.Tensor,
-                 time_enc: torch.Tensor | None = None, active: torch.Tensor | None = None):
+                 time_enc: torch.Tensor | None = None, active: torch.Tensor | None = None, *,
+                 taps: torch.Tensor | None = None):
     """SpaceNet forward on encoded inputs. -> (rgb (3, M), sigma (M,)), raw.
 
     CPU tensors run :func:`spacenet_fwd_reference`. CUDA tensors launch the
     tensor-core kernel for a bf16 field and the CUDA-core kernel for a
-    float32 one, and any failure to build or launch it raises.
+    float32 one, and any failure to build or launch it raises. The
+    tensor-core kernel recomputes in float32 the outputs near a bf16
+    rounding tie or 0 by the rule of its backward's recompute. ``taps``:
+    for checks only, as ``fused_field.fused_field``'s (at least
+    :func:`tc_launch`'s ``taps_bytes``); a CPU tensor and the float32 route
+    refuse them.
     """
-    return counted_fwd(spacenet_fwd, field, pos_enc, dir_enc, time_enc, active)
+    return counted_fwd(spacenet_fwd, field, pos_enc, dir_enc, time_enc, active, taps)
 
 
 spacenet_fwd.launches = 0
 spacenet_fwd.launches_tc = 0
-
-
-def _workspace(given: torch.Tensor | None, nbytes: int, dev: torch.device) -> torch.Tensor:
-    """A new workspace of ``nbytes``, or the caller's (checked)."""
-    if given is None:
-        return torch.empty(nbytes, dtype=torch.uint8, device=dev)
-    if (given.dtype != torch.uint8 or given.device != dev or not given.is_contiguous()
-            or given.numel() < nbytes):
-        raise ValueError(f"the workspace must be contiguous uint8 of at least {nbytes} "
-                         f"bytes on {dev}, got {given.dtype} {given.numel()} on {given.device}")
-    return given
 
 
 def spacenet_bwd(field: PackedField, pos_enc: torch.Tensor, dir_enc: torch.Tensor,

@@ -318,17 +318,27 @@ def test_tensor_core_fragments_hold_the_weights():
     """The tensor-core kernels' operand gather (``PackedField.tc``): every
     fragment value sits where csrc/tc_blocks.cuh's register layout of a
     64 x 16 wgmma A tile reads it — W^T for the forward, W for dx = W dy —
-    and the padding up to 64 rows and 16 columns is zero."""
+    and the padding up to 64 rows and 16 columns is zero. The offsets end
+    with each slot's first row in ``PackedField.tc_norms``: the checked
+    products' slots (those with forward fragments), their output rows one
+    after another in slot order (``_norm_jobs``)."""
     import torch
 
-    from stnerf_tpu_torch.kernels.fused_field import W_SLOTS
+    from stnerf_tpu_torch.kernels.fused_field import W_SLOTS, _norm_jobs
 
     _, field = _pair("lerp", deep_rgb=True, compute_dtype="bfloat16")
     frags, offsets = field.tc
-    n_w = len(W_SLOTS)
-    assert frags.dtype == torch.bfloat16 and offsets.shape == (len(field.offsets) + 2 * n_w,)
-    f_offs = offsets[len(field.offsets):len(field.offsets) + n_w]
-    g_offs = offsets[len(field.offsets) + n_w:]
+    n_w, n = len(W_SLOTS), len(field.offsets)
+    assert frags.dtype == torch.bfloat16 and offsets.shape == (n + 3 * n_w,)
+    f_offs = offsets[n:n + n_w]
+    g_offs = offsets[n + n_w:n + 2 * n_w]
+    n_offs, jobs = _norm_jobs(field)
+    np.testing.assert_array_equal(offsets[n + 2 * n_w:], n_offs)
+    assert ((n_offs >= 0) == (f_offs >= 0)).all()
+    slots = [s for s, o in zip(W_SLOTS, n_offs) if o >= 0]
+    assert [tuple(j) for j in jobs] == [
+        (field.offsets[W_SLOTS.index(s)], *field.shapes[s]) for s in slots]
+    np.testing.assert_array_equal(n_offs[n_offs >= 0], np.cumsum([0, *jobs[:-1, 2]]))
     frags = frags.float().numpy()
     # thread t = 32 w + 4 q + p holds registers j = 0..3 of two values each:
     # row 16 w + q + 8 (j % 2), column 2 p + e + 8 (j // 2)
@@ -356,3 +366,35 @@ def test_tensor_core_fragments_hold_the_weights():
     # motion 0-4, trunk 1-4, s2a/b, s2w2/3, and the head's r1a/b/c and
     # rgb1/2 (16 wide in the model, packed at 32)
     assert checked == 2 * 18
+
+
+def test_taps_refused_off_the_cards_checked_bf16_route(rng):
+    """The taps (a check's read-back of the checked bf16 forward's
+    activations, ``chip_smoke.fwd_taps``) are taken on the card's checked
+    tensor-core route only: ``fused_field`` refuses them on CPU tensors in
+    either dtype, checked or not, and ``spacenet_fwd`` on CPU tensors; the
+    shared check refuses a CUDA tensor of the float32 or the unchecked
+    route and passes the checked bf16 one. Nothing launches."""
+    import torch
+
+    from stnerf_tpu_torch.kernels.fused_field import _check_taps, fused_field
+    from stnerf_tpu_torch.kernels.spacenet_vjp import spacenet_fwd
+
+    taps = torch.empty(16, dtype=torch.uint8)
+    xyz, ids, dir_enc = (torch.tensor(a) for a in _inputs(rng, "lerp"))
+    for dt in ("float32", "bfloat16"):
+        field = _pair("lerp", compute_dtype=dt)[1]
+        for checked in (False, True):
+            with pytest.raises(ValueError, match="taps"):
+                fused_field(field, xyz, ids, dir_enc, checked=checked, taps=taps)
+    space = _pair(None, compute_dtype="bfloat16")[1]
+    pos, time = (torch.tensor(rng.normal(size=(space.shapes[s][0], M)).astype(np.float32))
+                 for s in ("w1", "r1c"))
+    with pytest.raises(ValueError, match="taps"):
+        spacenet_fwd(space, pos, dir_enc, time if space.spec.use_time else None, taps=taps)
+    cuda = torch.device("cuda", 0)
+    with pytest.raises(ValueError, match="taps"):
+        _check_taps(taps, False, cuda, "fused_field")
+    _check_taps(taps, True, cuda, "fused_field")
+    _check_taps(None, False, torch.device("cpu"), "fused_field")
+    assert fused_field.launches == spacenet_fwd.launches == 0

@@ -1,6 +1,7 @@
-"""The near-tie rule of the bf16 backward kernels' recompute
-(``stnerf_tpu_torch/kernels/csrc/tc_blocks.cuh``: ``WideRule``, used by
-``tc_bwd.cuh``'s ``Ctx::dense``) against a NumPy model of how a Hopper
+"""The near-tie rule of the bf16 kernels' checked products
+(``stnerf_tpu_torch/kernels/csrc/tc_blocks.cuh``: ``WideRule``, applied by
+``dense_checked`` in K1's training forward, K3's forward and the backward's
+recompute, ``tc_bwd.cuh``'s ``Ctx::dense``) against a NumPy model of how a Hopper
 ``wgmma`` k-step sums, as ``tc_blocks.cuh`` describes it (and
 ``tools/torch_wgmma_rounding.py`` measured it): the products of a k-step
 of 16 inputs and the accumulator are aligned to the largest exponent among
@@ -12,8 +13,9 @@ bf16 product is exact in float32, so each step is an FMA).
 Every output whose two sums round to different bf16 activations (bias,
 ReLU, bf16), or lie on different sides of the ReLU, must be flagged by the
 rule, which the kernel then recomputes in k order. The rule's constants
-are read from the header's source. NumPy only: neither torch nor JAX is
-imported, so the tests run in the pytest process itself.
+are read from the header's source, and the sources are held to one rule
+for both directions. NumPy only: neither torch nor JAX is imported, so the
+tests run in the pytest process itself.
 """
 
 import pathlib
@@ -22,10 +24,25 @@ import re
 import numpy as np
 import pytest
 
-HEADER = (pathlib.Path(__file__).resolve().parents[1]
-          / "stnerf_tpu_torch" / "kernels" / "csrc" / "tc_blocks.cuh")
+CSRC = pathlib.Path(__file__).resolve().parents[1] / "stnerf_tpu_torch" / "kernels" / "csrc"
+HEADER = CSRC / "tc_blocks.cuh"
 N_INIT = 2000     # outputs at the init scale's biases
 N_SMALL = 2000    # outputs whose bias cancels the sum to near zero
+
+
+def _checked_ks(trunk: int, head: int, motion: int) -> set:
+    """The K (inputs, padded to 16 as pack_field and the kernels pad them)
+    of every checked product at these widths: the motion net's first layer
+    (its 84-row encoding, 96) and the rest (motion), the trunk's first layer
+    (the 63-row position encoding, 64), the rest of the trunk, the skip
+    layer over [trunk | position encoding] and the rgb head's first layer
+    over [trunk | dir (32) | time (32)] (both trunk + 64), that layer
+    without time (trunk + 32), the deep rgb head's hidden layers (head)."""
+    return {96, motion, 64, trunk, trunk + 64, trunk + 32, head}
+
+
+# the taekwondo widths and the narrow 64/32/32, then the wide trunks' K
+FORWARD_KS = sorted(_checked_ks(256, 128, 128) | _checked_ks(64, 32, 32) | {512, 1024})
 
 
 def _constant(name: str) -> int:
@@ -90,9 +107,10 @@ def _wide_rule(y, w, x, near, near_ks, abs_ks):
     return (np.abs(y) < win) | ((y > 0) & ((d < near) | (dist < win)))
 
 
-@pytest.mark.parametrize("k", [256, 512, 1024])
+@pytest.mark.parametrize("k", FORWARD_KS)
 def test_wide_rule_flags_every_flip(k):
-    """At K = 256, 512 and 1024 inputs (16, 32 and 64 k-steps) on seeded
+    """At the K of every checked layer at the taekwondo widths and at
+    64/32/32 (32 to 320 inputs), and at 512 and 1024 (a wide trunk), on seeded
     bf16 layers at the init scale (weights U(-1/sqrt(K), 1/sqrt(K)),
     inputs ReLU'd normals; half of them scaled by 40, as a position
     encoding's raw coordinates scale a first layer), half of the outputs
@@ -122,3 +140,49 @@ def test_wide_rule_flags_every_flip(k):
     assert missed.size == 0, (f"{missed.size} of {flip.sum()} flips not flagged, e.g. "
                               f"y_tc {y_tc[missed[:4]]}, y_k {y_k[missed[:4]]}")
     assert flagged[:N_INIT].mean() < 0.05
+
+
+def _strip_comments(src: str) -> str:
+    return re.sub(r"//[^\n]*", "", src)
+
+
+def test_one_rule_serves_both_directions():
+    """One near-tie rule in the tree: ``tc_blocks.cuh`` defines a single
+    rule, ``WideRule``; ``dense_checked`` takes it typed, with no rule
+    template parameter, and every call of it, forward or backward, passes
+    the layer's rule (``wide_rule``, or the backward's ``WideRule::make``,
+    on the same row norms of one kernel, ``row_norms_kernel``), so every
+    checked product flags by it; the forwards' former ``TieRule`` /
+    ``near_tie`` appear nowhere. The checked products are K1's training
+    forward (``fused_field_tc.cu``), K3's forward (``spacenet_tc.cu``) and
+    the backward's recompute (``tc_bwd.cuh`` ``Ctx::dense``); only K1's
+    render route takes the unchecked ``tc_dense``."""
+    sources = {p.name: _strip_comments(p.read_text())
+               for p in sorted(CSRC.glob("*.cu*"))}
+    for name, src in sources.items():
+        assert "TieRule" not in src and "near_tie" not in src, name
+    blocks = sources["tc_blocks.cuh"]
+    assert re.findall(r"struct (\w*Rule)\b", blocks) == ["WideRule"]
+    definition = re.search(r"template <([^>]*)>\s*__device__ void dense_checked\(([^)]*)\)",
+                           blocks)
+    assert definition, "dense_checked's definition not found"
+    assert definition.group(1).replace(" ", "") == "intTB,boolFULL,intLN"
+    assert "const WideRule rule" in definition.group(2)
+    maker = re.search(r"__device__ WideRule wide_rule\(", blocks)
+    assert maker, "wide_rule's definition not found"
+    body = blocks[maker.end():blocks.index("return WideRule::make(", maker.end())]
+    assert "s += segs[i].rn[r]" in body and "input_norms<TB>(" in body
+    calls = {name: re.findall(r"\bdense_checked<[^;]*;", src) for name, src in sources.items()}
+    assert {k: len(v) for k, v in calls.items() if v} == {
+        "fused_field_tc.cu": 1, "spacenet_tc.cu": 1, "tc_bwd.cuh": 1}, calls
+    assert all("wide_rule<" in call or "WideRule::make(" in call
+               for v in calls.values() for call in v), calls
+    # the forwards' checked segments carry the pack's row norms; the
+    # backward reads the same norms from its own pre-pass of the same kernel
+    for name in ("fused_field_tc.cu", "spacenet_tc.cu"):
+        assert re.search(r"norms \+ p\.n_off\[slot\]", sources[name]), name
+    assert "norms[p.n_off[slots[i]] + r]" in sources["tc_bwd.cuh"]
+    assert [n for n, src in sources.items() if "__global__ void row_norms_kernel" in src] == [
+        "tc_blocks.cuh"]
+    users = {name for name, src in sources.items() if re.search(r"\btc_dense<", src)}
+    assert users == {"fused_field_tc.cu"}

@@ -9,7 +9,10 @@ each in a fresh process from its own root (so each builds and loads its own
 kernels), in the order other, this, this, other (with two others a and b:
 a, b, this, this, b, a), ``--rounds`` times. Every phase keeps its own
 checks. Prints the card's ``name, power.limit``, then one JSON line per
-run. Compare checkouts only within one invocation.
+run, and last a ``summary`` line: which digests of this checkout (every
+key ending in "digest" or "digests") equal the first other checkout's and
+which differ. It fails nothing: a change that is meant to move some bits
+shows there which. Compare checkouts only within one invocation.
 
 * ``view_pose`` (default): the K3 phase (kernel vs plain at M = 2000 x
   120), the view-pose render phase (three requests at 480x270) and the
@@ -23,9 +26,13 @@ run. Compare checkouts only within one invocation.
   phase (five requests at 480x270 on the taekwondo model), the K2 phase
   (M = 2000 x 120) and the fused training phase (one coarse-only and one
   full epoch of 20 steps at batch 2000 on the ring pool): K1's and K2's
-  bf16 and float32 ms on the performer field (and K2's bf16 ms on the
-  background), seconds per pose by request,
-  seconds per step by epoch, the launches. Then the float32 backward
+  bf16 and float32 ms on the performer field (K1's bf16 also ``checked``,
+  the training forward; and K2's bf16 ms on the background), seconds per
+  pose by request, seconds per step by epoch, the launches. Then K3's bf16
+  forward on phase 6's performer encodings (M = 2000 x 120) and K6's
+  planar entry on phase 6's K6 shape (M = 65,536), ms and a digest of each
+  (and of K1's bf16 render and checked routes on phase 2's inputs). Then
+  the float32 backward
   kernels alike in every checkout: K2 on phase 4's seeded inputs and K3's
   backward on phase 6's performer encodings (M = 2000 x 120), float32 ms
   and a digest of the bf16 route's outputs (sha256 of their bytes: equal
@@ -185,6 +192,17 @@ seeded = (t(rng.uniform(-3.0, 3.0, (3, m))),
 vp = cs.make_model(LayeredSpec.from_cfg(cs.view_pose_cfg(), camera_num=8), device)
 x = cs._encoded_inputs(device, m, cs.SEED + 5)
 k3_args = (x["pos"], x["dir"], x["time"], x["d_rgb"], x["d_sigma"])
+# K3's bf16 forward and K6's planar entry (its kernel), ms and digests
+from stnerf_tpu_torch.kernels.fused_spacenet import fused_spacenet_planar
+from stnerf_tpu_torch.kernels.spacenet_vjp import spacenet_fwd
+g = cs.pack_dtype(vp.layers_fine[0], None, None, "bfloat16")
+x6 = cs._encoded_inputs(device, 65536, cs.SEED + 6)
+g6 = cs.pack_dtype(vp.layers_coarse[0], None, None, "bfloat16")
+fwd_calls = {"k3_fwd_bf16": lambda: spacenet_fwd(g, *k3_args[:3]),
+             "k6_planar_bf16": lambda: fused_spacenet_planar(g6, x6["pos"], x6["dir"],
+                                                             x6["time"])}
+fwd = {f"{k}_ms": cs.cuda_ms(fn, 10) for k, fn in fwd_calls.items()}
+fwd_digests = {k: digest(fn()) for k, fn in fwd_calls.items()}
 bwd = {}
 for dt in ("float32", "bfloat16"):
     f2 = cs.pack_dtype(model.layers_fine[0], model.motion[0], "lerp", dt)
@@ -219,7 +237,21 @@ k2, k2_bkgd = cs.phase_field_bwd_vs_plain(device, m=cfg.SOLVER.IMS_PER_BATCH * 1
                                           reps=3)[:2]
 scene, _ = cs.scene_and_requests(device)
 train = cs.phase_train(device, cs.ring_bundle(scene), scene)
-print("AB " + json.dumps({"k1_ms": {k: k1[k] for k in ("bfloat16_ms", "float32_ms")},
+from stnerf_tpu_torch.kernels.fused_field import fused_field
+rng = np.random.default_rng(cs.SEED)
+m2 = 4096 * 120
+xyz2 = t(rng.uniform(-3.0, 3.0, (3, m2)))
+ids2 = t(rng.integers(1, 101, (1, m2)) + rng.choice([0.0, 0.25, 0.5], (1, m2)))
+d2 = rng.normal(size=(3, m2))
+d2 /= np.linalg.norm(d2, axis=0, keepdims=True)
+dir2 = positional_encoding_planar(t(d2), 4, True).contiguous()
+flags2 = torch.tensor((rng.random(-(-m2 // 64)) > 0.25).astype(np.int32), device=device)
+f1 = cs.pack_dtype(model.layers_coarse[0], model.motion[0], "lerp", "bfloat16")
+fwd_digests["k1_bf16_render"] = digest(fused_field(f1, xyz2, ids2, dir2, flags2))
+fwd_digests["k1_bf16_checked"] = digest(fused_field(f1, xyz2, ids2, dir2, flags2, checked=True))
+print("AB " + json.dumps({"k1_ms": {k: k1[k] for k in ("bfloat16_ms", "bfloat16_checked_ms",
+                                                      "float32_ms") if k in k1},
+                          "fwd_ms": fwd, "fwd_digests": fwd_digests,
                           "k2_ms": {k: k2[k] for k in ("bfloat16_ms", "float32_ms")},
                           "k2_background_bf16_ms": k2_bkgd["bfloat16_ms"],
                           "s_per_pose": render["kernel_s_per_pose"],
@@ -717,6 +749,29 @@ def run(root: str, phases: str) -> dict:
     return json.loads(next(l for l in out.splitlines() if l.startswith("AB "))[3:])
 
 
+def flat_digests(out: dict, key: str = "") -> dict:
+    """Every digest of a run's line by a flat key ("a/b/0"): the values
+    under the keys that end in "digest" or "digests" (a digest, a list of
+    them, or a dict of either)."""
+    found = {}
+    for k, v in out.items():
+        path = f"{key}/{k}" if key else k
+        if k.endswith(("digest", "digests")):
+            found.update(flat_values(v, path))
+        elif isinstance(v, dict):
+            found.update(flat_digests(v, path))
+    return found
+
+
+def flat_values(v, key: str) -> dict:
+    """A digest, or a list or dict of them -> {flat key: digest}."""
+    items = (v.items() if isinstance(v, dict) else enumerate(v) if isinstance(v, list)
+             else None)
+    if items is None:
+        return {key: v}
+    return {k2: d for k, x in items for k2, d in flat_values(x, f"{key}/{k}").items()}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("others", nargs="+", help="roots of the other checkouts")
@@ -739,7 +794,7 @@ def main():
             name = "this" if root == REPO else os.path.relpath(root, REPO)
             out = run(root, args.phases)
             print(json.dumps({"checkout": name, **out}), flush=True)
-            for key, d in out.get("digests", {}).items():
+            for key, d in flat_digests(out).items():
                 digests.setdefault(key, {}).setdefault(name, set()).add(d)
     if digests:  # which digests match the first other checkout's (no check fails)
         first = os.path.relpath(others[0], REPO)
